@@ -1,0 +1,87 @@
+"""Reference-schema ``.pth`` checkpoints (counterpart of the loaders in
+``pose3d_tpu/cli/infer.py`` and ``pose3d_tpu/cli/convert.py``).
+
+The schema is the reference project's:
+``{"model_state_dict", "model_type", "model_args", ...}``, the form
+``pose3d-convert --to-torch`` writes. A bare state_dict and ``module.``
+(DDP) key prefixes are accepted too, as the reference's own loader does.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from pose3d_tpu_torch.core.config import (
+    TransformerModelConfig,
+    make_model_config,
+)
+from pose3d_tpu_torch.models.factory import build_model
+from pose3d_tpu_torch.models.transformer import TransformerPoseEstimation
+
+
+def _read(path) -> Tuple[dict, str, dict]:
+    """→ (state_dict, model_type, model_args); raises ValueError with the
+    reason when the file is not a checkpoint this loader reads."""
+    path = Path(path)
+    if not path.is_file():
+        raise FileNotFoundError(f"checkpoint not found: {path}")
+    try:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception as e:  # torch raises several types for a bad file
+        raise ValueError(
+            f"cannot read {path} as a weights-only torch checkpoint "
+            f"({type(e).__name__}: {e}). Reference model_args may hold "
+            "non-tensor objects: re-export it with pose3d-convert --to-torch"
+        ) from e
+    if not isinstance(ckpt, dict):
+        raise ValueError(f"{path}: expected a dict checkpoint, got "
+                         f"{type(ckpt).__name__}")
+    if "model_state_dict" in ckpt:
+        sd = ckpt["model_state_dict"]
+        model_type = ckpt.get("model_type", "transformer")
+        model_args = dict(ckpt.get("model_args") or {})
+    elif ckpt and all(isinstance(v, torch.Tensor) for v in ckpt.values()):
+        sd, model_type, model_args = ckpt, "transformer", {}
+    else:
+        raise ValueError(
+            f"{path}: neither a reference checkpoint (no 'model_state_dict') "
+            "nor a bare state_dict"
+        )
+    sd = {k.removeprefix("module."): v for k, v in sd.items()}
+    return sd, model_type, model_args
+
+
+def load_pose_model(path, device="cuda", *, dtype=torch.bfloat16
+                    ) -> Tuple[TransformerPoseEstimation, TransformerModelConfig]:
+    """Rebuild the architecture from the checkpoint's ``model_args`` and
+    strict-load its weights onto ``device``. Returns (model, config)."""
+    sd, model_type, model_args = _read(path)
+    cfg = make_model_config(model_type, **model_args)
+    model = build_model(cfg, device=device, dtype=dtype)
+    try:
+        model.load_state_dict(sd, strict=True)
+    except RuntimeError as e:
+        raise ValueError(f"{path}: weights do not fit the "
+                         f"{model_type} described by model_args: {e}") from e
+    return model, cfg
+
+
+def save_pose_model(model: TransformerPoseEstimation, path,
+                    step: int = 0, cfg: Optional[TransformerModelConfig] = None
+                    ) -> str:
+    """Write ``model`` in the reference schema (CPU tensors)."""
+    cfg = cfg or model.config
+    model_args = cfg.to_dict()
+    model_type = model_args.pop("model_type")
+    torch.save({
+        "step": step,
+        "global_step": step,
+        "model_state_dict": {k: v.detach().cpu()
+                             for k, v in model.state_dict().items()},
+        "model_args": model_args,
+        "model_type": model_type,
+    }, path)
+    return str(path)

@@ -1,0 +1,116 @@
+"""Model configuration (counterpart of ``pose3d_tpu/core/config.py``).
+
+Same field names, defaults and checks as the JAX package's
+``TransformerModelConfig``, so the ``model_args`` stored in a reference
+``.pth`` (``pose3d-convert --to-torch``) rebuild the same architecture.
+The JAX module is not imported: its package ``__init__`` loads JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Dict, Tuple
+
+
+@dataclass(frozen=True)
+class TransformerModelConfig:
+    """Transformer lifting-model hyperparameters (ViT-B/16 image stream at
+    512×512, 64×64 heatmap stream, 2 fusion blocks, 4 final blocks)."""
+
+    model_type: str = "transformer"
+    num_joints: int = 17
+    heatmap_sigma: float = 2.0
+
+    vit_model_name: str = "vit_base_patch16_384"
+    vit_pretrained: bool = True
+    vit_freeze_backbone: bool = False
+    image_size: Tuple[int, int] = (512, 512)
+    image_in_channels: int = 4  # RGB + depth
+
+    heatmap_size: int = 64
+    heatmap_patch_size: int = 16
+    heatmap_in_channels: int = 17
+
+    transformer_embed_dim: int = 768
+    transformer_heads: int = 16
+    transformer_mlp_ratio: float = 4.0
+    transformer_dropout_rate: float = 0.1
+    transformer_attention_dropout_rate: float = 0.1
+
+    num_cross_modal_layers: int = 2
+    final_encoder_depth: int = 4
+
+    activation: str = "gelu"
+
+    regression_hidden_dims: Tuple[int, ...] = (1024, 512, 256)
+    regression_dropout: float = 0.25
+
+    vit_depth: int = 12
+    vit_heads: int = 12
+    vit_patch_size: int = 16
+
+    def __post_init__(self):
+        h, w = self.image_size
+        if h % self.vit_patch_size or w % self.vit_patch_size:
+            raise ValueError(
+                "TransformerModelConfig: image_size must be divisible by "
+                f"vit_patch_size={self.vit_patch_size}; got {self.image_size}"
+            )
+        if self.heatmap_size % self.heatmap_patch_size:
+            raise ValueError(
+                "TransformerModelConfig: heatmap_size must be divisible by "
+                f"heatmap_patch_size={self.heatmap_patch_size}; got "
+                f"{self.heatmap_size}"
+            )
+        if self.transformer_embed_dim % self.transformer_heads:
+            raise ValueError(
+                "TransformerModelConfig: transformer_embed_dim must be "
+                f"divisible by transformer_heads; got "
+                f"{self.transformer_embed_dim} / {self.transformer_heads}"
+            )
+        if self.heatmap_in_channels != self.num_joints:
+            raise ValueError(
+                "TransformerModelConfig: heatmap_in_channels must equal "
+                f"num_joints; got {self.heatmap_in_channels} vs "
+                f"{self.num_joints}"
+            )
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "TransformerModelConfig":
+        return _from_dict(cls, d)
+
+
+def _from_dict(cls, d: Dict[str, Any]):
+    """Build a config from a (possibly checkpoint-loaded) dict, ignoring
+    unknown keys and turning lists into tuples (a ``.pth``'s
+    ``model_args`` holds ``image_size`` as a list)."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    kwargs = {}
+    for k, v in d.items():
+        if k not in names:
+            continue
+        if isinstance(v, list):
+            v = tuple(tuple(x) if isinstance(x, list) else x for x in v)
+        kwargs[k] = v
+    return cls(**kwargs)
+
+
+def make_model_config(model_type: str = None, /, **kwargs):
+    """``model_type`` + ``model_args`` → config, as the JAX package's
+    factory. ``kwargs`` may carry ``model_type`` itself (checkpoint
+    round-trip); it then wins over the positional argument."""
+    model_type = str(kwargs.pop("model_type", model_type)).lower()
+    if model_type == "transformer":
+        return TransformerModelConfig.from_dict(
+            {**kwargs, "model_type": "transformer"}
+        )
+    if model_type == "cnn":
+        raise NotImplementedError(
+            "the CNN lifter is not ported yet (ROADMAP.md, Queue 1: "
+            "'CNN lifter' and grouped ghost-BN training)"
+        )
+    raise ValueError(f"Unsupported model type: {model_type}")

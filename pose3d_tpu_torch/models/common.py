@@ -1,0 +1,48 @@
+"""Shared model components (counterpart of ``pose3d_tpu/models/common.py``)."""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from pose3d_tpu_torch.ops.activations import get_activation
+
+
+def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """``layer`` applied in ``dtype``: input, weight and bias are cast at
+    use (fp32 master weights), as a flax ``Dense(dtype=...)`` does."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
+class PoseRegressionHead(nn.Module):
+    """MLP head: per hidden dim Linear → activation → Dropout, then a final
+    Linear to ``num_joints·3`` reshaped to [B, J, 3].
+
+    The Linears sit at ``decoder.{0, 3, 6, ...}``, the reference
+    transformer's Sequential indices (Linear, activation, Dropout per hidden
+    layer; the two weightless entries are not registered).
+    Hidden Linears run in the compute dtype; the final Linear runs in fp32.
+    """
+
+    def __init__(self, in_dim: int, num_joints: int,
+                 hidden_dims: Sequence[int], activation: str = "gelu",
+                 *, device=None):
+        super().__init__()
+        self.num_joints = num_joints
+        self.act = get_activation(activation)
+        dims = (in_dim, *hidden_dims, num_joints * 3)
+        self.decoder = nn.ModuleDict(
+            (str(3 * i), nn.Linear(dims[i], dims[i + 1], device=device))
+            for i in range(len(dims) - 1)
+        )
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        x = x.reshape(x.shape[0], -1)
+        *hidden, last = self.decoder.values()
+        for layer in hidden:
+            x = self.act(linear(x, layer, dtype))
+        x = linear(x, last, torch.float32)
+        return x.reshape(-1, self.num_joints, 3)
