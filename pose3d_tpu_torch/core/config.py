@@ -1,7 +1,8 @@
-"""Model configuration (counterpart of ``pose3d_tpu/core/config.py``).
+"""Configuration (counterpart of ``pose3d_tpu/core/config.py``).
 
-Same field names, defaults and checks as the JAX package's
-``TransformerModelConfig``, so the ``model_args`` stored in a reference
+``GlobalConfig`` holds the training hyperparameters the port reads.
+``TransformerModelConfig`` has the same field names, defaults and checks
+as the JAX package's, so the ``model_args`` stored in a reference
 ``.pth`` (``pose3d-convert --to-torch``) rebuild the same architecture.
 The JAX module is not imported: its package ``__init__`` loads JAX.
 """
@@ -11,6 +12,35 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Tuple
+
+
+@dataclass(frozen=True)
+class GlobalConfig:
+    """Training hyperparameters: the fields of the JAX package's
+    ``GlobalConfig`` that the port's training runs read, with the same
+    names and defaults (batch 10 × accumulation 10, AdamW lr 1e-3 and
+    weight decay 0.01, loss weights mse 1, l1 1, inter-joint 100,
+    abs-root 1, bf16 compute over fp32 parameters). Data paths,
+    host-pipeline, augmentation, cadence and mesh fields come with the
+    modules that read them."""
+
+    random_seed: int = 42
+    batch_size: int = 10
+    gradient_accumulation_steps: int = 10
+
+    inter_joint_loss_weight: float = 100.0
+    abs_root_loss_weight: float = 1.0
+    l1_loss_weight: float = 1.0
+    mse_loss_weight: float = 1.0
+
+    learning_rate: float = 1e-3
+    weight_decay: float = 0.01
+
+    compute_dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
 
 
 @dataclass(frozen=True)

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -17,9 +17,24 @@ def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tenso
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
+def dropout(x: torch.Tensor, rate: float,
+            gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout as flax's ``nn.Dropout``: each element kept with
+    probability 1 − rate (mask drawn from ``gen`` in x's dtype) and scaled
+    by 1/(1 − rate). Identity when ``gen`` is None (eval mode) or rate
+    is 0."""
+    if gen is None or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=gen)
+    return x * keep * (1.0 / (1.0 - rate))
+
+
 class PoseRegressionHead(nn.Module):
-    """MLP head: per hidden dim Linear → activation → Dropout, then a final
-    Linear to ``num_joints·3`` reshaped to [B, J, 3].
+    """MLP head: per hidden dim Linear → activation → dropout (rate
+    ``dropout``), then a final Linear to ``num_joints·3`` reshaped to
+    [B, J, 3].
 
     The Linears sit at ``decoder.{0, 3, 6, ...}``, the reference
     transformer's Sequential indices (Linear, activation, Dropout per hidden
@@ -29,9 +44,10 @@ class PoseRegressionHead(nn.Module):
 
     def __init__(self, in_dim: int, num_joints: int,
                  hidden_dims: Sequence[int], activation: str = "gelu",
-                 *, device=None):
+                 *, dropout: float = 0.0, device=None):
         super().__init__()
         self.num_joints = num_joints
+        self.rate = dropout
         self.act = get_activation(activation)
         dims = (in_dim, *hidden_dims, num_joints * 3)
         self.decoder = nn.ModuleDict(
@@ -39,10 +55,11 @@ class PoseRegressionHead(nn.Module):
             for i in range(len(dims) - 1)
         )
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         x = x.reshape(x.shape[0], -1)
         *hidden, last = self.decoder.values()
         for layer in hidden:
-            x = self.act(linear(x, layer, dtype))
+            x = dropout(self.act(linear(x, layer, dtype)), self.rate, gen)
         x = linear(x, last, torch.float32)
         return x.reshape(-1, self.num_joints, 3)

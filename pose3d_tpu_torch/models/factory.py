@@ -52,13 +52,18 @@ def _init_weights(model: nn.Module, gen: torch.Generator) -> None:
 
 def build_model(config, *, device="cpu", dtype=torch.bfloat16,
                 generator: Optional[torch.Generator] = None,
-                attention_impl: str = "auto") -> TransformerPoseEstimation:
+                attention_impl: str = "auto",
+                train: bool = False) -> TransformerPoseEstimation:
     """Instantiate the lifter for a config (or model_type string) on
-    ``device``, in eval mode, with fp32 parameters randomly initialised
-    from ``generator`` (default: a generator on ``device`` seeded 0).
+    ``device`` with fp32 parameters randomly initialised from
+    ``generator`` (default: a generator on ``device`` seeded 0).
     ``dtype`` is the compute dtype; see :class:`TransformerPoseEstimation`
     for ``attention_impl``. Load trained weights with
-    ``load_state_dict``."""
+    ``load_state_dict``.
+
+    By default the model is frozen in eval mode (serving). ``train=True``
+    returns it in train mode with every parameter requiring grad, for
+    :mod:`pose3d_tpu_torch.train`."""
     if isinstance(config, str):
         config = make_model_config(config)
     if not isinstance(config, TransformerModelConfig):
@@ -71,7 +76,7 @@ def build_model(config, *, device="cpu", dtype=torch.bfloat16,
             config, dtype=dtype, attention_impl=attention_impl)
     model = model.to_empty(device=generator.device)
     _init_weights(model, generator)
-    return model.to(device).eval().requires_grad_(False)
+    return model.to(device).train(train).requires_grad_(train)
 
 
 def dummy_inputs(config, batch_size: int = 1, device="cpu"

@@ -1,5 +1,5 @@
 """Transformer (ViT-based) lifting model (counterpart of
-``pose3d_tpu/models/transformer.py``; inference forward only).
+``pose3d_tpu/models/transformer.py``).
 
 Image stream: a ViT over the 4-channel [RGB | depth] input (patch 16,
 512×512 → 1024 tokens + CLS). Heatmap stream: Gaussian heatmaps → conv
@@ -14,18 +14,33 @@ Modules and parameters carry the reference project's names, the keys that
 Precision: parameters stay fp32 (master weights) and are cast to the
 compute dtype at use, as flax ``Dense(dtype=bf16)`` casts input and kernel.
 LayerNorm runs in fp32 (eps 1e-6) and rounds its output to the compute
-dtype; the head's final Linear runs in fp32. Dropout is absent: the port
-serves, and every dropout is off at inference.
+dtype; the head's final Linear runs in fp32.
+
+Dropout sits where the JAX model has it: after each attention's output
+projection, after the MLP's hidden activation and after its output (rate
+``transformer_dropout_rate`` in the fusion and final blocks, 0 in the ViT),
+on the ViT's and the final encoder's tokens after their positions are added,
+and after each hidden activation of the head (``regression_dropout``).
+``transformer_attention_dropout_rate`` is not applied inside attention, as
+in the JAX package. Masks are drawn only in train mode (``model.train()``),
+from the ``generator`` the caller passes to ``forward``; in eval mode the
+forward is the inference forward, untouched.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 import torch.nn.functional as F
 
 from pose3d_tpu_torch.core.config import TransformerModelConfig
-from pose3d_tpu_torch.models.common import PoseRegressionHead, linear
+from pose3d_tpu_torch.models.common import (
+    PoseRegressionHead,
+    dropout,
+    linear,
+)
 from pose3d_tpu_torch.ops.activations import get_activation
 from pose3d_tpu_torch.ops.attention import dot_product_attention
 from pose3d_tpu_torch.ops.heatmap import gaussian_heatmaps
@@ -45,7 +60,7 @@ def _ln(dim, device):
 
 
 def _attend(q_in, kv_in, w_in, b_in, out: nn.Linear, heads: int, dtype,
-            impl: str):
+            impl: str, rate: float, gen):
     """Packed [q; k; v] projection (rows head-major: h·hd + j) → attention
     → output projection. Self-attention projects once and hands the kernel
     strided q/k/v views of the one [B, T, 3, H, hd] result."""
@@ -60,58 +75,66 @@ def _attend(q_in, kv_in, w_in, b_in, out: nn.Linear, heads: int, dtype,
         kv = F.linear(kv_in.to(dtype), w_in[D:].to(dtype), b_in[D:].to(dtype))
         k, v = kv.view(B, kv_in.shape[1], 2, heads, hd).unbind(2)
     o = dot_product_attention(q, k, v, impl=impl)
-    return linear(o.reshape(B, Tq, D), out, dtype)
+    return dropout(linear(o.reshape(B, Tq, D), out, dtype), rate, gen)
 
 
 class TimmAttention(nn.Module):
-    """ViT-block attention with timm's names: ``qkv`` and ``proj``."""
+    """ViT-block attention with timm's names: ``qkv`` and ``proj``;
+    output dropout at ``dropout``."""
 
-    def __init__(self, dim: int, heads: int, *, device=None):
+    def __init__(self, dim: int, heads: int, *, dropout: float = 0.0,
+                 device=None):
         super().__init__()
         self.heads = heads
+        self.rate = dropout
         self.qkv = nn.Linear(dim, 3 * dim, device=device)
         self.proj = nn.Linear(dim, dim, device=device)
 
-    def forward(self, q_in, kv_in, dtype, impl):
+    def forward(self, q_in, kv_in, dtype, impl, gen=None):
         return _attend(q_in, kv_in, self.qkv.weight, self.qkv.bias,
-                       self.proj, self.heads, dtype, impl)
+                       self.proj, self.heads, dtype, impl, self.rate, gen)
 
 
 class MultiHeadAttention(nn.Module):
     """Attention with ``nn.MultiheadAttention``'s parameter names
     (``in_proj_weight``, ``in_proj_bias``, ``out_proj``); computed by
-    :func:`dot_product_attention`, not by ``nn.MultiheadAttention``."""
+    :func:`dot_product_attention`, not by ``nn.MultiheadAttention``;
+    output dropout at ``dropout``."""
 
-    def __init__(self, dim: int, heads: int, *, device=None):
+    def __init__(self, dim: int, heads: int, *, dropout: float = 0.0,
+                 device=None):
         super().__init__()
         self.heads = heads
+        self.rate = dropout
         self.in_proj_weight = nn.Parameter(
             torch.empty(3 * dim, dim, device=device))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * dim, device=device))
         self.out_proj = nn.Linear(dim, dim, device=device)
 
-    def forward(self, q_in, kv_in, dtype, impl):
+    def forward(self, q_in, kv_in, dtype, impl, gen=None):
         return _attend(q_in, kv_in, self.in_proj_weight, self.in_proj_bias,
-                       self.out_proj, self.heads, dtype, impl)
+                       self.out_proj, self.heads, dtype, impl, self.rate, gen)
 
 
 class Mlp(nn.Module):
-    """Linear → activation → Linear. ``names`` are the two Linears' keys:
-    ("fc1", "fc2") in timm blocks, ("0", "3") in the reference's
-    Sequential[Linear, act, Dropout, Linear, Dropout]."""
+    """Linear → activation → dropout → Linear → dropout. ``names`` are the
+    two Linears' keys: ("fc1", "fc2") in timm blocks, ("0", "3") in the
+    reference's Sequential[Linear, act, Dropout, Linear, Dropout]."""
 
     def __init__(self, dim: int, ratio: float, activation: str,
-                 names=("0", "3"), *, device=None):
+                 names=("0", "3"), *, dropout: float = 0.0, device=None):
         super().__init__()
         hidden = int(dim * ratio)
         self.names = names
+        self.rate = dropout
         for name, (i, o) in zip(names, ((dim, hidden), (hidden, dim))):
             self.add_module(name, nn.Linear(i, o, device=device))
         self.act = get_activation(activation)
 
-    def forward(self, x, dtype):
+    def forward(self, x, dtype, gen=None):
         fc1, fc2 = (getattr(self, n) for n in self.names)
-        return linear(self.act(linear(x, fc1, dtype)), fc2, dtype)
+        h = dropout(self.act(linear(x, fc1, dtype)), self.rate, gen)
+        return dropout(linear(h, fc2, dtype), self.rate, gen)
 
 
 class TransformerEncoderBlock(nn.Module):
@@ -120,19 +143,21 @@ class TransformerEncoderBlock(nn.Module):
     reference encoder's (``attn.in_proj_weight``, ``mlp.0``/``mlp.3``)."""
 
     def __init__(self, dim: int, heads: int, mlp_ratio: float,
-                 activation: str, *, timm: bool, device=None):
+                 activation: str, *, timm: bool, dropout: float = 0.0,
+                 device=None):
         super().__init__()
+        Attn = TimmAttention if timm else MultiHeadAttention
         self.norm1 = _ln(dim, device)
-        self.attn = (TimmAttention(dim, heads, device=device) if timm
-                     else MultiHeadAttention(dim, heads, device=device))
+        self.attn = Attn(dim, heads, dropout=dropout, device=device)
         self.norm2 = _ln(dim, device)
         self.mlp = Mlp(dim, mlp_ratio, activation,
-                       ("fc1", "fc2") if timm else ("0", "3"), device=device)
+                       ("fc1", "fc2") if timm else ("0", "3"),
+                       dropout=dropout, device=device)
 
-    def forward(self, x, dtype, impl):
+    def forward(self, x, dtype, impl, gen=None):
         y = layer_norm(x, self.norm1, dtype)
-        x = x + self.attn(y, y, dtype, impl)
-        return x + self.mlp(layer_norm(x, self.norm2, dtype), dtype)
+        x = x + self.attn(y, y, dtype, impl, gen)
+        return x + self.mlp(layer_norm(x, self.norm2, dtype), dtype, gen)
 
 
 class CrossModalFusionBlock(nn.Module):
@@ -140,32 +165,31 @@ class CrossModalFusionBlock(nn.Module):
     the updated image tokens, then one MLP per stream (pre-LN)."""
 
     def __init__(self, dim: int, heads: int, mlp_ratio: float,
-                 activation: str, *, device=None):
+                 activation: str, *, dropout: float = 0.0, device=None):
         super().__init__()
+        kw = dict(dropout=dropout, device=device)
         self.norm_img_q = _ln(dim, device)
         self.norm_hm_kv = _ln(dim, device)
-        self.cross_attn_img_to_hm = MultiHeadAttention(dim, heads,
-                                                       device=device)
+        self.cross_attn_img_to_hm = MultiHeadAttention(dim, heads, **kw)
         self.norm_hm_q = _ln(dim, device)
         self.norm_img_kv = _ln(dim, device)
-        self.cross_attn_hm_to_img = MultiHeadAttention(dim, heads,
-                                                       device=device)
+        self.cross_attn_hm_to_img = MultiHeadAttention(dim, heads, **kw)
         self.norm_img_mlp = _ln(dim, device)
-        self.mlp_img = Mlp(dim, mlp_ratio, activation, device=device)
+        self.mlp_img = Mlp(dim, mlp_ratio, activation, **kw)
         self.norm_hm_mlp = _ln(dim, device)
-        self.mlp_hm = Mlp(dim, mlp_ratio, activation, device=device)
+        self.mlp_hm = Mlp(dim, mlp_ratio, activation, **kw)
 
-    def forward(self, x_img, x_hm, dtype, impl):
+    def forward(self, x_img, x_hm, dtype, impl, gen=None):
         x_img = x_img + self.cross_attn_img_to_hm(
             layer_norm(x_img, self.norm_img_q, dtype),
-            layer_norm(x_hm, self.norm_hm_kv, dtype), dtype, impl)
+            layer_norm(x_hm, self.norm_hm_kv, dtype), dtype, impl, gen)
         x_hm = x_hm + self.cross_attn_hm_to_img(
             layer_norm(x_hm, self.norm_hm_q, dtype),
-            layer_norm(x_img, self.norm_img_kv, dtype), dtype, impl)
+            layer_norm(x_img, self.norm_img_kv, dtype), dtype, impl, gen)
         x_img = x_img + self.mlp_img(
-            layer_norm(x_img, self.norm_img_mlp, dtype), dtype)
+            layer_norm(x_img, self.norm_img_mlp, dtype), dtype, gen)
         x_hm = x_hm + self.mlp_hm(
-            layer_norm(x_hm, self.norm_hm_mlp, dtype), dtype)
+            layer_norm(x_hm, self.norm_hm_mlp, dtype), dtype, gen)
         return x_img, x_hm
 
 
@@ -195,12 +219,15 @@ class PatchEmbedding(nn.Module):
 
 
 class ViTBackbone(nn.Module):
-    """Patch-embed → [CLS] + positions → pre-LN blocks → LayerNorm, with
-    timm ``VisionTransformer`` names."""
+    """Patch-embed → [CLS] + positions → token dropout → pre-LN blocks →
+    LayerNorm, with timm ``VisionTransformer`` names. ``dropout`` is the
+    token and block rate (0 in the lifter, as in the JAX package)."""
 
     def __init__(self, in_ch: int, image_size, dim: int, depth: int,
-                 heads: int, patch: int, *, device=None):
+                 heads: int, patch: int, *, dropout: float = 0.0,
+                 device=None):
         super().__init__()
+        self.rate = dropout
         n = (image_size[0] // patch) * (image_size[1] // patch)
         self.cls_token = nn.Parameter(torch.empty(1, 1, dim, device=device))
         self.pos_embed = nn.Parameter(
@@ -208,18 +235,19 @@ class ViTBackbone(nn.Module):
         self.patch_embed = PatchEmbedding(in_ch, dim, patch, device=device)
         self.blocks = nn.ModuleList(
             TransformerEncoderBlock(dim, heads, 4.0, "gelu", timm=True,
-                                    device=device)
+                                    dropout=dropout, device=device)
             for _ in range(depth)
         )
         self.norm = _ln(dim, device)
 
-    def forward(self, x, dtype, impl):
+    def forward(self, x, dtype, impl, gen=None):
         tokens = self.patch_embed(x, dtype)
         B, _, D = tokens.shape
         cls = self.cls_token.to(dtype).expand(B, 1, D)
         tokens = torch.cat([cls, tokens], dim=1) + self.pos_embed.to(dtype)
+        tokens = dropout(tokens, self.rate, gen)
         for blk in self.blocks:
-            tokens = blk(tokens, dtype, impl)
+            tokens = blk(tokens, dtype, impl, gen)
         return layer_norm(tokens, self.norm, dtype)
 
 
@@ -246,12 +274,14 @@ class HeatmapGrid(nn.Module):
 
 
 class TransformerPoseEstimation(nn.Module):
-    """forward(image [B,H,W,3], depth [B,H,W,1], keypoints_2d [B,J,2])
-    → joints_3d [B,J,3] fp32.
+    """forward(image [B,H,W,3], depth [B,H,W,1], keypoints_2d [B,J,2],
+    generator=None) → joints_3d [B,J,3] fp32.
 
     ``dtype`` is the compute dtype. ``attention_impl`` is passed to
-    :func:`dot_product_attention`: "auto" (kernel on CUDA, plain version
-    on CPU) or "reference" (plain version everywhere)."""
+    :func:`dot_product_attention`: "auto" (kernels on CUDA, plain versions
+    on CPU) or "reference" (plain versions everywhere). In train mode
+    with a dropout rate above 0, ``generator`` (a ``torch.Generator`` on
+    the model's device) is required and draws every dropout mask."""
 
     def __init__(self, config: TransformerModelConfig, *,
                  dtype=torch.bfloat16, attention_impl: str = "auto",
@@ -272,33 +302,42 @@ class TransformerPoseEstimation(nn.Module):
             torch.empty(1, 1, D, device=device))
         self.final_pos_embed = nn.Parameter(
             torch.empty(1, 1 + n_img + n_hm, D, device=device))
+        rate = cfg.transformer_dropout_rate
         self.vit_backbone = ViTBackbone(
             cfg.image_in_channels, cfg.image_size, D, cfg.vit_depth,
-            cfg.vit_heads, cfg.vit_patch_size, device=device)
+            cfg.vit_heads, cfg.vit_patch_size, dropout=0.0, device=device)
         self.heatmap_generator = HeatmapGrid(cfg.heatmap_size, device=device)
         self.heatmap_patch_embed = PatchEmbedding(
             cfg.heatmap_in_channels, D, hp, device=device)
         self.cross_modal_fusion_layers = nn.ModuleList(
             CrossModalFusionBlock(D, cfg.transformer_heads,
                                   cfg.transformer_mlp_ratio, cfg.activation,
-                                  device=device)
+                                  dropout=rate, device=device)
             for _ in range(cfg.num_cross_modal_layers)
         )
         self.final_encoder = nn.ModuleList(
             TransformerEncoderBlock(D, cfg.transformer_heads,
                                     cfg.transformer_mlp_ratio,
-                                    cfg.activation, timm=False, device=device)
+                                    cfg.activation, timm=False,
+                                    dropout=rate, device=device)
             for _ in range(cfg.final_encoder_depth)
         )
         self.norm_out = _ln(D, device)
         self.pose_head = PoseRegressionHead(
             D, cfg.num_joints, cfg.regression_hidden_dims, cfg.activation,
-            device=device)
+            dropout=cfg.regression_dropout, device=device)
 
-    def forward(self, image, depth, keypoints_2d):
+    def forward(self, image, depth, keypoints_2d, *,
+                generator: Optional[torch.Generator] = None):
         cfg, dt, impl = self.config, self.dtype, self.attention_impl
+        gen = generator if self.training else None
+        if (self.training and gen is None
+                and (cfg.transformer_dropout_rate or cfg.regression_dropout)):
+            raise ValueError(
+                "train mode with dropout needs a torch.Generator: pass "
+                "forward(..., generator=torch.Generator(device))")
         x = torch.cat([image.to(dt), depth.to(dt)], dim=-1)
-        img_tokens = self.vit_backbone(x, dt, impl)[:, 1:]  # strip CLS
+        img_tokens = self.vit_backbone(x, dt, impl, gen)[:, 1:]  # strip CLS
 
         heatmaps = gaussian_heatmaps(keypoints_2d, cfg.heatmap_size,
                                      cfg.heatmap_sigma, dtype=dt)
@@ -306,13 +345,14 @@ class TransformerPoseEstimation(nn.Module):
                      + self.pos_embed_hm.to(dt))
 
         for blk in self.cross_modal_fusion_layers:
-            img_tokens, hm_tokens = blk(img_tokens, hm_tokens, dt, impl)
+            img_tokens, hm_tokens = blk(img_tokens, hm_tokens, dt, impl, gen)
 
         B, _, D = img_tokens.shape
         cls = self.final_cls_token.to(dt).expand(B, 1, D)
         tokens = (torch.cat([cls, img_tokens, hm_tokens], dim=1)
                   + self.final_pos_embed.to(dt))
+        tokens = dropout(tokens, cfg.transformer_dropout_rate, gen)
         for blk in self.final_encoder:
-            tokens = blk(tokens, dt, impl)
+            tokens = blk(tokens, dt, impl, gen)
         cls_out = layer_norm(tokens[:, 0], self.norm_out, dt)
-        return self.pose_head(cls_out, dt)
+        return self.pose_head(cls_out, dt, gen)

@@ -7,8 +7,9 @@ PyTorch headers, so a build takes seconds) into
 ``build/pose3d_tpu_torch/lib<name>-<hash>.so`` at the repository root,
 where the hash covers the source and the flags. The library is built at
 first use in a process, written under a temporary name and renamed into
-place, so concurrent builders never load a half-written file. Nothing here
-runs at import time.
+place, so concurrent builders never load a half-written file. Each source
+has its own lock, so several sources build in parallel threads. Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+_locks_guard = threading.Lock()
+_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": build time (0.0 when reused), "log": nvcc's stderr}
 build_info: Dict[str, dict] = {}
@@ -62,7 +64,9 @@ def load(name: str) -> ctypes.CDLL:
     """Return the loaded library for ``csrc/<name>.cu``, building it first
     when no library of the same source and flags exists. Raises with
     nvcc's output when the build fails."""
-    with _lock:
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib

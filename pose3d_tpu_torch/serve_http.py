@@ -48,7 +48,7 @@ def make_server(checkpoint, host: str = "127.0.0.1", port: int = 8000, *,
             raise RuntimeError(f"device {device} requested but CUDA is not "
                                "available")
         # build before any thread can reach the kernel
-        flash_attention.load_library()
+        flash_attention.load_library("flash_attention_fwd")
     model, cfg = load_pose_model(checkpoint, device, dtype=dtype)
     batcher = MicroBatcher(make_serving_fn(model), max_batch=max_batch,
                            max_wait_ms=max_wait_ms)

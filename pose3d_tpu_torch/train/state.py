@@ -1,0 +1,184 @@
+"""Training state: the model (fp32 master parameters), AdamW, the LR
+schedule, the optional EMA of the parameters and the step count
+(counterpart of ``pose3d_tpu/train/state.py``).
+
+Optimizer semantics follow the JAX package's ``optax.adamw`` (b1 0.9,
+b2 0.999, eps 1e-8 added to √v̂, weight decay decoupled and applied to
+every trainable parameter, LayerNorms and biases included), which
+``torch.optim.AdamW`` with one parameter group computes. Frozen
+parameters (``frozen_prefixes`` minus ``trainable_exceptions``) are left
+out of the optimizer and stop requiring grad, so they take no update and
+no decay, as optax's ``set_to_zero`` branch. Optional clip-by-global-norm
+runs before AdamW, over the trainable gradients only.
+
+The transformer lifter has no BatchNorm, so the EMA slot holds parameters
+only (the JAX state's ``ema_batch_stats`` comes with the CNN port).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence
+
+import torch
+from torch import nn
+
+
+@dataclass
+class TrainState:
+    """What one optimizer step reads and updates in place."""
+
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    scheduler: Optional[torch.optim.lr_scheduler.LambdaLR] = None
+    clip_grad_norm: Optional[float] = None
+    ema_params: Optional[Dict[str, torch.Tensor]] = None
+    step: int = 0
+
+    def trainable(self) -> List[torch.Tensor]:
+        return [p for g in self.optimizer.param_groups for p in g["params"]]
+
+
+def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
+    """optax.linear_schedule: init → end over ``steps``, then end; constant
+    init when steps <= 0."""
+    if steps <= 0:
+        return lambda count: init
+
+    def f(count):
+        frac = 1.0 - min(max(count, 0), steps) / steps
+        return (init - end) * frac + end
+    return f
+
+
+def _cosine(init: float, decay_steps: int, alpha: float
+            ) -> Callable[[int], float]:
+    """optax.cosine_decay_schedule."""
+    if not decay_steps > 0:
+        raise ValueError("The cosine_decay_schedule requires positive "
+                         f"decay_steps, got decay_steps={decay_steps}.")
+
+    def f(count):
+        c = min(count, decay_steps)
+        cos = 0.5 * (1.0 + math.cos(math.pi * c / decay_steps))
+        return init * ((1.0 - alpha) * cos + alpha)
+    return f
+
+
+def _join(schedules, boundaries) -> Callable[[int], float]:
+    """optax.join_schedules: each schedule counts from its boundary."""
+    def f(count):
+        out = schedules[0](count)
+        for b, s in zip(boundaries, schedules[1:]):
+            if count >= b:
+                out = s(count - b)
+        return out
+    return f
+
+
+def make_lr_schedule(schedule: str = "constant", warmup_steps: int = 0,
+                     decay_steps: Optional[int] = None,
+                     end_lr_factor: float = 0.0
+                     ) -> Optional[Callable[[int], float]]:
+    """LR multiplier per optimizer step, for ``LambdaLR``: step t of the
+    run uses ``learning_rate · f(t)``, the value optax's schedule gives
+    at count t. ``None`` for constant without warmup (the reference's
+    fixed LR, the default). Schedules: "constant" (with linear warmup),
+    "cosine" (optax.warmup_cosine_decay_schedule) and "linear" (warmup,
+    then linear decay to ``end_lr_factor``)."""
+    schedule = (schedule or "constant").lower()
+    if schedule == "constant" and not warmup_steps:
+        return None
+    if schedule != "constant" and not decay_steps:
+        raise ValueError(
+            f"lr schedule '{schedule}' needs decay_steps (the step budget "
+            "over which to decay)")
+    warmup = _linear(0.0, 1.0, warmup_steps)
+    if schedule == "constant":
+        return _join([warmup, lambda count: 1.0], [warmup_steps])
+    if schedule == "cosine":
+        return _join([warmup, _cosine(1.0, decay_steps - warmup_steps,
+                                      end_lr_factor)], [warmup_steps])
+    if schedule == "linear":
+        return _join([warmup, _linear(1.0, end_lr_factor,
+                                      max(decay_steps - warmup_steps, 1))],
+                     [warmup_steps])
+    raise ValueError(f"Unknown lr schedule: {schedule!r} "
+                     "(expected constant|cosine|linear)")
+
+
+def trainable_mask(model: nn.Module, frozen_prefixes: Sequence[str] = (),
+                   trainable_exceptions: Sequence[str] = ()
+                   ) -> Dict[str, bool]:
+    """Parameter name → trainable. Prefixes are matched against the
+    reference names (``vit_backbone.patch_embed``); the JAX package's
+    "/"-separated form (``vit_backbone/patch_embed``) is accepted too.
+    ``--freeze-backbone``: frozen ``vit_backbone``, exception
+    ``vit_backbone/patch_embed``."""
+    frozen = [p.replace("/", ".") for p in frozen_prefixes]
+    keep = [p.replace("/", ".") for p in trainable_exceptions]
+    return {
+        name: any(name.startswith(e) for e in keep)
+        or not any(name.startswith(f) for f in frozen)
+        for name, _ in model.named_parameters()
+    }
+
+
+def make_optimizer(model: nn.Module, learning_rate: float = 1e-3,
+                   weight_decay: float = 0.01, *,
+                   lr_schedule: Optional[Callable[[int], float]] = None,
+                   frozen_prefixes: Sequence[str] = (),
+                   trainable_exceptions: Sequence[str] = ()):
+    """(AdamW over the trainable parameters, LambdaLR or None). Sets
+    ``requires_grad`` on every parameter from the freeze mask."""
+    mask = trainable_mask(model, frozen_prefixes, trainable_exceptions)
+    params = []
+    for name, p in model.named_parameters():
+        p.requires_grad_(mask[name])
+        if mask[name]:
+            params.append(p)
+    opt = torch.optim.AdamW(params, lr=learning_rate, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=weight_decay)
+    sched = (torch.optim.lr_scheduler.LambdaLR(opt, lr_schedule)
+             if lr_schedule is not None else None)
+    return opt, sched
+
+
+def create_train_state(model: nn.Module, learning_rate: float = 1e-3,
+                       weight_decay: float = 0.01, *,
+                       lr_schedule: Optional[Callable[[int], float]] = None,
+                       frozen_prefixes: Sequence[str] = (),
+                       trainable_exceptions: Sequence[str] = (),
+                       clip_grad_norm: Optional[float] = None,
+                       ema: bool = False) -> TrainState:
+    """A state at step 0 for ``model`` (built with ``train=True``). With
+    ``ema`` the average starts as a copy of every parameter."""
+    opt, sched = make_optimizer(
+        model, learning_rate, weight_decay, lr_schedule=lr_schedule,
+        frozen_prefixes=frozen_prefixes,
+        trainable_exceptions=trainable_exceptions)
+    ema_params = ({n: p.detach().clone()
+                   for n, p in model.named_parameters()} if ema else None)
+    return TrainState(model, opt, sched, clip_grad_norm, ema_params)
+
+
+@contextlib.contextmanager
+def with_ema_params(state: TrainState):
+    """Inside the block the model holds the EMA parameters (for eval or
+    export); the live ones come back after it. No-op without EMA."""
+    if state.ema_params is None:
+        yield state
+        return
+    params = dict(state.model.named_parameters())
+    live = {n: p.detach().clone() for n, p in params.items()}
+    try:
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(state.ema_params[n])
+        yield state
+    finally:
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(live[n])

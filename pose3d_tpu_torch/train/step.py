@@ -1,0 +1,185 @@
+"""Train and eval steps (counterpart of ``pose3d_tpu/train/step.py``).
+
+One call of the train step consumes a superbatch of A microbatches
+(``[A, B, ...]`` tensors on the model's device) and makes one optimizer
+step, updating the state in place. Accumulation modes:
+
+* ``"grouped"`` (default): one forward and backward over the flat A·B
+  batch with the mean loss, which equals the mean of the A microbatch
+  means. The JAX step's BatchNorm interceptor has nothing to do on the
+  transformer; the port's grouped step refuses a model with BatchNorm,
+  whose per-group statistics come with the CNN port.
+* ``"scan"``: A sequential forward/backward passes, gradients summed and
+  then divided by A (the reference's accumulation loop); activations of
+  one microbatch at a time.
+
+(The JAX package's ``"ghost"`` vmap mode is not ported.)
+
+The update clips by global norm when the state asks for it, steps AdamW
+and the LR schedule, and moves the EMA with the ramp
+d_t = min(d, (1 + t)/(10 + t)).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from pose3d_tpu_torch.geometry.metrics import procrustes_align
+from pose3d_tpu_torch.ops.losses import (
+    LossWeights,
+    composite_pose_loss,
+    composite_pose_loss_per_sample,
+)
+from pose3d_tpu_torch.train.state import TrainState
+
+ACCUM_MODES = ("grouped", "scan")
+
+
+def decompact_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Inverse of the host's ``compact_batch``: uint8 image → [0, 1]
+    float, uint8 depth + per-sample (min, max) → metric float. Float
+    batches pass through; ``depth_scale`` is dropped."""
+    out = dict(batch)
+    img = batch["image"]
+    if img.dtype == torch.uint8:
+        out["image"] = img.float() / 255.0
+    depth = batch["depth"]
+    if depth.dtype == torch.uint8 and "depth_scale" in batch:
+        s = batch["depth_scale"].float()                       # [B, 2]
+        dmin = s[:, 0][:, None, None, None]
+        dmax = s[:, 1][:, None, None, None]
+        out["depth"] = depth.float() / 255.0 * (dmax - dmin) + dmin
+    out.pop("depth_scale", None)
+    return out
+
+
+def _forward_loss(model, micro, weights, generator):
+    micro = decompact_batch(micro)
+    out = model(micro["image"], micro["depth"], micro["keypoints_2d"],
+                generator=generator)
+    return composite_pose_loss(out, micro["joints_3d"], weights)
+
+
+def _clip_by_global_norm_(grads, max_norm: float) -> None:
+    """optax.clip_by_global_norm in place: g ← g·max_norm/‖g‖ when the
+    global norm ‖g‖ >= max_norm; on the device, without a host sync."""
+    norm = torch.linalg.vector_norm(
+        torch.stack(torch._foreach_norm(grads)))
+    factor = torch.where(norm < max_norm, torch.ones_like(norm),
+                         max_norm / norm)
+    torch._foreach_mul_(grads, factor)
+
+
+def _apply_update(state: TrainState, ema_decay: Optional[float]) -> None:
+    """Optimizer step on the gradients in ``.grad``: clip (opt-in), AdamW,
+    LR schedule, step count, EMA."""
+    params = state.trainable()
+    for p in params:
+        # optax updates every trainable leaf, a zero gradient included
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    if state.clip_grad_norm is not None:
+        _clip_by_global_norm_([p.grad for p in params],
+                              float(state.clip_grad_norm))
+    state.optimizer.step()
+    if state.scheduler is not None:
+        state.scheduler.step()
+    state.step += 1
+    if ema_decay is not None:
+        if state.ema_params is None:
+            raise ValueError(
+                "ema_decay given but the state carries no ema_params — "
+                "build it with create_train_state(..., ema=True)")
+        t = float(state.step)
+        d = min(ema_decay, (1.0 + t) / (10.0 + t))
+        names, live = zip(*state.model.named_parameters())
+        ema = [state.ema_params[n] for n in names]
+        with torch.no_grad():
+            torch._foreach_mul_(ema, d)
+            torch._foreach_add_(ema, [p.detach() for p in live],
+                                alpha=1.0 - d)
+
+
+def make_train_step(weights: LossWeights = LossWeights(), *,
+                    accum_mode: str = "grouped",
+                    ema_decay: Optional[float] = None):
+    """Return ``step(state, superbatch, generator) -> metrics``: the
+    batch-mean loss components as 0-dim tensors on the device (no host
+    sync). ``generator`` (on the model's device) draws the dropout masks.
+    """
+    if accum_mode not in ACCUM_MODES:
+        raise ValueError(f"unknown accum_mode {accum_mode!r} "
+                         f"(ported: {ACCUM_MODES})")
+
+    def grouped(state, batch, generator):
+        model = state.model
+        if any(isinstance(m, nn.modules.batchnorm._BatchNorm)
+               for m in model.modules()):
+            raise NotImplementedError(
+                "grouped accumulation needs per-group BatchNorm statistics, "
+                "which come with the CNN port; use accum_mode='scan'")
+        flat = {k: v.reshape(-1, *v.shape[2:]) for k, v in batch.items()}
+        loss, comps = _forward_loss(model, flat, weights, generator)
+        loss.backward()
+        return comps
+
+    def scan(state, batch, generator):
+        accum = batch["image"].shape[0]
+        seq = []
+        for i in range(accum):
+            micro = {k: v[i] for k, v in batch.items()}
+            loss, comps = _forward_loss(state.model, micro, weights,
+                                        generator)
+            loss.backward()
+            seq.append(comps)
+        grads = [p.grad for p in state.trainable() if p.grad is not None]
+        torch._foreach_div_(grads, accum)
+        return {k: torch.stack([c[k] for c in seq]).mean() for k in seq[0]}
+
+    run = {"grouped": grouped, "scan": scan}[accum_mode]
+
+    def step(state: TrainState, superbatch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
+        state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        comps = run(state, superbatch, generator)
+        _apply_update(state, ema_decay)
+        return {k: v.detach() for k, v in comps.items()}
+
+    return step
+
+
+def make_eval_step(weights: LossWeights = LossWeights(), *,
+                   compat_pa: bool = False):
+    """Return ``step(state, batch) -> (metrics, joints)``: eval-mode
+    forward, then the loss components, MPJPE and PA-MPJPE of each sample
+    as [B] vectors (the JAX ``make_eval_step(per_sample=True)``), so
+    padded samples can be masked out. ``compat_pa`` selects the
+    reference's transposed Procrustes rotation."""
+
+    @torch.no_grad()
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        model = state.model
+        was_training = model.training
+        model.eval()
+        try:
+            batch = decompact_batch(batch)
+            out = model(batch["image"], batch["depth"],
+                        batch["keypoints_2d"])
+        finally:
+            model.train(was_training)
+        gt = batch["joints_3d"].float()
+        _, comps = composite_pose_loss_per_sample(out, gt, weights)
+        metrics = dict(comps)
+        metrics["mpjpe"] = torch.linalg.vector_norm(
+            out.float() - gt, dim=-1).mean(-1)
+        aligned = procrustes_align(out.float(), gt, compat_pa)
+        metrics["pa_mpjpe"] = torch.linalg.vector_norm(
+            aligned - gt, dim=-1).mean(-1)
+        return metrics, out
+
+    return step

@@ -1,5 +1,5 @@
 """pose3d_tpu_torch kernels on an NVIDIA card, against their plain
-versions. They skip without CUDA. This file imports no JAX, so it also runs
+versions, and gradients through them. They skip without CUDA. This file imports no JAX, so it also runs
 on a machine without it:
 
     python -m pytest tests/test_torch_port_card.py -m cuda --noconftest
@@ -8,8 +8,12 @@ on a machine without it:
 import pytest
 import torch
 
+from pose3d_tpu_torch.core.config import TransformerModelConfig
+from pose3d_tpu_torch.models import build_model
 from pose3d_tpu_torch.ops.attention import dot_product_attention
 from pose3d_tpu_torch.ops.kernels.flash_attention import (
+    flash_attention_bwd,
+    flash_attention_bwd_reference,
     flash_attention_fwd,
     flash_attention_fwd_reference,
 )
@@ -84,3 +88,62 @@ def test_auto_attention_on_cuda_runs_the_kernel():
     assert flash_attention_fwd.launches == before + 1
     with pytest.raises(ValueError, match="head dim"):
         dot_product_attention(q[..., :40], q[..., :40], q[..., :40])
+
+
+# backward: max |Δ| relative to max(1, max|ref|); bf16 rounds P and dS
+# before their products, fp32 differs by summation order (dQ atomics)
+TOL_GRAD = {"bfloat16": 3e-2, "float32": 1e-4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_backward_matches_plain_version(dtype):
+    _cuda()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for B, Tq, Tk, H, D in SHAPES:
+        q, do = (torch.randn(B, Tq, H, D, generator=g, device="cuda").to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn(B, Tk, H, D, generator=g, device="cuda").to(dt)
+                for _ in range(2))
+        o, lse = flash_attention_fwd(q, k, v)
+        before = flash_attention_bwd.launches
+        got = flash_attention_bwd(q, k, v, o, do, lse)
+        torch.cuda.synchronize()
+        assert flash_attention_bwd.launches == before + 1
+        for x, r in zip(got, flash_attention_bwd_reference(q, k, v, o, do,
+                                                           lse)):
+            assert x.shape == r.shape and x.dtype == dt
+            scale = max(1.0, r.float().abs().max().item())
+            assert (x.float() - r.float()).abs().max().item() \
+                <= TOL_GRAD[dtype] * scale
+
+
+@pytest.mark.cuda
+def test_cuda_backward_reaches_the_patch_embedding():
+    """The repaired fault: a loss.backward() on the card gives gradients
+    to everything upstream of the attention kernels, down to the ViT's
+    patch embedding, and they agree with the plain pair's."""
+    _cuda()
+    # width 128 over 4 heads: head dim 32, the smallest the kernels take
+    cfg = TransformerModelConfig(
+        image_size=(64, 64), heatmap_size=32, transformer_embed_dim=128,
+        transformer_heads=4, vit_depth=2, vit_heads=4, final_encoder_depth=1,
+        num_cross_modal_layers=1, regression_hidden_dims=(32, 16),
+        transformer_dropout_rate=0.0, regression_dropout=0.0)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    args = (torch.rand(2, 64, 64, 3, generator=g, device="cuda"),
+            torch.rand(2, 64, 64, 1, generator=g, device="cuda"),
+            torch.rand(2, 17, 2, generator=g, device="cuda"))
+    grads = {}
+    for impl in ("auto", "reference"):
+        model = build_model(cfg, device="cuda", dtype=torch.float32,
+                            attention_impl=impl, train=True)
+        before = flash_attention_bwd.launches
+        model(*args).square().sum().backward()
+        launched = flash_attention_bwd.launches - before
+        assert launched == (5 if impl == "auto" else 0)  # 2 ViT, 2 fusion, 1 final
+        grads[impl] = model.vit_backbone.patch_embed.proj.weight.grad
+    assert grads["auto"] is not None and grads["auto"].abs().sum() > 0
+    assert torch.allclose(grads["auto"], grads["reference"], rtol=1e-3,
+                          atol=1e-5)
