@@ -7,11 +7,13 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, each fatal on failure:
   1. environment: card name and power limit, torch/CUDA/nvcc versions;
-  2. build: every kernel of the serving and training paths, from
+  2. build: every kernel of the serving and training paths (the two
+     flash-attention kernels and ``bn_stats``), from
      ``pose3d_tpu_torch/csrc``, one nvcc per source, all started together
      (build seconds and ptxas register/shared-memory/spill lines);
   3. kernels: each kernel against its plain PyTorch version at every shape
-     the paths give it, in bf16 and fp32, with the tolerances below;
+     the paths give it and at ragged ones, in bf16 and fp32, with the
+     tolerances below (``bn_stats``: forward and the Function's backward);
   4. slice (serving): the full published transformer config (random
      weights from a seeded generator) saved as a reference-schema ``.pth``,
      served by the port's HTTP server, answering concurrent ``/predict``
@@ -28,10 +30,25 @@ Phases, each fatal on failure:
      (c) ``evaluate`` over two validation batches, the last one ragged;
      (d) the ``.pth`` that ``train_model`` wrote, served and answering one
      ``/predict``;
-  6. times: each kernel vs its plain version per shape, the batch-8
-     forward with each, per-request latency, the batch-2 train step with
-     each, and the 10×10 train step with the kernels (ms, images/s, peak
-     memory), each with the card's name and power limit.
+  6. times: each kernel vs its plain version per shape, beside the least
+     time the card could take and one library call as a yardstick
+     (``scaled_dot_product_attention`` forward and backward,
+     ``torch.batch_norm_stats``; timed here, used nowhere in the port), the
+     batch-8 forward with each, per-request latency, the batch-2 train step
+     with each, and the 10×10 train step with the kernels (ms, images/s,
+     peak memory), each with the card's name and power limit;
+  7. cnn: the CNN lifter at the published full width (500×500), (a)
+     ``normalization="batch_pallas"`` trained by ``train_model`` for 3
+     optimizer steps at 10 × 10 in ``accum_mode="scan"`` with the published
+     dropout and EMA with ``ema_batch_stats``, ``bn_stats`` launched once
+     per BatchNorm per microbatch; (b) one batch-10 fp32 step with the
+     kernel and with the plain statistics (loss, whole gradient, every
+     running mean and variance); (c) ``normalization="batch"`` in the
+     default grouped mode at 10 × 10, without ``remat`` when the flat batch
+     of 100 fits the card and with it when not (the peak of both is
+     printed), and a ``torch.profiler`` split of that step; (d)
+     ``evaluate`` over a full and a ragged batch, and (a)'s ``.pth`` served
+     and answering one ``/predict``.
 
 Standard output ends with a JSON line of the kernels and, last, one JSON
 line ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -41,6 +58,7 @@ repository beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import statistics
@@ -102,7 +120,30 @@ REQUEST_BATCHES = [1, 1, 2, 3, 8]
 # (grouped: one flat batch of 100 fits in 80 GB, PERF.md).
 TRAIN_STEPS = 3
 ACCUM_MODE = "grouped"
-KERNELS = ("flash_attention_fwd", "flash_attention_bwd")
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "bn_stats")
+# bn_stats: (n, C) beside the path's own shapes, in bf16 and fp32; max |Δ|
+# of Σx and Σx² against the plain version relative to max(1, max|ref|). Both
+# sum in fp32 in another order: over 625,000 rows of magnitude ~1.5 the
+# sums reach ~1e6 and an fp32 sum of that length is good to ~1e-6 of it.
+BN_RAGGED = [(n, C) for n in (1, 7, 10, 1025) for C in (3, 64, 3072)]
+TOL_BN = 1e-5
+BN_STEM = (625000, 64)      # the stem's [n, C] at microbatch 10
+# The CNN's batch-10 fp32 step, bn_stats kernel against the plain
+# statistics (TF32 off), relative: loss and running statistics, and the
+# whole gradient (relative L2). Only the order of the fp32 sums differs
+# (~1e-6 of Σx and Σx², above), but var = E[x²] − E[x]² cancels and 59
+# BatchNorms in sequence pass the difference on: the card gives 6e-6 on the
+# loss, 6e-7 on the statistics and 7e-5 on the gradient, so the gradient's
+# bound sits above the others'. The plain step run twice differs by 5e-6
+# (cuDNN's weight gradients).
+TOL_CNN_STEP = 1e-4
+TOL_CNN_STEP_GRAD = 3e-4
+CNN_STEPS = 3
+# The card's published peaks (H100 SXM): bytes/s of device memory, dense
+# bf16 and plain fp32 operations/s.
+HBM_BYTES_S = 3.35e12
+PEAK_BF16 = 989e12
+PEAK_FP32 = 67e12
 
 
 def log(msg: str) -> None:
@@ -128,11 +169,17 @@ def phase_environment(torch) -> str:
 
 
 def phase_build() -> None:
-    from pose3d_tpu_torch.ops.kernels import _build, flash_attention
+    from pose3d_tpu_torch.ops.kernels import _build, bn_stats, \
+        flash_attention
+
+    def load(name):
+        if name == "bn_stats":
+            return bn_stats.load_library()
+        return flash_attention.load_library(name)
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as ex:
-        list(ex.map(flash_attention.load_library, KERNELS))
+        list(ex.map(load, KERNELS))
     log(f"[build] {len(KERNELS)} kernels in parallel: "
         f"{time.perf_counter() - t0:.2f} s")
     for name in KERNELS:
@@ -142,6 +189,28 @@ def phase_build() -> None:
             if any(w in line for w in ("registers", "spill",
                                        "Compiling entry", "bytes smem")):
                 log("[build]   " + line.strip())
+
+
+def _kernel_fns():
+    from pose3d_tpu_torch.ops.kernels.bn_stats import bn_stats
+    from pose3d_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+
+    return {"flash_attention_fwd": flash_attention_fwd,
+            "flash_attention_bwd": flash_attention_bwd,
+            "bn_stats": bn_stats}
+
+
+def zero_launch_counts() -> None:
+    """Every kernel's launch count to 0, just before a main path runs."""
+    for fn in _kernel_fns().values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in _kernel_fns().items()}
 
 
 def _qkv(torch, B, Tq, Tk, H, D, dtype, seed):
@@ -207,9 +276,102 @@ def phase_kernels(torch) -> dict:
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(("bwd", name, Tq, Tk, H, D))
+    worst_bn, worst_bn_rel = _check_bn_stats(torch, failures)
     if failures:
         raise SystemExit(f"kernel disagrees with its plain version: {failures}")
-    return {"flash_attention_fwd": worst, "flash_attention_bwd": worst_bwd}
+    # every value is a max |Δ| in the output's own units; bn_stats' sums
+    # reach ~1e6, so its bound is relative and that reading goes beside it
+    return {"flash_attention_fwd": {"max_abs_err": worst},
+            "flash_attention_bwd": {"max_abs_err": worst_bwd},
+            "bn_stats": {"max_abs_err": worst_bn,
+                         "max_err_rel_to_max_1_ref": worst_bn_rel}}
+
+
+def _cnn_config(**kw):
+    from pose3d_tpu_torch.core.config import CNNModelConfig
+
+    return CNNModelConfig(**kw)
+
+
+_BN_PATH = []      # (n per sample, C) of every bn_stats call, in call order
+
+
+def _bn_path_shapes(torch, batch: int) -> list:
+    """(n, C) of every bn_stats call in one train-mode forward of the
+    full-width ``batch_pallas`` CNN at ``batch`` samples, in call order:
+    read off one forward of a single sample on the card (every n is
+    rows-per-sample x batch)."""
+    from pose3d_tpu_torch.models import build_model, dummy_inputs
+    from pose3d_tpu_torch.models.cnn import DotStatsBatchNorm
+
+    if not _BN_PATH:
+        cfg = _cnn_config(normalization="batch_pallas",
+                          regression_dropout=0.0)
+        model = build_model(cfg, device="cuda", stats_impl="reference").train()
+        for mod in model.modules():
+            if isinstance(mod, DotStatsBatchNorm):
+                mod.register_forward_pre_hook(
+                    lambda _m, a: _BN_PATH.append(
+                        (a[0].numel() // a[0].shape[-1], a[0].shape[-1])))
+        with torch.no_grad():
+            model(*dummy_inputs(cfg, 1, device="cuda"))
+    return [(n * batch, C) for n, C in _BN_PATH]
+
+
+def _check_bn_stats(torch, failures: list) -> tuple:
+    """bn_stats against its plain version, forward and through the
+    Function's backward, at the path's shapes (microbatch 10) and the
+    ragged ones. Returns the worst forward error seen: max |Δ| of the sums
+    as it is, and relative to max(1, max|ref|) as the bound is stated."""
+    from pose3d_tpu_torch.ops.kernels.bn_stats import (
+        BnStats,
+        bn_stats,
+        bn_stats_reference,
+    )
+
+    path = sorted(set(_bn_path_shapes(torch, 10)), reverse=True)
+    worst = worst_rel = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        for i, (n, C) in enumerate(path + BN_RAGGED):
+            g = torch.Generator(device="cuda").manual_seed(2000 + i)
+            x = (torch.randn(n, C, generator=g, device="cuda") * 1.5
+                 + 0.3).to(dtype)
+            got = bn_stats(x)
+            torch.cuda.synchronize()
+            again = bn_stats(x)
+            refs = bn_stats_reference(x)
+            errs = []
+            ok = all(torch.equal(a, b) for a, b in zip(got, again))
+            for a, r in zip(got, refs):
+                scale = max(1.0, r.abs().max().item())
+                err_abs = (a - r).abs().max().item()
+                err = err_abs / scale
+                errs.append(err)
+                worst = max(worst, err_abs)
+                ok &= (a.shape == (C,) and a.dtype == torch.float32
+                       and torch.isfinite(a).all().item() and err <= TOL_BN)
+            worst_rel = max(worst_rel, *errs)
+            # the Function: kernel forward, closed-form backward
+            w = torch.randn(2, C, generator=g, device="cuda")
+            grads = []
+            for use_kernel in (True, False):
+                leaf = x.clone().requires_grad_()
+                s1, s2 = BnStats.apply(leaf, use_kernel)
+                ((s1 * w[0]).sum() + (s2 * w[1]).sum()).backward()
+                grads.append(leaf.grad)
+            ok &= (grads[0].dtype == dtype
+                   and torch.equal(grads[0], grads[1]))
+            log(f"[kernel] bn_stats {name:8s} n={n:6d} C={C:4d}: "
+                f"max|d(s1,s2)|/max(1,|ref|)="
+                + ",".join(f"{e:.2e}" for e in errs)
+                + f" (tol {TOL_BN:.0e}); repeats bitwise, backward equal  "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(("bn_stats", name, n, C))
+    log(f"[kernel] bn_stats worst over all shapes: max|d| {worst:.3e} in the "
+        f"sums' own units, {worst_rel:.3e} relative to max(1,|ref|)")
+    return worst, worst_rel
 
 
 def _post(url: str, arrays) -> np.ndarray:
@@ -236,10 +398,6 @@ def phase_slice(torch, tmp: Path) -> dict:
     from pose3d_tpu_torch.checkpoint import save_pose_model
     from pose3d_tpu_torch.core.config import TransformerModelConfig
     from pose3d_tpu_torch.models import build_model
-    from pose3d_tpu_torch.ops.kernels.flash_attention import (
-        flash_attention_bwd,
-        flash_attention_fwd,
-    )
 
     cfg = TransformerModelConfig()
     attn_per_forward = (cfg.vit_depth + 2 * cfg.num_cross_modal_layers
@@ -252,17 +410,18 @@ def phase_slice(torch, tmp: Path) -> dict:
     del model
     log(f"[slice] full config: {n_params / 1e6:.1f} M params -> {pth}")
 
-    flash_attention_fwd.launches = 0
-    flash_attention_bwd.launches = 0
     hw, J = tuple(cfg.image_size), cfg.num_joints
+    zero_launch_counts()
     with _serving(pth) as base:
         reqs = [_request_inputs(100 + i, b, hw, J)
                 for i, b in enumerate(REQUEST_BATCHES)]
         with ThreadPoolExecutor(len(reqs)) as ex:
             answers = list(ex.map(lambda a: _post(base + "/predict", a), reqs))
-        launches = flash_attention_fwd.launches
-        if flash_attention_bwd.launches:
-            raise SystemExit("serving launched the backward kernel")
+        counts = launch_counts()
+        launches = counts["flash_attention_fwd"]
+        if counts["flash_attention_bwd"] or counts["bn_stats"]:
+            raise SystemExit("serving the transformer launched a kernel "
+                             f"that is not on its path: {counts}")
         _, meta = _get(base + "/meta")
         calls = meta["batching"]["device_calls"]
         for b, ans in zip(REQUEST_BATCHES, answers):
@@ -386,9 +545,7 @@ def phase_train(torch, tmp: Path, card: str) -> dict:
     from pose3d_tpu_torch.models import build_model
     from pose3d_tpu_torch.ops.kernels import flash_attention as fa
     from pose3d_tpu_torch.ops.kernels.flash_attention import (
-        flash_attention_bwd,
         flash_attention_bwd_reference,
-        flash_attention_fwd,
         flash_attention_fwd_reference,
     )
     from pose3d_tpu_torch.ops.losses import LossWeights
@@ -518,8 +675,7 @@ def phase_train(torch, tmp: Path, card: str) -> dict:
     writer = _Scalars()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention_fwd.launches = 0
-    flash_attention_bwd.launches = 0
+    zero_launch_counts()
     t0 = time.perf_counter()
     st, n = loop.train_model(
         st, _train_batches(7, A * TRAIN_STEPS, B, hw, J),
@@ -531,8 +687,9 @@ def phase_train(torch, tmp: Path, card: str) -> dict:
         checkpoint_path=pth)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention_fwd": flash_attention_fwd.launches,
-                "flash_attention_bwd": flash_attention_bwd.launches}
+    launches = launch_counts()
+    if launches.pop("bn_stats"):
+        raise SystemExit("training the transformer launched bn_stats")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [v for _, v in writer.tags.get("Loss/train_step", [])]
     passes = TRAIN_STEPS * (1 if ACCUM_MODE == "grouped" else A)
@@ -605,12 +762,327 @@ def phase_train(torch, tmp: Path, card: str) -> dict:
     return out
 
 
-def _time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
+def _profile_split(prof) -> dict:
+    """Device ms of one profiled step by what launched the kernels:
+    convolutions (``conv2d`` and its backward), BatchNorm statistics and
+    normalise (the port's BatchNorm Function, forward and backward), the
+    AdamW step, and everything else (activations, attention gates, casts,
+    residual adds, loss, EMA)."""
+    rows = prof.key_averages()
+
+    def total(e):
+        return getattr(e, "device_time_total", None) \
+            or getattr(e, "cuda_time_total", 0.0)
+
+    def own(e):
+        return getattr(e, "self_device_time_total", None) \
+            or getattr(e, "self_cuda_time_total", 0.0)
+
+    kernels = sum(own(e) for e in rows
+                  if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    by = {"conv": 0.0, "batchnorm": 0.0, "optimizer": 0.0}
+    for e in rows:
+        if e.key in ("aten::conv2d", "aten::convolution_backward"):
+            by["conv"] += total(e)
+        elif e.key in ("_BatchNormTrain", "_BatchNormTrainBackward"):
+            by["batchnorm"] += total(e)
+        elif e.key.startswith("Optimizer.step"):
+            by["optimizer"] += total(e)
+    out = {k: v / 1e3 for k, v in by.items()}
+    out["device"] = kernels / 1e3
+    out["other"] = out["device"] - sum(by.values()) / 1e3
+    return out
+
+
+def phase_cnn(torch, tmp: Path, card: str) -> dict:
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from pose3d_tpu_torch.core.config import GlobalConfig
+    from pose3d_tpu_torch.models import build_model
+    from pose3d_tpu_torch.models.cnn import BatchNorm, DotStatsBatchNorm
+    from pose3d_tpu_torch.ops.kernels.bn_stats import bn_stats
+    from pose3d_tpu_torch.ops.losses import LossWeights
+    from pose3d_tpu_torch.train import loop, state as tstate, step as tstep
+
+    g = GlobalConfig()
+    A, B = g.gradient_accumulation_steps, g.batch_size
+    weights = LossWeights(g.mse_loss_weight, g.l1_loss_weight,
+                          g.inter_joint_loss_weight, g.abs_root_loss_weight)
+    compute = getattr(torch, g.compute_dtype)
+    cfg_k = _cnn_config(normalization="batch_pallas")
+    cfg_b = _cnn_config()
+    hw, J = tuple(cfg_k.image_size), cfg_k.num_joints
+    n_bn = len(_bn_path_shapes(torch, B))
+    out = {}
+
+    def seeded(cfg, **kw):
+        return build_model(cfg, device="cuda", train=True,
+                           generator=torch.Generator("cuda").manual_seed(0),
+                           **kw)
+
+    # (b) one batch-10 fp32 step, dropout off: kernel vs plain statistics
+    cfg0 = dataclasses.replace(cfg_k, regression_dropout=0.0)
+    sb = loop.to_device(next(loop._superbatches(
+        _train_batches(21, 1, B, hw, J), 1)), "cuda")
+    runs = {}
+    for run, impl in (("reference", "reference"), ("again", "reference"),
+                      ("auto", "auto")):
+        model = seeded(cfg0, dtype=torch.float32, stats_impl=impl)
+        kinds = [type(m) for m in model.modules()
+                 if isinstance(m, (BatchNorm, DotStatsBatchNorm))]
+        if kinds.count(DotStatsBatchNorm) != n_bn:
+            raise SystemExit(f"{kinds.count(DotStatsBatchNorm)} kernel "
+                             f"BatchNorms in the model, {n_bn} on its path")
+        st = tstate.create_train_state(model)
+        # every BatchNorm's input must be a dense NHWC tensor as the conv
+        # handed it back: the [n, C] view is then free. (The modules' own
+        # view() raises otherwise, in the bf16 runs below too.)
+        layouts = []
+        for mod in model.modules():
+            if isinstance(mod, (BatchNorm, DotStatsBatchNorm)):
+                mod.register_forward_pre_hook(
+                    lambda _m, a: layouts.append(a[0].is_contiguous()))
+        before = bn_stats.launches
+        m = tstep.make_train_step(weights, accum_mode="scan")(st, sb)
+        if len(layouts) != len(kinds) or not all(layouts):
+            raise SystemExit(
+                f"{layouts.count(False)} of {len(layouts)} BatchNorm inputs "
+                f"({len(kinds)} modules) were not dense NHWC")
+        runs[run] = (
+            m["total_loss"].item(),
+            torch.cat([p.grad.flatten() for p in st.trainable()]).double(),
+            torch.cat([b.flatten() for b in
+                       tstate.batch_stats(model).values()]).double(),
+            bn_stats.launches - before)
+        del model, st
+    (l_ref, g_ref, s_ref, n_ref), (l_k, g_k, s_k, n_k) = \
+        runs["reference"], runs["auto"]
+    dl = abs(l_k - l_ref) / abs(l_ref)
+    dg = ((g_k - g_ref).norm() / g_ref.norm()).item()
+    floor = ((runs["again"][1] - g_ref).norm() / g_ref.norm()).item()
+    ds = ((s_k - s_ref).abs().max()
+          / s_ref.abs().max().clamp_min(1.0)).item()
+    ok = (np.isfinite(l_k) and torch.isfinite(g_k).all().item()
+          and max(dl, ds) <= TOL_CNN_STEP and dg <= TOL_CNN_STEP_GRAD
+          and n_k == n_bn and n_ref == 0)
+    log(f"[cnn] (b) batch-{B} fp32 step, TF32 off, full width, "
+        f"{kinds.count(DotStatsBatchNorm)} kernel BatchNorms + "
+        f"{kinds.count(BatchNorm)} plain, each fed a dense NHWC tensor by "
+        f"its conv ({len(layouts)} of {len(layouts)} checked, no copy): "
+        f"bn_stats kernel vs plain "
+        f"statistics: loss {l_k:.6f} vs {l_ref:.6f} (rel {dl:.2e}), whole "
+        f"gradient rel L2 {dg:.3e} over {g_k.numel()} values (the plain "
+        f"step run twice: {floor:.3e}), running "
+        f"mean/var max|d|/max(1,|ref|) {ds:.2e} over {s_k.numel()} values "
+        f"(tol {TOL_CNN_STEP:.0e}, gradient {TOL_CNN_STEP_GRAD:.0e}); "
+        f"launches {n_k} (want {n_bn}) and "
+        f"{n_ref} (want 0)  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the CNN step with the bn_stats kernel disagrees "
+                         "with the plain statistics")
+    del runs, g_ref, g_k, s_ref, s_k, sb
+    torch.cuda.empty_cache()
+
+    def train(cfg, mode, seed, steps, **kw):
+        """``train_model`` for ``steps`` optimizer steps at A x B, then the
+        bare step twice on a device-resident superbatch; returns the state
+        and what was measured."""
+        model = seeded(cfg, dtype=compute, **kw)
+        if any(p.dtype != getattr(torch, g.param_dtype)
+               for p in model.parameters()):
+            raise SystemExit(f"parameters are not {g.param_dtype}")
+        st = tstate.create_train_state(model, g.learning_rate,
+                                       g.weight_decay, ema=True)
+        if not st.ema_batch_stats:
+            raise SystemExit("no ema_batch_stats for a BatchNorm model")
+        writer = _Scalars()
+        pth = tmp / f"cnn_{mode}.pth"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        st, n = loop.train_model(
+            st, _train_batches(seed, A * steps, B, hw, J), writer=writer,
+            loss_weights=weights, gradient_accumulation_steps=A,
+            num_steps=steps, max_epochs=1, log_interval_steps=1,
+            eval_interval_steps=10 ** 9, accum_mode=mode, ema_decay=0.999,
+            generator=torch.Generator("cuda").manual_seed(g.random_seed),
+            checkpoint_path=pth)
+        torch.cuda.synchronize()
+        r = dict(wall=time.perf_counter() - t0, launches=launch_counts(),
+                 peak=torch.cuda.max_memory_allocated() / 2 ** 30, pth=pth,
+                 losses=[v for _, v in writer.tags.get("Loss/train_step",
+                                                       [])],
+                 loop_ms=[v for _, v in writer.tags.get("Perf/step_time_ms",
+                                                        [])])
+        if (n != steps or len(r["losses"]) != steps
+                or not np.isfinite(r["losses"]).all()):
+            raise SystemExit(f"train_model ({mode}) did not take {steps} "
+                             "steps with finite losses")
+        live = tstate.batch_stats(model)
+        moved = max((st.ema_batch_stats[k] - v).abs().max().item()
+                    for k, v in live.items())
+        if not (moved > 0 and all(torch.isfinite(v).all().item()
+                                  for v in st.ema_batch_stats.values())):
+            raise SystemExit("ema_batch_stats did not follow the running "
+                             "statistics")
+        sb = loop.to_device(next(loop._superbatches(
+            _train_batches(seed + 1, A, B, hw, J), A)), "cuda")
+        step = tstep.make_train_step(weights, accum_mode=mode,
+                                     ema_decay=0.999)
+        gen = torch.Generator("cuda").manual_seed(g.random_seed + 1)
+        ts = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(st, sb, gen)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        r.update(step_ms=statistics.mean(ts), runs=ts, st=st, sb=sb,
+                 step=step, gen=gen)
+        return r
+
+    def report(tag, what, r, steps):
+        log(f"[cnn] {tag} train_model, {what}, {A}x{B}, dropout "
+            f"{cfg_k.regression_dropout}, EMA with ema_batch_stats: {steps} "
+            f"steps in {r['wall']:.1f} s, losses {r['losses']}; launches "
+            f"{r['launches']}; peak memory {r['peak']:.2f} GiB")
+        log(f"[time] CNN train step, {A}x{B} {what}: {r['step_ms']:.1f} ms "
+            f"(runs {'/'.join(f'{t:.1f}' for t in r['runs'])}) = "
+            f"{A * B / r['step_ms'] * 1e3:.1f} images/s on a device-"
+            f"resident superbatch; train_model's own step times "
+            f"{[round(t, 1) for t in r['loop_ms']]} ms (host batches, H2D "
+            f"included); peak memory {r['peak']:.2f} GiB  [{card}]")
+
+    # (a) the kernel path: batch_pallas, scan
+    ra = train(cfg_k, "scan", 31, CNN_STEPS)
+    report("(a)", "batch_pallas scan", ra, CNN_STEPS)
+    want = {"bn_stats": n_bn * A * CNN_STEPS, "flash_attention_fwd": 0,
+            "flash_attention_bwd": 0}
+    log(f"[cnn] (a) bn_stats launches {ra['launches']['bn_stats']} = {n_bn} "
+        f"BatchNorms x {A} microbatches x {CNN_STEPS} steps? "
+        f"{ra['launches'] == want}")
+    if ra["launches"] != want:
+        raise SystemExit("the scan path did not launch bn_stats once per "
+                         "BatchNorm per microbatch")
+    out.update(launches=ra["launches"]["bn_stats"], scan_ms=ra["step_ms"],
+               scan_peak=ra["peak"])
+
+    # (d) evaluate (a full and a ragged batch), then (a)'s .pth, served
+    st = ra["st"]
+    ev = loop.evaluate(
+        tstep.make_eval_step(weights), st,
+        [next(_train_batches(41, 1, B, hw, J)),
+         next(_train_batches(42, 1, 7, hw, J))])
+    log(f"[cnn] (d) evaluate over {B}+7 samples: MPJPE {ev['mpjpe']:.4f}, "
+        f"PA-MPJPE {ev['pa_mpjpe']:.4f}, loss {ev['total_loss']:.4f}")
+    if not all(np.isfinite([ev["mpjpe"], ev["pa_mpjpe"]])):
+        raise SystemExit("evaluate gave non-finite metrics")
+    load_sd = torch.load(ra["pth"], map_location="cuda", weights_only=True)
+    eval_model = build_model(cfg_k, device="cuda", dtype=compute)
+    eval_model.load_state_dict(load_sd["model_state_dict"])
+    req = _request_inputs(43, 2, hw, J)
+    with torch.inference_mode():
+        direct = eval_model(*[torch.from_numpy(x).cuda() for x in req]).cpu()
+    del ra, st, eval_model, load_sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_launch_counts()
+    with _serving(tmp / "cnn_scan.pth") as base:
+        got = _post(base + "/predict", req)
+        _, meta = _get(base + "/meta")
+    rel = float(np.linalg.norm(got - direct.numpy())
+                / np.linalg.norm(direct.numpy()))
+    log(f"[cnn] (d) cnn_scan.pth served ({meta['artifact']['model_type']}): "
+        f"/predict {got.shape}, vs a direct eval-mode forward of the saved "
+        f"weights rel L2 {rel:.3e} (tol {TOL_SLICE_REL_L2:.0e}); kernel "
+        f"launches while serving {launch_counts()} (eval-mode BatchNorm "
+        "reads its running statistics)")
+    if (got.shape != (2, J, 3) or not rel <= TOL_SLICE_REL_L2
+            or any(launch_counts().values())
+            or meta["artifact"]["model_type"] != "cnn"):
+        raise SystemExit("the trained CNN checkpoint does not serve its "
+                         "weights")
+
+    # (c) the default path: normalization="batch", grouped, no kernel
+    def profiled(r):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            r["step"](r["st"], r["sb"], r["gen"])
+            torch.cuda.synchronize()
+        return _profile_split(prof)
+
+    def grouped(steps, remat):
+        r = train(cfg_b, "grouped", 51, steps, remat=remat)
+        if any(r["launches"].values()):
+            raise SystemExit(f"the grouped path launched a kernel: "
+                             f"{r['launches']}")
+        return r
+
+    peaks = {}
+    try:
+        rc = grouped(CNN_STEPS, False)
+    except torch.cuda.OutOfMemoryError as e:
+        rc = None
+        peaks[False] = ("does not fit: out of memory at "
+                        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+                        f"GiB allocated ({str(e)[:80]})")
+    if rc is not None:
+        leg = "batch grouped, no remat"
+        peaks[False] = f"{rc['peak']:.2f} GiB"
+        report("(c)", leg, rc, CNN_STEPS)
+        out.update(grouped_ms=rc["step_ms"], grouped_peak=rc["peak"],
+                   split=profiled(rc))
+    del rc
+    gc.collect()
+    torch.cuda.empty_cache()
+    # with remat: the leg itself when the flat batch did not fit, else one
+    # step for its peak and time
+    rr = grouped(CNN_STEPS if "split" not in out else 1, True)
+    peaks[True] = f"{rr['peak']:.2f} GiB"
+    if "split" not in out:
+        leg = "batch grouped, remat=True (the flat batch of 100 does not " \
+              "fit without it)"
+        report("(c)", leg, rr, CNN_STEPS)
+        out.update(grouped_ms=rr["step_ms"], grouped_peak=rr["peak"],
+                   split=profiled(rr))
+    else:
+        log(f"[time] CNN train step, {A}x{B} batch grouped, remat=True: "
+            f"{rr['step_ms']:.1f} ms (runs "
+            f"{'/'.join(f'{t:.1f}' for t in rr['runs'])}) = "
+            f"{A * B / rr['step_ms'] * 1e3:.1f} images/s  [{card}]")
+    del rr
+    gc.collect()
+    torch.cuda.empty_cache()
+    sp = out["split"]
+    log(f"[cnn] (c) peak memory of the grouped {A}x{B} step: without remat "
+        f"{peaks[False]}; with remat {peaks[True]}")
+    if sp["device"] > 0:
+        log(f"[time] CNN grouped step ({leg}), torch.profiler, one step: "
+            f"device kernels {sp['device']:.1f} ms: convolutions "
+            f"{sp['conv']:.1f}, BatchNorm statistics and normalise "
+            f"{sp['batchnorm']:.1f}, AdamW {sp['optimizer']:.1f}, other "
+            f"elementwise and reductions {sp['other']:.1f}  [{card}]")
+    else:
+        log("[time] CNN grouped step: the profiler recorded no device time")
+    return out
+
+
+def _time_ms(torch, fn, iters: int, warmup: int = 3,
+             queue_behind: bool = False) -> float:
+    """Device ms per call over ``iters`` calls between two CUDA events.
+    ``queue_behind`` first occupies the stream for some milliseconds, so
+    that the host has enqueued every call before the first one starts: for
+    kernels shorter than their launch takes on the host."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if queue_behind:
+        torch.cuda._sleep(30_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -619,7 +1091,90 @@ def _time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _attention_bound(B, Tq, Tk, H, D, itemsize, backward: bool):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for one attention forward (two products; q, k, v read, o and lse
+    written) or backward (five products; q, k, v, o, dO and lse read, dq,
+    dk, dv written) in bf16 on the tensor cores."""
+    flop = 4 * B * H * Tq * Tk * D * (2.5 if backward else 1.0)
+    eq, ek = B * Tq * H * D, B * Tk * H * D
+    nbytes = ((4 * eq + 4 * ek) if backward else (2 * eq + 2 * ek)) \
+        * itemsize + B * H * Tq * 4
+    t_ops, t_bytes = flop / PEAK_BF16 * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _sdpa_backend(torch, fn) -> str:
+    """Which backend ``scaled_dot_product_attention`` dispatched to, read
+    off the operator names of one profiled call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    keys = {e.key for e in prof.key_averages()}
+    for tag in ("flash", "cudnn", "efficient", "math"):
+        if any("scaled_dot_product" in k and tag in k for k in keys):
+            return tag
+    return "unknown"
+
+
+def _interleaved(torch, plain, kern, iters: int, **kw):
+    """(kernel ms, plain ms): plain, kernel, kernel, plain."""
+    p1 = _time_ms(torch, plain, iters, **kw)
+    k1 = _time_ms(torch, kern, iters, **kw)
+    k2 = _time_ms(torch, kern, iters, **kw)
+    p2 = _time_ms(torch, plain, iters, **kw)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def _time_bn_stats(torch, card: str) -> dict:
+    """bn_stats at every shape of the CNN's path (microbatch 10, bf16):
+    kernel, plain version, ``torch.batch_norm_stats`` (the nearest library
+    call; not the same function: it returns mean and 1/σ) and the bound
+    n·C·itemsize over the memory rate. Each call reads a buffer the 50 MB
+    L2 no longer holds (the inputs rotate through 256 MB of copies), and
+    the calls are queued behind a busy stream, so the times are the
+    device's and not the host's launch rate."""
+    from pose3d_tpu_torch.ops.kernels.bn_stats import (
+        bn_stats,
+        bn_stats_reference,
+    )
+
+    times = {}
+    shapes = _bn_path_shapes(torch, 10)
+    for n, C in sorted(set(shapes), reverse=True):
+        g = torch.Generator(device="cuda").manual_seed(n + C)
+        x = torch.randn(n, C, generator=g, device="cuda").bfloat16()
+        copies = max(1, min(64, -(-(256 << 20) // (n * C * 2))))
+        xs = [x.clone() for _ in range(copies)]
+        turn = [0]
+
+        def nxt():
+            turn[0] = (turn[0] + 1) % copies
+            return xs[turn[0]]
+        kt, pt = _interleaved(torch, lambda: bn_stats_reference(nxt()),
+                              lambda: bn_stats(nxt()), 20, queue_behind=True)
+        lt = _time_ms(torch, lambda: torch.batch_norm_stats(nxt(), 1e-5), 20,
+                      queue_behind=True)
+        nbytes = n * C * 2 + 2 * C * 4
+        bound = max(nbytes / HBM_BYTES_S, 3 * n * C / PEAK_FP32) * 1e3
+        times[("bn", n, C)] = dict(
+            ms=kt, plain_ms=pt, library_ms=lt, bound_ms=bound,
+            bound_by="bytes" if nbytes / HBM_BYTES_S >= 3 * n * C / PEAK_FP32
+            else "operations")
+        log(f"[time] bn_stats bf16 n={n} C={C} (x{shapes.count((n, C))} per "
+            f"forward): kernel {kt:.4f} ms ({nbytes / kt / 1e6:.0f} GB/s), "
+            f"plain {pt:.4f} ms, torch.batch_norm_stats (mean and 1/sigma, "
+            f"not the same function) {lt:.4f} ms, bound {bound:.4f} ms "
+            f"(bytes)  [{card}]")
+        del xs, x
+    return times
+
+
 def phase_times(torch, card: str, sl: dict) -> dict:
+    import torch.nn.functional as F
+
     from pose3d_tpu_torch.checkpoint import load_pose_model
     from pose3d_tpu_torch.models import dummy_inputs
     from pose3d_tpu_torch.ops.kernels.flash_attention import (
@@ -632,35 +1187,45 @@ def phase_times(torch, card: str, sl: dict) -> dict:
     times = {}
     for i, (Tq, Tk, H, D) in enumerate(PATH_SHAPES):
         q, k, v = _qkv(torch, 8, Tq, Tk, H, D, torch.bfloat16, seed=50 + i)
-        plain = lambda: flash_attention_fwd_reference(q, k, v)  # noqa: E731
-        kern = lambda: flash_attention_fwd(q, k, v)  # noqa: E731
-        # plain, kernel, kernel, plain
-        p1 = _time_ms(torch, plain, 50)
-        k1 = _time_ms(torch, kern, 50)
-        k2 = _time_ms(torch, kern, 50)
-        p2 = _time_ms(torch, plain, 50)
-        kt, pt = (k1 + k2) / 2, (p1 + p2) / 2
+        kt, pt = _interleaved(
+            torch, lambda: flash_attention_fwd_reference(q, k, v),
+            lambda: flash_attention_fwd(q, k, v), 20)
+        # the library's call, [B, H, T, D] views of the same tensors; a
+        # yardstick only, the port never calls it
+        ql, kl, vl = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        with torch.no_grad():
+            lib = lambda: F.scaled_dot_product_attention(ql, kl, vl)  # noqa: E731
+            lt = _time_ms(torch, lib, 20)
+            backend = _sdpa_backend(torch, lib)
         flop = 2 * 8 * H * Tq * Tk * (D + D)
-        times[("fwd", Tq, Tk, H, D)] = (kt, pt)
+        bound, by = _attention_bound(8, Tq, Tk, H, D, 2, False)
+        times[("fwd", Tq, Tk, H, D)] = dict(
+            ms=kt, plain_ms=pt, library_ms=lt, bound_ms=bound, bound_by=by)
         log(f"[time] attention bf16 B=8 Tq={Tq} Tk={Tk} H={H} D={D}: "
             f"kernel {kt:.4f} ms ({flop / kt / 1e9:.1f} TFLOP/s), plain "
-            f"{pt:.4f} ms  [{card}]")
+            f"{pt:.4f} ms, scaled_dot_product_attention ({backend}) "
+            f"{lt:.4f} ms, bound {bound:.4f} ms ({by})  [{card}]")
 
         o, lse = flash_attention_fwd(q, k, v)
         do_ = torch.randn_like(o)
-        plain = lambda: flash_attention_bwd_reference(  # noqa: E731
-            q, k, v, o, do_, lse)
-        kern = lambda: flash_attention_bwd(q, k, v, o, do_, lse)  # noqa: E731
-        p1 = _time_ms(torch, plain, 20)
-        k1 = _time_ms(torch, kern, 20)
-        k2 = _time_ms(torch, kern, 20)
-        p2 = _time_ms(torch, plain, 20)
-        kt, pt = (k1 + k2) / 2, (p1 + p2) / 2
-        times[("bwd", Tq, Tk, H, D)] = (kt, pt)
+        kt, pt = _interleaved(
+            torch,
+            lambda: flash_attention_bwd_reference(q, k, v, o, do_, lse),
+            lambda: flash_attention_bwd(q, k, v, o, do_, lse), 10)
+        ol = F.scaled_dot_product_attention(ql, kl, vl)
+        dol = do_.transpose(1, 2)
+        lt = _time_ms(torch, lambda: torch.autograd.grad(
+            ol, (ql, kl, vl), dol, retain_graph=True), 10)
+        bound, by = _attention_bound(8, Tq, Tk, H, D, 2, True)
+        times[("bwd", Tq, Tk, H, D)] = dict(
+            ms=kt, plain_ms=pt, library_ms=lt, bound_ms=bound, bound_by=by)
         log(f"[time] attention backward bf16 B=8 Tq={Tq} Tk={Tk} H={H} "
             f"D={D}: kernel {kt:.4f} ms ({5 * flop / 2 / kt / 1e9:.1f} "
-            f"TFLOP/s), plain {pt:.4f} ms  [{card}]")
-        del q, k, v, o, do_, lse
+            f"TFLOP/s), plain {pt:.4f} ms, scaled_dot_product_attention's "
+            f"backward ({backend}) {lt:.4f} ms, bound {bound:.4f} ms "
+            f"({by})  [{card}]")
+        del q, k, v, o, do_, lse, ql, kl, vl, ol, dol
 
     model, _ = load_pose_model(sl["pth"], "cuda")
     ref_model = sl["ref_model"]
@@ -678,7 +1243,30 @@ def phase_times(torch, card: str, sl: dict) -> dict:
     for b, ms in sl["latency"].items():
         log(f"[time] /predict latency, batch {b}, median of 10 sequential "
             f"requests: {ms:.2f} ms  [{card}]")
+    del model, ref_model, args
+    times.update(_time_bn_stats(torch, card))
     return times
+
+
+def phase_imports() -> None:
+    """The port, every module of it imported, has loaded nothing of JAX,
+    flax or the JAX package."""
+    import importlib
+    import pkgutil
+
+    import pose3d_tpu_torch
+
+    names = [m.name for m in pkgutil.walk_packages(
+        pose3d_tpu_torch.__path__, "pose3d_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                        "pose3d_tpu"))
+    log(f"[imports] {len(names)} modules of pose3d_tpu_torch imported; "
+        f"of jax, jaxlib, flax, pose3d_tpu in sys.modules: {bad or 'none'}")
+    if bad:
+        raise SystemExit(f"the port imported {bad}")
 
 
 def main() -> int:
@@ -707,19 +1295,29 @@ def main() -> int:
         times = phase_times(torch, card, sl)
         del sl
         tr = phase_train(torch, Path(tmp), card)
-    if "jax" in sys.modules or "flax" in sys.modules:
-        raise SystemExit("JAX was imported")
-    replaces = {"flash_attention_fwd": 49, "flash_attention_bwd": 90}
+        cnn = phase_cnn(torch, Path(tmp), card)
+    phase_imports()
+    # (file:line of the TPU kernel, launches on its main path, key of the
+    # shape its times are given at)
+    kernels = {
+        "flash_attention_fwd": (
+            "pose3d_tpu/ops/pallas/flash_attention.py:49",
+            tr["launches"]["flash_attention_fwd"], ("fwd", *PATH_SHAPES[0])),
+        "flash_attention_bwd": (
+            "pose3d_tpu/ops/pallas/flash_attention.py:90",
+            tr["launches"]["flash_attention_bwd"], ("bwd", *PATH_SHAPES[0])),
+        "bn_stats": ("pose3d_tpu/ops/pallas/bn_stats.py:34",
+                     cnn["launches"], ("bn", *BN_STEM)),
+    }
     log(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": f"pose3d_tpu_torch/csrc/{name}.cu",
-        "replaces": f"pose3d_tpu/ops/pallas/flash_attention.py:{line}",
-        "launches": tr["launches"][name],
-        "max_abs_err": worst[name],
-        "ms": times[(name[-3:], *PATH_SHAPES[0])][0],
-        "plain_ms": times[(name[-3:], *PATH_SHAPES[0])][1],
-    } for name, line in replaces.items()]}))
+        "replaces": replaces,
+        "launches": launches,
+        **worst[name],
+        **times[key],
+    } for name, (replaces, launches, key) in kernels.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,18 +2,22 @@
 
 The package mirrors ``pose3d_tpu``'s module paths, so each module's JAX
 counterpart sits at the same relative path. It imports ``torch`` and never
-``jax`` or ``flax``; the only modules it borrows from the JAX package are
-the two host-side ones that load neither (``pose3d_tpu.compat_export`` for
-the weight bridge and ``pose3d_tpu.serve_http`` for the HTTP tier).
+``jax``, ``flax`` or any module of ``pose3d_tpu``: what it needs from a
+host-side module there (the weight bridge's key walk, the HTTP batching
+tier) it keeps as its own copy (:mod:`pose3d_tpu_torch.compat_export`,
+:mod:`pose3d_tpu_torch.serve_http`).
 
-Ported so far: the transformer lifter's serving path — reference ``.pth``
-checkpoint → :func:`pose3d_tpu_torch.checkpoint.load_pose_model` →
-:mod:`pose3d_tpu_torch.serve_http` — and its training path —
+Ported so far: both lifters (transformer and CNN), served — reference
+``.pth`` checkpoint → :func:`pose3d_tpu_torch.checkpoint.load_pose_model` →
+:mod:`pose3d_tpu_torch.serve_http` — and trained —
 :mod:`pose3d_tpu_torch.train` (losses, metrics, AdamW, grouped/scan
-accumulation, EMA, evaluation, ``train_model``) writing a ``.pth`` the
-server loads. Attention runs through hand-written Hopper flash-attention
-forward and backward kernels (``csrc/flash_attention_fwd.cu``,
-``csrc/flash_attention_bwd.cu``).
+accumulation with grouped BatchNorm, EMA of weights and BatchNorm
+statistics, evaluation, ``train_model``) writing a ``.pth`` the server
+loads. Attention runs through hand-written Hopper flash-attention forward
+and backward kernels (``csrc/flash_attention_fwd.cu``,
+``csrc/flash_attention_bwd.cu``); the CNN's ``normalization=
+"batch_pallas"`` BatchNorm takes its statistics from the hand-written
+``csrc/bn_stats.cu``.
 
 Importing the package loads no submodule: import what you need, e.g.
 ``from pose3d_tpu_torch.models import build_model``.

@@ -10,16 +10,13 @@ The schema is the reference project's:
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
+from torch import nn
 
-from pose3d_tpu_torch.core.config import (
-    TransformerModelConfig,
-    make_model_config,
-)
+from pose3d_tpu_torch.core.config import make_model_config
 from pose3d_tpu_torch.models.factory import build_model
-from pose3d_tpu_torch.models.transformer import TransformerPoseEstimation
 
 
 def _read(path) -> Tuple[dict, str, dict]:
@@ -55,9 +52,11 @@ def _read(path) -> Tuple[dict, str, dict]:
 
 
 def load_pose_model(path, device="cuda", *, dtype=torch.bfloat16
-                    ) -> Tuple[TransformerPoseEstimation, TransformerModelConfig]:
-    """Rebuild the architecture from the checkpoint's ``model_args`` and
-    strict-load its weights onto ``device``. Returns (model, config)."""
+                    ) -> Tuple[nn.Module, object]:
+    """Rebuild the architecture (``model_type`` "transformer" or "cnn")
+    from the checkpoint's ``model_args`` and strict-load its weights, and
+    for the CNN its BatchNorm running statistics, onto ``device``. Returns
+    (model, config)."""
     sd, model_type, model_args = _read(path)
     cfg = make_model_config(model_type, **model_args)
     model = build_model(cfg, device=device, dtype=dtype)
@@ -69,10 +68,9 @@ def load_pose_model(path, device="cuda", *, dtype=torch.bfloat16
     return model, cfg
 
 
-def save_pose_model(model: TransformerPoseEstimation, path,
-                    step: int = 0, cfg: Optional[TransformerModelConfig] = None
-                    ) -> str:
-    """Write ``model`` in the reference schema (CPU tensors)."""
+def save_pose_model(model: nn.Module, path, step: int = 0, cfg=None) -> str:
+    """Write ``model`` (either lifter) in the reference schema (CPU
+    tensors); ``cfg`` defaults to the model's own config."""
     cfg = cfg or model.config
     model_args = cfg.to_dict()
     model_type = model_args.pop("model_type")

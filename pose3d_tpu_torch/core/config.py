@@ -1,9 +1,10 @@
 """Configuration (counterpart of ``pose3d_tpu/core/config.py``).
 
 ``GlobalConfig`` holds the training hyperparameters the port reads.
-``TransformerModelConfig`` has the same field names, defaults and checks
-as the JAX package's, so the ``model_args`` stored in a reference
-``.pth`` (``pose3d-convert --to-torch``) rebuild the same architecture.
+``CNNModelConfig`` and ``TransformerModelConfig`` have the same field
+names, defaults and checks as the JAX package's, so the ``model_args``
+stored in a reference ``.pth`` (``pose3d-convert --to-torch``) rebuild the
+same architecture.
 The JAX module is not imported: its package ``__init__`` loads JAX.
 """
 
@@ -41,6 +42,84 @@ class GlobalConfig:
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
+
+
+@dataclass(frozen=True)
+class CNNModelConfig:
+    """CNN lifting-model hyperparameters: the published architecture
+    (500×500 input of RGB + depth + 17 heatmaps, stem 64, stages
+    128/256/512 of depths 3/4/5 with expand ratios 1/3/6, WASP, 8×8 global
+    pooling to 1024 features, head 1024/512).
+
+    ``normalization``: "batch" (BatchNorm with flax's numerics) or
+    "batch_pallas" (the BatchNorm whose batch statistics come from the
+    hand-written ``bn_stats`` kernel)."""
+
+    model_type: str = "cnn"
+    image_size: Tuple[int, int] = (500, 500)
+    in_channels: int = 3 + 1 + 17  # RGB + depth + per-joint heatmaps
+    num_joints: int = 17
+
+    heatmap_size: int = 500
+    heatmap_sigma: float = 10.0
+
+    initial_channels: int = 64
+    initial_kernel_size: int = 5
+    initial_stride: int = 2
+
+    stage_channels: Tuple[int, ...] = (128, 256, 512)
+    stage_depths: Tuple[int, ...] = (3, 4, 5)
+    stage_strides: Tuple[int, ...] = (2, 2, 2)
+    stage_expand_ratios: Tuple[int, ...] = (1, 3, 6)
+
+    use_se_blocks: bool = True
+    se_reduction: int = 16
+    use_dual_path_blocks: bool = True
+
+    global_pool_size: int = 8
+    global_feature_dim: int = 1024
+
+    regression_dims: Tuple[int, ...] = (1024, 512)
+    regression_dropout: float = 0.2
+
+    activation: str = "silu"
+    normalization: str = "batch"
+
+    residual_scale: float = 1.0
+    depthwise_kernel_size: int = 3
+
+    def __post_init__(self):
+        h, w = self.image_size
+        if self.heatmap_size != h or self.heatmap_size != w:
+            raise ValueError(
+                "CNNModelConfig: heatmap_size must equal image_size — the "
+                "forward pass concatenates [image, depth, heatmaps] on the "
+                "channel axis at full resolution; "
+                f"got heatmap_size={self.heatmap_size}, "
+                f"image_size={self.image_size}"
+            )
+        expected_in = 3 + 1 + self.num_joints
+        if self.in_channels != expected_in:
+            raise ValueError(
+                "CNNModelConfig: in_channels must be 3 (RGB) + 1 (depth) + "
+                f"num_joints heatmaps = {expected_in}; got {self.in_channels} "
+                f"(num_joints={self.num_joints})"
+            )
+        if not (len(self.stage_channels) == len(self.stage_depths)
+                == len(self.stage_strides) == len(self.stage_expand_ratios)):
+            raise ValueError(
+                "CNNModelConfig: stage_channels/stage_depths/stage_strides/"
+                "stage_expand_ratios must all have the same length; got "
+                f"{len(self.stage_channels)}/{len(self.stage_depths)}/"
+                f"{len(self.stage_strides)}/{len(self.stage_expand_ratios)}"
+            )
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "CNNModelConfig":
+        return _from_dict(cls, d)
 
 
 @dataclass(frozen=True)
@@ -139,8 +218,5 @@ def make_model_config(model_type: str = None, /, **kwargs):
             {**kwargs, "model_type": "transformer"}
         )
     if model_type == "cnn":
-        raise NotImplementedError(
-            "the CNN lifter is not ported yet (ROADMAP.md, Queue 1: "
-            "'CNN lifter' and grouped ghost-BN training)"
-        )
+        return CNNModelConfig.from_dict({**kwargs, "model_type": "cnn"})
     raise ValueError(f"Unsupported model type: {model_type}")

@@ -36,29 +36,37 @@ class PoseRegressionHead(nn.Module):
     ``dropout``), then a final Linear to ``num_joints·3`` reshaped to
     [B, J, 3].
 
-    The Linears sit at ``decoder.{0, 3, 6, ...}``, the reference
-    transformer's Sequential indices (Linear, activation, Dropout per hidden
-    layer; the two weightless entries are not registered).
+    The Linears sit at the reference Sequentials' indices. Flat (the
+    transformer's head): ``decoder.{0, 3, 6, ...}`` (Linear, activation,
+    Dropout per hidden layer; the two weightless entries are not
+    registered). ``nested`` (the CNN's head): hidden layer k is its own
+    Sequential, ``decoder.{k}.0``, and the final Linear ``decoder.{n}``.
     Hidden Linears run in the compute dtype; the final Linear runs in fp32.
     """
 
     def __init__(self, in_dim: int, num_joints: int,
                  hidden_dims: Sequence[int], activation: str = "gelu",
-                 *, dropout: float = 0.0, device=None):
+                 *, dropout: float = 0.0, nested: bool = False, device=None):
         super().__init__()
         self.num_joints = num_joints
         self.rate = dropout
         self.act = get_activation(activation)
         dims = (in_dim, *hidden_dims, num_joints * 3)
-        self.decoder = nn.ModuleDict(
-            (str(3 * i), nn.Linear(dims[i], dims[i + 1], device=device))
-            for i in range(len(dims) - 1)
-        )
+        last = len(dims) - 2
+        self.linears = [nn.Linear(dims[i], dims[i + 1], device=device)
+                        for i in range(last + 1)]
+        if nested:
+            self.decoder = nn.ModuleDict(
+                (str(i), lin if i == last else nn.ModuleDict({"0": lin}))
+                for i, lin in enumerate(self.linears))
+        else:
+            self.decoder = nn.ModuleDict(
+                (str(3 * i), lin) for i, lin in enumerate(self.linears))
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype,
                 gen: Optional[torch.Generator] = None) -> torch.Tensor:
         x = x.reshape(x.shape[0], -1)
-        *hidden, last = self.decoder.values()
+        *hidden, last = self.linears
         for layer in hidden:
             x = dropout(self.act(linear(x, layer, dtype)), self.rate, gen)
         x = linear(x, last, torch.float32)

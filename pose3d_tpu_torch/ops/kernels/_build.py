@@ -8,8 +8,10 @@ PyTorch headers, so a build takes seconds) into
 where the hash covers the source and the flags. The library is built at
 first use in a process, written under a temporary name and renamed into
 place, so concurrent builders never load a half-written file. Each source
-has its own lock, so several sources build in parallel threads. Nothing
-here runs at import time.
+has its own lock, so several sources build in parallel threads.
+:func:`load_library` also declares the entry point's C signature (ctypes
+would otherwise pass a pointer as a 32-bit int). Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -96,3 +98,25 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         _libs[name] = lib
         return lib
+
+
+def load_library(name: str, argtypes: Sequence) -> ctypes.CDLL:
+    """:func:`load` plus the C signature of the library's entry point
+    ``pose3d_<name>`` (``argtypes``, returning the CUDA error code of the
+    launch) and of ``pose3d_cuda_error_string``; idempotent."""
+    lib = load(name)
+    fn = getattr(lib, "pose3d_" + name)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        lib.pose3d_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.pose3d_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def raise_if_failed(lib: ctypes.CDLL, name: str, rc: int) -> None:
+    """Raise for a launch that CUDA refused (``rc`` is what the entry
+    point returned: ``cudaGetLastError()`` right after the launch)."""
+    if rc != 0:
+        msg = lib.pose3d_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")

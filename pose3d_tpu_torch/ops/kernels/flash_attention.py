@@ -134,20 +134,7 @@ _ARGTYPES = {
 def load_library(name: str) -> ctypes.CDLL:
     """Build (at first use) and load ``csrc/<name>.cu``'s library, with its
     entry point's C signature declared; idempotent."""
-    lib = _build.load(name)
-    fn = getattr(lib, "pose3d_" + name)
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        lib.pose3d_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.pose3d_cuda_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _raise_if_failed(lib: ctypes.CDLL, name: str, rc: int) -> None:
-    if rc != 0:
-        msg = lib.pose3d_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
+    return _build.load_library(name, _ARGTYPES[name])
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -184,7 +171,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
             v.stride(0), v.stride(1), v.stride(2),
             stream,
         )
-    _raise_if_failed(lib, "flash_attention_fwd", rc)
+    _build.raise_if_failed(lib, "flash_attention_fwd", rc)
     flash_attention_fwd.launches += 1
     return o, lse
 
@@ -230,7 +217,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *o.stride()[:3], *do.stride()[:3],
             stream,
         )
-    _raise_if_failed(lib, "flash_attention_bwd", rc)
+    _build.raise_if_failed(lib, "flash_attention_bwd", rc)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

@@ -8,11 +8,10 @@ import contextlib
 
 import numpy as np
 import torch
+from torch import nn
 
-from pose3d_tpu_torch.models.transformer import TransformerPoseEstimation
 
-
-def make_serving_fn(model: TransformerPoseEstimation):
+def make_serving_fn(model: nn.Module):
     """``(image, depth, keypoints_2d)`` numpy arrays → joints [B, J, 3]
     numpy fp32, computed on the model's device.
 

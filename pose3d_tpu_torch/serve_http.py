@@ -1,13 +1,15 @@
 """Micro-batching HTTP server for a reference ``.pth`` lifter checkpoint
 (counterpart of ``pose3d_tpu/serve_http.py``, lifter-only mode).
 
-The transport and batching tier is the JAX package's own, imported rather
-than copied (it loads only numpy and the standard library):
-``MicroBatcher`` coalesces concurrent requests into power-of-two device
-batches and ``_Handler`` serves ``POST /predict`` (npz in, npz out),
-``GET /healthz`` and ``GET /meta``. This module supplies the device call:
-the port's model on ``device`` (default ``cuda``; there is no fallback to
-the CPU when CUDA is absent).
+Requests queue on the host and one dispatcher forms device batches:
+``MicroBatcher`` coalesces concurrent requests (up to ``max_batch`` samples
+or ``max_wait_ms``) into power-of-two device batches, padded with zeros and
+sliced back, and ``_Handler`` serves ``POST /predict`` (npz in, npz out,
+``X-Batch-*`` timing headers), ``GET /healthz`` (200 once the warmup batch
+has run) and ``GET /meta`` over the standard library's
+``ThreadingHTTPServer``. The device call is the port's model on ``device``
+(default ``cuda``; there is no fallback to the CPU when CUDA is absent).
+The full-pipeline mode (``/predict_image``) waits for the stage-1 port.
 
 Usage:
   python -m pose3d_tpu_torch.serve_http --checkpoint model.pth
@@ -18,19 +20,261 @@ where ``model.pth`` comes from ``pose3d-convert <ckpt_dir> model.pth
 from __future__ import annotations
 
 import argparse
+import io
+import json
 import logging
+import queue
 import threading
-from http.server import ThreadingHTTPServer
+import time
+from concurrent.futures import Future
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
 
-from pose3d_tpu.serve_http import MicroBatcher, _Handler
 from pose3d_tpu_torch.checkpoint import load_pose_model
 from pose3d_tpu_torch.ops.kernels import flash_attention
 from pose3d_tpu_torch.serve import make_serving_fn
 
 logger = logging.getLogger("pose3d_tpu_torch.serve_http")
+
+INPUT_KEYS = ("image", "depth", "keypoints_2d")
+
+
+def _bucket(n: int, cap: int) -> int:
+    """Smallest power of two ≥ n, capped at ``cap``: the device sees
+    log2(cap)+1 batch sizes, whatever the requests' sizes."""
+    b = 1
+    while b < n:
+        b *= 2
+    return min(b, cap)
+
+
+class MicroBatcher:
+    """Coalesce concurrent predict requests into device batches.
+
+    ``call_fn(image, depth, keypoints_2d) -> joints`` runs one device
+    batch (``serve.make_serving_fn``); calls are padded to power-of-two
+    buckets ≤ ``max_batch``.
+    """
+
+    def __init__(self, call_fn, *, max_batch: int = 8,
+                 max_wait_ms: float = 5.0):
+        self._call_fn = call_fn
+        self.max_batch = int(max_batch)
+        self.max_wait_s = float(max_wait_ms) / 1e3
+        self._queue: queue.Queue = queue.Queue()
+        self._closed = False
+        self.device_calls = 0
+        self.samples_served = 0
+        self.samples_padded = 0
+        self._thread = threading.Thread(
+            target=self._dispatch_loop, name="microbatcher", daemon=True
+        )
+        self._thread.start()
+
+    # -- client side --------------------------------------------------
+
+    def submit(self, image, depth, keypoints_2d) -> Future:
+        """Enqueue a [b, ...] request; resolves to joints [b, J, 3]."""
+        if self._closed:
+            raise RuntimeError("server is shutting down")
+        arrays = (np.asarray(image, np.float32),
+                  np.asarray(depth, np.float32),
+                  np.asarray(keypoints_2d, np.float32))
+        b = arrays[0].shape[0]
+        if any(a.shape[0] != b for a in arrays):
+            raise ValueError("inputs disagree on batch size")
+        fut: Future = Future()
+        self._queue.put((arrays, fut, time.monotonic()))
+        return fut
+
+    def close(self):
+        self._closed = True
+        self._queue.put(None)
+        self._thread.join(timeout=5)
+        # Fail anything still queued (behind the sentinel, or racing a
+        # submit) — otherwise their handler threads block on .result()
+        # for the full request timeout during shutdown.
+        while True:
+            try:
+                item = self._queue.get_nowait()
+            except queue.Empty:
+                break
+            if item is not None and not item[1].done():
+                item[1].set_exception(
+                    RuntimeError("server shut down before dispatch")
+                )
+
+    def stats(self) -> dict:
+        return {
+            "device_calls": self.device_calls,
+            "samples_served": self.samples_served,
+            "samples_padded": self.samples_padded,
+            "max_batch": self.max_batch,
+            "max_wait_ms": self.max_wait_s * 1e3,
+        }
+
+    # -- dispatcher ---------------------------------------------------
+
+    def _dispatch_loop(self):
+        while not self._closed:
+            item = self._queue.get()
+            if item is None:
+                break
+            items = [item]
+            n = item[0][0].shape[0]
+            deadline = time.monotonic() + self.max_wait_s
+            while n < self.max_batch:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    nxt = self._queue.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    self._closed = True
+                    break
+                items.append(nxt)
+                n += nxt[0][0].shape[0]
+            try:
+                self._run_batch(items)
+            except Exception as e:  # resolve futures, keep serving
+                logger.exception("batch failed")
+                for _, fut, _ in items:
+                    if not fut.done():
+                        fut.set_exception(e)
+
+    def _run_batch(self, items):
+        t0 = time.monotonic()
+        arrays = [np.concatenate([it[0][i] for it in items], axis=0)
+                  for i in range(3)]
+        n = arrays[0].shape[0]
+        out_parts = []
+        # chunk oversized coalesced batches; pad the final chunk
+        for lo in range(0, n, self.max_batch):
+            chunk = [a[lo:lo + self.max_batch] for a in arrays]
+            cn = chunk[0].shape[0]
+            target = _bucket(cn, self.max_batch)
+            if cn < target:
+                pad = target - cn
+                self.samples_padded += pad
+                chunk = [
+                    np.concatenate(
+                        [a, np.zeros((pad,) + a.shape[1:], a.dtype)], axis=0
+                    ) for a in chunk
+                ]
+            joints = np.asarray(self._call_fn(*chunk))  # forces readback
+            self.device_calls += 1
+            out_parts.append(joints[:cn])
+        joints = np.concatenate(out_parts, axis=0)
+        self.samples_served += n
+        t1 = time.monotonic()
+        lo = 0
+        for arrays_i, fut, t_enq in items:
+            b = arrays_i[0].shape[0]
+            fut.set_result({
+                "joints_3d": joints[lo:lo + b],
+                "queue_ms": (t0 - t_enq) * 1e3,
+                "device_ms": (t1 - t0) * 1e3,
+                "batch_size": n,
+            })
+            lo += b
+
+
+class _Handler(BaseHTTPRequestHandler):
+    server_version = "pose3d-serve/1"
+
+    # quieter than the default stderr-per-request
+    def log_message(self, fmt, *args):
+        logger.debug("%s " + fmt, self.address_string(), *args)
+
+    def _json(self, code: int, payload: dict):
+        body = json.dumps(payload).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_GET(self):
+        srv = self.server
+        if self.path == "/healthz":
+            err = getattr(srv, "warmup_error", None)
+            if srv.ready:
+                payload = {"status": "ok"}
+            elif err:
+                payload = {"status": "failed", "error": err}
+            else:
+                payload = {"status": "warming up"}
+            self._json(200 if srv.ready else 503, payload)
+        elif self.path == "/meta":
+            self._json(200, {
+                "artifact": srv.artifact_meta,
+                "batching": srv.batcher.stats(),
+                "image_size": list(srv.image_hw),
+                "num_joints": srv.num_joints,
+            })
+        else:
+            self._json(404, {"error": f"unknown path {self.path}"})
+
+    def do_POST(self):
+        srv = self.server
+        if self.path != "/predict":
+            self._json(404, {"error": f"unknown path {self.path}"})
+            return
+        try:
+            length = int(self.headers.get("Content-Length", "0"))
+            data = np.load(io.BytesIO(self.rfile.read(length)))
+            missing = [k for k in INPUT_KEYS if k not in data.files]
+            if missing:
+                raise ValueError(f"missing npz keys: {missing}")
+            args = [data[k] for k in INPUT_KEYS]
+            # Validate EVERY array shape up front: a malformed request
+            # that reaches the batcher fails np.concatenate for the whole
+            # coalesced batch, 500-ing every concurrent well-formed
+            # request.
+            img, depth, kpts = args
+            if img.ndim != 4 or img.shape[3] != 3:
+                raise ValueError(f"image must be [b,H,W,3], got {img.shape}")
+            b = img.shape[0]
+            if b < 1:
+                raise ValueError("batch size must be >= 1")
+            hw = tuple(img.shape[1:3])
+            if hw != srv.image_hw:
+                raise ValueError(
+                    f"image is {hw}, the model expects {srv.image_hw}"
+                )
+            if depth.shape != (b,) + srv.image_hw + (1,):
+                raise ValueError(
+                    f"depth must be {(b,) + srv.image_hw + (1,)}, "
+                    f"got {depth.shape}"
+                )
+            if kpts.shape != (b, srv.num_joints, 2):
+                raise ValueError(
+                    f"keypoints_2d must be {(b, srv.num_joints, 2)}, "
+                    f"got {kpts.shape}"
+                )
+        except Exception as e:
+            self._json(400, {"error": str(e)})
+            return
+        try:
+            result = srv.batcher.submit(*args).result(timeout=srv.timeout_s)
+        except Exception as e:
+            self._json(500, {"error": str(e)})
+            return
+        buf = io.BytesIO()
+        np.savez(buf, joints_3d=result["joints_3d"])
+        body = buf.getvalue()
+        self.send_response(200)
+        self.send_header("Content-Type", "application/octet-stream")
+        self.send_header("Content-Length", str(len(body)))
+        self.send_header("X-Batch-Size", str(result["batch_size"]))
+        self.send_header("X-Queue-Ms", f"{result['queue_ms']:.2f}")
+        self.send_header("X-Device-Ms", f"{result['device_ms']:.2f}")
+        self.end_headers()
+        self.wfile.write(body)
 
 
 def make_server(checkpoint, host: str = "127.0.0.1", port: int = 8000, *,
@@ -42,14 +286,12 @@ def make_server(checkpoint, host: str = "127.0.0.1", port: int = 8000, *,
     ``server_close()``. ``dtype`` is the model's compute dtype. A warmup
     batch runs on a background thread and ``/healthz`` turns 200 once it
     has."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"device {device} requested but CUDA is not "
-                               "available")
-        # build before any thread can reach the kernel
-        flash_attention.load_library("flash_attention_fwd")
+    device = torch.device(device)  # "cuda" without a card raises in the load
     model, cfg = load_pose_model(checkpoint, device, dtype=dtype)
+    if device.type == "cuda" and cfg.model_type == "transformer":
+        # build before any thread can reach the kernel (the CNN's eval
+        # forward runs none: its BatchNorms read their running statistics)
+        flash_attention.load_library("flash_attention_fwd")
     batcher = MicroBatcher(make_serving_fn(model), max_batch=max_batch,
                            max_wait_ms=max_wait_ms)
     srv = ThreadingHTTPServer((host, port), _Handler)
@@ -57,7 +299,6 @@ def make_server(checkpoint, host: str = "127.0.0.1", port: int = 8000, *,
     srv.image_hw = tuple(cfg.image_size)
     srv.num_joints = cfg.num_joints
     srv.timeout_s = request_timeout_s
-    srv.pipeline = False
     srv.artifact_meta = {
         "checkpoint": str(checkpoint),
         "model_type": cfg.model_type,

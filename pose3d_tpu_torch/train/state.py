@@ -1,5 +1,6 @@
-"""Training state: the model (fp32 master parameters), AdamW, the LR
-schedule, the optional EMA of the parameters and the step count
+"""Training state: the model (fp32 master parameters and, for the CNN,
+BatchNorm running statistics), AdamW, the LR schedule, the optional EMA of
+the parameters and of those statistics, and the step count
 (counterpart of ``pose3d_tpu/train/state.py``).
 
 Optimizer semantics follow the JAX package's ``optax.adamw`` (b1 0.9,
@@ -11,14 +12,16 @@ out of the optimizer and stop requiring grad, so they take no update and
 no decay, as optax's ``set_to_zero`` branch. Optional clip-by-global-norm
 runs before AdamW, over the trainable gradients only.
 
-The transformer lifter has no BatchNorm, so the EMA slot holds parameters
-only (the JAX state's ``ema_batch_stats`` comes with the CNN port).
+``ema_batch_stats`` mirrors the JAX state's: the running means and
+variances averaged with the parameters' decay, so that averaged weights
+are never paired with the live model's statistics.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import warnings
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -35,10 +38,19 @@ class TrainState:
     scheduler: Optional[torch.optim.lr_scheduler.LambdaLR] = None
     clip_grad_norm: Optional[float] = None
     ema_params: Optional[Dict[str, torch.Tensor]] = None
+    ema_batch_stats: Optional[Dict[str, torch.Tensor]] = None
     step: int = 0
 
     def trainable(self) -> List[torch.Tensor]:
         return [p for g in self.optimizer.param_groups for p in g["params"]]
+
+
+def batch_stats(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's BatchNorm running means and variances by state_dict
+    name (the JAX package's ``batch_stats`` collection); empty for a model
+    without BatchNorm."""
+    return {n: b for n, b in model.named_buffers()
+            if n.endswith((".running_mean", ".running_var"))}
 
 
 def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
@@ -154,31 +166,50 @@ def create_train_state(model: nn.Module, learning_rate: float = 1e-3,
                        clip_grad_norm: Optional[float] = None,
                        ema: bool = False) -> TrainState:
     """A state at step 0 for ``model`` (built with ``train=True``). With
-    ``ema`` the average starts as a copy of every parameter."""
+    ``ema`` the average starts as a copy of every parameter and, when the
+    model has BatchNorm, of every running mean and variance."""
     opt, sched = make_optimizer(
         model, learning_rate, weight_decay, lr_schedule=lr_schedule,
         frozen_prefixes=frozen_prefixes,
         trainable_exceptions=trainable_exceptions)
     ema_params = ({n: p.detach().clone()
                    for n, p in model.named_parameters()} if ema else None)
-    return TrainState(model, opt, sched, clip_grad_norm, ema_params)
+    stats = batch_stats(model)
+    ema_stats = ({n: b.detach().clone() for n, b in stats.items()}
+                 if ema and stats else None)
+    return TrainState(model, opt, sched, clip_grad_norm, ema_params,
+                      ema_stats)
 
 
 @contextlib.contextmanager
 def with_ema_params(state: TrainState):
-    """Inside the block the model holds the EMA parameters (for eval or
-    export); the live ones come back after it. No-op without EMA."""
+    """Inside the block the model holds the EMA parameters and the EMA
+    BatchNorm statistics (for eval or export); the live ones come back
+    after it. No-op without EMA. A state that averaged the parameters of a
+    BatchNorm model but not its statistics (an older checkpoint) warns: the
+    averaged weights then run with the live statistics."""
     if state.ema_params is None:
         yield state
         return
-    params = dict(state.model.named_parameters())
-    live = {n: p.detach().clone() for n, p in params.items()}
+    slots = dict(state.model.named_parameters())
+    ema = dict(state.ema_params)
+    stats = batch_stats(state.model)
+    if state.ema_batch_stats is not None:
+        slots.update(stats)
+        ema.update(state.ema_batch_stats)
+    elif stats:
+        warnings.warn(
+            "the state carries ema_params but no ema_batch_stats for a "
+            "model with BatchNorm: the averaged weights run with the live "
+            "running statistics (build the state with "
+            "create_train_state(..., ema=True))", stacklevel=3)
+    live = {n: t.detach().clone() for n, t in slots.items()}
     try:
         with torch.no_grad():
-            for n, p in params.items():
-                p.copy_(state.ema_params[n])
+            for n, t in slots.items():
+                t.copy_(ema[n])
         yield state
     finally:
         with torch.no_grad():
-            for n, p in params.items():
-                p.copy_(live[n])
+            for n, t in slots.items():
+                t.copy_(live[n])

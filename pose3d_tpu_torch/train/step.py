@@ -6,18 +6,21 @@ step, updating the state in place. Accumulation modes:
 
 * ``"grouped"`` (default): one forward and backward over the flat A·B
   batch with the mean loss, which equals the mean of the A microbatch
-  means. The JAX step's BatchNorm interceptor has nothing to do on the
-  transformer; the port's grouped step refuses a model with BatchNorm,
-  whose per-group statistics come with the CNN port.
+  means. Every plain BatchNorm works per group of B samples for the
+  duration of the step (:mod:`pose3d_tpu_torch.train.ghost_bn`), so
+  statistics, running averages and gradients equal the scan path's; the
+  ``bn_stats``-kernel BatchNorm (``normalization="batch_pallas"``) is
+  refused, as in the JAX package.
 * ``"scan"``: A sequential forward/backward passes, gradients summed and
   then divided by A (the reference's accumulation loop); activations of
-  one microbatch at a time.
+  one microbatch at a time, and the BatchNorm running statistics move from
+  one microbatch to the next in the modules' buffers.
 
 (The JAX package's ``"ghost"`` vmap mode is not ported.)
 
 The update clips by global norm when the state asks for it, steps AdamW
-and the LR schedule, and moves the EMA with the ramp
-d_t = min(d, (1 + t)/(10 + t)).
+and the LR schedule, and moves the EMA of the parameters and of the
+BatchNorm running statistics with the ramp d_t = min(d, (1 + t)/(10 + t)).
 """
 
 from __future__ import annotations
@@ -25,7 +28,6 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
-from torch import nn
 
 from pose3d_tpu_torch.geometry.metrics import procrustes_align
 from pose3d_tpu_torch.ops.losses import (
@@ -33,7 +35,8 @@ from pose3d_tpu_torch.ops.losses import (
     composite_pose_loss,
     composite_pose_loss_per_sample,
 )
-from pose3d_tpu_torch.train.state import TrainState
+from pose3d_tpu_torch.train.ghost_bn import grouped_batchnorm
+from pose3d_tpu_torch.train.state import TrainState, batch_stats
 
 ACCUM_MODES = ("grouped", "scan")
 
@@ -97,6 +100,11 @@ def _apply_update(state: TrainState, ema_decay: Optional[float]) -> None:
         d = min(ema_decay, (1.0 + t) / (10.0 + t))
         names, live = zip(*state.model.named_parameters())
         ema = [state.ema_params[n] for n in names]
+        if state.ema_batch_stats is not None:
+            # the updated running statistics, averaged with the same decay
+            stats = batch_stats(state.model)
+            live += tuple(stats.values())
+            ema += [state.ema_batch_stats[n] for n in stats]
         with torch.no_grad():
             torch._foreach_mul_(ema, d)
             torch._foreach_add_(ema, [p.detach() for p in live],
@@ -115,15 +123,13 @@ def make_train_step(weights: LossWeights = LossWeights(), *,
                          f"(ported: {ACCUM_MODES})")
 
     def grouped(state, batch, generator):
-        model = state.model
-        if any(isinstance(m, nn.modules.batchnorm._BatchNorm)
-               for m in model.modules()):
-            raise NotImplementedError(
-                "grouped accumulation needs per-group BatchNorm statistics, "
-                "which come with the CNN port; use accum_mode='scan'")
+        accum = batch["image"].shape[0]
         flat = {k: v.reshape(-1, *v.shape[2:]) for k, v in batch.items()}
-        loss, comps = _forward_loss(model, flat, weights, generator)
-        loss.backward()
+        # the backward too: a rematerialised block runs its forward again
+        with grouped_batchnorm(state.model, accum):
+            loss, comps = _forward_loss(state.model, flat, weights,
+                                        generator)
+            loss.backward()
         return comps
 
     def scan(state, batch, generator):

@@ -8,9 +8,14 @@ on a machine without it:
 import pytest
 import torch
 
-from pose3d_tpu_torch.core.config import TransformerModelConfig
+from pose3d_tpu_torch.core.config import CNNModelConfig, TransformerModelConfig
 from pose3d_tpu_torch.models import build_model
 from pose3d_tpu_torch.ops.attention import dot_product_attention
+from pose3d_tpu_torch.ops.kernels.bn_stats import (
+    BnStats,
+    bn_stats,
+    bn_stats_reference,
+)
 from pose3d_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_bwd,
     flash_attention_bwd_reference,
@@ -37,6 +42,7 @@ def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the kernel is CUDA-only)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 @pytest.mark.cuda
@@ -147,3 +153,144 @@ def test_cuda_backward_reaches_the_patch_embedding():
     assert grads["auto"] is not None and grads["auto"].abs().sum() > 0
     assert torch.allclose(grads["auto"], grads["reference"], rtol=1e-3,
                           atol=1e-5)
+
+
+# (n, C): the CNN's BatchNorm inputs at microbatch 10 and ragged ones
+BN_SHAPES = [(625000, 64), (156250, 128), (39690, 768), (10240, 3072),
+             (640, 1024), (10, 512), (1, 3), (7, 64), (1025, 3)]
+# max |Δ| relative to max(1, max|ref|): fp32 sums in another order
+TOL_BN = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_bn_stats_matches_plain_version(dtype):
+    """The kernel against the plain version, forward and through the
+    Function's backward, and the same sums from run to run (no atomics)."""
+    _cuda()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for n, C in BN_SHAPES:
+        x = (torch.randn(n, C, generator=g, device="cuda") * 1.5 + 0.3).to(dt)
+        before = bn_stats.launches
+        s1, s2 = bn_stats(x)
+        torch.cuda.synchronize()
+        assert bn_stats.launches == before + 1
+        again = bn_stats(x)
+        assert torch.equal(s1, again[0]) and torch.equal(s2, again[1])
+        for got, ref in zip((s1, s2), bn_stats_reference(x)):
+            assert got.shape == (C,) and got.dtype == torch.float32
+            scale = max(1.0, ref.abs().max().item())
+            assert (got - ref).abs().max().item() <= TOL_BN * scale, (n, C)
+        xk = x.clone().requires_grad_()
+        xr = x.clone().requires_grad_()
+        w = torch.randn(2, C, generator=g, device="cuda")
+        for leaf, use_kernel in ((xk, True), (xr, False)):
+            a, b = BnStats.apply(leaf, use_kernel)
+            ((a * w[0]).sum() + (b * w[1]).sum()).backward()
+        assert xk.grad.dtype == dt and torch.equal(xk.grad, xr.grad)
+
+
+@pytest.mark.cuda
+def test_bn_stats_reads_rows_by_stride_and_refuses_strided_channels():
+    """A channel slice of a wider activation (row stride > C, unaligned
+    base) is read in place; channels that are not contiguous raise, and no
+    launch is counted for them."""
+    _cuda()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    wide = torch.randn(1000, 96, generator=g, device="cuda").bfloat16()
+    for view in (wide[:, :64], wide[:, 3:67], wide[::2, 8:72]):
+        for got, ref in zip(bn_stats(view), bn_stats_reference(view)):
+            scale = max(1.0, ref.abs().max().item())
+            assert (got - ref).abs().max().item() <= TOL_BN * scale
+    before = bn_stats.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        bn_stats(wide.t())
+    with pytest.raises(ValueError, match="contiguous"):
+        bn_stats(wide[:, ::2])
+    assert bn_stats.launches == before
+
+
+# The small CNN's fp32 train forward with the bn_stats kernel against the
+# plain statistics, relative L2 of the output at 16 samples. On an NVIDIA
+# H100 80GB HBM3 (700 W) the kernel reads 1.9e-6; the plain sums taken in
+# fp64, another summation order as the kernel's is, read 2.0e-6; one sum
+# of one channel of one layer 1% wrong reads 1.1e-3. The bound is ten
+# times the first two readings.
+TOL_CNN_FWD = 2e-5
+
+
+@pytest.mark.cuda
+def test_cnn_train_forward_launches_bn_stats_once_per_batchnorm(monkeypatch):
+    """A small batch_pallas CNN on the card: one launch per ConvBnAct in a
+    train forward, none in eval, none with stats_impl="reference"; every
+    BatchNorm is handed a dense NHWC tensor by its conv (checked here; the
+    module's view() would raise otherwise, there is no copy to hide it);
+    the fp32 output with the kernel agrees with the plain statistics to
+    summation order, which a wrong statistic in one small layer does not."""
+    import pose3d_tpu_torch.ops.kernels.bn_stats as bn_mod
+
+    _cuda()
+    cfg = CNNModelConfig(
+        image_size=(50, 50), heatmap_size=50, initial_channels=8,
+        stage_channels=(16, 32, 64), stage_depths=(1, 3, 3),
+        global_pool_size=2, global_feature_dim=32, regression_dims=(32, 16),
+        regression_dropout=0.0, normalization="batch_pallas")
+    # 16 samples: BatchNorm over 2 to 4 is ill-conditioned in fp32
+    g = torch.Generator(device="cuda").manual_seed(6)
+    args = (torch.rand(16, 50, 50, 3, generator=g, device="cuda"),
+            torch.rand(16, 50, 50, 1, generator=g, device="cuda"),
+            torch.rand(16, 17, 2, generator=g, device="cuda"))
+
+    def forward(impl, dt):
+        model = build_model(cfg, device="cuda", dtype=dt,
+                            stats_impl=impl, train=True)
+        norms = [m for m in model.modules()
+                 if type(m).__name__ in ("BatchNorm", "DotStatsBatchNorm")]
+        n_bn = sum(type(m).__name__ == "DotStatsBatchNorm" for m in norms)
+        dense = []
+        hooks = [m.register_forward_pre_hook(
+            lambda _m, a: dense.append(a[0].is_contiguous())) for m in norms]
+        before = bn_stats.launches
+        out = model(*args)
+        out.square().sum().backward()
+        assert len(dense) == len(norms) > n_bn > 0 and all(dense)
+        assert bn_stats.launches - before == (n_bn if impl == "auto" else 0)
+        for h in hooks:
+            h.remove()
+        model.eval()
+        with torch.no_grad():
+            model(*args)
+        assert bn_stats.launches - before == (n_bn if impl == "auto" else 0)
+        return out.detach().double()
+
+    outs = {(impl, dt): forward(impl, dt)
+            for impl in ("auto", "reference")
+            for dt in (torch.float32, torch.bfloat16)}
+    plain = outs["reference", torch.float32]
+
+    def rel(x):
+        return ((x - plain).norm() / plain.norm()).item()
+
+    # two yardsticks through the same model: the plain sums taken in fp64
+    # (another summation order, as the kernel's is), and a fault: the
+    # 32-channel layer's first variance sum 1% too large
+    def in_fp64(x):
+        xd = x.double()
+        return xd.sum(0).float(), (xd * xd).sum(0).float()
+
+    def one_wrong(x):
+        s1, s2 = bn_stats_reference(x)
+        if x.shape == (64, 32):     # the global-features BatchNorm
+            s2 = s2.clone()
+            s2[0] *= 1.01
+        return s1, s2
+
+    readings = {"kernel": rel(outs["auto", torch.float32])}
+    for name, fn in (("fp64 sums", in_fp64), ("one wrong sum", one_wrong)):
+        monkeypatch.setattr(bn_mod, "bn_stats_reference", fn)
+        readings[name] = rel(forward("reference", torch.float32))
+    monkeypatch.undo()
+    print("rel L2 of the fp32 output against the plain statistics:", readings)
+    assert readings["kernel"] <= TOL_CNN_FWD, readings
+    assert readings["one wrong sum"] > TOL_CNN_FWD, readings

@@ -19,7 +19,7 @@ from torch_port_helpers import (
 from pose3d_tpu.compat_export import export_reference_transformer
 from pose3d_tpu_torch.compat import state_dict_from_jax
 from pose3d_tpu_torch.core.config import TransformerModelConfig
-from pose3d_tpu_torch.models import build_model
+from pose3d_tpu_torch.models import build_model, dummy_inputs
 from pose3d_tpu_torch.models.transformer import PatchEmbedding
 
 CFG = TransformerModelConfig(**TINY_KW)
@@ -32,7 +32,7 @@ def jax_fp32():
 
 
 def _port(variables, dtype):
-    model = build_model(CFG, dtype=dtype)
+    model = build_model(CFG, device="cpu", dtype=dtype)
     model.load_state_dict(state_dict_from_jax(variables, CFG), strict=True)
     return model
 
@@ -45,7 +45,7 @@ def _run(model, args):
 def test_state_dict_keys_and_order_match_exporter(jax_fp32):
     _, variables = jax_fp32
     want = export_reference_transformer(variables, CFG).sd
-    got = build_model(CFG).state_dict()
+    got = build_model(CFG, device="cpu").state_dict()
     assert list(got) == list(want)
     for k, v in want.items():
         assert tuple(got[k].shape) == v.shape, k
@@ -85,7 +85,7 @@ def test_forward_bf16_matches_jax_bf16():
 def test_heatmap_grid_buffers_match_exporter(jax_fp32):
     _, variables = jax_fp32
     sd = state_dict_from_jax(variables, CFG)
-    model = build_model(CFG)
+    model = build_model(CFG, device="cpu")
     for name in ("x_grid", "y_grid"):
         assert torch.equal(getattr(model.heatmap_generator, name),
                            sd[f"heatmap_generator.{name}"])
@@ -109,7 +109,8 @@ def test_patch_embedding_equals_strided_conv():
 
 def test_build_model_is_seeded_and_ready_to_serve():
     def params(seed):
-        m = build_model(CFG, generator=torch.Generator().manual_seed(seed))
+        m = build_model(CFG, device="cpu",
+                        generator=torch.Generator().manual_seed(seed))
         assert not m.training
         assert all(not p.requires_grad and p.dtype == torch.float32
                    for p in m.parameters())
@@ -119,12 +120,29 @@ def test_build_model_is_seeded_and_ready_to_serve():
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["vit_backbone.blocks.0.attn.qkv.weight"],
                            c["vit_backbone.blocks.0.attn.qkv.weight"])
-    with pytest.raises(NotImplementedError):
-        build_model("cnn")
+    with pytest.raises(ValueError, match="Unsupported"):
+        build_model("rnn")
+
+
+@pytest.mark.parametrize("model_type", ["transformer", "cnn"])
+def test_build_model_defaults_to_the_card(model_type):
+    """``build_model`` and ``dummy_inputs`` run on the card unless the
+    caller asks for the CPU: with no card they raise, they do not fall
+    back (and so never train with the plain BatchNorm statistics by
+    default)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(model_type, train=True)
+    with pytest.raises((RuntimeError, AssertionError)):
+        dummy_inputs(CFG)
 
 
 def test_state_dict_from_jax_rejects_cnn():
+    """The CNN bridge takes the two BatchNorm settings the port builds and
+    refuses the other normalisations, whose variables it cannot name."""
     from pose3d_tpu.core.config import CNNModelConfig
 
-    with pytest.raises(NotImplementedError, match="CNN"):
-        state_dict_from_jax({"params": {}}, CNNModelConfig())
+    with pytest.raises(ValueError, match="batch_pallas"):
+        state_dict_from_jax({"params": {}, "batch_stats": {}},
+                            CNNModelConfig(normalization="group"))

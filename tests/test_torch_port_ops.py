@@ -48,8 +48,14 @@ def test_config_from_checkpoint_args():
     assert ours.image_size == (64, 64)
     assert tcfg.make_model_config(model_type="transformer") \
         == tcfg.TransformerModelConfig()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcfg.make_model_config("cnn")
+    cnn_args = {"image_size": [64, 64], "heatmap_size": 64,
+                "stage_channels": [16, 32, 64], "normalization":
+                "batch_pallas", "unknown_key": 1}
+    assert tcfg.make_model_config("cnn", **cnn_args).to_dict() \
+        == jcfg.make_model_config("cnn", **cnn_args).to_dict()
+    assert tcfg.CNNModelConfig().to_dict() == jcfg.CNNModelConfig().to_dict()
+    with pytest.raises(ValueError, match="heatmap_size must equal"):
+        tcfg.make_model_config("cnn", heatmap_size=64)
     with pytest.raises(ValueError, match="Unsupported"):
         tcfg.make_model_config("rnn")
 

@@ -117,15 +117,16 @@ def test_cuda_device_without_card_raises(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     cfg = TransformerModelConfig(**TINY_KW)
-    pth = save_pose_model(build_model(cfg, dtype=torch.float32),
-                          tmp_path / "m.pth")
+    pth = save_pose_model(
+        build_model(cfg, device="cpu", dtype=torch.float32),
+        tmp_path / "m.pth")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_server(pth, "127.0.0.1", 0)  # device defaults to cuda
 
 
 def test_save_load_round_trip_and_loader_forms(tmp_path):
     cfg = TransformerModelConfig(**TINY_KW)
-    model = build_model(cfg, dtype=torch.float32,
+    model = build_model(cfg, device="cpu", dtype=torch.float32,
                         generator=torch.Generator().manual_seed(7))
     pth = save_pose_model(model, tmp_path / "m.pth", step=4)
     ckpt = torch.load(pth, weights_only=True)
@@ -159,8 +160,9 @@ def test_loader_rejects_unreadable_checkpoints(tmp_path):
     with pytest.raises(ValueError, match="neither"):
         load_pose_model(tmp_path / "odd.pth", "cpu")
     cfg = TransformerModelConfig(**TINY_KW)
-    pth = save_pose_model(build_model(cfg, dtype=torch.float32),
-                          tmp_path / "m.pth")
+    pth = save_pose_model(
+        build_model(cfg, device="cpu", dtype=torch.float32),
+        tmp_path / "m.pth")
     ckpt = torch.load(pth, weights_only=True)
     ckpt["model_args"]["vit_depth"] = 3  # architecture no longer fits
     torch.save(ckpt, tmp_path / "wrong.pth")
@@ -168,29 +170,48 @@ def test_loader_rejects_unreadable_checkpoints(tmp_path):
         load_pose_model(tmp_path / "wrong.pth", "cpu")
     ckpt["model_type"] = "cnn"
     torch.save(ckpt, tmp_path / "cnn.pth")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    ckpt["model_args"] = {}     # transformer weights under a CNN's name
+    torch.save(ckpt, tmp_path / "cnn.pth")
+    with pytest.raises(ValueError, match="do not fit the cnn"):
         load_pose_model(tmp_path / "cnn.pth", "cpu")
 
 
 def test_port_imports_no_jax():
+    """In a fresh process, importing every module of the port (the package
+    is walked) and running a tiny lifter of each kind loads nothing of
+    JAX, flax or the JAX package."""
     code = (
-        "import sys, torch\n"
-        "import pose3d_tpu_torch.serve_http, pose3d_tpu_torch.compat\n"
-        "from pose3d_tpu_torch.core.config import TransformerModelConfig\n"
+        "import importlib, pkgutil, sys, torch\n"
+        "import pose3d_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    pose3d_tpu_torch.__path__, 'pose3d_tpu_torch.')]\n"
+        "assert len(names) > 20, names\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "from pose3d_tpu_torch.core.config import (CNNModelConfig,\n"
+        "    TransformerModelConfig)\n"
         "from pose3d_tpu_torch.models import build_model, dummy_inputs\n"
-        "cfg = TransformerModelConfig(image_size=(32, 32), heatmap_size=16,\n"
-        "    transformer_embed_dim=32, transformer_heads=2, vit_depth=1,\n"
-        "    vit_heads=2, final_encoder_depth=1, num_cross_modal_layers=1)\n"
-        "with torch.inference_mode():\n"
-        "    out = build_model(cfg, dtype=torch.float32)(*dummy_inputs(cfg, 2))\n"
-        "assert out.shape == (2, 17, 3) and torch.isfinite(out).all()\n"
+        "cfgs = [TransformerModelConfig(image_size=(32, 32),\n"
+        "    heatmap_size=16, transformer_embed_dim=32,\n"
+        "    transformer_heads=2, vit_depth=1, vit_heads=2,\n"
+        "    final_encoder_depth=1, num_cross_modal_layers=1),\n"
+        "    CNNModelConfig(image_size=(32, 32), heatmap_size=32,\n"
+        "    initial_channels=8, stage_channels=(8, 8, 16),\n"
+        "    stage_depths=(1, 1, 1), global_pool_size=2,\n"
+        "    global_feature_dim=16, regression_dims=(16,))]\n"
+        "for cfg in cfgs:\n"
+        "    with torch.inference_mode():\n"
+        "        out = build_model(cfg, device='cpu', dtype=torch.float32)(\n"
+        "            *dummy_inputs(cfg, 2, 'cpu'))\n"
+        "    assert out.shape == (2, 17, 3) and torch.isfinite(out).all()\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+        "                                    'pose3d_tpu'))\n"
         "assert not bad, bad\n"
-        "print('ok')\n"
+        "print('ok', len(names))\n"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    assert out.stdout.split()[0] == "ok"

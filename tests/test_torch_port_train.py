@@ -13,7 +13,12 @@ import optax
 import pytest
 import torch
 
-from torch_port_helpers import TINY_KW, inputs, jax_model
+from torch_port_helpers import (
+    TINY_KW,
+    assert_params_close as _assert_params_close,
+    inputs,
+    jax_model,
+)
 
 from pose3d_tpu.core import config as jcfg
 from pose3d_tpu.data.collate import compact_batch as jax_compact_batch
@@ -215,7 +220,7 @@ def jax_tiny():
 
 
 def _port_model(variables, cfg=CFG0):
-    model = build_model(cfg, dtype=torch.float32, train=True)
+    model = build_model(cfg, device="cpu", dtype=torch.float32, train=True)
     model.load_state_dict(state_dict_from_jax(variables, cfg), strict=True)
     return model
 
@@ -290,21 +295,6 @@ def test_lifter_gradients_match_jax(jax_tiny, jax_one_step):
         tol = 1e-4 * max(1.0, float(np.abs(ref).max()))
         np.testing.assert_allclose(p.grad.numpy(), ref, rtol=0, atol=tol,
                                    err_msg=name)
-
-
-def _assert_params_close(got, want, grads):
-    """``got``, ``want``, ``grads``: name → tensor. Adam's first step moves
-    each element by lr·u, u = g/(|g| + 1e-8): sign-like. The two
-    frameworks' gradients differ by summation order (|Δg| up to ~1e-7
-    here), which moves u by 1e-8·|Δg|/g²: negligible for |g| >= 1e-4,
-    where the params are held to 1e-6 (fp32 rounding of p); for a gradient
-    nearer 0 the update itself is uncertain, up to 2·lr apart."""
-    for name, t in got.items():
-        ref = want[name].numpy()
-        tiny = np.abs(grads[name].numpy()) < 1e-4
-        err = np.abs(t.detach().numpy() - ref)
-        assert err[~tiny].max(initial=0) <= 1e-6, name
-        assert err.max(initial=0) <= 2 * LR, name
 
 
 @pytest.mark.parametrize("accum_mode", ["grouped", "scan"])
@@ -457,7 +447,7 @@ def test_eval_step_and_ragged_evaluate_match_jax(jax_tiny):
 
 def test_dropout_only_in_train_mode_and_from_the_generator():
     cfg = TransformerModelConfig(**TINY_KW)      # published dropout rates
-    model = build_model(cfg, dtype=torch.float32, train=True)
+    model = build_model(cfg, device="cpu", dtype=torch.float32, train=True)
     args = [torch.from_numpy(a) for a in inputs(9, 2)]
     gen = lambda s: torch.Generator().manual_seed(s)  # noqa: E731
     with pytest.raises(ValueError, match="Generator"):
@@ -470,7 +460,7 @@ def test_dropout_only_in_train_mode_and_from_the_generator():
         e = model(*args)
         assert torch.equal(e, model(*args, generator=gen(1)))
     assert not torch.equal(a, e)
-    serving = build_model(cfg, dtype=torch.float32)
+    serving = build_model(cfg, device="cpu", dtype=torch.float32)
     assert not serving.training
     assert not any(p.requires_grad for p in serving.parameters())
     assert all(p.requires_grad for p in model.parameters())
@@ -483,6 +473,9 @@ def test_global_config_matches_jax():
 
 
 def test_grouped_step_refuses_batchnorm():
+    """The grouped step groups the port's own BatchNorm; it refuses the
+    flavours it cannot group (stock torch BatchNorm here; the bn_stats
+    flavour in test_torch_port_cnn.py) and an unknown mode."""
     model = torch.nn.Sequential(torch.nn.BatchNorm1d(3))
     st = tstate.create_train_state(model)
     batch = {"image": torch.zeros(2, 2, 3)}
@@ -509,7 +502,7 @@ def test_train_model_on_cpu_saves_a_servable_pth(tmp_path):
     writes strict-loads through ``load_pose_model`` with the trained
     weights."""
     cfg = TransformerModelConfig(**TINY_KW)
-    model = build_model(cfg, dtype=torch.float32, train=True,
+    model = build_model(cfg, device="cpu", dtype=torch.float32, train=True,
                         generator=torch.Generator().manual_seed(11))
     st = tstate.create_train_state(model, ema=True)
     batches, _ = _superbatch(6, 4, 2)

@@ -58,3 +58,21 @@ def rel_l2(a, b) -> float:
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def assert_params_close(got, want, grads, lr: float = 1e-3, grad_tol=1e-4):
+    """``got``, ``want``, ``grads``: name → tensor, after one AdamW step at
+    ``lr``. Adam's first step moves each element by lr·u, u = g/(|g| +
+    1e-8): sign-like. The two frameworks' gradients differ by summation
+    order (|Δg| up to ``grad_tol``, a number or a function of the
+    reference gradient tensor), which moves u by 1e-8·|Δg|/g²: negligible
+    for |g| >= grad_tol, where the params are held to 1e-6 (fp32 rounding
+    of p); for a gradient nearer 0 the update itself is uncertain, up to
+    2·lr apart."""
+    for name, t in got.items():
+        ref = want[name].numpy()
+        g = np.abs(grads[name].numpy())
+        tiny = g < (grad_tol(g) if callable(grad_tol) else grad_tol)
+        err = np.abs(t.detach().numpy() - ref)
+        assert err[~tiny].max(initial=0) <= 1e-6, name
+        assert err.max(initial=0) <= 2 * lr, name
