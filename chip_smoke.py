@@ -8,12 +8,14 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each fatal on failure:
   1. environment: card name and power limit, torch/CUDA/nvcc versions;
   2. build: every kernel of the serving and training paths (the two
-     flash-attention kernels and ``bn_stats``), from
+     flash-attention kernels, ``bn_stats`` and ``lane_resample``), from
      ``pose3d_tpu_torch/csrc``, one nvcc per source, all started together
      (build seconds and ptxas register/shared-memory/spill lines);
   3. kernels: each kernel against its plain PyTorch version at every shape
      the paths give it and at ragged ones, in bf16 and fp32, with the
-     tolerances below (``bn_stats``: forward and the Function's backward);
+     tolerances below (``bn_stats``: forward and the Function's backward;
+     ``lane_resample``: order 0 equal, order 1 within 1e-6, repeats
+     bitwise);
   4. slice (serving): the full published transformer config (random
      weights from a seeded generator) saved as a reference-schema ``.pth``,
      served by the port's HTTP server, answering concurrent ``/predict``
@@ -33,8 +35,11 @@ Phases, each fatal on failure:
   6. times: each kernel vs its plain version per shape, beside the least
      time the card could take and one library call as a yardstick
      (``scaled_dot_product_attention`` forward and backward,
-     ``torch.batch_norm_stats``; timed here, used nowhere in the port), the
-     batch-8 forward with each, per-request latency, the batch-2 train step
+     ``torch.batch_norm_stats``, ``grid_sample``; timed here, used nowhere
+     in the port; ``lane_resample`` on the lines that one augmentation
+     with seeded draws hands it, its bound counted from those lines), the
+     batch-8 forward with each (between events, and its device kernels'
+     own time from ``torch.profiler``), per-request latency, the batch-2 train step
      with each, and the 10×10 train step with the kernels (ms, images/s,
      peak memory), each with the card's name and power limit;
   7. cnn: the CNN lifter at the published full width (500×500), (a)
@@ -48,7 +53,21 @@ Phases, each fatal on failure:
      of 100 fits the card and with it when not (the peak of both is
      printed), and a ``torch.profiler`` split of that step; (d)
      ``evaluate`` over a full and a ragged batch, and (a)'s ``.pth`` served
-     and answering one ``/predict``.
+     and answering one ``/predict``; (e) the same CNN trained by
+     ``train_model(augment=make_device_augment(cfg))``: 3 grouped steps
+     with rotation on (the two-pass warp, 4 ``lane_resample`` launches per
+     step), 3 grouped steps with rotation off (the separable warp, no
+     launch), 2 scan steps with rotation on (40 launches per step), each
+     timed beside the un-augmented step (host clock, and the device
+     kernels' own time of one step each from ``torch.profiler``), and
+     evaluated after;
+  8. augment: the device augmentor on smooth seeded 500×500 images: the
+     two-pass warp on the kernel against the same on the plain version and
+     against the exact single-pass oracle, a blob painted at a keypoint
+     against the transformed keypoint, the separable warp against the
+     oracle (depth equal), and the time of one augmentation of the flat
+     batch of 100, split by a ``torch.profiler`` trace of that call into
+     the four launches, the layout copies and the rest.
 
 Standard output ends with a JSON line of the kernels and, last, one JSON
 line ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -120,7 +139,8 @@ REQUEST_BATCHES = [1, 1, 2, 3, 8]
 # (grouped: one flat batch of 100 fits in 80 GB, PERF.md).
 TRAIN_STEPS = 3
 ACCUM_MODE = "grouped"
-KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "bn_stats")
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "bn_stats",
+           "lane_resample")
 # bn_stats: (n, C) beside the path's own shapes, in bf16 and fp32; max |Δ|
 # of Σx and Σx² against the plain version relative to max(1, max|ref|). Both
 # sum in fp32 in another order: over 625,000 rows of magnitude ~1.5 the
@@ -139,6 +159,28 @@ BN_STEM = (625000, 64)      # the stem's [n, C] at microbatch 10
 TOL_CNN_STEP = 1e-4
 TOL_CNN_STEP_GRAD = 3e-4
 CNN_STEPS = 3
+# lane_resample: (N, W) of every call of the two-pass warp (image rows,
+# depth rows) for the CNN at 10 x 10 grouped and scan and the transformer
+# grouped, and ragged ones. Kernel and plain version round every operation
+# on its own and so see the same positions: order 0 (a pixel pick) must be
+# equal; order 1 is held to 1e-6 on inputs in [0, 1] (it reads 0 too).
+LR_PATH = [(150000, 500), (50000, 500), (15000, 500), (5000, 500),
+           (153600, 512), (51200, 512)]
+LR_RAGGED = [(n, w) for n in (1, 13) for w in (1, 50, 129, 200)]
+TOL_LR = 1e-6
+LR_IMAGE = (150000, 500, 1)     # grouped step: image rows, bilinear
+# The augmentor at 500 x 500 on smooth images. Two-pass warp on the kernel
+# against the same on the plain version: geometry and depth equal, pixels
+# 1e-6. Against the exact single-pass oracle, the bounds of the JAX
+# package's own test of its two-pass warp: keypoints 1e-6, joints 1e-4,
+# pixel difference mean < 0.01 and max < 0.2 (the sub-pixel shear
+# approximation). Separable warp against the oracle: 1e-5, depth equal
+# (one-hot weights in full fp32). A blob painted at a keypoint must land
+# within 2 px of the transformed keypoint.
+TOL_AUG_IMPL = 1e-6
+TOL_AUG_SEPARABLE = 1e-5
+AUG_STEPS = 3
+AUG_SCAN_STEPS = 2
 # The card's published peaks (H100 SXM): bytes/s of device memory, dense
 # bf16 and plain fp32 operations/s.
 HBM_BYTES_S = 3.35e12
@@ -170,11 +212,13 @@ def phase_environment(torch) -> str:
 
 def phase_build() -> None:
     from pose3d_tpu_torch.ops.kernels import _build, bn_stats, \
-        flash_attention
+        flash_attention, lane_resample
 
     def load(name):
         if name == "bn_stats":
             return bn_stats.load_library()
+        if name == "lane_resample":
+            return lane_resample.load_library()
         return flash_attention.load_library(name)
 
     t0 = time.perf_counter()
@@ -197,10 +241,11 @@ def _kernel_fns():
         flash_attention_bwd,
         flash_attention_fwd,
     )
+    from pose3d_tpu_torch.ops.kernels.lane_resample import lane_resample
 
     return {"flash_attention_fwd": flash_attention_fwd,
             "flash_attention_bwd": flash_attention_bwd,
-            "bn_stats": bn_stats}
+            "bn_stats": bn_stats, "lane_resample": lane_resample}
 
 
 def zero_launch_counts() -> None:
@@ -277,6 +322,7 @@ def phase_kernels(torch) -> dict:
             if not ok:
                 failures.append(("bwd", name, Tq, Tk, H, D))
     worst_bn, worst_bn_rel = _check_bn_stats(torch, failures)
+    worst_lr = _check_lane_resample(torch, failures)
     if failures:
         raise SystemExit(f"kernel disagrees with its plain version: {failures}")
     # every value is a max |Δ| in the output's own units; bn_stats' sums
@@ -284,7 +330,8 @@ def phase_kernels(torch) -> dict:
     return {"flash_attention_fwd": {"max_abs_err": worst},
             "flash_attention_bwd": {"max_abs_err": worst_bwd},
             "bn_stats": {"max_abs_err": worst_bn,
-                         "max_err_rel_to_max_1_ref": worst_bn_rel}}
+                         "max_err_rel_to_max_1_ref": worst_bn_rel},
+            "lane_resample": {"max_abs_err": worst_lr}}
 
 
 def _cnn_config(**kw):
@@ -374,6 +421,54 @@ def _check_bn_stats(torch, failures: list) -> tuple:
     return worst, worst_rel
 
 
+def _lane_resample_inputs(torch, n: int, w: int, seed: int):
+    """x in [0, 1], a in [-1.3, 1.3], o in ±0.3·W (counted from W−1 for
+    the rows with a < 0, which are read right to left)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand(n, w, generator=g, device="cuda")
+    a = torch.rand(n, generator=g, device="cuda") * 2.6 - 1.3
+    o = (torch.rand(n, generator=g, device="cuda") * 0.6 - 0.3) * w \
+        + torch.where(a < 0, float(w - 1), 0.0)
+    return x, a, o
+
+
+def _check_lane_resample(torch, failures: list) -> float:
+    """lane_resample against its plain version at the path's shapes and
+    the ragged ones, both orders. Returns the worst max |Δ| seen."""
+    from pose3d_tpu_torch.ops.kernels.lane_resample import (
+        lane_resample,
+        lane_resample_reference,
+    )
+
+    worst = 0.0
+    for i, (n, w) in enumerate(LR_PATH + LR_RAGGED):
+        x, a, o = _lane_resample_inputs(torch, n, w, 3000 + i)
+        for order in (0, 1):
+            got = lane_resample(x, a, o, order)
+            torch.cuda.synchronize()
+            again = lane_resample(x, a, o, order)
+            ref = lane_resample_reference(x, a, o, order)
+            err = (got - ref).abs().max().item()
+            worst = max(worst, err)
+            live = (got != 0).float().mean().item()
+            ok = (got.shape == (n, w) and got.dtype == torch.float32
+                  and torch.isfinite(got).all().item()
+                  and torch.equal(got, again)
+                  and (torch.equal(got, ref) if order == 0
+                       else err <= TOL_LR)
+                  and (n * w < 1000 or live > 0.3))
+            log(f"[kernel] lane_resample order {order} N={n:6d} W={w:3d}: "
+                f"max|d|={err:.2e} ("
+                + ("must be equal" if order == 0 else f"tol {TOL_LR:.0e}")
+                + f"), {live:.0%} of the outputs inside the row; repeats "
+                f"bitwise  {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(("lane_resample", order, n, w))
+            del got, again, ref
+        del x, a, o
+    return worst
+
+
 def _post(url: str, arrays) -> np.ndarray:
     buf = io.BytesIO()
     np.savez(buf, image=arrays[0], depth=arrays[1], keypoints_2d=arrays[2])
@@ -419,7 +514,7 @@ def phase_slice(torch, tmp: Path) -> dict:
             answers = list(ex.map(lambda a: _post(base + "/predict", a), reqs))
         counts = launch_counts()
         launches = counts["flash_attention_fwd"]
-        if counts["flash_attention_bwd"] or counts["bn_stats"]:
+        if any(v for k, v in counts.items() if k != "flash_attention_fwd"):
             raise SystemExit("serving the transformer launched a kernel "
                              f"that is not on its path: {counts}")
         _, meta = _get(base + "/meta")
@@ -688,8 +783,9 @@ def phase_train(torch, tmp: Path, card: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
-    if launches.pop("bn_stats"):
-        raise SystemExit("training the transformer launched bn_stats")
+    if launches.pop("bn_stats") or launches.pop("lane_resample"):
+        raise SystemExit("training the transformer launched a kernel that "
+                         "is not on its path")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [v for _, v in writer.tags.get("Loss/train_step", [])]
     passes = TRAIN_STEPS * (1 if ACCUM_MODE == "grouped" else A)
@@ -762,6 +858,39 @@ def phase_train(torch, tmp: Path, card: str) -> dict:
     return out
 
 
+def _dev_total(e) -> float:
+    """Device microseconds of a profiler row, its children's included."""
+    return getattr(e, "device_time_total", None) \
+        or getattr(e, "cuda_time_total", 0.0)
+
+
+def _dev_own(e) -> float:
+    return getattr(e, "self_device_time_total", None) \
+        or getattr(e, "self_cuda_time_total", 0.0)
+
+
+def _is_kernel(e) -> bool:
+    return str(getattr(e, "device_type", "")).endswith("CUDA")
+
+
+def _profile_once(torch, fn):
+    """``torch.profiler``'s averaged rows of one synchronised call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return prof.key_averages()
+
+
+def _device_busy_ms(rows) -> float:
+    """ms the card spent in kernels and copies: what a host that launches
+    late cannot stretch, unlike the time between two events."""
+    return sum(_dev_own(e) for e in rows if _is_kernel(e)) / 1e3
+
+
 def _profile_split(prof) -> dict:
     """Device ms of one profiled step by what launched the kernels:
     convolutions (``conv2d`` and its backward), BatchNorm statistics and
@@ -769,17 +898,9 @@ def _profile_split(prof) -> dict:
     AdamW step, and everything else (activations, attention gates, casts,
     residual adds, loss, EMA)."""
     rows = prof.key_averages()
+    total, own = _dev_total, _dev_own
 
-    def total(e):
-        return getattr(e, "device_time_total", None) \
-            or getattr(e, "cuda_time_total", 0.0)
-
-    def own(e):
-        return getattr(e, "self_device_time_total", None) \
-            or getattr(e, "self_cuda_time_total", 0.0)
-
-    kernels = sum(own(e) for e in rows
-                  if str(getattr(e, "device_type", "")).endswith("CUDA"))
+    kernels = sum(own(e) for e in rows if _is_kernel(e))
     by = {"conv": 0.0, "batchnorm": 0.0, "optimizer": 0.0}
     for e in rows:
         if e.key in ("aten::conv2d", "aten::convolution_backward"):
@@ -885,10 +1006,11 @@ def phase_cnn(torch, tmp: Path, card: str) -> dict:
     del runs, g_ref, g_k, s_ref, s_k, sb
     torch.cuda.empty_cache()
 
-    def train(cfg, mode, seed, steps, **kw):
+    def train(cfg, mode, seed, steps, augment=None, **kw):
         """``train_model`` for ``steps`` optimizer steps at A x B, then the
-        bare step twice on a device-resident superbatch; returns the state
-        and what was measured."""
+        bare step twice on a device-resident superbatch (with ``augment``:
+        the un-augmented step before and after, on the same state);
+        returns the state and what was measured."""
         model = seeded(cfg, dtype=compute, **kw)
         if any(p.dtype != getattr(torch, g.param_dtype)
                for p in model.parameters()):
@@ -909,7 +1031,7 @@ def phase_cnn(torch, tmp: Path, card: str) -> dict:
             num_steps=steps, max_epochs=1, log_interval_steps=1,
             eval_interval_steps=10 ** 9, accum_mode=mode, ema_decay=0.999,
             generator=torch.Generator("cuda").manual_seed(g.random_seed),
-            checkpoint_path=pth)
+            checkpoint_path=pth, augment=augment)
         torch.cuda.synchronize()
         r = dict(wall=time.perf_counter() - t0, launches=launch_counts(),
                  peak=torch.cuda.max_memory_allocated() / 2 ** 30, pth=pth,
@@ -931,15 +1053,31 @@ def phase_cnn(torch, tmp: Path, card: str) -> dict:
         sb = loop.to_device(next(loop._superbatches(
             _train_batches(seed + 1, A, B, hw, J), A)), "cuda")
         step = tstep.make_train_step(weights, accum_mode=mode,
-                                     ema_decay=0.999)
+                                     ema_decay=0.999, augment=augment)
         gen = torch.Generator("cuda").manual_seed(g.random_seed + 1)
-        ts = []
-        for _ in range(2):
+        aug_gen = None if augment is None else \
+            torch.Generator("cuda").manual_seed(g.random_seed + 2)
+
+        def timed(fn):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            step(st, sb, gen)
+            fn(st, sb, gen, aug_gen)
             torch.cuda.synchronize()
-            ts.append((time.perf_counter() - t) * 1e3)
+            return (time.perf_counter() - t) * 1e3
+
+        if augment is not None:     # plain, augmented, augmented, plain
+            bare = tstep.make_train_step(weights, accum_mode=mode,
+                                         ema_decay=0.999)
+            plain = [timed(bare)]
+        ts = [timed(step) for _ in range(2)]
+        if augment is not None:
+            plain.append(timed(bare))
+            # what the card itself ran, apart from the host's launch gaps
+            r.update(plain_ms=statistics.mean(plain), plain_runs=plain,
+                     busy=_device_busy_ms(_profile_once(
+                         torch, lambda: step(st, sb, gen, aug_gen))),
+                     plain_busy=_device_busy_ms(_profile_once(
+                         torch, lambda: bare(st, sb, gen, aug_gen))))
         r.update(step_ms=statistics.mean(ts), runs=ts, st=st, sb=sb,
                  step=step, gen=gen)
         return r
@@ -960,7 +1098,7 @@ def phase_cnn(torch, tmp: Path, card: str) -> dict:
     ra = train(cfg_k, "scan", 31, CNN_STEPS)
     report("(a)", "batch_pallas scan", ra, CNN_STEPS)
     want = {"bn_stats": n_bn * A * CNN_STEPS, "flash_attention_fwd": 0,
-            "flash_attention_bwd": 0}
+            "flash_attention_bwd": 0, "lane_resample": 0}
     log(f"[cnn] (a) bn_stats launches {ra['launches']['bn_stats']} = {n_bn} "
         f"BatchNorms x {A} microbatches x {CNN_STEPS} steps? "
         f"{ra['launches'] == want}")
@@ -1067,7 +1205,83 @@ def phase_cnn(torch, tmp: Path, card: str) -> dict:
             f"elementwise and reductions {sp['other']:.1f}  [{card}]")
     else:
         log("[time] CNN grouped step: the profiler recorded no device time")
+    out["grouped_leg"] = leg
+    out["augment"] = _cnn_augmented(torch, train, cfg_b, out, A, B, card,
+                                    weights, (hw, J))
     return out
+
+
+def _cnn_augmented(torch, train, cfg, base: dict, A: int, B: int, card: str,
+                   weights, shape) -> dict:
+    """(e) the full-width CNN trained through ``train_model(augment=...)``:
+    grouped with rotation on (the two-pass warp on the kernel), grouped
+    with rotation off (the separable warp), scan with rotation on. Counts
+    the ``lane_resample`` launches of each leg (two passes each for image
+    and depth: 4 per augmentation), times the augmented step beside the
+    un-augmented one on the same state, and evaluates after."""
+    import gc
+
+    from pose3d_tpu_torch.ops.augment_device import (
+        DeviceAugmentConfig,
+        make_device_augment,
+    )
+    from pose3d_tpu_torch.train import loop, step as tstep
+
+    hw, J = shape
+    # remat as the un-augmented grouped leg of this run ran
+    remat = {} if "no remat" in base["grouped_leg"] else {"remat": True}
+    legs = [
+        ("grouped, rotation on (two-pass warp, kernel)", "grouped", True,
+         AUG_STEPS, 4 * AUG_STEPS, remat),
+        ("grouped, rotation off (separable warp)", "grouped", False,
+         AUG_STEPS, 0, remat),
+        ("scan, rotation on (two-pass warp, kernel)", "scan", True,
+         AUG_SCAN_STEPS, 4 * A * AUG_SCAN_STEPS, {}),
+    ]
+    res = {}
+    for i, (what, mode, rotation, steps, want, kw) in enumerate(legs):
+        aug = make_device_augment(DeviceAugmentConfig(
+            enable_rotation=rotation))
+        r = train(cfg, mode, 61 + 2 * i, steps, augment=aug, **kw)
+        got = r["launches"]
+        log(f"[cnn] (e) train_model(augment=...), {what}, {A}x{B}: {steps} "
+            f"steps in {r['wall']:.1f} s, losses {r['losses']}; launches "
+            f"{got} (want lane_resample {want} = 4 x "
+            f"{want // 4} augmentations, no other); peak memory "
+            f"{r['peak']:.2f} GiB")
+        if got["lane_resample"] != want or any(
+                v for k, v in got.items() if k != "lane_resample"):
+            raise SystemExit(f"augmented training ({what}) did not launch "
+                             f"lane_resample {want} times and nothing else")
+        ev = loop.evaluate(
+            tstep.make_eval_step(weights), r["st"],
+            [next(_train_batches(71 + i, 1, B, hw, J)),
+             next(_train_batches(81 + i, 1, 7, hw, J))])
+        if not all(np.isfinite([ev["mpjpe"], ev["pa_mpjpe"]])):
+            raise SystemExit("evaluate after augmented training gave "
+                             "non-finite metrics")
+        un = ("" if mode != "grouped" else
+              f"; this run's un-augmented grouped leg: "
+              f"{base['grouped_ms']:.1f} ms, {base['grouped_peak']:.2f} GiB")
+        log(f"[time] CNN train step with device augmentation, {A}x{B} "
+            f"{what}: {r['step_ms']:.1f} ms (runs "
+            f"{'/'.join(f'{t:.1f}' for t in r['runs'])}) = "
+            f"{A * B / r['step_ms'] * 1e3:.1f} images/s against "
+            f"{r['plain_ms']:.1f} ms (runs "
+            f"{'/'.join(f'{t:.1f}' for t in r['plain_runs'])}) for the "
+            f"un-augmented step on the same state and superbatch, before "
+            f"and after (host clock around a synchronised step); "
+            f"torch.profiler, one step each: {r['busy']:.1f} ms of device "
+            f"kernels augmented, {r['plain_busy']:.1f} un-augmented (+"
+            f"{r['busy'] - r['plain_busy']:.1f}); peak memory {r['peak']:.2f} GiB{un}; evaluate "
+            f"after: MPJPE {ev['mpjpe']:.4f}  [{card}]")
+        res[what] = dict(launches=got["lane_resample"], step_ms=r["step_ms"],
+                         plain_ms=r["plain_ms"], peak=r["peak"],
+                         busy=r["busy"], plain_busy=r["plain_busy"])
+        del r, aug
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
 
 
 def _time_ms(torch, fn, iters: int, warmup: int = 3,
@@ -1172,6 +1386,310 @@ def _time_bn_stats(torch, card: str) -> dict:
     return times
 
 
+def _path_lane_calls(torch, b: int, h: int, w: int, seed: int) -> list:
+    """(x, a, o, order) of the four ``lane_resample`` calls that one
+    augmentation of a [b, h, w] batch makes with ``DeviceAugmentConfig()``'s
+    seeded draws (rotation, flip, scale, translation): image pass 1 and 2,
+    depth pass 1 and 2, recorded where ``_twopass_warp`` hands them to the
+    kernel's dispatch."""
+    from pose3d_tpu_torch.ops import augment_device
+
+    calls = []
+    dispatch = augment_device.resample_rows
+
+    def record(x, a, o, order, impl="auto"):
+        calls.append((x, a, o, order))
+        return dispatch(x, a, o, order, impl)
+
+    cfg = augment_device.DeviceAugmentConfig()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batch = _smooth_batch(torch, b, h, w, seed)
+    with mock.patch.object(augment_device, "resample_rows", record), \
+            torch.no_grad():
+        augment_device.apply_params(
+            cfg, batch, augment_device.draw_params(cfg, b, gen))
+    if [c[3] for c in calls] != [1, 1, 0, 0]:
+        raise SystemExit(f"one augmentation made the calls "
+                         f"{[(tuple(c[0].shape), c[3]) for c in calls]}")
+    return calls
+
+
+def _lane_resample_bytes(torch, a, o, w: int, order: int) -> int:
+    """Bytes one call must move for these lines: every output written once,
+    a and o read once, and of each row only the source pixels between its
+    first and last position that lie inside the row (both taps in order
+    1), read once. A row read at |a| < 1 needs part of its source, a row
+    whose positions leave the row needs none beyond the edge."""
+    p0, p1 = o.double(), a.double() * (w - 1) + o.double()
+    lo, hi = torch.minimum(p0, p1), torch.maximum(p0, p1)
+    if order == 1:
+        first, last = torch.floor(lo), torch.floor(hi) + 1
+    else:
+        first, last = torch.floor(lo + 0.5), torch.floor(hi + 0.5)
+    touched = (last.clamp(max=w - 1) - first.clamp(min=0) + 1).clamp(min=0)
+    n = a.numel()
+    return int(4 * (touched.sum().item() + n * w) + 8 * n)
+
+
+def _time_lane_resample(torch, card: str) -> dict:
+    """lane_resample on the lines the path gives it: the four calls of one
+    augmentation (``DeviceAugmentConfig()``'s seeded draws) of the CNN's
+    grouped flat batch [100, 500, 500], of its scan microbatch [10, 500,
+    500] and of the transformer's grouped flat batch [100, 512, 512]:
+    kernel, plain version, and for order 1 ``grid_sample`` on a
+    [N, 1, 1, W] view (bilinear, zero padding, align_corners, cuDNN off:
+    the same function up to its own rounding; it reads a ready-made
+    [N, 1, W, 2] grid besides; its nearest mode rounds ties another way,
+    so order 0 has no library call), beside the bound: the bytes these
+    lines need (:func:`_lane_resample_bytes`) over the memory rate. Inputs
+    rotate through 256 MB of copies where one is smaller than the L2, and
+    the calls are queued behind a busy stream."""
+    times = {}
+    for i, (b, h, w) in enumerate([(100, 500, 500), (10, 500, 500),
+                                   (100, 512, 512)]):
+        calls = _path_lane_calls(torch, b, h, w, 4000 + i)
+        for k, (x, a, o, order) in enumerate(calls):
+            times.update(_time_lane_call(torch, x, a, o, order, 1 + k % 2,
+                                         card))
+        del calls, x, a, o
+        torch.cuda.empty_cache()
+    return times
+
+
+def _time_lane_call(torch, x, a, o, order: int, which: int,
+                    card: str) -> dict:
+    """One recorded call (pass ``which`` of the warp): see
+    :func:`_time_lane_resample`."""
+    import torch.nn.functional as F
+
+    from pose3d_tpu_torch.ops.kernels.lane_resample import (
+        lane_resample,
+        lane_resample_reference,
+    )
+
+    n, w = x.shape
+    copies = max(1, min(64, -(-(256 << 20) // (n * w * 4))))
+    xs = [x.clone() for _ in range(copies)]
+    turn = [0]
+
+    def nxt():
+        turn[0] = (turn[0] + 1) % copies
+        return xs[turn[0]]
+    kt, pt = _interleaved(
+        torch, lambda: lane_resample_reference(nxt(), a, o, order),
+        lambda: lane_resample(nxt(), a, o, order), 20, queue_behind=True)
+    lt, lib = None, "no library call of the same function"
+    if order == 1:
+        j = torch.arange(w, dtype=torch.float32, device="cuda")
+        p = a[:, None] * j[None, :] + o[:, None]
+        grid = torch.stack([2.0 * p / (w - 1) - 1.0,
+                            torch.zeros_like(p)], -1)[:, None]
+        del p
+        call = lambda: F.grid_sample(  # noqa: E731
+            nxt().view(n, 1, 1, w), grid, mode="bilinear",
+            padding_mode="zeros", align_corners=True)
+        # cuDNN's sampler refuses a batch of this many rows
+        with torch.backends.cudnn.flags(enabled=False):
+            dl = (call().view(n, w)
+                  - lane_resample(x, a, o, 1)).abs().max()
+            lt = _time_ms(torch, call, 20, queue_behind=True)
+        lib = (f"grid_sample (PyTorch's own kernel) {lt:.4f} ms (max "
+               f"|Δ| to the kernel "
+               f"{dl.item():.1e}: its own position arithmetic)")
+        del grid
+    nbytes = _lane_resample_bytes(torch, a, o, w, order)
+    flop = (16 if order == 1 else 7) * n * w
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flop / PEAK_FP32 * 1e3
+    bound = max(t_bytes, t_ops)
+    log(f"[time] lane_resample order {order} N={n} W={w}, pass {which} of "
+        f"the two-pass warp (|a| {a.abs().min().item():.2f} to "
+        f"{a.abs().max().item():.2f}; {nbytes / 1e6:.0f} MB needed of "
+        f"{(2 * n * w * 4 + 8 * n) / 1e6:.0f} if every row were read "
+        f"whole): kernel {kt:.4f} ms ({nbytes / kt / 1e6:.0f} GB/s, "
+        f"{bound / kt:.0%} of the bound), plain {pt:.4f} ms, {lib}, bound "
+        f"{bound:.4f} ms "
+        f"({'bytes' if t_bytes >= t_ops else 'operations'})  [{card}]")
+    return {("lr", n, w, order, which): dict(
+        ms=kt, plain_ms=pt, library_ms=lt, bound_ms=bound,
+        bound_by="bytes" if t_bytes >= t_ops else "operations")}
+
+
+def _smooth_batch(torch, b: int, h: int, w: int, seed: int) -> dict:
+    """A decompacted batch on the card: smooth low-frequency images with a
+    little seeded noise and a planar depth (the images the JAX package's
+    augmentation tests use), random keypoints and joints."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    yy = torch.arange(h, device="cuda", dtype=torch.float32)[None, :, None,
+                                                              None] / h
+    xx = torch.arange(w, device="cuda", dtype=torch.float32)[None, None, :,
+                                                              None] / w
+    k = torch.arange(3, device="cuda", dtype=torch.float32)
+    s = torch.arange(b, device="cuda", dtype=torch.float32)[:, None, None,
+                                                             None]
+    img = 0.5 + 0.4 * torch.sin(2 * np.pi * (xx + 0.3 * k + 0.37 * s)) \
+        * torch.cos(2 * np.pi * (yy - 0.2 * k))
+    img = img + 0.01 * torch.randn(img.shape, generator=g, device="cuda")
+    return {
+        "image": img.clamp(0, 1),
+        "depth": 2.0 + 3.0 * xx + 1.5 * yy + 0.1 * s,
+        "keypoints_2d": torch.rand(b, 17, 2, generator=g, device="cuda")
+        * 0.7 + 0.15,
+        "joints_3d": torch.randn(b, 17, 3, generator=g, device="cuda") * 120,
+    }
+
+
+def phase_augment(torch, card: str) -> None:
+    """The device augmentor on the card at 500 x 500 (phase 8 of the module
+    docstring)."""
+    from pose3d_tpu_torch.ops.augment_device import (
+        DeviceAugmentConfig,
+        apply_params,
+        draw_params,
+        make_device_augment,
+    )
+    from pose3d_tpu_torch.ops.kernels.lane_resample import lane_resample
+
+    H = W = 500
+    batch = _smooth_batch(torch, 4, H, W, 5)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def diff(a, b, k):
+        return (a[k].float() - b[k].float()).abs()
+
+    # the two-pass warp: kernel against plain version, and against the
+    # exact single-pass oracle, for random draws and for the fixed
+    # transform of the JAX package's own test
+    fixed = DeviceAugmentConfig(
+        enable_color=False, rotation_range=(-28.0, -28.0),
+        scale_range=(1.1, 1.1), translate_range=(0.04, 0.04), flip_prob=1.0)
+    for name, cfg in (("default ranges", DeviceAugmentConfig()),
+                      ("flip, -28 deg, x1.1, +0.04", fixed)):
+        params = draw_params(cfg, 4, gen)
+        before = lane_resample.launches
+        kern = apply_params(cfg, batch, params)
+        launched = lane_resample.launches - before
+        plain = apply_params(cfg, batch, params, resample_impl="reference")
+        exact = apply_params(dataclasses.replace(cfg, resample="gather"),
+                             batch, params)
+        torch.cuda.synchronize()
+        d_img = diff(kern, plain, "image").max().item()
+        d = diff(kern, exact, "image")
+        dk = diff(kern, exact, "keypoints_2d").max().item()
+        dj = diff(kern, exact, "joints_3d").max().item()
+        ok = (launched == 4
+              and torch.equal(kern["depth"], plain["depth"])
+              and torch.equal(kern["keypoints_2d"], plain["keypoints_2d"])
+              and torch.equal(kern["joints_3d"], plain["joints_3d"])
+              and d_img <= TOL_AUG_IMPL and dk <= 1e-6 and dj <= 1e-4
+              and d.mean().item() < 0.01 and d.max().item() < 0.2
+              and all(torch.isfinite(v).all().item() for v in kern.values()))
+        log(f"[augment] two-pass warp, 4 x {H}x{W}, {name}: {launched} "
+            f"launches (want 4); kernel vs plain version: keypoints, joints "
+            f"and depth equal, image max|d| {d_img:.1e} (tol "
+            f"{TOL_AUG_IMPL:.0e}); vs the single-pass oracle: keypoints "
+            f"{dk:.1e} (1e-6), joints {dj:.1e} (1e-4), image mean|d| "
+            f"{d.mean().item():.2e} (< 0.01) max {d.max().item():.3f} "
+            f"(< 0.2)  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("the two-pass warp on the kernel disagrees")
+
+    # a bright blob painted at a keypoint lands where the transformed
+    # keypoint says
+    kp = torch.tensor([0.4, 0.6], device="cuda")
+    yy = torch.arange(H, device="cuda", dtype=torch.float32)[:, None]
+    xx = torch.arange(W, device="cuda", dtype=torch.float32)[None, :]
+    blob = torch.exp(-((xx - kp[0] * W) ** 2 + (yy - kp[1] * H) ** 2)
+                     / (2 * 3.0 ** 2))
+    one = {k: v[:1].clone() for k, v in batch.items()}
+    one["keypoints_2d"][0, 0] = kp
+    one["image"] = (0.2 * one["image"] + 0.8 * blob[None, ..., None]).clamp(
+        0, 1)
+    aug = make_device_augment(DeviceAugmentConfig(
+        enable_color=False, rotation_range=(-25.0, 25.0),
+        scale_range=(0.9, 1.1), translate_range=(-0.05, 0.05)))
+    worst, checked = 0.0, 0
+    for seed in range(8):
+        out = aug(one, torch.Generator(device="cuda").manual_seed(seed))
+        kp2 = out["keypoints_2d"][0, 0]
+        if not (0.1 < kp2[0] < 0.9 and 0.1 < kp2[1] < 0.9):
+            continue
+        at = out["image"][0].sum(-1).argmax().item()
+        py, px = divmod(at, W)
+        worst = max(worst, abs(px - kp2[0].item() * W),
+                    abs(py - kp2[1].item() * H))
+        checked += 1
+    log(f"[augment] blob at a keypoint, {checked} random transforms: "
+        f"argmax within {worst:.2f} px of the transformed keypoint "
+        f"(tol 2)  {'ok' if checked >= 4 and worst <= 2.0 else 'FAIL'}")
+    if checked < 4 or worst > 2.0:
+        raise SystemExit("the augmented image does not follow its keypoints")
+
+    # rotation off: the separable warp against the oracle, with TF32
+    # switched on around it (the warp pins full fp32 itself)
+    sep = DeviceAugmentConfig(enable_rotation=False)
+    params = draw_params(sep, 4, gen)
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        before = lane_resample.launches
+        a = apply_params(sep, batch, params)
+        launched = lane_resample.launches - before
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    b = apply_params(dataclasses.replace(sep, resample="gather"), batch,
+                     params)
+    d_img = diff(a, b, "image").max().item()
+    ok = (launched == 0 and torch.equal(a["depth"], b["depth"])
+          and d_img <= TOL_AUG_SEPARABLE
+          and diff(a, b, "keypoints_2d").max().item() <= 1e-6)
+    log(f"[augment] separable warp (rotation off, TF32 allowed around it), "
+        f"4 x {H}x{W}: {launched} launches (want 0); vs the oracle: depth "
+        f"equal {torch.equal(a['depth'], b['depth'])}, image max|d| "
+        f"{d_img:.1e} (tol {TOL_AUG_SEPARABLE:.0e})  "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the separable warp disagrees with the oracle")
+    del batch, a, b, kern, plain, exact, one, out
+
+    # one augmentation of the grouped step's flat batch of 100: between
+    # events over 10 calls, and one profiled call split by what ran on the
+    # card: the lane_resample launches, the copies (aten::copy_: the
+    # two-pass warp's layout changes and its materialised lines) and the
+    # rest
+    big = _smooth_batch(torch, 100, H, W, 7)
+    on = make_device_augment(DeviceAugmentConfig())
+    off = make_device_augment(sep)
+    with torch.no_grad():
+        t_on = _time_ms(torch, lambda: on(big, gen), 10)
+        t_off = _time_ms(torch, lambda: off(big, gen), 10)
+        rows = _profile_once(torch, lambda: on(big, gen))
+        rows_off = _profile_once(torch, lambda: off(big, gen))
+    busy = _device_busy_ms(rows)
+    lanes = [e for e in rows if _is_kernel(e) and "lane_resample" in e.key]
+    t_k = sum(_dev_own(e) for e in lanes) / 1e3
+    n_k = sum(e.count for e in lanes)
+    t_cp = sum(_dev_total(e) for e in rows if e.key == "aten::copy_") / 1e3
+    n_all = sum(e.count for e in rows if _is_kernel(e))
+    if busy > 0 and n_k != 4:
+        raise SystemExit(f"the profile of one augmentation shows {n_k} "
+                         "lane_resample kernels, not 4")
+    if busy > 0:
+        log(f"[time] one device augmentation of [100, {H}, {W}] (image fp32 "
+            f"x3, depth fp32 x1), rotation on: {t_on:.3f} ms between events "
+            f"(mean of 10); torch.profiler, one call: {busy:.3f} ms of "
+            f"device kernels in {n_all} launches = {n_k} lane_resample "
+            f"launches {t_k:.3f} + layout copies (aten::copy_) {t_cp:.3f} + "
+            f"the rest (draws, matrices, crop mask, colour, keypoints) "
+            f"{busy - t_k - t_cp:.3f}; rotation off (separable, two fp32 "
+            f"products each for image and depth): {t_off:.3f} ms between "
+            f"events, {_device_busy_ms(rows_off):.3f} of device kernels  "
+            f"[{card}]")
+    else:
+        log(f"[time] one device augmentation of [100, {H}, {W}], rotation "
+            f"on: {t_on:.3f} ms between events, rotation off {t_off:.3f}; "
+            f"the profiler recorded no device time, so no split  [{card}]")
+
+
 def phase_times(torch, card: str, sl: dict) -> dict:
     import torch.nn.functional as F
 
@@ -1237,14 +1755,19 @@ def phase_times(torch, card: str, sl: dict) -> dict:
         k1 = _time_ms(torch, f_kern, 10)
         k2 = _time_ms(torch, f_kern, 10)
         p2 = _time_ms(torch, f_plain, 10)
+        busy = _device_busy_ms(_profile_once(torch, f_kern))
     log(f"[time] batch-8 forward, full config bf16: kernel attention "
         f"{(k1 + k2) / 2:.3f} ms, plain attention {(p1 + p2) / 2:.3f} ms "
-        f"(runs {k1:.3f}/{k2:.3f} vs {p1:.3f}/{p2:.3f})  [{card}]")
+        f"between events (runs {k1:.3f}/{k2:.3f} vs {p1:.3f}/{p2:.3f}); "
+        f"torch.profiler, one forward with the kernel: {busy:.3f} ms of "
+        f"device kernels (the rest of the time between events is the card "
+        f"waiting for the host's launches)  [{card}]")
     for b, ms in sl["latency"].items():
         log(f"[time] /predict latency, batch {b}, median of 10 sequential "
             f"requests: {ms:.2f} ms  [{card}]")
     del model, ref_model, args
     times.update(_time_bn_stats(torch, card))
+    times.update(_time_lane_resample(torch, card))
     return times
 
 
@@ -1294,6 +1817,7 @@ def main() -> int:
         sl = phase_slice(torch, Path(tmp))
         times = phase_times(torch, card, sl)
         del sl
+        phase_augment(torch, card)
         tr = phase_train(torch, Path(tmp), card)
         cnn = phase_cnn(torch, Path(tmp), card)
     phase_imports()
@@ -1308,6 +1832,10 @@ def main() -> int:
             tr["launches"]["flash_attention_bwd"], ("bwd", *PATH_SHAPES[0])),
         "bn_stats": ("pose3d_tpu/ops/pallas/bn_stats.py:34",
                      cnn["launches"], ("bn", *BN_STEM)),
+        "lane_resample": (
+            "pose3d_tpu/ops/pallas/lane_resample.py:41",
+            next(iter(cnn["augment"].values()))["launches"],
+            ("lr", *LR_IMAGE, 1)),
     }
     log(json.dumps({"kernels": [{
         "name": name,

@@ -14,6 +14,12 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
+# Left/right joint pairs of the Human3.6M 17-joint skeleton, swapped when a
+# sample is mirrored.
+SYMMETRIC_JOINTS_H36M: Tuple[Tuple[int, int], ...] = (
+    (1, 4), (2, 5), (3, 6), (11, 14), (12, 15), (13, 16),
+)
+
 
 @dataclass(frozen=True)
 class GlobalConfig:
@@ -21,9 +27,10 @@ class GlobalConfig:
     ``GlobalConfig`` that the port's training runs read, with the same
     names and defaults (batch 10 × accumulation 10, AdamW lr 1e-3 and
     weight decay 0.01, loss weights mse 1, l1 1, inter-joint 100,
-    abs-root 1, bf16 compute over fp32 parameters). Data paths,
-    host-pipeline, augmentation, cadence and mesh fields come with the
-    modules that read them."""
+    abs-root 1, bf16 compute over fp32 parameters). Device augmentation
+    has its own ``ops.augment_device.DeviceAugmentConfig``; data paths,
+    host-pipeline, host-augmentation, cadence and mesh fields come with
+    the modules that read them."""
 
     random_seed: int = 42
     batch_size: int = 10

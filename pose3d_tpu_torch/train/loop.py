@@ -10,7 +10,7 @@ a reference-schema ``.pth`` (``pose3d_tpu_torch.checkpoint``), the file
 
 Not ported yet (ROADMAP.md): TensorBoard, previews, SIGTERM stop,
 checkpoint retention and best tracking, optimizer-state checkpoints and
-data-state resume, device augmentation, profiling windows, meshes.
+data-state resume, profiling windows, meshes.
 """
 
 from __future__ import annotations
@@ -112,6 +112,8 @@ def train_model(
     accum_mode: str = "grouped",
     ema_decay: Optional[float] = None,
     checkpoint_path=None,
+    augment=None,
+    augment_generator: Optional[torch.Generator] = None,
 ):
     """Train ``state`` in place over ``train_loader`` (numpy batches of
     ``image``, ``depth``, ``keypoints_2d``, ``joints_3d``); returns
@@ -123,14 +125,23 @@ def train_model(
     ``Loss/train_step`` and ``Loss_Components/*`` per step,
     ``Perf/step_time_ms`` and ``Perf/images_per_sec`` per log window after
     the first, and the validation averages. ``checkpoint_path``: where the
-    ``.pth`` is written when training ends, if any step ran."""
+    ``.pth`` is written when training ends, if any step ran.
+
+    ``augment`` (``ops.augment_device.make_device_augment(cfg)``) augments
+    every training batch on the device inside the step; it draws from
+    ``augment_generator`` (default: a generator on the model's device,
+    seeded apart from the dropout's), never from ``generator``."""
     writer = writer or NullWriter()
     model = state.model
     device = next(model.parameters()).device
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(42)
+    if augment is not None and augment_generator is None:
+        # 0x617567 = "aug": a stream apart from the dropout's
+        augment_generator = torch.Generator(device=device).manual_seed(
+            42 + 0x617567)
     train_step = make_train_step(loss_weights, accum_mode=accum_mode,
-                                 ema_decay=ema_decay)
+                                 ema_decay=ema_decay, augment=augment)
     eval_step = make_eval_step(loss_weights)
     target = num_steps if num_steps is not None else float("inf")
     start_step = global_step = state.step
@@ -181,7 +192,8 @@ def train_model(
                 if global_step >= target:
                     break
                 batch = to_device(superbatch, device)
-                metrics = train_step(state, batch, generator)
+                metrics = train_step(state, batch, generator,
+                                     augment_generator)
                 global_step = state.step
                 pending_steps.append(global_step)
                 pending_metrics.append(metrics)

@@ -18,6 +18,12 @@ step, updating the state in place. Accumulation modes:
 
 (The JAX package's ``"ghost"`` vmap mode is not ported.)
 
+``augment`` (``ops.augment_device.make_device_augment``) runs on the
+decompacted batch just before the model, without gradient: once over the
+flat A·B batch in ``grouped``, once per microbatch in ``scan``. It draws
+from a generator of its own, so the dropout masks of a run do not depend
+on whether augmentation is on.
+
 The update clips by global norm when the state asks for it, steps AdamW
 and the LR schedule, and moves the EMA of the parameters and of the
 BatchNorm running statistics with the ramp d_t = min(d, (1 + t)/(10 + t)).
@@ -59,8 +65,12 @@ def decompact_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def _forward_loss(model, micro, weights, generator):
+def _forward_loss(model, micro, weights, generator, augment=None,
+                  augment_generator=None):
     micro = decompact_batch(micro)
+    if augment is not None:
+        with torch.no_grad():
+            micro = augment(micro, augment_generator)
     out = model(micro["image"], micro["depth"], micro["keypoints_2d"],
                 generator=generator)
     return composite_pose_loss(out, micro["joints_3d"], weights)
@@ -113,32 +123,36 @@ def _apply_update(state: TrainState, ema_decay: Optional[float]) -> None:
 
 def make_train_step(weights: LossWeights = LossWeights(), *,
                     accum_mode: str = "grouped",
-                    ema_decay: Optional[float] = None):
-    """Return ``step(state, superbatch, generator) -> metrics``: the
-    batch-mean loss components as 0-dim tensors on the device (no host
-    sync). ``generator`` (on the model's device) draws the dropout masks.
-    """
+                    ema_decay: Optional[float] = None,
+                    augment=None):
+    """Return ``step(state, superbatch, generator, augment_generator) ->
+    metrics``: the batch-mean loss components as 0-dim tensors on the
+    device (no host sync). ``generator`` (on the model's device) draws the
+    dropout masks; ``augment_generator`` (there too) the parameters of
+    ``augment``, which needs it."""
     if accum_mode not in ACCUM_MODES:
         raise ValueError(f"unknown accum_mode {accum_mode!r} "
                          f"(ported: {ACCUM_MODES})")
 
-    def grouped(state, batch, generator):
+    def grouped(state, batch, generator, augment_generator):
         accum = batch["image"].shape[0]
         flat = {k: v.reshape(-1, *v.shape[2:]) for k, v in batch.items()}
         # the backward too: a rematerialised block runs its forward again
         with grouped_batchnorm(state.model, accum):
             loss, comps = _forward_loss(state.model, flat, weights,
-                                        generator)
+                                        generator, augment,
+                                        augment_generator)
             loss.backward()
         return comps
 
-    def scan(state, batch, generator):
+    def scan(state, batch, generator, augment_generator):
         accum = batch["image"].shape[0]
         seq = []
         for i in range(accum):
             micro = {k: v[i] for k, v in batch.items()}
             loss, comps = _forward_loss(state.model, micro, weights,
-                                        generator)
+                                        generator, augment,
+                                        augment_generator)
             loss.backward()
             seq.append(comps)
         grads = [p.grad for p in state.trainable() if p.grad is not None]
@@ -148,11 +162,16 @@ def make_train_step(weights: LossWeights = LossWeights(), *,
     run = {"grouped": grouped, "scan": scan}[accum_mode]
 
     def step(state: TrainState, superbatch: Dict[str, torch.Tensor],
-             generator: Optional[torch.Generator] = None
+             generator: Optional[torch.Generator] = None,
+             augment_generator: Optional[torch.Generator] = None
              ) -> Dict[str, torch.Tensor]:
+        if augment is not None and augment_generator is None:
+            raise ValueError(
+                "the step was built with augment= and needs an "
+                "augment_generator (on the model's device) to draw from")
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        comps = run(state, superbatch, generator)
+        comps = run(state, superbatch, generator, augment_generator)
         _apply_update(state, ema_decay)
         return {k: v.detach() for k, v in comps.items()}
 

@@ -1,5 +1,5 @@
 """pose3d_tpu_torch kernels on an NVIDIA card, against their plain
-versions, and gradients through them. They skip without CUDA. This file imports no JAX, so it also runs
+versions, gradients through them, and the device augmentor on them. They skip without CUDA. This file imports no JAX, so it also runs
 on a machine without it:
 
     python -m pytest tests/test_torch_port_card.py -m cuda --noconftest
@@ -10,6 +10,7 @@ import torch
 
 from pose3d_tpu_torch.core.config import CNNModelConfig, TransformerModelConfig
 from pose3d_tpu_torch.models import build_model
+from pose3d_tpu_torch.ops import augment_device
 from pose3d_tpu_torch.ops.attention import dot_product_attention
 from pose3d_tpu_torch.ops.kernels.bn_stats import (
     BnStats,
@@ -21,6 +22,10 @@ from pose3d_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_bwd_reference,
     flash_attention_fwd,
     flash_attention_fwd_reference,
+)
+from pose3d_tpu_torch.ops.kernels.lane_resample import (
+    lane_resample,
+    lane_resample_reference,
 )
 
 # (B, Tq, Tk, H, D): the full-width lifter's attentions and ragged edges
@@ -294,3 +299,120 @@ def test_cnn_train_forward_launches_bn_stats_once_per_batchnorm(monkeypatch):
     print("rel L2 of the fp32 output against the plain statistics:", readings)
     assert readings["kernel"] <= TOL_CNN_FWD, readings
     assert readings["one wrong sum"] > TOL_CNN_FWD, readings
+
+
+# (N, W): the two-pass warp's calls for the CNN at 10 x 10 (grouped and
+# scan; image rows, depth rows), the transformer's grouped ones, ragged ones
+LR_SHAPES = [(150000, 500), (50000, 500), (15000, 500), (5000, 500),
+             (153600, 512), (51200, 512)] \
+    + [(n, w) for n in (1, 13) for w in (1, 50, 129, 200)]
+
+
+def lane_resample_inputs(n, w, generator):
+    """x in [0, 1], a in [-1.3, 1.3], o in ±0.3·W (from W−1 for the rows
+    read right to left), on the generator's device."""
+    def rand(*shape):
+        return torch.rand(*shape, generator=generator,
+                          device=generator.device)
+    x = rand(n, w)
+    a = rand(n) * 2.6 - 1.3
+    o = (rand(n) * 0.6 - 0.3) * w + torch.where(a < 0, float(w - 1), 0.0)
+    return x, a, o
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [0, 1])
+def test_lane_resample_matches_plain_version(order):
+    """Kernel and plain version round every operation on its own, so they
+    see the same positions: order 0 picks the same pixels (equal), order 1
+    is held to 1e-6 on inputs in [0, 1]; repeats are bitwise equal."""
+    _cuda()
+    g = torch.Generator(device="cuda").manual_seed(7 + order)
+    for n, w in LR_SHAPES:
+        x, a, o = lane_resample_inputs(n, w, g)
+        before = lane_resample.launches
+        got = lane_resample(x, a, o, order)
+        torch.cuda.synchronize()
+        assert lane_resample.launches == before + 1
+        assert torch.equal(got, lane_resample(x, a, o, order))
+        ref = lane_resample_reference(x, a, o, order)
+        assert got.shape == (n, w) and got.dtype == torch.float32
+        if n * w > 1000:      # both directions and both edges were read
+            assert (got != 0).float().mean() > 0.3
+        if order == 0:
+            assert torch.equal(got, ref), (n, w)
+        else:
+            assert (got - ref).abs().max().item() <= 1e-6, (n, w)
+    before = lane_resample.launches
+    with pytest.raises(ValueError, match="not contiguous"):
+        lane_resample(x[:, ::2], a, o, order)
+    with pytest.raises(ValueError, match="float32 only"):
+        lane_resample(x.bfloat16(), a, o, order)
+    with pytest.raises(ValueError, match="CUDA"):
+        lane_resample(x, a.cpu(), o, order)
+    assert lane_resample.launches == before
+
+
+@pytest.mark.cuda
+def test_augment_on_cuda_runs_the_kernel():
+    """With rotation on, one augmentation of a CUDA batch is four launches
+    (two passes each for image and depth), and equals the same warp on the
+    plain version (``resample_impl="reference"``, no launch); with rotation
+    off the separable warp launches nothing."""
+    _cuda()
+    g = torch.Generator(device="cuda").manual_seed(9)
+    batch = {"image": torch.rand(3, 50, 70, 3, generator=g, device="cuda"),
+             "depth": torch.rand(3, 50, 70, 1, generator=g, device="cuda") * 7
+             + 1,
+             "keypoints_2d": torch.rand(3, 17, 2, generator=g, device="cuda"),
+             "joints_3d": torch.randn(3, 17, 3, generator=g, device="cuda")}
+    cfg = augment_device.DeviceAugmentConfig()
+    params = augment_device.draw_params(cfg, 3, g)
+    before = lane_resample.launches
+    kern = augment_device.apply_params(cfg, batch, params)
+    assert lane_resample.launches == before + 4
+    plain = augment_device.apply_params(cfg, batch, params,
+                                        resample_impl="reference")
+    off = augment_device.make_device_augment(
+        augment_device.DeviceAugmentConfig(enable_rotation=False))(batch, g)
+    assert lane_resample.launches == before + 4
+    assert torch.equal(kern["depth"], plain["depth"])
+    assert (kern["image"] - plain["image"]).abs().max().item() <= 1e-6
+    for k in ("keypoints_2d", "joints_3d"):
+        assert torch.equal(kern[k], plain[k])
+    assert all(torch.isfinite(v).all() for v in off.values())
+    # one sample, one channel: every broadcast of a and o is materialised
+    one = {k: v[:1] for k, v in batch.items()}
+    got = augment_device.make_device_augment(cfg)(one, g)
+    assert lane_resample.launches == before + 8
+    assert all(torch.isfinite(v).all() for v in got.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tf32", [False, True])
+def test_separable_warp_on_cuda_is_full_fp32(tf32):
+    """With rotation off the depth equals the single-pass oracle bit for
+    bit on the card whether or not the process allows TF32 products, and
+    the warp leaves that setting alone; ``draw_params`` without a generator
+    or a device draws on the card."""
+    _cuda()
+    g = torch.Generator(device="cuda").manual_seed(10)
+    batch = {"image": torch.rand(3, 50, 70, 3, generator=g, device="cuda"),
+             "depth": torch.rand(3, 50, 70, 1, generator=g, device="cuda") * 7
+             + 1,
+             "keypoints_2d": torch.rand(3, 17, 2, generator=g, device="cuda"),
+             "joints_3d": torch.randn(3, 17, 3, generator=g, device="cuda")}
+    fast = augment_device.DeviceAugmentConfig(enable_rotation=False)
+    slow = augment_device.DeviceAugmentConfig(enable_rotation=False,
+                                              resample="gather")
+    params = augment_device.draw_params(fast, 3)
+    assert all(v.is_cuda for v in params.values())
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        a = augment_device.apply_params(fast, batch, params)
+        assert torch.backends.cuda.matmul.allow_tf32 is tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    b = augment_device.apply_params(slow, batch, params)
+    assert torch.equal(a["depth"], b["depth"])
+    assert (a["image"] - b["image"]).abs().max().item() <= 1e-5
