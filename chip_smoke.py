@@ -7,15 +7,19 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, each fatal on failure:
   1. environment: card name and power limit, torch/CUDA/nvcc versions;
-  2. build: every kernel of the serving and training paths (the two
-     flash-attention kernels, ``bn_stats`` and ``lane_resample``), from
-     ``pose3d_tpu_torch/csrc``, one nvcc per source, all started together
-     (build seconds and ptxas register/shared-memory/spill lines);
+  2. build: every kernel of the serving, training and row-op paths (the
+     two flash-attention kernels, ``bn_stats``, ``lane_resample``, and the
+     forward and backward kernels of ``layer_norm`` and ``mlp_block``:
+     eight sources), from ``pose3d_tpu_torch/csrc``, one nvcc per source,
+     all started together (build seconds and ptxas
+     register/shared-memory/spill lines);
   3. kernels: each kernel against its plain PyTorch version at every shape
      the paths give it and at ragged ones, in bf16 and fp32, with the
      tolerances below (``bn_stats``: forward and the Function's backward;
-     ``lane_resample``: order 0 equal, order 1 within 1e-6, repeats
-     bitwise);
+     ``lane_resample``: order 0 equal, order 1 within 1e-6;
+     ``layer_norm`` and ``mlp_block``: forward and backward at the
+     lifter's row counts and widths and at ragged ones; repeats bitwise
+     for every kernel that uses no atomics);
   4. slice (serving): the full published transformer config (random
      weights from a seeded generator) saved as a reference-schema ``.pth``,
      served by the port's HTTP server, answering concurrent ``/predict``
@@ -35,9 +39,14 @@ Phases, each fatal on failure:
   6. times: each kernel vs its plain version per shape, beside the least
      time the card could take and one library call as a yardstick
      (``scaled_dot_product_attention`` forward and backward,
-     ``torch.batch_norm_stats``, ``grid_sample``; timed here, used nowhere
-     in the port; ``lane_resample`` on the lines that one augmentation
-     with seeded draws hands it, its bound counted from those lines), the
+     ``torch.batch_norm_stats``, ``grid_sample``, ``F.layer_norm`` and its
+     backward, and for ``mlp_block`` the three calls ``F.linear → F.gelu →
+     F.linear`` and their backward, which write the hidden activation to
+     device memory; timed here, used nowhere in the port;
+     ``lane_resample`` on the lines that one augmentation with seeded
+     draws hands it, its bound counted from those lines; ``layer_norm``
+     also at the training-sized 100·1025 rows; the ``mlp_block`` backward's
+     two launches apart, from ``torch.profiler``), the
      batch-8 forward with each (between events, and its device kernels'
      own time from ``torch.profiler``), per-request latency, the batch-2 train step
      with each, and the 10×10 train step with the kernels (ms, images/s,
@@ -67,7 +76,18 @@ Phases, each fatal on failure:
      against the transformed keypoint, the separable warp against the
      oracle (depth equal), and the time of one augmentation of the flat
      batch of 100, split by a ``torch.profiler`` trace of that call into
-     the four launches, the layout copies and the rest.
+     the four launches, the layout copies and the rest;
+  9. rowops: the two stand-alone differentiable ops, as the JAX package has
+     them (no model calls them), at the full-width lifter's shapes and
+     with its own seeded weights: ViT block 0's and final block 0's
+     ``norm2`` and ``mlp`` carried across by ``layer_norm_params`` and
+     ``mlp_params``, ``fused_mlp(layer_norm(x, ...), ...)`` forward and
+     backward on tokens [8, 1025, 768] through the two Functions with
+     ``impl="auto"`` (one launch of each of the four kernels per pass),
+     against the same with ``impl="reference"`` (output and all seven
+     gradients) and against the module path the model runs
+     (``block.mlp(layer_norm(x, block.norm2))`` and autograd), in bf16 and,
+     with TF32 off, in fp32.
 
 Standard output ends with a JSON line of the kernels and, last, one JSON
 line ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -140,7 +160,41 @@ REQUEST_BATCHES = [1, 1, 2, 3, 8]
 TRAIN_STEPS = 3
 ACCUM_MODE = "grouped"
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "bn_stats",
-           "lane_resample")
+           "lane_resample", "layer_norm_fwd", "layer_norm_bwd",
+           "mlp_block_fwd", "mlp_block_bwd")
+# layer_norm and mlp_block: the row counts the full-width lifter would
+# hand them (8 images: ViT tokens, image tokens, heatmap tokens, final
+# tokens, norm_out's CLS rows) at C = D 768, H 3072, and ragged ones. Max
+# |Δ| against the plain version relative to max(1, max|ref|).
+# layer_norm fp32: the sums are taken in another order. bf16: y and dx are
+# rounded to bf16 from fp32 values that differ in the last bits, so an
+# output may land on the neighbouring bf16 value (2^-8 relative: 8e-3 at
+# |y| near 4, held to twice that); mean, rstd, dscale and dbias are fp32 in
+# both dtypes. mlp_block fp32: summation order over 768 to 8,328 terms.
+# bf16: both sides round gelu(a) and da to bf16 from fp32 values that
+# differ in the last bits, and out and dx are bf16 themselves.
+ROW_COUNTS = (8 * 1025, 8 * 1024, 8 * 16, 8 * 1041, 8)
+ROW_WIDTH, ROW_HIDDEN = 768, 3072
+LN_RAGGED = [(r, c) for r in (1, 7, 513) for c in (3, 100, 640)] \
+    + [(130, 2056)]
+MLP_RAGGED = [(r, 128, 512) for r in (1, 7, 513)]
+TOL_LN = {"bfloat16": 1.6e-2, "float32": 1e-5}
+TOL_LN_STATS = 1e-5
+# dx = rstd·(gs − mean(gs) − x̂·mean(gs·x̂)) cancels: at C = 3 two of a row's
+# three degrees of freedom are projected out while rstd reaches 1/√eps, and
+# a last-bit difference in rstd then shows 1.4e-5 of the largest gradient.
+# So both backward versions are handed the same statistics, the plain
+# forward's, and dx is held to y's bound.
+TOL_MLP = {"bfloat16": 2e-2, "float32": 1e-4}
+# The row-op path against the module path the model runs (cuBLAS Linears,
+# F.layer_norm, exact erf). fp32, TF32 off: the polynomial erf (1.5e-7),
+# the one-pass variance and summation order are the only differences, max
+# |Δ| relative to max(1, max|ref|). bf16: the module path rounds a to bf16
+# before the GELU and the op does not, so single elements differ by bf16
+# steps of the hidden activation: relative L2 of each tensor.
+TOL_ROWOPS_MODULE_F32 = 1e-4
+TOL_ROWOPS_MODULE_BF16_REL_L2 = 2e-2
+TRAIN_ROWS = 100 * 1025     # layer_norm's rows in a grouped 10 x 10 step
 # bn_stats: (n, C) beside the path's own shapes, in bf16 and fp32; max |Δ|
 # of Σx and Σx² against the plain version relative to max(1, max|ref|). Both
 # sum in fp32 in another order: over 625,000 rows of magnitude ~1.5 the
@@ -212,13 +266,17 @@ def phase_environment(torch) -> str:
 
 def phase_build() -> None:
     from pose3d_tpu_torch.ops.kernels import _build, bn_stats, \
-        flash_attention, lane_resample
+        flash_attention, lane_resample, layer_norm, mlp_block
 
     def load(name):
         if name == "bn_stats":
             return bn_stats.load_library()
         if name == "lane_resample":
             return lane_resample.load_library()
+        if name.startswith("layer_norm"):
+            return layer_norm.load_library(name)
+        if name.startswith("mlp_block"):
+            return mlp_block.load_library(name)
         return flash_attention.load_library(name)
 
     t0 = time.perf_counter()
@@ -242,10 +300,21 @@ def _kernel_fns():
         flash_attention_fwd,
     )
     from pose3d_tpu_torch.ops.kernels.lane_resample import lane_resample
+    from pose3d_tpu_torch.ops.kernels.layer_norm import (
+        layer_norm_bwd,
+        layer_norm_fwd,
+    )
+    from pose3d_tpu_torch.ops.kernels.mlp_block import (
+        mlp_block_bwd,
+        mlp_block_fwd,
+    )
 
     return {"flash_attention_fwd": flash_attention_fwd,
             "flash_attention_bwd": flash_attention_bwd,
-            "bn_stats": bn_stats, "lane_resample": lane_resample}
+            "bn_stats": bn_stats, "lane_resample": lane_resample,
+            "layer_norm_fwd": layer_norm_fwd,
+            "layer_norm_bwd": layer_norm_bwd,
+            "mlp_block_fwd": mlp_block_fwd, "mlp_block_bwd": mlp_block_bwd}
 
 
 def zero_launch_counts() -> None:
@@ -323,6 +392,7 @@ def phase_kernels(torch) -> dict:
                 failures.append(("bwd", name, Tq, Tk, H, D))
     worst_bn, worst_bn_rel = _check_bn_stats(torch, failures)
     worst_lr = _check_lane_resample(torch, failures)
+    worst_rows = _check_row_ops(torch, failures)
     if failures:
         raise SystemExit(f"kernel disagrees with its plain version: {failures}")
     # every value is a max |Δ| in the output's own units; bn_stats' sums
@@ -331,7 +401,8 @@ def phase_kernels(torch) -> dict:
             "flash_attention_bwd": {"max_abs_err": worst_bwd},
             "bn_stats": {"max_abs_err": worst_bn,
                          "max_err_rel_to_max_1_ref": worst_bn_rel},
-            "lane_resample": {"max_abs_err": worst_lr}}
+            "lane_resample": {"max_abs_err": worst_lr},
+            **{name: {"max_abs_err": err} for name, err in worst_rows.items()}}
 
 
 def _cnn_config(**kw):
@@ -467,6 +538,234 @@ def _check_lane_resample(torch, failures: list) -> float:
             del got, again, ref
         del x, a, o
     return worst
+
+
+def _rel_err(got, ref) -> tuple:
+    """(max |Δ|, the same relative to max(1, max|ref|)), in fp32."""
+    err = (got.float() - ref.float()).abs().max().item()
+    return err, err / max(1.0, ref.float().abs().max().item())
+
+
+def _row_inputs(torch, rows: int, D: int, H: int, dtype, seed: int) -> dict:
+    """Seeded operands of both row ops at ``rows`` x D (x H): x off-centre
+    (mean 0.3, spread 1.5), weights at 1/sqrt(fan-in), and a cotangent."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+    return dict(
+        x=(rand(rows, D) * 1.5 + 0.3).to(dtype), dy=rand(rows, D).to(dtype),
+        scale=rand(D) * 0.1 + 1.0, bias=rand(D) * 0.1,
+        w1=(rand(D, H) * D ** -0.5).to(dtype) if H else None,
+        b1=rand(H) * 0.1 if H else None,
+        w2=(rand(H, D) * H ** -0.5).to(dtype) if H else None,
+        b2=rand(D) * 0.1)
+
+
+def _check_row_ops(torch, failures: list) -> dict:
+    """The four kernels of ``layer_norm`` and ``mlp_block`` against their
+    plain versions, bf16 and fp32, at the lifter's row counts and widths
+    and at ragged ones: outputs' shapes and dtypes, finite values, the
+    bounds above, and a bitwise repeat of every output (none of the four
+    uses atomics). Returns each kernel's worst max |Δ|."""
+    from pose3d_tpu_torch.ops.kernels import layer_norm as ln
+    from pose3d_tpu_torch.ops.kernels import mlp_block as mb
+
+    worst = dict.fromkeys(("layer_norm_fwd", "layer_norm_bwd",
+                           "mlp_block_fwd", "mlp_block_bwd"), 0.0)
+
+    def held(kernel, label, names, got, again, refs, tols, dtypes):
+        """Log one kernel's outputs against the plain version's."""
+        ok, parts = True, []
+        for name, a, b, r, tol, dt in zip(names, got, again, refs, tols,
+                                          dtypes):
+            err, rel = _rel_err(a, r)
+            worst[kernel] = max(worst[kernel], err)
+            ok &= (a.shape == r.shape and a.dtype == dt
+                   and torch.isfinite(a).all().item() and torch.equal(a, b)
+                   and rel <= tol)
+            parts.append(f"{name} {rel:.2e} ({tol:.0e})")
+        log(f"[kernel] {kernel} {label}: max|d|/max(1,|ref|) "
+            + ", ".join(parts) + f"; repeats bitwise  "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append((kernel, label))
+
+    f32 = torch.float32
+    for dtype in (torch.bfloat16, f32):
+        name = str(dtype).removeprefix("torch.")
+        shapes = [(r, ROW_WIDTH) for r in ROW_COUNTS] + LN_RAGGED
+        for i, (rows, C) in enumerate(shapes):
+            t = _row_inputs(torch, rows, C, 0, dtype, 5000 + i)
+            x, scale, bias, dy = t["x"], t["scale"], t["bias"], t["dy"]
+            got = ln.layer_norm_fwd(x, scale, bias, 1e-6)
+            torch.cuda.synchronize()
+            again = ln.layer_norm_fwd(x, scale, bias, 1e-6)
+            refs = ln.layer_norm_fwd_reference(x, scale, bias, 1e-6)
+            label = f"{name:8s} rows={rows:5d} C={C:4d}"
+            held("layer_norm_fwd", label, ("y", "mean", "rstd"), got, again,
+                 refs, (TOL_LN[name], TOL_LN_STATS, TOL_LN_STATS),
+                 (dtype, f32, f32))
+            if got[1].shape != (rows,):
+                failures.append(("layer_norm_fwd", label, "stats shape"))
+            grads = ln.layer_norm_bwd(x, scale, refs[1], refs[2], dy)
+            torch.cuda.synchronize()
+            again = ln.layer_norm_bwd(x, scale, refs[1], refs[2], dy)
+            brefs = ln.layer_norm_bwd_reference(x, scale, refs[1], refs[2],
+                                                dy)
+            held("layer_norm_bwd", label, ("dx", "dscale", "dbias"), grads,
+                 again, brefs, (TOL_LN[name], TOL_LN_STATS, TOL_LN_STATS),
+                 (dtype, f32, f32))
+        shapes = [(r, ROW_WIDTH, ROW_HIDDEN) for r in ROW_COUNTS] + MLP_RAGGED
+        for i, (rows, D, H) in enumerate(shapes):
+            t = _row_inputs(torch, rows, D, H, dtype, 6000 + i)
+            args = (t["x"], t["w1"], t["b1"], t["w2"], t["b2"])
+            out = mb.mlp_block_fwd(*args)
+            torch.cuda.synchronize()
+            again = mb.mlp_block_fwd(*args)
+            ref = mb.mlp_block_fwd_reference(*args)
+            label = f"{name:8s} rows={rows:5d} D={D:3d} H={H:4d}"
+            held("mlp_block_fwd", label, ("out",), (out,), (again,), (ref,),
+                 (TOL_MLP[name],), (dtype,))
+            grads = mb.mlp_block_bwd(*args, t["dy"])
+            torch.cuda.synchronize()
+            again = mb.mlp_block_bwd(*args, t["dy"])
+            # fp32 parameters for the plain version: it returns their
+            # gradients in the parameters' dtype, the launcher in fp32
+            brefs = mb.mlp_block_bwd_reference(
+                t["x"], t["w1"].float(), t["b1"], t["w2"].float(), t["b2"],
+                t["dy"])
+            held("mlp_block_bwd", label, ("dx", "dw1", "db1", "dw2", "db2"),
+                 grads, again, brefs, (TOL_MLP[name],) * 5,
+                 (dtype, f32, f32, f32, f32))
+            del t, args, out, again, ref, grads, brefs
+    return worst
+
+
+def phase_rowops(torch, card: str) -> dict:
+    """The row-op path at full width (phase 9 of the module docstring).
+    Returns the launches of the four kernels on it."""
+    from pose3d_tpu_torch.core.config import TransformerModelConfig
+    from pose3d_tpu_torch.models import build_model
+    from pose3d_tpu_torch.models import transformer as tmod
+    from pose3d_tpu_torch.ops.kernels.layer_norm import (
+        layer_norm,
+        layer_norm_params,
+    )
+    from pose3d_tpu_torch.ops.kernels.mlp_block import fused_mlp, mlp_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TransformerModelConfig()
+    D = cfg.transformer_embed_dim
+    H = int(D * cfg.transformer_mlp_ratio)
+    # train=True for parameters that take gradients; no generator is passed
+    # to the modules below, so no dropout mask is drawn
+    model = build_model(cfg, device="cuda", dtype=torch.bfloat16, train=True,
+                        generator=torch.Generator("cuda").manual_seed(0))
+    blocks = {"vit block 0 (fc1/fc2)": model.vit_backbone.blocks[0],
+              "final block 0 (0/3)": model.final_encoder[0]}
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    tokens = torch.randn(8, 1025, D, generator=gen, device="cuda") * 1.5 + 0.3
+    cot = torch.randn(8, 1025, D, generator=gen, device="cuda")
+    names = ("x", "scale", "bias", "w1", "b1", "w2", "b2")
+
+    def op_pass(block, dtype, impl):
+        """(out, the seven gradients) of one forward and backward pass of
+        fused_mlp(layer_norm(x)) with the block's bridged parameters."""
+        params = (*layer_norm_params(block.norm2), *mlp_params(block.mlp))
+        leaves = [tokens.to(dtype).clone().requires_grad_()] + [
+            p.detach().clone().requires_grad_() for p in params]
+        x, scale, bias, *mlp = leaves
+        out = fused_mlp(layer_norm(x, scale, bias, tmod.LN_EPS, impl), *mlp,
+                        impl=impl)
+        out.backward(cot.to(dtype))
+        return out.detach(), [t.grad for t in leaves]
+
+    def module_pass(block, dtype):
+        """The same through the modules the model runs, by autograd; the
+        Linears' [out, in] weight gradients transposed to the op's
+        layout."""
+        x = tokens.to(dtype).clone().requires_grad_()
+        block.zero_grad(set_to_none=True)
+        out = block.mlp(tmod.layer_norm(x, block.norm2, dtype), dtype)
+        out.backward(cot.to(dtype))
+        fc1, fc2 = (getattr(block.mlp, n) for n in block.mlp.names)
+        grads = [x.grad, block.norm2.weight.grad, block.norm2.bias.grad,
+                 fc1.weight.grad.t(), fc1.bias.grad, fc2.weight.grad.t(),
+                 fc2.bias.grad]
+        return out.detach(), [g.clone() for g in grads]
+
+    # the main path: bf16, both blocks, one forward and one backward each
+    bf16, f32 = torch.bfloat16, torch.float32
+    zero_launch_counts()
+    main = {tag: op_pass(blk, bf16, "auto") for tag, blk in blocks.items()}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    ours = {k: counts[k] for k in ("layer_norm_fwd", "layer_norm_bwd",
+                                   "mlp_block_fwd", "mlp_block_bwd")}
+    log(f"[rowops] fused_mlp(layer_norm(x)) forward and backward, tokens "
+        f"[8, 1025, {D}] bf16 x hidden {H}, the full-width lifter's seeded "
+        f"weights, {len(blocks)} blocks, impl=auto: launches {counts} (want "
+        f"{len(blocks)} of each of the four, one per pass, and no other)")
+    if any(v != len(blocks) for v in ours.values()) or any(
+            v for k, v in counts.items() if k not in ours):
+        raise SystemExit("the row-op path did not launch each of its four "
+                         "kernels once per pass")
+
+    for tag, blk in blocks.items():
+        for dtype in (bf16, f32):
+            name = str(dtype).removeprefix("torch.")
+            out, grads = main[tag] if dtype == bf16 else \
+                op_pass(blk, dtype, "auto")
+            before = launch_counts()
+            r_out, r_grads = op_pass(blk, dtype, "reference")
+            m_out, m_grads = module_pass(blk, dtype)
+            if launch_counts() != before:
+                raise SystemExit("impl='reference' or the module path "
+                                 "launched a kernel")
+            ok = out.dtype == dtype and out.shape == tokens.shape
+            vs_plain, vs_module = [], []
+            for n, a, r, m in zip(("out", *names), (out, *grads),
+                                  (r_out, *r_grads), (m_out, *m_grads)):
+                ok &= (a.shape == r.shape == m.shape and a.dtype == r.dtype
+                       and torch.isfinite(a).all().item())
+                rel = _rel_err(a, r)[1]
+                ok &= rel <= TOL_MLP[name]
+                vs_plain.append(f"{n} {rel:.1e}")
+                if dtype == f32:
+                    rel = _rel_err(a, m)[1]
+                    ok &= rel <= TOL_ROWOPS_MODULE_F32
+                else:
+                    rel = ((a.double() - m.double()).norm()
+                           / m.double().norm()).item()
+                    ok &= rel <= TOL_ROWOPS_MODULE_BF16_REL_L2
+                vs_module.append(f"{n} {rel:.1e}")
+            mod_tol = (f"max|d|/max(1,|ref|), tol {TOL_ROWOPS_MODULE_F32:.0e}"
+                       if dtype == f32 else
+                       f"rel L2, tol {TOL_ROWOPS_MODULE_BF16_REL_L2:.0e}")
+            log(f"[rowops] {tag} {name}: kernels vs the plain pair "
+                f"(max|d|/max(1,|ref|), tol {TOL_MLP[name]:.0e}): "
+                + ", ".join(vs_plain) + f"; vs the module path ({mod_tol}): "
+                + ", ".join(vs_module) + f"  {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"the row-op path disagrees ({tag}, {name})")
+
+    # one forward and backward pass of the composed op, each way
+    blk = blocks["vit block 0 (fc1/fc2)"]
+    ts = {}
+    for what, fn in (("module", lambda: module_pass(blk, bf16)),
+                     ("kernels", lambda: op_pass(blk, bf16, "auto")),
+                     ("plain pair", lambda: op_pass(blk, bf16, "reference"))):
+        ts[what] = _time_ms(torch, fn, 5, warmup=2)
+    log(f"[time] fused_mlp(layer_norm(x)) forward + backward, [8, 1025, {D}]"
+        f" bf16 x {H}, fp32 parameters (bridge, casts and cotangent copy "
+        f"included): kernels {ts['kernels']:.3f} ms, plain pair "
+        f"{ts['plain pair']:.3f} ms, the modules the model runs (cuBLAS "
+        f"Linears, F.layer_norm, F.gelu, autograd) {ts['module']:.3f} ms  "
+        f"[{card}]")
+    del model, main
+    torch.cuda.empty_cache()
+    return ours
 
 
 def _post(url: str, arrays) -> np.ndarray:
@@ -783,9 +1082,11 @@ def phase_train(torch, tmp: Path, card: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
-    if launches.pop("bn_stats") or launches.pop("lane_resample"):
+    others = {k: launches.pop(k) for k in list(launches)
+              if not k.startswith("flash_attention")}
+    if any(others.values()):
         raise SystemExit("training the transformer launched a kernel that "
-                         "is not on its path")
+                         f"is not on its path: {others}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [v for _, v in writer.tags.get("Loss/train_step", [])]
     passes = TRAIN_STEPS * (1 if ACCUM_MODE == "grouped" else A)
@@ -1097,8 +1398,7 @@ def phase_cnn(torch, tmp: Path, card: str) -> dict:
     # (a) the kernel path: batch_pallas, scan
     ra = train(cfg_k, "scan", 31, CNN_STEPS)
     report("(a)", "batch_pallas scan", ra, CNN_STEPS)
-    want = {"bn_stats": n_bn * A * CNN_STEPS, "flash_attention_fwd": 0,
-            "flash_attention_bwd": 0, "lane_resample": 0}
+    want = {**dict.fromkeys(KERNELS, 0), "bn_stats": n_bn * A * CNN_STEPS}
     log(f"[cnn] (a) bn_stats launches {ra['launches']['bn_stats']} = {n_bn} "
         f"BatchNorms x {A} microbatches x {CNN_STEPS} steps? "
         f"{ra['launches'] == want}")
@@ -1690,6 +1990,177 @@ def phase_augment(torch, card: str) -> None:
             f"the profiler recorded no device time, so no split  [{card}]")
 
 
+def _rotating(torch, tensors, nbytes: int):
+    """A function that returns, turn by turn, one of enough copies of
+    ``tensors`` (a tuple) to exceed 256 MB, so that a call finds its inputs
+    in device memory and not in the 50 MB L2."""
+    copies = max(1, min(64, -(-(256 << 20) // nbytes)))
+    sets = [tuple(t.clone() for t in tensors) for _ in range(copies)]
+    turn = [0]
+
+    def nxt():
+        turn[0] = (turn[0] + 1) % copies
+        return sets[turn[0]]
+    return nxt
+
+
+def _bound(nbytes: float, flop: float, peak: float) -> tuple:
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations over ``peak``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flop / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _time_row_ops(torch, card: str) -> dict:
+    """The four kernels of ``layer_norm`` and ``mlp_block`` in bf16 at the
+    lifter's 8·1025 rows (``layer_norm`` also at the 100·1025 rows of a
+    grouped 10 x 10 step), C = D 768, H 3072: kernel, plain version, the
+    library's calls and the bound. ``layer_norm`` is bound by bytes and its
+    inputs rotate through 256 MB of copies; ``mlp_block`` is bound by
+    operations and reads the same inputs every time (the weights belong in
+    L2). The library's ``F.layer_norm`` takes bf16 scale and bias (it wants
+    one dtype); for the MLP no single call computes the function, so the
+    yardstick is the three calls ``F.linear → F.gelu → F.linear`` and their
+    autograd backward, which write the [rows, H] hidden activation to
+    device memory, timed whole and call by call."""
+    import torch.nn.functional as F
+
+    from pose3d_tpu_torch.ops.kernels import layer_norm as ln
+    from pose3d_tpu_torch.ops.kernels import mlp_block as mb
+
+    times = {}
+    bf16 = torch.bfloat16
+    C, H = ROW_WIDTH, ROW_HIDDEN
+    for rows in (ROW_COUNTS[0], TRAIN_ROWS):
+        t = _row_inputs(torch, rows, C, 0, bf16, 7000)
+        scale, bias = t["scale"], t["bias"]
+        sb, bb = scale.to(bf16), bias.to(bf16)
+        _, mean, rstd = ln.layer_norm_fwd(t["x"], scale, bias, 1e-6)
+        nxt = _rotating(torch, (t["x"], t["dy"]), rows * C * 2)
+        kt, pt = _interleaved(
+            torch,
+            lambda: ln.layer_norm_fwd_reference(nxt()[0], scale, bias, 1e-6),
+            lambda: ln.layer_norm_fwd(nxt()[0], scale, bias, 1e-6), 20,
+            queue_behind=True)
+        lt = _time_ms(torch, lambda: F.layer_norm(nxt()[0], (C,), sb, bb,
+                                                  1e-6), 20,
+                      queue_behind=True)
+        nbytes = 2 * rows * C * 2 + 2 * C * 4 + 2 * rows * 4
+        bound, by = _bound(nbytes, 8 * rows * C, PEAK_FP32)
+        times[("ln_fwd", rows, C)] = dict(ms=kt, plain_ms=pt, library_ms=lt,
+                                          bound_ms=bound, bound_by=by)
+        log(f"[time] layer_norm forward bf16 rows={rows} C={C}: kernel "
+            f"{kt:.4f} ms ({nbytes / kt / 1e6:.0f} GB/s, {bound / kt:.0%} "
+            f"of the bound), plain {pt:.4f} ms, F.layer_norm {lt:.4f} ms, "
+            f"bound {bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB)  [{card}]")
+
+        kt, pt = _interleaved(
+            torch,
+            lambda: ln.layer_norm_bwd_reference(nxt()[0], scale, mean, rstd,
+                                                nxt()[1]),
+            lambda: ln.layer_norm_bwd(nxt()[0], scale, mean, rstd,
+                                      nxt()[1]), 20, queue_behind=True)
+        # the library's backward: one graph per rotating copy
+        graphs = []
+        for _ in range(max(1, min(64, -(-(256 << 20) // (rows * C * 2))))):
+            xl = t["x"].clone().requires_grad_()
+            sl, bl = sb.clone().requires_grad_(), bb.clone().requires_grad_()
+            graphs.append((F.layer_norm(xl, (C,), sl, bl, 1e-6),
+                           (xl, sl, bl), t["dy"].clone()))
+        turn = [0]
+
+        def lib_bwd():
+            turn[0] = (turn[0] + 1) % len(graphs)
+            y, leaves, dy = graphs[turn[0]]
+            return torch.autograd.grad(y, leaves, dy, retain_graph=True)
+        lt = _time_ms(torch, lib_bwd, 20, queue_behind=True)
+        nbytes = 3 * rows * C * 2 + 2 * rows * 4 + 3 * C * 4
+        bound, by = _bound(nbytes, 14 * rows * C, PEAK_FP32)
+        times[("ln_bwd", rows, C)] = dict(ms=kt, plain_ms=pt, library_ms=lt,
+                                          bound_ms=bound, bound_by=by)
+        log(f"[time] layer_norm backward bf16 rows={rows} C={C} (two "
+            f"launches a call: the rows, then the partial rows of dscale "
+            f"and dbias): kernel {kt:.4f} ms ({nbytes / kt / 1e6:.0f} GB/s, "
+            f"{bound / kt:.0%} of the bound), plain {pt:.4f} ms, "
+            f"F.layer_norm's autograd backward {lt:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB)  [{card}]")
+        del t, nxt, graphs, mean, rstd
+        torch.cuda.empty_cache()
+
+    N, D = ROW_COUNTS[0], ROW_WIDTH
+    t = _row_inputs(torch, N, D, H, bf16, 7001)
+    args = (t["x"], t["w1"], t["b1"], t["w2"], t["b2"])
+    dy = t["dy"]
+    kt, pt = _interleaved(torch, lambda: mb.mlp_block_fwd_reference(*args),
+                          lambda: mb.mlp_block_fwd(*args), 10)
+    # the library's three calls, nn.Linear's [out, in] layout, bf16 biases
+    xl = t["x"].clone().requires_grad_()
+    lw1 = t["w1"].t().contiguous().requires_grad_()
+    lw2 = t["w2"].t().contiguous().requires_grad_()
+    lb1 = t["b1"].to(bf16).requires_grad_()
+    lb2 = t["b2"].to(bf16).requires_grad_()
+    with torch.no_grad():
+        seq = lambda: F.linear(F.gelu(F.linear(xl, lw1, lb1)), lw2, lb2)  # noqa: E731
+        lt = _time_ms(torch, seq, 10)
+        hid = F.linear(xl, lw1, lb1)
+        parts = (_time_ms(torch, lambda: F.linear(xl, lw1, lb1), 10),
+                 _time_ms(torch, lambda: F.gelu(hid), 10),
+                 _time_ms(torch, lambda: F.linear(hid, lw2, lb2), 10))
+    flop = 4 * N * D * H
+    nbytes = (2 * N * D + 2 * D * H) * 2 + (H + D) * 4
+    bound, by = _bound(nbytes, flop, PEAK_BF16)
+    times[("mlp_fwd", N, D, H)] = dict(ms=kt, plain_ms=pt, library_ms=lt,
+                                       bound_ms=bound, bound_by=by)
+    log(f"[time] mlp_block forward bf16 N={N} D={D} H={H}: kernel {kt:.4f} "
+        f"ms ({flop / kt / 1e9:.1f} TFLOP/s, {bound / kt:.1%} of the "
+        f"bound), plain {pt:.4f} ms, F.linear -> F.gelu -> F.linear (three "
+        f"calls that write the [{N}, {H}] hidden to device memory) "
+        f"{lt:.4f} ms = {parts[0]:.4f} + {parts[1]:.4f} + {parts[2]:.4f} "
+        f"call by call (the GELU pass is hidden traffic only: "
+        f"{2 * N * H * 2 / 1e6:.0f} MB read and written), bound "
+        f"{bound:.4f} ms ({by}: {flop / 1e9:.1f} GFLOP; bytes "
+        f"{nbytes / HBM_BYTES_S * 1e3:.4f})  [{card}]")
+
+    kt, pt = _interleaved(
+        torch,
+        lambda: mb.mlp_block_bwd_reference(t["x"], t["w1"], t["b1"], t["w2"],
+                                           t["b2"], dy),
+        lambda: mb.mlp_block_bwd(*args, dy), 10)
+    out = seq()
+    lt = _time_ms(torch, lambda: torch.autograd.grad(
+        out, (xl, lw1, lb1, lw2, lb2), dy, retain_graph=True), 10)
+    flop = 10 * N * D * H
+    nbytes = (3 * N * D + 2 * D * H) * 2 + H * 4 + (2 * D * H + H + D) * 4
+    bound, by = _bound(nbytes, flop, PEAK_BF16)
+    times[("mlp_bwd", N, D, H)] = dict(ms=kt, plain_ms=pt, library_ms=lt,
+                                       bound_ms=bound, bound_by=by)
+    log(f"[time] mlp_block backward bf16 N={N} D={D} H={H} (two launches a "
+        f"call: dx over row tiles, the parameters' gradients over hidden "
+        f"chunks; 14·N·D·H operations executed for the 10·N·D·H counted): "
+        f"kernel {kt:.4f} ms ({flop / kt / 1e9:.1f} TFLOP/s of the counted "
+        f"operations, {bound / kt:.1%} of the bound), plain {pt:.4f} ms, "
+        f"the three calls' autograd backward {lt:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}: {flop / 1e9:.1f} GFLOP; bytes "
+        f"{nbytes / HBM_BYTES_S * 1e3:.4f})  [{card}]")
+    # which of the backward's two launches takes the time: the mean over the
+    # launches the trace holds (it can miss the first kernel after it starts)
+    prof = _profile_once(torch, lambda: [mb.mlp_block_bwd(*args, dy)
+                                         for _ in range(3)])
+
+    def mean_ms(key):
+        found = [e for e in prof if _is_kernel(e) and key in e.key]
+        return sum(_dev_own(e) for e in found) / 1e3 / max(
+            1, sum(e.count for e in found))
+    dx_ms, dw_ms = mean_ms("mlp_bwd_dx"), mean_ms("mlp_bwd_dw")
+    n_kernels = sum(e.count for e in prof if _is_kernel(e))
+    log(f"[time] mlp_block backward, torch.profiler over three calls "
+        f"({n_kernels} kernels, {_device_busy_ms(prof):.4f} ms of device "
+        f"time in the trace), mean of a launch: mlp_bwd_dx (row tiles: dx) "
+        f"{dx_ms:.4f} ms, mlp_bwd_dw (hidden chunks: dW1, db1, dW2, db2) "
+        f"{dw_ms:.4f} ms  [{card}]")
+    return times
+
+
 def phase_times(torch, card: str, sl: dict) -> dict:
     import torch.nn.functional as F
 
@@ -1768,6 +2239,7 @@ def phase_times(torch, card: str, sl: dict) -> dict:
     del model, ref_model, args
     times.update(_time_bn_stats(torch, card))
     times.update(_time_lane_resample(torch, card))
+    times.update(_time_row_ops(torch, card))
     return times
 
 
@@ -1818,6 +2290,7 @@ def main() -> int:
         times = phase_times(torch, card, sl)
         del sl
         phase_augment(torch, card)
+        rows = phase_rowops(torch, card)
         tr = phase_train(torch, Path(tmp), card)
         cnn = phase_cnn(torch, Path(tmp), card)
     phase_imports()
@@ -1836,6 +2309,18 @@ def main() -> int:
             "pose3d_tpu/ops/pallas/lane_resample.py:41",
             next(iter(cnn["augment"].values()))["launches"],
             ("lr", *LR_IMAGE, 1)),
+        "layer_norm_fwd": (
+            "pose3d_tpu/ops/pallas/layer_norm.py:43", rows["layer_norm_fwd"],
+            ("ln_fwd", ROW_COUNTS[0], ROW_WIDTH)),
+        "layer_norm_bwd": (
+            "pose3d_tpu/ops/pallas/layer_norm.py:58", rows["layer_norm_bwd"],
+            ("ln_bwd", ROW_COUNTS[0], ROW_WIDTH)),
+        "mlp_block_fwd": (
+            "pose3d_tpu/ops/pallas/mlp_block.py:72", rows["mlp_block_fwd"],
+            ("mlp_fwd", ROW_COUNTS[0], ROW_WIDTH, ROW_HIDDEN)),
+        "mlp_block_bwd": (
+            "pose3d_tpu/ops/pallas/mlp_block.py:88", rows["mlp_block_bwd"],
+            ("mlp_bwd", ROW_COUNTS[0], ROW_WIDTH, ROW_HIDDEN)),
     }
     log(json.dumps({"kernels": [{
         "name": name,

@@ -5,7 +5,8 @@ and load it with ctypes.
 -Xcompiler -fPIC`` compiles ``csrc/<name>.cu`` (a plain C interface, no
 PyTorch headers, so a build takes seconds) into
 ``build/pose3d_tpu_torch/lib<name>-<hash>.so`` at the repository root,
-where the hash covers the source and the flags. The library is built at
+where the hash covers the source, the headers beside it (``csrc/*.cuh``,
+which a source includes by name) and the flags. The library is built at
 first use in a process, written under a temporary name and renamed into
 place, so concurrent builders never load a half-written file. Each source
 has its own lock, so several sources build in parallel threads.
@@ -58,6 +59,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

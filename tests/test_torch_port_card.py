@@ -27,6 +27,8 @@ from pose3d_tpu_torch.ops.kernels.lane_resample import (
     lane_resample,
     lane_resample_reference,
 )
+from pose3d_tpu_torch.ops.kernels import layer_norm as ln
+from pose3d_tpu_torch.ops.kernels import mlp_block as mb
 
 # (B, Tq, Tk, H, D): the full-width lifter's attentions and ragged edges
 SHAPES = [
@@ -416,3 +418,194 @@ def test_separable_warp_on_cuda_is_full_fp32(tf32):
     b = augment_device.apply_params(slow, batch, params)
     assert torch.equal(a["depth"], b["depth"])
     assert (a["image"] - b["image"]).abs().max().item() <= 1e-5
+
+
+def _rel_err(got, ref):
+    """max |Δ| relative to max(1, max|ref|), in fp32."""
+    scale = max(1.0, ref.float().abs().max().item())
+    return (got.float() - ref.float()).abs().max().item() / scale
+
+
+# layer_norm, kernel against plain version, relative to max(1, max|ref|).
+# fp32: the sums are taken in another order (1e-5). bf16: y and dx are
+# rounded to bf16 from fp32 values that differ in the last bits, so an
+# output may land on the neighbouring bf16 value: one bf16 step, 2^-8
+# relative (8e-3 at |y| near 4, held to 1.6e-2); mean, rstd, dscale and
+# dbias are fp32 in both dtypes.
+TOL_LN = {"bfloat16": 1.6e-2, "float32": 1e-5}
+TOL_LN_STATS = 1e-5
+# dx cancels (at C = 3 two of a row's three degrees of freedom are
+# projected out while rstd reaches 1/√eps): a last-bit difference in rstd
+# shows 1.4e-5 of the largest gradient, so both backward versions take the
+# plain forward's statistics and dx is held to y's bound
+# (rows..., C): the lifter's tokens, its 8-row norm_out, ragged ones (a C
+# that allows no 16-byte reads, one wider than a lane keeps in registers)
+LN_SHAPES = [(8, 1025, 768), (8, 768), (513, 100), (7, 3), (1, 640),
+             (130, 2056)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_layer_norm_kernels_match_plain_version(dtype):
+    _cuda()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for shape in LN_SHAPES:
+        C = shape[-1]
+        x = (torch.randn(*shape, generator=g, device="cuda") * 1.5
+             + 0.3).to(dt)
+        scale = torch.randn(C, generator=g, device="cuda") * 0.1 + 1.0
+        bias = torch.randn(C, generator=g, device="cuda") * 0.1
+        dy = torch.randn(*shape, generator=g, device="cuda").to(dt)
+        before = ln.layer_norm_fwd.launches, ln.layer_norm_bwd.launches
+        y, mean, rstd = ln.layer_norm_fwd(x, scale, bias, 1e-6)
+        ry, rmean, rrstd = ln.layer_norm_fwd_reference(x, scale, bias, 1e-6)
+        # both backward versions take the plain forward's statistics
+        grads = ln.layer_norm_bwd(x, scale, rmean, rrstd, dy)
+        torch.cuda.synchronize()
+        assert (ln.layer_norm_fwd.launches, ln.layer_norm_bwd.launches) \
+            == (before[0] + 1, before[1] + 1)
+        rows = x.numel() // C
+        assert y.shape == x.shape and y.dtype == dt
+        assert mean.shape == rstd.shape == (rows,)
+        assert mean.dtype == rstd.dtype == torch.float32
+        assert _rel_err(y, ry) <= TOL_LN[dtype], shape
+        assert _rel_err(mean, rmean) <= TOL_LN_STATS, shape
+        assert _rel_err(rstd, rrstd) <= TOL_LN_STATS, shape
+        refs = ln.layer_norm_bwd_reference(x, scale, rmean, rrstd, dy)
+        again = ln.layer_norm_bwd(x, scale, rmean, rrstd, dy)
+        for name, a, b, r in zip(("dx", "dscale", "dbias"), grads, again,
+                                 refs):
+            assert a.shape == r.shape and a.dtype == r.dtype, name
+            assert torch.equal(a, b), (shape, name)      # no atomics
+            tol = TOL_LN[dtype] if name == "dx" else TOL_LN_STATS
+            assert _rel_err(a, r) <= tol, (shape, name)
+    before = ln.layer_norm_fwd.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        ln.layer_norm_fwd(x[:, ::2], scale[::2].contiguous(),
+                          bias[::2].contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        ln.layer_norm_fwd(x.cpu(), scale.cpu(), bias.cpu())
+    assert ln.layer_norm_fwd.launches == before
+    # a row-strided 2-D view is read in place
+    wide = torch.randn(64, 96, generator=g, device="cuda").to(dt)
+    y, _, _ = ln.layer_norm_fwd(wide[:, 8:72], scale[:64].contiguous(),
+                                bias[:64].contiguous())
+    ry, _, _ = ln.layer_norm_fwd_reference(wide[:, 8:72], scale[:64],
+                                           bias[:64])
+    assert _rel_err(y, ry) <= TOL_LN[dtype]
+
+
+# fused MLP, kernel against plain version, relative to max(1, max|ref|).
+# fp32: summation order only (sums of 768 to 8,200 terms), 1e-4. bf16: both
+# sides round gelu(a) and da to bf16 from fp32 values that differ in the
+# last bits (a neighbouring bf16 value, 2^-8 relative, on a few elements),
+# and out and dx are bf16 themselves: 2e-2; dW1, db1, dW2 are fp32 sums of
+# such products over the rows.
+TOL_MLP = {"bfloat16": 2e-2, "float32": 1e-4}
+# (rows..., D, H): the lifter's MLP and ragged ones
+MLP_SHAPES = [((8, 1025), 768, 3072), ((513,), 128, 512), ((7,), 48, 80),
+              ((1,), 16, 16)]
+
+
+def _mlp_inputs(lead, D, H, dt, g):
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+    return (rand(*lead, D).to(dt), (rand(D, H) * D ** -0.5).to(dt),
+            rand(H) * 0.1, (rand(H, D) * H ** -0.5).to(dt), rand(D) * 0.1,
+            rand(*lead, D).to(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_mlp_block_kernels_match_plain_version(dtype):
+    _cuda()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    for lead, D, H in MLP_SHAPES:
+        x, w1, b1, w2, b2, dy = _mlp_inputs(lead, D, H, dt, g)
+        before = mb.mlp_block_fwd.launches, mb.mlp_block_bwd.launches
+        out = mb.mlp_block_fwd(x, w1, b1, w2, b2)
+        grads = mb.mlp_block_bwd(x, w1, b1, w2, b2, dy)
+        torch.cuda.synchronize()
+        assert (mb.mlp_block_fwd.launches, mb.mlp_block_bwd.launches) \
+            == (before[0] + 1, before[1] + 1)
+        ref = mb.mlp_block_fwd_reference(x, w1, b1, w2, b2)
+        assert out.shape == x.shape and out.dtype == dt
+        assert torch.isfinite(out).all()
+        assert _rel_err(out, ref) <= TOL_MLP[dtype], (lead, D, H)
+        assert torch.equal(out, mb.mlp_block_fwd(x, w1, b1, w2, b2))
+        # the plain version hands the parameters' gradients back in the
+        # parameters' dtype; the launcher in fp32
+        refs = mb.mlp_block_bwd_reference(x, w1.float(), b1, w2.float(), b2,
+                                          dy)
+        again = mb.mlp_block_bwd(x, w1, b1, w2, b2, dy)
+        for name, a, b, r in zip(("dx", "dw1", "db1", "dw2", "db2"), grads,
+                                 again, refs):
+            assert a.shape == r.shape, name
+            assert a.dtype == (dt if name == "dx" else torch.float32), name
+            assert torch.equal(a, b), (lead, D, H, name)     # no atomics
+            assert _rel_err(a, r) <= TOL_MLP[dtype], (lead, D, H, name)
+    before = mb.mlp_block_fwd.launches
+    with pytest.raises(ValueError, match="multiples of 16"):
+        mb.mlp_block_fwd(x[..., :8].contiguous(), w1[:8].contiguous(), b1,
+                         w2[:, :8].contiguous(), b2[:8].contiguous())
+    with pytest.raises(ValueError, match="not contiguous"):
+        mb.mlp_block_fwd(x, w2.t(), b1, w2, b2)
+    with pytest.raises(ValueError, match="CUDA"):
+        mb.mlp_block_fwd(x, w1, b1.cpu(), w2, b2)
+    assert mb.mlp_block_fwd.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_row_ops_on_cuda_run_the_kernels(dtype, monkeypatch):
+    """``layer_norm`` and ``fused_mlp`` with ``impl="auto"`` on CUDA
+    tensors launch the four kernels, once each for a forward and a
+    backward pass, and never reach a plain version; their gradients agree
+    with the plain pair's (``impl="reference"``, no launch), in each
+    parameter's own dtype."""
+    _cuda()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    D, H = 128, 512
+    x, w1, b1, w2, b2, dy = _mlp_inputs((3, 70), D, H, torch.float32, g)
+    x, dy, b2 = x.to(dt), dy.to(dt), b2.to(dt)     # fp32 weights, as a model
+    scale = torch.randn(D, generator=g, device="cuda") * 0.1 + 1.0
+    bias = torch.randn(D, generator=g, device="cuda") * 0.1
+    fns = (ln.layer_norm_fwd, ln.layer_norm_bwd, mb.mlp_block_fwd,
+           mb.mlp_block_bwd)
+
+    def run(impl):
+        leaves = [t.clone().requires_grad_()
+                  for t in (x, scale, bias, w1, b1, w2, b2)]
+        xx, s, b, *mlp = leaves
+        out = mb.fused_mlp(ln.layer_norm(xx, s, b, impl=impl), *mlp,
+                           impl=impl)
+        out.backward(dy)
+        return out.detach(), [t.grad for t in leaves]
+
+    plain_out, plain = run("reference")
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the impl='auto' path")
+
+    for mod, name in ((ln, "layer_norm_fwd_reference"),
+                      (ln, "layer_norm_bwd_reference"),
+                      (mb, "mlp_block_fwd_reference"),
+                      (mb, "mlp_block_bwd_reference")):
+        monkeypatch.setattr(mod, name, refuse)
+    before = [f.launches for f in fns]
+    out, grads = run("auto")
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [n + 1 for n in before]
+    assert out.dtype == dt and _rel_err(out, plain_out) <= TOL_MLP[dtype]
+    leaves = (x, scale, bias, w1, b1, w2, b2)
+    for a, r, leaf in zip(grads, plain, leaves):
+        assert a.dtype == leaf.dtype and a.shape == leaf.shape
+        assert _rel_err(a, r) <= TOL_MLP[dtype]
+    with pytest.raises(RuntimeError, match="requires grad"):
+        ln.layer_norm_fwd(x.clone().requires_grad_(), scale, bias)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        mb.mlp_block_fwd(x, w1.to(dt).requires_grad_(), b1, w2.to(dt),
+                         b2.float())
