@@ -18,7 +18,10 @@ Phases, each fatal on failure:
      tolerances below (``bn_stats``: forward and the Function's backward;
      ``lane_resample``: order 0 equal, order 1 within 1e-6;
      ``layer_norm`` and ``mlp_block``: forward and backward at the
-     lifter's row counts and widths and at ragged ones; repeats bitwise
+     lifter's row counts and widths and at ragged ones; ``mlp_block``
+     also at the edges of its ``wgmma`` tiling, with the path each shape
+     takes (``wgmma`` / ``wmma`` / ``scalar``) asserted from
+     ``launch_config`` and from the built libraries; repeats bitwise
      for every kernel that uses no atomics);
   4. slice (serving): the full published transformer config (random
      weights from a seeded generator) saved as a reference-schema ``.pth``,
@@ -45,8 +48,11 @@ Phases, each fatal on failure:
      device memory; timed here, used nowhere in the port;
      ``lane_resample`` on the lines that one augmentation with seeded
      draws hands it, its bound counted from those lines; ``layer_norm``
-     also at the training-sized 100·1025 rows; the ``mlp_block`` backward's
-     two launches apart, from ``torch.profiler``), the
+     also at the training-sized 100·1025 rows; for ``mlp_block`` the
+     ``wgmma`` path asserted at the full-width shape, ptxas's registers and
+     spills per kernel (a spill fails the run), the bound of the
+     14·N·D·H the backward executes beside the 10·N·D·H counted, and
+     its launches apart from ``torch.profiler`` with each one's rate), the
      batch-8 forward with each (between events, and its device kernels'
      own time from ``torch.profiler``), per-request latency, the batch-2 train step
      with each, and the 10×10 train step with the kernels (ms, images/s,
@@ -178,6 +184,20 @@ ROW_WIDTH, ROW_HIDDEN = 768, 3072
 LN_RAGGED = [(r, c) for r in (1, 7, 513) for c in (3, 100, 640)] \
     + [(130, 2056)]
 MLP_RAGGED = [(r, 128, 512) for r in (1, 7, 513)]
+# The edges of mlp_block's wgmma tiling at D 768: one row either side of a
+# 64-row block (63, 64, 65), the last row of the 129th block missing
+# (129·64 − 1), one row either side of a 128-row tile of the dW kernel
+# where its row groups change (511, 513: G 4 → 3) and a last group that
+# holds one row (2,177), hidden widths that end inside a chunk of 64 (96,
+# 3,056) or a dW block of 32 (3,056), D an odd multiple of 64; and shapes
+# whose D is no multiple of 64, which stay on the WMMA kernels. Every
+# shape's path is asserted, in bf16 and (always "scalar") fp32.
+MLP_EDGES = [(63, 768, 3072, "wgmma"), (64, 768, 3072, "wgmma"),
+             (65, 768, 3072, "wgmma"), (129 * 64 - 1, 768, 3072, "wgmma"),
+             (511, 768, 3072, "wgmma"), (513, 768, 3072, "wgmma"),
+             (2177, 768, 3072, "wgmma"), (65, 768, 96, "wgmma"),
+             (130, 768, 3056, "wgmma"), (70, 192, 80, "wgmma"),
+             (7, 48, 80, "wmma"), (33, 720, 160, "wmma")]
 TOL_LN = {"bfloat16": 1.6e-2, "float32": 1e-5}
 TOL_LN_STATS = 1e-5
 # dx = rstd·(gs − mean(gs) − x̂·mean(gs·x̂)) cancels: at C = 3 two of a row's
@@ -288,8 +308,11 @@ def phase_build() -> None:
         log(f"[build] {name}: {_build.build_info[name]['seconds']:.2f} s "
             f"-> {_build.library_path(name).relative_to(ROOT)}")
         for line in _build.build_info[name]["log"].splitlines():
-            if any(w in line for w in ("registers", "spill",
-                                       "Compiling entry", "bytes smem")):
+            # C7519 (a warpgroup.arrive that ptxas adds before a wgmma whose
+            # registers it cannot follow) comes once per wgmma batch: noise
+            if "C7519" not in line and any(
+                    w in line for w in ("registers", "spill", "Performance",
+                                        "Compiling entry", "bytes smem")):
                 log("[build]   " + line.strip())
 
 
@@ -616,15 +639,28 @@ def _check_row_ops(torch, failures: list) -> dict:
             held("layer_norm_bwd", label, ("dx", "dscale", "dbias"), grads,
                  again, brefs, (TOL_LN[name], TOL_LN_STATS, TOL_LN_STATS),
                  (dtype, f32, f32))
-        shapes = [(r, ROW_WIDTH, ROW_HIDDEN) for r in ROW_COUNTS] + MLP_RAGGED
-        for i, (rows, D, H) in enumerate(shapes):
+        shapes = [(r, ROW_WIDTH, ROW_HIDDEN, "wgmma") for r in ROW_COUNTS] \
+            + [(*s, "wgmma") for s in MLP_RAGGED] + MLP_EDGES
+        for i, (rows, D, H, path) in enumerate(shapes):
             t = _row_inputs(torch, rows, D, H, dtype, 6000 + i)
             args = (t["x"], t["w1"], t["b1"], t["w2"], t["b2"])
+            # the path: what the plain-Python mirror says, what the built
+            # libraries say, and what this shape is here to exercise
+            want = path if dtype == torch.bfloat16 else "scalar"
+            cfg = mb.launch_config(rows, D, H, t["x"].element_size())
+            lib_cfg = mb.library_config(rows, D, H, t["x"].element_size())
+            if cfg != lib_cfg or cfg["path"] != want or max(
+                    cfg[k]["smem"] for k in ("fwd", "dx", "dw")) > mb.MAX_SMEM:
+                log(f"[kernel] mlp_block {name} rows={rows} D={D} H={H}: "
+                    f"path {want} expected; launch_config {cfg}; the "
+                    f"libraries {lib_cfg}  FAIL")
+                failures.append(("mlp_block", name, rows, D, H, "path"))
             out = mb.mlp_block_fwd(*args)
             torch.cuda.synchronize()
             again = mb.mlp_block_fwd(*args)
             ref = mb.mlp_block_fwd_reference(*args)
-            label = f"{name:8s} rows={rows:5d} D={D:3d} H={H:4d}"
+            label = (f"{name:8s} rows={rows:5d} D={D:3d} H={H:4d} "
+                     f"{cfg['path']:6s} G={cfg['groups']}")
             held("mlp_block_fwd", label, ("out",), (out,), (again,), (ref,),
                  (TOL_MLP[name],), (dtype,))
             grads = mb.mlp_block_bwd(*args, t["dy"])
@@ -2011,6 +2047,32 @@ def _bound(nbytes: float, flop: float, peak: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _ptxas_report(name: str) -> dict:
+    """{kernel: (registers, spill store bytes, spill load bytes)} from the
+    build log of ``csrc/<name>.cu`` (``-Xptxas -v``); a kernel's key is the
+    part of its mangled name from ``mlp_`` on up to the first digit run
+    that follows it."""
+    import re
+
+    from pose3d_tpu_torch.ops.kernels import _build
+
+    out, entry = {}, None
+    for line in _build.build_info[name]["log"].splitlines():
+        m = re.search(r"Compiling entry function '\w*?\d+(mlp_[a-z0-9_]+?)E",
+                      line)
+        if m:
+            entry = m.group(1)
+            out[entry] = [None, None, None]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry:
+            out[entry][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def _time_row_ops(torch, card: str) -> dict:
     """The four kernels of ``layer_norm`` and ``mlp_block`` in bf16 at the
     lifter's 8·1025 rows (``layer_norm`` also at the 100·1025 rows of a
@@ -2109,8 +2171,27 @@ def _time_row_ops(torch, card: str) -> dict:
     flop = 4 * N * D * H
     nbytes = (2 * N * D + 2 * D * H) * 2 + (H + D) * 4
     bound, by = _bound(nbytes, flop, PEAK_BF16)
-    times[("mlp_fwd", N, D, H)] = dict(ms=kt, plain_ms=pt, library_ms=lt,
-                                       bound_ms=bound, bound_by=by)
+    times[("mlp_fwd", N, D, H)] = dict(
+        ms=kt, plain_ms=pt, library_ms=lt, bound_ms=bound, bound_by=by)
+    cfg = mb.launch_config(N, D, H, 2)
+    if cfg["path"] != "wgmma" or mb.library_config(N, D, H, 2) != cfg:
+        raise SystemExit(f"mlp_block at N={N} D={D} H={H} bf16 must take "
+                         f"the wgmma path: {cfg}")
+    report = {**_ptxas_report("mlp_block_fwd"),
+              **_ptxas_report("mlp_block_bwd")}
+    for kern, which in (("mlp_fwd_wgmma", "fwd"), ("mlp_bwd_dx_wgmma", "dx"),
+                        ("mlp_bwd_dw_wgmma", "dw")):
+        regs, st, ld = report[kern]
+        log(f"[time] {kern}: {regs} registers a thread at the entry (384 "
+            f"threads; setmaxnreg then gives the two computing warpgroups "
+            f"240 and leaves the producer 24), spills {st} B stored / {ld} "
+            f"B loaded, {cfg[which]['smem']} B of dynamic shared memory, "
+            f"{cfg[which]['blocks']} blocks of {cfg[which]['rows']} rows"
+            + (f", G={cfg['groups']} row groups, "
+               f"{cfg['scratch_bytes'] / 1e6:.1f} MB of partials"
+               if which == "dw" else ""))
+        if st or ld:
+            raise SystemExit(f"{kern} spills registers: {report[kern]}")
     log(f"[time] mlp_block forward bf16 N={N} D={D} H={H}: kernel {kt:.4f} "
         f"ms ({flop / kt / 1e9:.1f} TFLOP/s, {bound / kt:.1%} of the "
         f"bound), plain {pt:.4f} ms, F.linear -> F.gelu -> F.linear (three "
@@ -2127,19 +2208,36 @@ def _time_row_ops(torch, card: str) -> dict:
                                            t["b2"], dy),
         lambda: mb.mlp_block_bwd(*args, dy), 10)
     out = seq()
-    lt = _time_ms(torch, lambda: torch.autograd.grad(
-        out, (xl, lw1, lb1, lw2, lb2), dy, retain_graph=True), 10)
+    lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        out, (xl, lw1, lb1, lw2, lb2), dy, retain_graph=True)
+    lt_events = _time_ms(torch, lib_bwd, 10)
+    # the time between events holds the host's launches of some ten small
+    # kernels, which a shared host stretches; their device time does not,
+    # and it is the harder yardstick: that one goes into library_ms
+    lt = _device_busy_ms(_profile_once(
+        torch, lambda: [lib_bwd() for _ in range(3)])) / 3
+    if lt <= 0.0:
+        raise SystemExit("the trace holds no kernel of the library's "
+                         "backward")
     flop = 10 * N * D * H
     nbytes = (3 * N * D + 2 * D * H) * 2 + H * 4 + (2 * D * H + H + D) * 4
     bound, by = _bound(nbytes, flop, PEAK_BF16)
-    times[("mlp_bwd", N, D, H)] = dict(ms=kt, plain_ms=pt, library_ms=lt,
-                                       bound_ms=bound, bound_by=by)
-    log(f"[time] mlp_block backward bf16 N={N} D={D} H={H} (two launches a "
-        f"call: dx over row tiles, the parameters' gradients over hidden "
-        f"chunks; 14·N·D·H operations executed for the 10·N·D·H counted): "
-        f"kernel {kt:.4f} ms ({flop / kt / 1e9:.1f} TFLOP/s of the counted "
-        f"operations, {bound / kt:.1%} of the bound), plain {pt:.4f} ms, "
-        f"the three calls' autograd backward {lt:.4f} ms, bound "
+    times[("mlp_bwd", N, D, H)] = dict(
+        ms=kt, plain_ms=pt, library_ms=lt, bound_ms=bound, bound_by=by)
+    # what the two launches execute: each recomputes a and dga
+    flop_dx, flop_dw = 6 * N * D * H, 8 * N * D * H
+    bound_exec = (flop_dx + flop_dw) / PEAK_BF16 * 1e3
+    log(f"[time] mlp_block backward bf16 N={N} D={D} H={H} (dx over row "
+        f"tiles, the parameters' gradients over hidden chunks x row groups, "
+        f"then the partials' reduce; 14·N·D·H operations executed for the "
+        f"10·N·D·H counted): kernel {kt:.4f} ms ({flop / kt / 1e9:.1f} "
+        f"TFLOP/s of the counted operations, {bound / kt:.1%} of the bound; "
+        f"{(flop_dx + flop_dw) / kt / 1e9:.1f} TFLOP/s and "
+        f"{bound_exec / kt:.1%} of the {bound_exec:.4f} ms that the executed "
+        f"operations need), plain {pt:.4f} ms, "
+        f"the three calls' autograd backward {lt:.4f} ms of device kernels "
+        f"(torch.profiler; {lt_events:.4f} ms between events, host launches "
+        f"included), bound "
         f"{bound:.4f} ms ({by}: {flop / 1e9:.1f} GFLOP; bytes "
         f"{nbytes / HBM_BYTES_S * 1e3:.4f})  [{card}]")
     # which of the backward's two launches takes the time: the mean over the
@@ -2152,12 +2250,21 @@ def _time_row_ops(torch, card: str) -> dict:
         return sum(_dev_own(e) for e in found) / 1e3 / max(
             1, sum(e.count for e in found))
     dx_ms, dw_ms = mean_ms("mlp_bwd_dx"), mean_ms("mlp_bwd_dw")
+    red_ms, db2_ms = mean_ms("mlp_bwd_reduce"), mean_ms("mlp_bwd_db2")
     n_kernels = sum(e.count for e in prof if _is_kernel(e))
+    part_bytes = cfg["scratch_bytes"] + (2 * D * H + H + D) * 4
     log(f"[time] mlp_block backward, torch.profiler over three calls "
         f"({n_kernels} kernels, {_device_busy_ms(prof):.4f} ms of device "
         f"time in the trace), mean of a launch: mlp_bwd_dx (row tiles: dx) "
-        f"{dx_ms:.4f} ms, mlp_bwd_dw (hidden chunks: dW1, db1, dW2, db2) "
-        f"{dw_ms:.4f} ms  [{card}]")
+        f"{dx_ms:.4f} ms = {flop_dx / max(dx_ms, 1e-9) / 1e9:.1f} TFLOP/s of "
+        f"its 6·N·D·H, mlp_bwd_dw (hidden chunks x {cfg['groups']} row "
+        f"groups: partials of dW1, db1, dW2) {dw_ms:.4f} ms = "
+        f"{flop_dw / max(dw_ms, 1e-9) / 1e9:.1f} TFLOP/s of its 8·N·D·H, "
+        f"mlp_bwd_reduce (the partials added in fixed order) {red_ms:.4f} ms "
+        f"= {part_bytes / max(red_ms, 1e-9) / 1e6:.0f} GB/s, "
+        f"mlp_bwd_db2_partial (g's column sums) {db2_ms:.4f} ms  [{card}]")
+    if min(dx_ms, dw_ms, red_ms, db2_ms) <= 0.0:
+        raise SystemExit("the trace misses one of the backward's kernels")
     return times
 
 

@@ -2,7 +2,10 @@
 // derivative with erf by Abramowitz-Stegun 7.1.26 (the TPU kernel's
 // polynomial, max abs error 1.5e-7; expf, no fast-math, so that a kernel and
 // its plain PyTorch version differ by summation order only), and the copy
-// of a row tile into shared memory.
+// of a row tile into shared memory; for the wgmma kernels, what the three of
+// them share around hopper_mma.cuh: the thread layout, the shared-memory
+// budget, and the store of an accumulator's bf16 pairs into a 64-byte-row
+// swizzled tile.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -60,6 +63,43 @@ __device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
     }
     *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
   }
+}
+
+// ---- the wgmma kernels (bf16, D a multiple of 64) ------------------------
+// 384 threads: warpgroups 0 and 1 compute (wgmma, GELU, epilogue), thread 0
+// of warpgroup 2 is the producer that keeps TMA loads in flight. Registers
+// decide the shape: a [64, 768] fp32 tile over three computing warpgroups is
+// 128 registers a thread of the 168 that 384 threads have, and with a
+// 16-register chunk accumulator ptxas spills and serializes the wgmmas
+// (C7512); over two it is 192, and setmaxnreg moves the producer's registers
+// to them: 2 * 128 * 240 + 128 * 24 = 3 * 128 * 168.
+constexpr int kWgThreads = 384;
+constexpr int kComputeThreads = 256;
+constexpr int kWarps2 = kComputeThreads / 32;   // arrivals that release a stage
+constexpr int kProducerRegs = 24;
+constexpr int kComputeRegs = 240;
+constexpr int kComputeBarrier = 1;       // named barrier of the 256
+constexpr int kHiddenChunk = 64;         // 32 hidden columns a warpgroup
+constexpr int kW1Depth = 192;            // rows of W1 in a stage: 2 x [192, 32]
+constexpr int kSlab = 384;               // output columns a warpgroup: 2 x n192
+constexpr unsigned kStageBytes = 24576;  // one ring stage
+constexpr unsigned kMaxSmem = 232448;    // a block's limit on this card
+
+// Path codes that the *_config entry points report.
+constexpr int kPathScalar = 0, kPathWmma = 1, kPathWgmma = 2;
+
+__host__ __device__ inline bool takes_wgmma(int is_bf16, int D) {
+  return is_bf16 && D % 64 == 0;
+}
+
+// Two adjacent accumulator values (row, col), (row, col + 1) of an m64n32
+// tile, rounded to bf16, into a tile of 64-byte rows (32 bf16) with the
+// 64-byte swizzle: `tile` starts on a multiple of 1024 bytes, col is even.
+__device__ __forceinline__ void store_pair_sw64(unsigned char* tile, int row,
+                                                int col, float v0, float v1) {
+  const unsigned off = (unsigned)row * 64u + (unsigned)col * 2u;
+  *reinterpret_cast<__nv_bfloat162*>(tile + (off ^ ((off >> 3) & 0x30u))) =
+      __floats2bfloat162_rn(v0, v1);
 }
 
 }  // namespace mlp

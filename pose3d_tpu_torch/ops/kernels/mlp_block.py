@@ -52,9 +52,26 @@ from pose3d_tpu_torch.ops.kernels._launch import (
 
 IMPLS = ("auto", "reference")
 _DTYPES = (torch.bfloat16, torch.float32)
-# a block keeps its [rows, D] output tile in registers, six 16-column
-# fragments to each of its eight warps: D <= 768
+# a block keeps its [rows, D] output tile in registers (two warpgroups
+# with a 384-column slab each; six 16-column fragments to each of eight
+# warps on the WMMA path): D <= 768
 MAX_D = 768
+
+# the kernels' paths, as the C entry points number them
+PATHS = ("scalar", "wmma", "wgmma")
+# a block's shared-memory limit on the card
+MAX_SMEM = 232448
+_SMS = 132           # the row split is fixed for this count, not read from
+                     # the card: a shape's gradients are the same on any card
+_WG_ROWS = 64        # rows a block: forward and dx (wgmma)
+_WG_TILE = 128       # rows a tile of the dW kernel, 64 a warpgroup
+_WG_COLS = 32        # hidden columns a block of the dW kernel
+# x tile 96 KB + two chunk buffers + (dx: 16 KB of parked gelu') + four
+# 24 KB stages; dW: 96 KB of weights + five 16 KB stages + ga, da, parked
+# gelu', db1's strips; each + barriers and 1 KB of alignment slack
+_WG_SMEM_FWD = 98304 + 2 * 8192 + 4 * 24576 + 128 + 1024
+_WG_SMEM_DX = 98304 + 2 * 8192 + 16384 + 4 * 24576 + 128 + 1024
+_WG_SMEM_DW = 98304 + 5 * 16384 + 2 * 8192 + 16384 + 1024 + 128 + 1024
 
 _SQRT_HALF = 1.0 / math.sqrt(2.0)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
@@ -62,8 +79,90 @@ _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "mlp_block_fwd": [_P] * 6 + [_I, _LL, _I, _I, _P],
-    "mlp_block_bwd": [_P] * 10 + [_I, _LL, _I, _I, _P],
+    "mlp_block_bwd": [_P] * 11 + [_LL, _I, _LL, _I, _I, _P],
 }
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def launch_config(N: int, D: int, H: int, itemsize: int) -> dict:
+    """What the two entry points do for ``x`` ``[N, D]`` of ``itemsize``
+    bytes (2: bfloat16, 4: float32) and hidden width ``H``; plain Python
+    that mirrors the C dispatch (``pose3d_mlp_block_fwd_config`` /
+    ``_bwd_config`` report the same from the built library,
+    :func:`library_config`).
+
+    ``path``: ``"wgmma"`` (bf16, D a multiple of 64: TMA-fed ``wgmma``
+    kernels), ``"wmma"`` (bf16, any other D: the WMMA kernels) or
+    ``"scalar"`` (fp32). ``fwd`` / ``dx`` / ``dw``: ``rows`` a block (a
+    tile for ``dw``), ``blocks``, ``smem`` bytes of dynamic shared memory;
+    ``groups``: the dW kernel's row groups G (its grid is
+    ``ceil(H / 32) × G``, about three waves of the card's 132 SMs, no
+    group empty; 1 off the wgmma path); ``scratch_bytes``: fp32 scratch
+    the backward needs (G partials ``[dW1 | dW2 | db1]`` and db2's
+    per-row-block column sums; :func:`mlp_block_bwd` allocates what the
+    library itself reports, which ``chip_smoke.py`` holds equal to this)."""
+    if itemsize == 2 and D % 64 == 0:
+        cblocks, tiles = _ceil(H, _WG_COLS), _ceil(N, _WG_TILE)
+        g = max(1, min(tiles, (3 * _SMS) // cblocks))
+        groups = _ceil(tiles, _ceil(tiles, g))
+        rows2 = max(64, _ceil(N, 256))
+        scratch = groups * (2 * D * H + H) + _ceil(N, rows2) * D
+        return {
+            "path": "wgmma", "groups": groups, "scratch_bytes": 4 * scratch,
+            "fwd": {"rows": _WG_ROWS, "blocks": _ceil(N, _WG_ROWS),
+                    "smem": _WG_SMEM_FWD},
+            "dx": {"rows": _WG_ROWS, "blocks": _ceil(N, _WG_ROWS),
+                   "smem": _WG_SMEM_DX},
+            "dw": {"rows": _WG_TILE, "blocks": cblocks * groups,
+                   "smem": _WG_SMEM_DW},
+        }
+    if itemsize == 2:
+        fwd = 32 * (D + 8) * 2 + 32 * 132 * 4 + 32 * 136 * 2
+        dx = 2 * 32 * (D + 8) * 2 + 2 * 32 * 68 * 4 + 32 * 72 * 2
+        dw = 2 * 32 * (D + 8) * 2 + 4 * 32 * 20 * 4 + 2 * 32 * 24 * 2
+        rows, path = 32, "wmma"
+    else:
+        fwd = (2 * 16 * D + 16 * 64) * 4
+        dx = (3 * 16 * D + 2 * 16 * 64) * 4
+        dw = (2 * 32 * D + 2 * 32 * 16) * 4
+        rows, path = 16, "scalar"
+    return {
+        "path": path, "groups": 1, "scratch_bytes": 0,
+        "fwd": {"rows": rows, "blocks": _ceil(N, rows), "smem": fwd},
+        "dx": {"rows": rows, "blocks": _ceil(N, rows), "smem": dx},
+        "dw": {"rows": 32, "blocks": H // 16, "smem": dw},
+    }
+
+
+def _bwd_config(lib: ctypes.CDLL, is_bf16: int, N: int, D: int, H: int):
+    """The backward's dispatch as its library reports it: path, dx rows,
+    blocks, smem, dW rows, blocks, groups, smem, scratch floats."""
+    out = (ctypes.c_longlong * 9)()
+    lib.pose3d_mlp_block_bwd_config.argtypes = [_I, _LL, _I, _I, _P]
+    lib.pose3d_mlp_block_bwd_config(is_bf16, N, D, H, out)
+    return out
+
+
+def library_config(N: int, D: int, H: int, itemsize: int) -> dict:
+    """:func:`launch_config` as the built libraries report it (builds
+    them at first use; needs the card's toolkit)."""
+    fwd = (ctypes.c_int * 4)()
+    is_bf16 = int(itemsize == 2)
+    lib = load_library("mlp_block_fwd")
+    lib.pose3d_mlp_block_fwd_config.argtypes = [_I, _LL, _I, _I, _P]
+    lib.pose3d_mlp_block_fwd_config(is_bf16, N, D, H, fwd)
+    bwd = _bwd_config(load_library("mlp_block_bwd"), is_bf16, N, D, H)
+    if fwd[0] != bwd[0]:
+        raise RuntimeError(f"forward takes path {fwd[0]}, backward {bwd[0]}")
+    return {
+        "path": PATHS[fwd[0]], "groups": bwd[6], "scratch_bytes": 4 * bwd[8],
+        "fwd": {"rows": fwd[1], "blocks": fwd[2], "smem": fwd[3]},
+        "dx": {"rows": bwd[1], "blocks": bwd[2], "smem": bwd[3]},
+        "dw": {"rows": bwd[4], "blocks": bwd[5], "smem": bwd[7]},
+    }
 
 
 def erf_as(z: torch.Tensor) -> torch.Tensor:
@@ -183,7 +282,11 @@ def _check(fn: str, x2, w1, b1, w2, b2, g=None) -> Tuple[int, int, int]:
 
 def mlp_block_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                   w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """Launch the Hopper forward kernel on PyTorch's current stream.
+    """Launch the Hopper forward kernel on PyTorch's current stream: for
+    bf16 with D a multiple of 64 the ``wgmma`` kernel; for bf16 with any
+    other D (a multiple of 16) the WMMA kernel, by the shape alone and never
+    because the other failed; for fp32 the scalar kernel
+    (:func:`launch_config` says which, and the tile and grid).
     ``w1`` and ``w2`` must already be in x's dtype and ``b1``, ``b2`` in
     fp32 (:func:`fused_mlp` casts them). Raises on anything the kernel does
     not take (non-CUDA tensors, other dtypes, tensors that are not
@@ -212,11 +315,14 @@ mlp_block_fwd.launches = 0
 def mlp_block_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                   w2: torch.Tensor, b2: torch.Tensor, g: torch.Tensor
                   ) -> Tuple[torch.Tensor, ...]:
-    """Launch the Hopper backward on PyTorch's current stream: two
-    kernels from one source, one over row tiles for dx, one over chunks of
-    the hidden axis for dw1, db1, dw2 and db2 (no atomics: a shape's
-    gradients are the same from run to run). One call counts as one
-    launch. Returns ``(dx`` in x's dtype, ``dw1, db1, dw2, db2`` in
+    """Launch the Hopper backward on PyTorch's current stream: kernels
+    from one source, one over row tiles for dx, one over chunks of the
+    hidden axis (times row groups on the ``wgmma`` path, whose fp32
+    partials a small kernel adds in fixed order; the scratch for them is
+    allocated here, at the size the library asks for) for dw1, db1, dw2
+    and db2 (no
+    atomics: a shape's gradients are the same from run to run). One call
+    counts as one launch. Returns ``(dx`` in x's dtype, ``dw1, db1, dw2, db2`` in
     fp32``)``; operands as :func:`mlp_block_fwd`, ``g`` contiguous and of
     x's dtype and shape (``b2`` is checked, not read)."""
     refuse_grad_inputs("mlp_block_bwd", "fused_mlp()", x, w1, b1, w2, b2, g)
@@ -235,12 +341,17 @@ def mlp_block_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     db1 = torch.empty((H,), dtype=f32, device=x.device)
     db2 = torch.empty((D,), dtype=f32, device=x.device)
     lib = load_library("mlp_block_bwd")
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    # the scratch's size from the library that will check it
+    n_scratch = _bwd_config(lib, is_bf16, N, D, H)[8]
+    scratch = torch.empty((n_scratch,), dtype=f32, device=x.device)
     with on_device(x.device):
         rc = lib.pose3d_mlp_block_bwd(
             x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             g.data_ptr(), dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-            dw2.data_ptr(), db2.data_ptr(), int(x.dtype == torch.bfloat16),
-            N, D, H, torch.cuda.current_stream().cuda_stream)
+            dw2.data_ptr(), db2.data_ptr(), scratch.data_ptr(), n_scratch,
+            is_bf16, N, D, H,
+            torch.cuda.current_stream().cuda_stream)
     _build.raise_if_failed(lib, "mlp_block_bwd", rc)
     mlp_block_bwd.launches += 1
     return dx.view(x.shape), dw1, db1, dw2, db2

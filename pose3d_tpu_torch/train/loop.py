@@ -114,6 +114,7 @@ def train_model(
     checkpoint_path=None,
     augment=None,
     augment_generator: Optional[torch.Generator] = None,
+    compat_pa_metric: bool = False,
 ):
     """Train ``state`` in place over ``train_loader`` (numpy batches of
     ``image``, ``depth``, ``keypoints_2d``, ``joints_3d``); returns
@@ -124,8 +125,19 @@ def train_model(
     runs on the EMA weights when ``ema_decay`` is set. ``writer`` receives
     ``Loss/train_step`` and ``Loss_Components/*`` per step,
     ``Perf/step_time_ms`` and ``Perf/images_per_sec`` per log window after
-    the first, and the validation averages. ``checkpoint_path``: where the
-    ``.pth`` is written when training ends, if any step ran.
+    the first, ``Train/learning_rate`` per log window when the state has a
+    schedule, and at a validation ``Loss/validation_epoch_avg``,
+    ``Metrics/MPJPE_validation_epoch_avg``,
+    ``Metrics/PA_MPJPE_validation_epoch_avg`` (``compat_pa_metric`` selects
+    the reference's transposed Procrustes rotation) and
+    ``Loss_Components_Val/*`` for every loss component.
+    ``checkpoint_path``: where the ``.pth`` is written when training ends,
+    if any step ran: also after Ctrl-C, which ends training and returns
+    like any other end.
+
+    ``max_epochs`` bounds the passes over ``train_loader``; a loader that
+    loops by itself and stamps its batches with ``_pos`` (epoch, index) is
+    stopped once that epoch counter reaches ``max_epochs``.
 
     ``augment`` (``ops.augment_device.make_device_augment(cfg)``) augments
     every training batch on the device inside the step; it draws from
@@ -142,7 +154,7 @@ def train_model(
             42 + 0x617567)
     train_step = make_train_step(loss_weights, accum_mode=accum_mode,
                                  ema_decay=ema_decay, augment=augment)
-    eval_step = make_eval_step(loss_weights)
+    eval_step = make_eval_step(loss_weights, compat_pa=compat_pa_metric)
     target = num_steps if num_steps is not None else float("inf")
     start_step = global_step = state.step
 
@@ -150,6 +162,7 @@ def train_model(
     pending_metrics: list = []
     pending_images = 0
     flushes = 0
+    stopped = False
     window_t0 = time.perf_counter()
 
     def flush_metrics():
@@ -167,6 +180,12 @@ def train_model(
             for j, k in enumerate(keys):
                 writer.add_scalar(f"Loss_Components/{k}", float(vals[i, j]),
                                   step_i)
+        if state.scheduler is not None:
+            # the rate the next update will use, as optax's schedule gives it
+            # at this count
+            writer.add_scalar("Train/learning_rate",
+                              float(state.optimizer.param_groups[0]["lr"]),
+                              pending_steps[-1])
         flushes += 1
         rate = ""
         if flushes > 1:  # the first window holds the kernels' builds
@@ -185,16 +204,24 @@ def train_model(
 
     try:
         for _epoch in range(max_epochs):
-            if global_step >= target:
+            if global_step >= target or stopped:
                 break
             for superbatch in _superbatches(train_loader,
                                             gradient_accumulation_steps):
-                if global_step >= target:
+                if global_step >= target or stopped:
                     break
+                pos = superbatch.get("_pos")
                 batch = to_device(superbatch, device)
                 metrics = train_step(state, batch, generator,
                                      augment_generator)
                 global_step = state.step
+                if pos is not None and int(pos[0]) >= max_epochs:
+                    # a looping loader never ends a pass: the cap comes from
+                    # the stream's own epoch counter; the stop waits for the
+                    # loop head so that this step is still logged
+                    logger.warning("max_epochs=%d reached at step %d: "
+                                   "stopping.", max_epochs, global_step)
+                    stopped = True
                 pending_steps.append(global_step)
                 pending_metrics.append(metrics)
                 pending_images += (batch["image"].shape[0]
@@ -215,11 +242,18 @@ def train_model(
                     writer.add_scalar(
                         "Metrics/PA_MPJPE_validation_epoch_avg",
                         val["pa_mpjpe"], global_step)
+                    for k, v in val.items():
+                        if k not in ("mpjpe", "pa_mpjpe"):
+                            writer.add_scalar(f"Loss_Components_Val/{k}", v,
+                                              global_step)
                     logger.info("Step %d: Val Loss: %.4f, MPJPE: %.2f mm, "
                                 "PA-MPJPE: %.2f mm", global_step,
                                 val["total_loss"], val["mpjpe"],
                                 val["pa_mpjpe"])
                     window_t0 = time.perf_counter()
+    except KeyboardInterrupt:
+        logger.warning("Interrupted at step %d: saving the weights reached.",
+                       global_step)
     finally:
         # every exit flushes the metrics and keeps the weights reached
         flush_metrics()

@@ -609,3 +609,69 @@ def test_row_ops_on_cuda_run_the_kernels(dtype, monkeypatch):
     with pytest.raises(RuntimeError, match="requires grad"):
         mb.mlp_block_fwd(x, w1.to(dt).requires_grad_(), b1, w2.to(dt),
                          b2.float())
+
+
+# The edges of the wgmma tiling (64-row blocks, 128-row tiles of the dW
+# kernel and its row groups, hidden chunks of 64 and dW blocks of 32, D an
+# odd multiple of 64) and shapes that stay on the WMMA kernels.
+MLP_EDGE_SHAPES = [(63, 768, 3072, "wgmma"), (64, 768, 3072, "wgmma"),
+                   (65, 768, 3072, "wgmma"), (129 * 64 - 1, 768, 3072, "wgmma"),
+                   (511, 768, 3072, "wgmma"), (513, 768, 3072, "wgmma"),
+                   (65, 768, 96, "wgmma"), (130, 768, 3056, "wgmma"),
+                   (70, 192, 80, "wgmma"), (33, 720, 160, "wmma")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D,H,path", MLP_EDGE_SHAPES)
+def test_mlp_block_tiling_edges_match_plain_version(N, D, H, path):
+    """bf16 at the edges of the tiling: the path the built libraries report
+    is ``launch_config``'s and the expected one, outputs agree with the
+    plain version, and a repeat is bitwise equal (no atomics)."""
+    _cuda()
+    dt = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(N + D + H)
+    x, w1, b1, w2, b2, dy = _mlp_inputs((N,), D, H, dt, g)
+    cfg = mb.launch_config(N, D, H, 2)
+    assert cfg == mb.library_config(N, D, H, 2) and cfg["path"] == path
+    out = mb.mlp_block_fwd(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert _rel_err(out, mb.mlp_block_fwd_reference(x, w1, b1, w2, b2)) \
+        <= TOL_MLP["bfloat16"]
+    assert torch.equal(out, mb.mlp_block_fwd(x, w1, b1, w2, b2))
+    grads = mb.mlp_block_bwd(x, w1, b1, w2, b2, dy)
+    again = mb.mlp_block_bwd(x, w1, b1, w2, b2, dy)
+    refs = mb.mlp_block_bwd_reference(x, w1.float(), b1, w2.float(), b2, dy)
+    for name, a, b, r in zip(("dx", "dw1", "db1", "dw2", "db2"), grads, again,
+                             refs):
+        assert a.shape == r.shape and torch.isfinite(a).all(), name
+        assert torch.equal(a, b), name
+        assert _rel_err(a, r) <= TOL_MLP["bfloat16"], name
+
+
+@pytest.mark.cuda
+def test_fused_mlp_on_the_wgmma_path_reaches_every_gradient():
+    """``fused_mlp`` on bf16 tokens of the lifter's width (the wgmma path)
+    with fp32 parameters: one launch of each kernel, and x and all four
+    parameters receive a finite gradient in their own dtype that agrees
+    with ``impl="reference"``."""
+    _cuda()
+    g = torch.Generator(device="cuda").manual_seed(21)
+    x, w1, b1, w2, b2, dy = _mlp_inputs((2, 130), 768, 3072, torch.float32, g)
+    x, dy = x.bfloat16(), dy.bfloat16()
+    assert mb.launch_config(260, 768, 3072, 2)["path"] == "wgmma"
+
+    def run(impl):
+        leaves = [t.clone().requires_grad_() for t in (x, w1, b1, w2, b2)]
+        mb.fused_mlp(*leaves, impl=impl).backward(dy)
+        return leaves
+
+    before = mb.mlp_block_fwd.launches, mb.mlp_block_bwd.launches
+    got = run("auto")
+    torch.cuda.synchronize()
+    assert (mb.mlp_block_fwd.launches, mb.mlp_block_bwd.launches) \
+        == (before[0] + 1, before[1] + 1)
+    for a, r in zip(got, run("reference")):
+        assert a.grad is not None and a.grad.dtype == a.dtype
+        assert torch.isfinite(a.grad).all()
+        assert _rel_err(a.grad, r.grad) <= TOL_MLP["bfloat16"]

@@ -5,6 +5,8 @@ inputs (interpret mode, as ``test_pallas_layernorm.py`` and
 weights bridge, and what the launchers refuse. Everything runs on the CPU,
 where the port's ops take their kernels' plain versions."""
 
+import re
+
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp
@@ -380,3 +382,83 @@ def test_ops_refuse_bad_impl_and_strided_last_axis():
     got = ln.layer_norm(wide[:, 8:40], s, b)
     want = ln.layer_norm(wide[:, 8:40].contiguous(), s, b)
     assert torch.equal(got, want)
+
+
+# --- mlp_block.launch_config: the C dispatch, mirrored in plain Python ------
+
+def test_launch_config_full_width_takes_wgmma():
+    """The lifter's MLP (8·1025 rows, D 768, H 3,072, bf16): the wgmma
+    path, 64-row blocks in one wave of the card's 132 SMs, the dW kernel's
+    grid of H/32 column blocks × G = 4 row groups of 128-row tiles (384
+    blocks, about three waves), and fp32 scratch for G partials
+    [dW1 | dW2 | db1] plus db2's 129 row blocks."""
+    cfg = mb.launch_config(8 * 1025, 768, 3072, 2)
+    assert cfg["path"] == "wgmma" and cfg["groups"] == 4
+    assert cfg["fwd"] == {"rows": 64, "blocks": 129, "smem": cfg["fwd"]["smem"]}
+    assert cfg["dx"]["rows"] == 64 and cfg["dx"]["blocks"] == 129
+    assert cfg["dw"]["rows"] == 128 and cfg["dw"]["blocks"] == 96 * 4
+    assert cfg["fwd"]["blocks"] <= 132
+    assert cfg["scratch_bytes"] == 4 * (4 * (2 * 768 * 3072 + 3072)
+                                        + 129 * 768)
+
+
+@pytest.mark.parametrize("N,D,H,itemsize,path", [
+    (8200, 768, 3072, 2, "wgmma"), (1, 128, 512, 2, "wgmma"),
+    (7, 128, 512, 2, "wgmma"), (513, 128, 512, 2, "wgmma"),
+    (65, 768, 3056, 2, "wgmma"), (70, 192, 80, 2, "wgmma"),
+    (7, 48, 80, 2, "wmma"), (1, 16, 16, 2, "wmma"), (33, 720, 160, 2, "wmma"),
+    (8200, 768, 3072, 4, "scalar"), (7, 48, 80, 4, "scalar"),
+    (513, 128, 512, 4, "scalar"),
+])
+def test_launch_config_paths_and_shared_memory(N, D, H, itemsize, path):
+    """bf16 with D a multiple of 64 → wgmma, any other bf16 D → WMMA, fp32 →
+    the scalar kernels; every kernel's dynamic shared memory fits a
+    block's 232,448 bytes; the blocks cover the rows."""
+    cfg = mb.launch_config(N, D, H, itemsize)
+    assert cfg["path"] == path and path in mb.PATHS
+    for k in ("fwd", "dx", "dw"):
+        assert 0 < cfg[k]["smem"] <= mb.MAX_SMEM == 232448, k
+    for k in ("fwd", "dx"):
+        assert cfg[k]["blocks"] * cfg[k]["rows"] >= N \
+            > (cfg[k]["blocks"] - 1) * cfg[k]["rows"]
+    if path != "wgmma":
+        assert cfg["groups"] == 1 and cfg["scratch_bytes"] == 0
+
+
+@pytest.mark.parametrize("N,H,groups", [
+    (1, 512, 1), (128, 3072, 1), (129, 3072, 2), (511, 3072, 4),
+    (513, 3072, 3), (2177, 3072, 4), (8200, 3072, 4), (102500, 3072, 4),
+    (8200, 96, 65), (8200, 16384, 1),
+])
+def test_launch_config_row_groups(N, H, groups):
+    """G: as many row groups as make ceil(H/32)·G about three waves of 132
+    SMs, at most one per 128-row tile, and none empty (so 5 tiles split 2,
+    2, 1 into three groups, not four)."""
+    cfg = mb.launch_config(N, 768, H, 2)
+    tiles = -(-N // 128)
+    per_group = -(-tiles // cfg["groups"])
+    assert cfg["groups"] == groups
+    assert (cfg["groups"] - 1) * per_group < tiles <= cfg["groups"] * per_group
+    assert cfg["dw"]["blocks"] == -(-H // 32) * groups
+    assert cfg["groups"] <= max(1, 396 // -(-H // 32))
+
+
+# --- csrc/hopper_mma.cuh holds what its kernels call, nothing ahead of them ---
+
+def test_hopper_mma_header_has_no_unused_form():
+    """Every function the shared header defines is called from a kernel
+    source of the directory (or from the header itself, as the tensor-map
+    helper is): a form arrives with its first caller."""
+    csrc = _build.CSRC_DIR
+    header = (csrc / "hopper_mma.cuh").read_text()
+    names = set(re.findall(
+        r"^(?:__device__ __forceinline__|inline|constexpr) [\w:<> ]*?"
+        r"(\w+)(?:\(| =)", header, flags=re.M))
+    assert {"wgmma_m64n32k16", "wgmma_m64n192k16", "tma_load_2d",
+            "mbar_wait", "make_desc", "tma_map_bf16"} <= names
+    sources = "".join(f.read_text() for f in sorted(csrc.glob("*.cu")))
+    body = header.split("namespace hmma {", 1)[1]
+    unused = sorted(n for n in names
+                    if not re.search(rf"\b{n}\b", sources)
+                    and len(re.findall(rf"\b{n}\b", body)) < 2)
+    assert unused == []

@@ -522,3 +522,170 @@ def test_train_model_on_cpu_saves_a_servable_pth(tmp_path):
     assert lcfg == cfg
     for (name, p), q in zip(model.named_parameters(), loaded.parameters()):
         assert torch.equal(p.detach(), q), name
+
+
+# --- the loop's behaviour against the JAX loop ------------------------------
+
+SCHED = dict(schedule="constant", warmup_steps=3)
+
+
+class _LoopingLoader:
+    """A loader that never ends a pass by itself: it repeats its batches and
+    stamps each with ``_pos`` = (epoch, index), as ``BatchLoader(loop=True)``
+    does; ``interrupt_at``: raise KeyboardInterrupt in place of that
+    batch."""
+
+    def __init__(self, batches, interrupt_at=None):
+        self.batches, self.interrupt_at = batches, interrupt_at
+
+    def __iter__(self):
+        n = 0
+        while True:
+            for i, b in enumerate(self.batches):
+                if n == self.interrupt_at:
+                    raise KeyboardInterrupt
+                epoch = n // len(self.batches)
+                yield dict(b, _pos=np.array([epoch, i]))
+                n += 1
+
+
+class _Val:
+    batch_size = 2
+
+    def __init__(self, batches):
+        self.batches = batches
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+def _jax_loop_run(jax_tiny, tmp_path, loader, val, **kw):
+    _, jmodel, variables = jax_tiny
+    sched = jstate.make_lr_schedule(LR, **SCHED)
+    st = jstate.create_train_state(jmodel, variables, learning_rate=sched)
+    w = _Recorder()
+    st, n = jloop.train_model(
+        st, "transformer", loader, val, model=jmodel,
+        model_args=CFG0.to_dict() if hasattr(CFG0, "to_dict") else {},
+        writer=w, gradient_accumulation_steps=2, log_interval_steps=2,
+        preview_interval_steps=1000, lr_schedule=sched,
+        checkpoint_prefix=str(tmp_path / "jax"), **kw)
+    return w, n
+
+
+def _port_loop_run(jax_tiny, tmp_path, loader, val, **kw):
+    _, _, variables = jax_tiny
+    st = tstate.create_train_state(
+        _port_model(variables), learning_rate=LR,
+        lr_schedule=tstate.make_lr_schedule(**SCHED))
+    w = _Recorder()
+    pth = tmp_path / "port.pth"
+    st, n = loop.train_model(
+        st, loader, val, writer=w, gradient_accumulation_steps=2,
+        log_interval_steps=2, checkpoint_path=pth,
+        generator=torch.Generator().manual_seed(0), **kw)
+    return w, n, st, pth
+
+
+@pytest.fixture(scope="module")
+def loop_runs(jax_tiny, tmp_path_factory):
+    """Both loops over the same looping loader of four batches of 2
+    (accumulation 2: two steps an epoch), ``num_steps=None``,
+    ``max_epochs=2``, a validation every 2 steps, a warmup schedule."""
+    batches, _ = _superbatch(7, 4, 2)
+    val = _Val(batches[:2])
+    kw = dict(num_steps=None, max_epochs=2, eval_interval_steps=2)
+    tmp = tmp_path_factory.mktemp("loops")
+    jw, jn = _jax_loop_run(jax_tiny, tmp, _LoopingLoader(batches), val, **kw)
+    pw, pn, _, _ = _port_loop_run(jax_tiny, tmp, _LoopingLoader(batches), val,
+                                  **kw)
+    return dict(jax=(jw, jn), port=(pw, pn))
+
+
+def test_loop_stops_a_looping_loader_at_max_epochs_like_jax(loop_runs):
+    """``num_steps=None`` over a loader that loops by itself: both loops
+    stop from the stream's own epoch counter in ``_pos``, at the same
+    step, and log that last step."""
+    (jw, jn), (pw, pn) = loop_runs["jax"], loop_runs["port"]
+    assert pn == jn and 0 < pn < 50
+    assert [s for s, _ in pw.scalars["Loss/train_step"]] \
+        == [s for s, _ in jw.scalars["Loss/train_step"]] \
+        == list(range(1, pn + 1))
+
+
+def test_loop_writes_the_scalar_tags_of_the_jax_loop(loop_runs):
+    """The tags written at the flushes and the validations, and the steps
+    each is written at, are the JAX loop's: every ``Loss_Components_Val/*``
+    and ``Train/learning_rate`` among them."""
+    jw, pw = loop_runs["jax"][0], loop_runs["port"][0]
+    assert set(pw.scalars) == set(jw.scalars)
+    assert any(t.startswith("Loss_Components_Val/") for t in pw.scalars)
+    for tag in jw.scalars:
+        assert [s for s, _ in pw.scalars[tag]] \
+            == [s for s, _ in jw.scalars[tag]], tag
+
+
+@pytest.mark.parametrize("tag,rtol", [
+    ("Train/learning_rate", 1e-6),
+    ("Loss/train_step", 1e-3),
+    ("Loss/validation_epoch_avg", 1e-3),
+    ("Loss_Components_Val/total_loss", 1e-3),
+    ("Metrics/PA_MPJPE_validation_epoch_avg", 1e-3),
+])
+def test_loop_scalars_match_jax(loop_runs, tag, rtol):
+    """Values of the learning rate (the schedule at each flush's step), the
+    training loss and the validation averages against the JAX loop on the
+    same batches and weights (fp32, dropout off)."""
+    jw, pw = loop_runs["jax"][0], loop_runs["port"][0]
+    np.testing.assert_allclose([v for _, v in pw.scalars[tag]],
+                               [v for _, v in jw.scalars[tag]], rtol=rtol,
+                               err_msg=tag)
+
+
+def test_keyboard_interrupt_saves_and_returns_like_jax(jax_tiny, tmp_path):
+    """Ctrl-C while the loader is read: both loops end training, write
+    what they reached and return ``(state, step)``. The interrupt comes in
+    place of the sixth batch, after two whole superbatches: the port has
+    trained on both; the JAX loop reads one superbatch ahead of its step
+    (its device prefetch, which the port does not have yet) and so meets
+    the interrupt one step earlier."""
+    batches, _ = _superbatch(8, 4, 2)
+    kw = dict(num_steps=10, max_epochs=5, eval_interval_steps=100)
+    jw, jn = _jax_loop_run(jax_tiny, tmp_path,
+                           _LoopingLoader(batches, interrupt_at=5), None, **kw)
+    pw, pn, st, pth = _port_loop_run(
+        jax_tiny, tmp_path, _LoopingLoader(batches, interrupt_at=5), None,
+        **kw)
+    assert pn == 2 and st.step == 2 and jn == 1
+    assert [s for s, _ in pw.scalars["Loss/train_step"]] == [1, 2]
+    assert [s for s, _ in jw.scalars["Loss/train_step"]] == [1]
+    loaded, _ = load_pose_model(pth, "cpu", dtype=torch.float32)
+    for (name, p), q in zip(st.model.named_parameters(),
+                            loaded.parameters()):
+        assert torch.equal(p.detach(), q), name
+
+
+@pytest.mark.parametrize("compat", [False, True])
+def test_compat_pa_metric_reaches_the_validation(jax_tiny, tmp_path, compat):
+    """``train_model(compat_pa_metric=...)`` validates with that Procrustes
+    convention: with a learning rate of 0 the weights stay the JAX
+    model's, and the validation's PA-MPJPE is the JAX ``evaluate``'s under
+    the same flag (and differs between the flags)."""
+    _, jmodel, variables = jax_tiny
+    batches, _ = _superbatch(9, 2, 2)
+    st = tstate.create_train_state(_port_model(variables), learning_rate=0.0)
+    w = _Recorder()
+    loop.train_model(st, batches, batches, writer=w,
+                     gradient_accumulation_steps=2, num_steps=1,
+                     eval_interval_steps=1, compat_pa_metric=compat,
+                     generator=torch.Generator().manual_seed(0))
+    want = {c: jloop.evaluate(
+        jstep.make_eval_step(jmodel, per_sample=True, compat_pa=c),
+        jstate.create_train_state(jmodel, variables), batches, pad_to=2)
+        for c in (False, True)}
+    got = w.scalars["Metrics/PA_MPJPE_validation_epoch_avg"][0][1]
+    np.testing.assert_allclose(got, want[compat]["pa_mpjpe"], rtol=1e-4)
+    assert abs(want[True]["pa_mpjpe"] - want[False]["pa_mpjpe"]) \
+        > 1e-3 * want[False]["pa_mpjpe"]
+    assert abs(got - want[not compat]["pa_mpjpe"]) \
+        > 1e-3 * want[False]["pa_mpjpe"]
