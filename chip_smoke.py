@@ -15,7 +15,13 @@ Phases, each fatal on failure:
      register/shared-memory/spill lines);
   3. kernels: each kernel against its plain PyTorch version at every shape
      the paths give it and at ragged ones, in bf16 and fp32, with the
-     tolerances below (``bn_stats``: forward and the Function's backward;
+     tolerances below (attention: also at the edges of the ``wgmma``
+     kernels' tiles, on packed q/k/v views read in place and at YOLO11x's
+     PSA pair with a value depth twice the key depth, the path each shape
+     takes — ``wgmma`` / ``wmma`` / ``scalar`` — asserted from
+     ``launch_config`` and from the built libraries, and the ``wgmma``
+     kernels' ptxas report read: a spill or a serialized ``wgmma`` (C7520,
+     C7512) fails; ``bn_stats``: forward and the Function's backward;
      ``lane_resample``: order 0 equal, order 1 within 1e-6;
      ``layer_norm`` and ``mlp_block``: forward and backward at the
      lifter's row counts and widths and at ragged ones; ``mlp_block``
@@ -41,7 +47,10 @@ Phases, each fatal on failure:
      ``/predict``;
   6. times: each kernel vs its plain version per shape, beside the least
      time the card could take and one library call as a yardstick
-     (``scaled_dot_product_attention`` forward and backward,
+     (``scaled_dot_product_attention`` forward and backward at the four
+     attention shapes of the lifter, as device time from ``torch.profiler``
+     with the time between events beside it, and each direction's sum
+     over one pass's 20 launches,
      ``torch.batch_norm_stats``, ``grid_sample``, ``F.layer_norm`` and its
      backward, and for ``mlp_block`` the three calls ``F.linear → F.gelu →
      F.linear`` and their backward, which write the hidden activation to
@@ -54,9 +63,11 @@ Phases, each fatal on failure:
      14·N·D·H the backward executes beside the 10·N·D·H counted, and
      its launches apart from ``torch.profiler`` with each one's rate), the
      batch-8 forward with each (between events, and its device kernels'
-     own time from ``torch.profiler``), per-request latency, the batch-2 train step
+     own time from ``torch.profiler``, split into attention, matrix
+     products and the rest), per-request latency, the batch-2 train step
      with each, and the 10×10 train step with the kernels (ms, images/s,
-     peak memory), each with the card's name and power limit;
+     peak memory, and the same split of one step), each with the card's
+     name and power limit;
   7. cnn: the CNN lifter at the published full width (500×500), (a)
      ``normalization="batch_pallas"`` trained by ``train_model`` for 3
      optimizer steps at 10 × 10 in ``accum_mode="scan"`` with the published
@@ -106,6 +117,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -127,6 +139,26 @@ ROOT = Path(__file__).resolve().parent
 PATH_SHAPES = [(1025, 1025, 12, 64), (1024, 16, 16, 48), (16, 1024, 16, 48),
                (1041, 1041, 16, 48)]
 RAGGED_SHAPES = [(1, 1, 4, 64), (17, 130, 4, 48), (130, 17, 4, 64)]
+# launches of each shape in one forward (or backward) pass of the lifter:
+# 12 ViT blocks, 2 fusion layers' two cross attentions, 4 final blocks
+PASS_LAUNCHES = dict(zip(PATH_SHAPES, (12, 2, 2, 4)))
+# The edges of the wgmma kernels' tiles (64 query rows a warpgroup, 128 a
+# forward block; 128 keys a forward tile and a backward block; 64 query rows
+# a backward tile): lengths either side of each, and the final blocks' 1041
+# = 8·128 + 17, at both of the lifter's depths; and query against key
+# lengths across a tile edge. Then self-attention q/k/v as the model hands
+# them over, views of one [B, T, 3, H, D] projection read in place ((T, H,
+# D)), and YOLO11x's PSA attention, whose key depth is half its value depth
+# ((Tq, Tk, H, D, Dv): 20 x 20 tokens, 6 heads), on the WMMA and scalar
+# kernels. Every shape's path is asserted from launch_config and from the
+# built libraries, and o, lse, dk, dv of a repeat are bitwise equal (dq is
+# summed by atomics in an order that varies).
+ATTN_EDGES = ([(t, t, 3, d) for t in (1, 16, 63, 64, 65, 127, 128, 129, 1041)
+               for d in (48, 64)]
+              + [(t, 130, 2, 64) for t in (1, 63, 129)]
+              + [(130, t, 2, 48) for t in (1, 63, 129)])
+PACKED_SHAPES = [(130, 4, 48), (1025, 12, 64)]
+PSA_SHAPE = (400, 400, 6, 32, 64)
 # Max |Δ| against the plain version for unit-normal inputs. bf16: the
 # kernel rounds P to bf16 against a running (not the final) row max, and o
 # itself is bf16 (2^-8 relative), so a couple of ulps of |o| <= ~2; fp32:
@@ -299,6 +331,9 @@ def phase_build() -> None:
             return mlp_block.load_library(name)
         return flash_attention.load_library(name)
 
+    # every library from the sources of this checkout, never one left by an
+    # earlier run: the ptxas report below is read from this build's log
+    shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNELS)) as ex:
         list(ex.map(load, KERNELS))
@@ -357,7 +392,50 @@ def _qkv(torch, B, Tq, Tk, H, D, dtype, seed):
     return mk(Tq), mk(Tk), mk(Tk)
 
 
+def _attention_cases() -> list:
+    """(Tq, Tk, H, D, Dv, packed) of every attention check."""
+    return ([(Tq, Tk, H, D, D, False)
+             for Tq, Tk, H, D in PATH_SHAPES + RAGGED_SHAPES + ATTN_EDGES]
+            + [(T, T, H, D, D, True) for T, H, D in PACKED_SHAPES]
+            + [(*PSA_SHAPE, False)])
+
+
+def _attention_path(dtype_name: str, D: int, Dv: int) -> str:
+    if dtype_name == "float32":
+        return "scalar"
+    return "wgmma" if D == Dv and D in (48, 64) else "wmma"
+
+
+def _check_attention_build() -> None:
+    """The wgmma kernels of both attention sources: registers and spills
+    from ptxas; a spill, or a wgmma that ptxas serialized (C7520: under a
+    branch it cannot prove uniform; C7512: beside a spill; C7513: an input
+    register written by another instruction while a group is in flight),
+    fails."""
+    from pose3d_tpu_torch.ops.kernels import _build
+
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        report = _ptxas_report(name)
+        wg = {k: v for k, v in report.items() if "wgmma" in k}
+        if len(wg) != 2:
+            raise SystemExit(f"{name}: want two wgmma kernels (D 48, 64) in "
+                             f"the build log, found {sorted(wg)}")
+        for kern, (regs, st, ld) in sorted(wg.items()):
+            log(f"[kernel] {kern}: {regs} registers a thread at the entry "
+                f"(384 threads; setmaxnreg gives the two consumer warpgroups "
+                f"240, the producer 24), spills {st} B stored / {ld} B "
+                f"loaded")
+            if st or ld:
+                raise SystemExit(f"{kern} spills registers")
+        serial = [line.strip() for line in
+                  _build.build_info[name]["log"].splitlines()
+                  if any(c in line for c in ("C7520", "C7512", "C7513"))]
+        if serial:
+            raise SystemExit(f"{name}: ptxas serialized wgmma: {serial}")
+
+
 def phase_kernels(torch) -> dict:
+    from pose3d_tpu_torch.ops.kernels import flash_attention as fa
     from pose3d_tpu_torch.ops.kernels.flash_attention import (
         flash_attention_bwd,
         flash_attention_bwd_reference,
@@ -367,38 +445,56 @@ def phase_kernels(torch) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    _check_attention_build()
     worst = 0.0
     worst_bwd = 0.0
     failures = []
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).removeprefix("torch.")
-        for i, (Tq, Tk, H, D) in enumerate(PATH_SHAPES + RAGGED_SHAPES):
-            q, k, v = _qkv(torch, 2, Tq, Tk, H, D, dtype, seed=i)
+        for i, (Tq, Tk, H, D, Dv, packed) in enumerate(_attention_cases()):
+            shape = (f"B=2 Tq={Tq:4d} Tk={Tk:4d} H={H:2d} D={D} Dv={Dv}"
+                     + (" packed" if packed else ""))
+            cfg = fa.launch_config(2, Tq, Tk, H, D, Dv, dtype.itemsize)
+            path_ok = (cfg["path"] == _attention_path(name, D, Dv)
+                       and fa.library_config(2, Tq, Tk, H, D, Dv,
+                                             dtype.itemsize) == cfg)
+            g = torch.Generator(device="cuda").manual_seed(i)
+            mk = lambda *s: torch.randn(*s, generator=g, device="cuda").to(  # noqa: E731
+                dtype)
+            if packed:
+                q, k, v = mk(2, Tq, 3, H, D).unbind(2)
+            else:
+                q, k, v = mk(2, Tq, H, D), mk(2, Tk, H, D), mk(2, Tk, H, Dv)
             o, lse = flash_attention_fwd(q, k, v)
             torch.cuda.synchronize()
             ro, rlse = flash_attention_fwd_reference(q, k, v)
+            o2, lse2 = flash_attention_fwd(q, k, v)
             torch.cuda.synchronize()
             do = (o.float() - ro.float()).abs().max().item()
             dl = (lse - rlse).abs().max().item()
+            same = torch.equal(o, o2) and torch.equal(lse, lse2)
             ok = (o.shape == ro.shape and lse.shape == rlse.shape
                   and o.dtype == dtype and torch.isfinite(o).all().item()
-                  and do <= TOL_O[name] and dl <= TOL_LSE)
+                  and do <= TOL_O[name] and dl <= TOL_LSE and same and path_ok)
             worst = max(worst, do)
-            log(f"[kernel] {name:8s} B=2 Tq={Tq:4d} Tk={Tk:4d} H={H:2d} "
-                f"D={D}: max|do|={do:.3e} (tol {TOL_O[name]:.0e})  "
-                f"max|dlse|={dl:.3e} (tol {TOL_LSE:.0e})  "
+            log(f"[kernel] {name:8s} {shape} {cfg['path']}: max|do|={do:.3e} "
+                f"(tol {TOL_O[name]:.0e})  max|dlse|={dl:.3e} (tol "
+                f"{TOL_LSE:.0e})  repeat {'equal' if same else 'DIFFERS'}  "
                 f"{'ok' if ok else 'FAIL'}")
             if not ok:
-                failures.append((name, Tq, Tk, H, D))
+                failures.append((name, Tq, Tk, H, D, Dv, packed))
 
             g = torch.Generator(device="cuda").manual_seed(1000 + i)
             do_ = torch.randn(o.shape, generator=g, device="cuda").to(dtype)
             grads = flash_attention_bwd(q, k, v, o, do_, lse)
             torch.cuda.synchronize()
+            again = flash_attention_bwd(q, k, v, o, do_, lse)
             refs = flash_attention_bwd_reference(q, k, v, o, do_, lse)
             torch.cuda.synchronize()
             errs = []
-            ok = True
+            same = torch.equal(grads[1], again[1]) and torch.equal(
+                grads[2], again[2])
+            ok = same
             for x, r in zip(grads, refs):
                 scale = max(1.0, r.float().abs().max().item())
                 err = (x.float() - r.float()).abs().max().item()
@@ -407,12 +503,12 @@ def phase_kernels(torch) -> dict:
                 ok &= (x.shape == r.shape and x.dtype == dtype
                        and torch.isfinite(x).all().item()
                        and err <= TOL_GRAD[name] * scale)
-            log(f"[kernel] bwd {name:8s} B=2 Tq={Tq:4d} Tk={Tk:4d} H={H:2d} "
-                f"D={D}: max|d(dq,dk,dv)|=" + ",".join(f"{e:.2e}" for e in errs)
-                + f" (tol {TOL_GRAD[name]:.0e}·max(1,|ref|))  "
-                f"{'ok' if ok else 'FAIL'}")
+            log(f"[kernel] bwd {name:8s} {shape}: max|d(dq,dk,dv)|="
+                + ",".join(f"{e:.2e}" for e in errs)
+                + f" (tol {TOL_GRAD[name]:.0e}·max(1,|ref|))  dk, dv repeat "
+                f"{'equal' if same else 'DIFFER'}  {'ok' if ok else 'FAIL'}")
             if not ok:
-                failures.append(("bwd", name, Tq, Tk, H, D))
+                failures.append(("bwd", name, Tq, Tk, H, D, Dv, packed))
     worst_bn, worst_bn_rel = _check_bn_stats(torch, failures)
     worst_lr = _check_lane_resample(torch, failures)
     worst_rows = _check_row_ops(torch, failures)
@@ -1166,6 +1262,9 @@ def phase_train(torch, tmp: Path, card: str) -> dict:
         f"device-resident superbatch; train_model's own step times "
         f"{[round(t, 1) for t in loop_ms]} ms (host batches, H2D "
         f"included); peak memory {peak:.2f} GiB  [{card}]")
+    split = _kernel_split(_profile_once(torch, lambda: step(st, sb, gen)))
+    log(f"[time] train step, {A}x{B} {ACCUM_MODE}, torch.profiler over one "
+        f"step: {_split_text(split)}  [{card}]")
     del sb
 
     # (c) evaluate: a full batch and a ragged one
@@ -1226,6 +1325,35 @@ def _device_busy_ms(rows) -> float:
     """ms the card spent in kernels and copies: what a host that launches
     late cannot stretch, unlike the time between two events."""
     return sum(_dev_own(e) for e in rows if _is_kernel(e)) / 1e3
+
+
+def _kernel_split(rows) -> dict:
+    """Device ms of profiled rows by kernel name: the attention forward
+    kernels, the attention backward's (the rows or delta prologue, the main
+    kernel, the dq cast), matrix products (cuBLAS / CUTLASS), the rest."""
+    out = {"attention forward": 0.0, "attention backward": 0.0,
+           "matmul": 0.0, "other": 0.0}
+    for e in rows:
+        if not _is_kernel(e):
+            continue
+        name, ms = e.key, _dev_own(e) / 1e3
+        if "attn_fwd" in name:
+            out["attention forward"] += ms
+        elif any(w in name for w in ("attn_bwd", "bwd_rows", "bwd_prologue",
+                                     "cast_to_bf16")):
+            out["attention backward"] += ms
+        elif any(w in name.lower() for w in ("gemm", "xmma", "nvjet",
+                                             "cutlass")):
+            out["matmul"] += ms
+        else:
+            out["other"] += ms
+    return out
+
+
+def _split_text(split: dict) -> str:
+    total = sum(split.values())
+    return f"{total:.1f} ms of device kernels: " + ", ".join(
+        f"{k} {v:.1f} ({v / total:.0%})" for k, v in split.items())
 
 
 def _profile_split(prof) -> dict:
@@ -2049,20 +2177,24 @@ def _bound(nbytes: float, flop: float, peak: float) -> tuple:
 
 def _ptxas_report(name: str) -> dict:
     """{kernel: (registers, spill store bytes, spill load bytes)} from the
-    build log of ``csrc/<name>.cu`` (``-Xptxas -v``); a kernel's key is the
-    part of its mangled name from ``mlp_`` on up to the first digit run
-    that follows it."""
+    build log of ``csrc/<name>.cu`` (``-Xptxas -v``) for the kernels named
+    ``mlp_*`` and ``attn_*``; a kernel's key is its name, with its template
+    arguments as ``<64>`` or ``<32,64>``."""
     import re
 
     from pose3d_tpu_torch.ops.kernels import _build
 
     out, entry = {}, None
     for line in _build.build_info[name]["log"].splitlines():
-        m = re.search(r"Compiling entry function '\w*?\d+(mlp_[a-z0-9_]+?)E",
-                      line)
-        if m:
-            entry = m.group(1)
-            out[entry] = [None, None, None]
+        if "Compiling entry function" in line:
+            m = re.search(r"Compiling entry function '\w*?\d+"
+                          r"((?:mlp|attn)_[a-z0-9_]*[a-z0-9])(I(?:Li\d+E)+E)?",
+                          line)
+            entry = None
+            if m:
+                args = re.findall(r"Li(\d+)E", m.group(2) or "")
+                entry = m.group(1) + (f"<{','.join(args)}>" if args else "")
+                out[entry] = [None, None, None]
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and entry:
@@ -2280,48 +2412,88 @@ def phase_times(torch, card: str, sl: dict) -> dict:
         flash_attention_fwd_reference,
     )
 
+    from pose3d_tpu_torch.ops.kernels import flash_attention as fa
+
     times = {}
+    per_pass = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}   # kernels, library
     for i, (Tq, Tk, H, D) in enumerate(PATH_SHAPES):
+        cfg = fa.launch_config(8, Tq, Tk, H, D, D, 2)
+        if cfg["path"] != "wgmma" or fa.library_config(
+                8, Tq, Tk, H, D, D, 2) != cfg:
+            raise SystemExit(f"attention at {(Tq, Tk, H, D)} bf16 must take "
+                             f"the wgmma path: {cfg}")
+        n = PASS_LAUNCHES[(Tq, Tk, H, D)]
         q, k, v = _qkv(torch, 8, Tq, Tk, H, D, torch.bfloat16, seed=50 + i)
         kt, pt = _interleaved(
             torch, lambda: flash_attention_fwd_reference(q, k, v),
-            lambda: flash_attention_fwd(q, k, v), 20)
+            lambda: flash_attention_fwd(q, k, v), 20, queue_behind=True)
         # the library's call, [B, H, T, D] views of the same tensors; a
         # yardstick only, the port never calls it
         ql, kl, vl = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
         with torch.no_grad():
             lib = lambda: F.scaled_dot_product_attention(ql, kl, vl)  # noqa: E731
-            lt = _time_ms(torch, lib, 20)
+            lt_events = _time_ms(torch, lib, 20, queue_behind=True)
+            lt = _device_busy_ms(_profile_once(
+                torch, lambda: [lib() for _ in range(3)])) / 3
             backend = _sdpa_backend(torch, lib)
         flop = 2 * 8 * H * Tq * Tk * (D + D)
         bound, by = _attention_bound(8, Tq, Tk, H, D, 2, False)
         times[("fwd", Tq, Tk, H, D)] = dict(
             ms=kt, plain_ms=pt, library_ms=lt, bound_ms=bound, bound_by=by)
-        log(f"[time] attention bf16 B=8 Tq={Tq} Tk={Tk} H={H} D={D}: "
-            f"kernel {kt:.4f} ms ({flop / kt / 1e9:.1f} TFLOP/s), plain "
-            f"{pt:.4f} ms, scaled_dot_product_attention ({backend}) "
-            f"{lt:.4f} ms, bound {bound:.4f} ms ({by})  [{card}]")
+        per_pass["fwd"][0] += n * kt
+        per_pass["fwd"][1] += n * lt
+        log(f"[time] attention bf16 B=8 Tq={Tq} Tk={Tk} H={H} D={D} "
+            f"({cfg['path']}: {cfg['fwd']['grid']} blocks of "
+            f"{cfg['fwd']['rows']} query rows, {cfg['fwd']['smem']} B of "
+            f"shared memory; {n} launches a pass): kernel {kt:.4f} ms "
+            f"({flop / kt / 1e9:.1f} TFLOP/s, {bound / kt:.1%} of the bound), "
+            f"plain {pt:.4f} ms, scaled_dot_product_attention ({backend}) "
+            f"{lt:.4f} ms of device kernels ({lt_events:.4f} between events), "
+            f"bound {bound:.4f} ms ({by})  [{card}]")
 
         o, lse = flash_attention_fwd(q, k, v)
         do_ = torch.randn_like(o)
         kt, pt = _interleaved(
             torch,
             lambda: flash_attention_bwd_reference(q, k, v, o, do_, lse),
-            lambda: flash_attention_bwd(q, k, v, o, do_, lse), 10)
+            lambda: flash_attention_bwd(q, k, v, o, do_, lse), 10,
+            queue_behind=True)
         ol = F.scaled_dot_product_attention(ql, kl, vl)
         dol = do_.transpose(1, 2)
-        lt = _time_ms(torch, lambda: torch.autograd.grad(
-            ol, (ql, kl, vl), dol, retain_graph=True), 10)
+        lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            ol, (ql, kl, vl), dol, retain_graph=True)
+        lt_events = _time_ms(torch, lib_bwd, 10, queue_behind=True)
+        # the time between events holds the host's launches of its few
+        # kernels, which a shared host stretches; their device time is the
+        # harder yardstick, and it goes into library_ms
+        lt = _device_busy_ms(_profile_once(
+            torch, lambda: [lib_bwd() for _ in range(3)])) / 3
+        if lt <= 0.0:
+            raise SystemExit("the trace holds no kernel of the library's "
+                             "attention backward")
         bound, by = _attention_bound(8, Tq, Tk, H, D, 2, True)
         times[("bwd", Tq, Tk, H, D)] = dict(
             ms=kt, plain_ms=pt, library_ms=lt, bound_ms=bound, bound_by=by)
+        per_pass["bwd"][0] += n * kt
+        per_pass["bwd"][1] += n * lt
         log(f"[time] attention backward bf16 B=8 Tq={Tq} Tk={Tk} H={H} "
-            f"D={D}: kernel {kt:.4f} ms ({5 * flop / 2 / kt / 1e9:.1f} "
-            f"TFLOP/s), plain {pt:.4f} ms, scaled_dot_product_attention's "
-            f"backward ({backend}) {lt:.4f} ms, bound {bound:.4f} ms "
-            f"({by})  [{card}]")
+            f"D={D} ({cfg['bwd']['grid']} blocks of {cfg['bwd']['rows']} "
+            f"keys, {cfg['bwd']['smem']} B; the rows prologue, the main "
+            f"kernel and the dq cast): kernel {kt:.4f} ms "
+            f"({5 * flop / 2 / kt / 1e9:.1f} TFLOP/s, {bound / kt:.1%} of the "
+            f"bound), plain {pt:.4f} ms, scaled_dot_product_attention's "
+            f"backward ({backend}) {lt:.4f} ms of device kernels "
+            f"(torch.profiler; {lt_events:.4f} between events), bound "
+            f"{bound:.4f} ms ({by})  [{card}]")
         del q, k, v, o, do_, lse, ql, kl, vl, ol, dol
+    for way, (k_ms, l_ms) in per_pass.items():
+        log(f"[time] attention {way} per pass of the lifter at batch 8 "
+            f"(sum of launches x ms over the four shapes: "
+            f"{' + '.join(str(n) for n in PASS_LAUNCHES.values())} = "
+            f"{sum(PASS_LAUNCHES.values())} launches): kernels {k_ms:.3f} ms, "
+            f"scaled_dot_product_attention {l_ms:.3f} ms of device kernels "
+            f"({k_ms / l_ms:.2f}x)  [{card}]")
 
     model, _ = load_pose_model(sl["pth"], "cuda")
     ref_model = sl["ref_model"]
@@ -2333,13 +2505,13 @@ def phase_times(torch, card: str, sl: dict) -> dict:
         k1 = _time_ms(torch, f_kern, 10)
         k2 = _time_ms(torch, f_kern, 10)
         p2 = _time_ms(torch, f_plain, 10)
-        busy = _device_busy_ms(_profile_once(torch, f_kern))
+        split = _kernel_split(_profile_once(torch, f_kern))
     log(f"[time] batch-8 forward, full config bf16: kernel attention "
         f"{(k1 + k2) / 2:.3f} ms, plain attention {(p1 + p2) / 2:.3f} ms "
         f"between events (runs {k1:.3f}/{k2:.3f} vs {p1:.3f}/{p2:.3f}); "
-        f"torch.profiler, one forward with the kernel: {busy:.3f} ms of "
-        f"device kernels (the rest of the time between events is the card "
-        f"waiting for the host's launches)  [{card}]")
+        f"torch.profiler, one forward with the kernel: {_split_text(split)} "
+        f"(the rest of the time between events is the card waiting for the "
+        f"host's launches)  [{card}]")
     for b, ms in sl["latency"].items():
         log(f"[time] /predict latency, batch {b}, median of 10 sequential "
             f"requests: {ms:.2f} ms  [{card}]")

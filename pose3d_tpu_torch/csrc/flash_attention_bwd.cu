@@ -10,52 +10,71 @@
 //   dQ    = dS K * scale,   dK = dS^T Q * scale
 // with scale = 1/sqrt(D). As in the TPU kernel, P is cast to dO's dtype
 // before dV and dS to q's dtype before dQ and dK; products accumulate in
-// fp32.
+// fp32. V, O and dO have depth Dv, which may differ from D (the pairs built
+// are listed at the entry point).
 //
-// What bounds it on this card. Five [Tq, Tk] x D products per (batch, head)
-// (S, dP, dV, dK, dQ): 2*5*Tq*Tk*D FLOPs, about 130 GFLOP per image over the
-// full-width lifter's 20 attentions, against a few MB of q/k/v/o/dO. So it
-// is compute-bound, and the [Tq, Tk] matrices P and dS are what must stay
-// out of device memory. The TPU kernel held them whole in VMEM (up to
-// 1152^2 fp32 per head, three live); a Hopper block has 227 KB of shared
-// memory, so the work is tiled FlashAttention-2 style:
+// What bounds it on this card. Five [Tq, Tk] x depth products per (batch,
+// head) (S, dP, dV, dK, dQ): 2*Tq*Tk*(3*D + 2*Dv) FLOPs, about 130 GFLOP per
+// image over the full-width lifter's 20 attentions, against a few MB of
+// q/k/v/o/dO. So it is compute-bound, and the [Tq, Tk] matrices P and dS
+// are what must stay out of device memory. The TPU kernel held them whole
+// in VMEM (up to 1152^2 fp32 per head, three live); a Hopper block has 227
+// KB of shared memory, so the work is tiled FlashAttention-2 style: one
+// block per tile of keys walks all query tiles, keeps its dK and dV sums in
+// registers, and adds dQ, which crosses key tiles and so blocks, into an
+// fp32 [B, Tq, H, D] scratch with atomics (their order varies from run to
+// run, so dq repeats are not bitwise equal; dk, dv are). A second pass over
+// query tiles would avoid the atomics but recompute S and dP (two of the
+// five products); an epilogue casts the scratch to bf16.
 //
-//  * prologue: one thread per (b, t, h) row computes delta in fp32 and
-//    zeroes that row of the fp32 dQ accumulator;
-//  * main: one block per (64-row K/V tile, head, batch), 128 threads =
-//    4 warps. The block keeps its K and V tiles in shared memory and its
-//    dK and dV sums in registers (WMMA accumulator fragments: each warp owns
-//    16 key rows), and walks all Q tiles of 64 rows. Per Q tile each warp
-//    recomputes S and dP for 16 query rows, forms P and dS, adds dS K into
-//    the dQ accumulator, and after one block barrier adds P^T dO and
-//    dS^T Q for its key rows;
-//  * dQ crosses K/V tiles, i.e. blocks, so it is summed with fp32 atomicAdd
-//    into a [B, Tq, H, D] scratch buffer (for bf16, an epilogue casts it).
-//    A second pass over Q tiles would avoid the atomics but recompute S and
-//    dP (two of the five products); at Tk = 1025 each dQ element takes 17
-//    atomic adds, cheap next to the 2*64*D FLOPs each of them carries.
-//    The sum order of the atomics varies from run to run;
-//  * bf16: all five products on the tensor cores through WMMA m16n16k16
-//    with fp32 accumulation (D = 48 is 3 x 16); P^T and dS^T are read as
-//    column-major fragments of the row-major P and dS tiles, no transpose;
-//  * fp32: scalar FMA (WMMA would drop fp32 inputs to TF32); each thread
-//    pair owns one query row for S/dP/dQ and one key row for dK/dV;
-//  * q, k, v, o, dO are read in place from [B, T, H, D] through their
-//    strides; ragged Q and K edges are zero-filled in shared memory, and
-//    P and dS are forced to 0 outside [Tq, Tk].
-//
-// Simple first: no wgmma, TMA or pipelining of the tile loads yet.
+// Paths, by shape alone (pose3d_flash_attention_bwd_config reports which):
+//  * attn_bwd_wgmma (bf16, D = Dv in {48, 64}): 128 keys a block in two
+//    consumer warpgroups of 64, their K and V tiles resident (TMA, one
+//    load), and a producer warpgroup whose one thread streams query tiles
+//    of 64 rows, Q and dO with their lse and delta, through a ring of TMA
+//    stages (4-D maps over the strided views, read in place; lse * log2(e)
+//    and delta come interleaved from the prologue, rows past Tq as +inf and
+//    0, so their P and dS are 0 with no mask). Per query tile a warpgroup
+//    takes S^T = K Q^T and dP^T = V dO^T (wgmma m64n64k16, both operands
+//    K-major), forms P^T and dS^T on the accumulator's layout in registers,
+//    rounds them to bf16 as A fragments and adds dV += P^T dO and
+//    dK += dS^T Q (register A, dO and Q MN-major: the same tiles serve both
+//    majors); dS^T also goes to shared memory, and after one named barrier
+//    of the two warpgroups dQ = dS K over all 128 keys is one MN-major-A
+//    product, split by column halves between the warpgroups (m64n32k16),
+//    added to the scratch by a TMA reduction (cp.reduce.async.bulk .add:
+//    the fp32 atomics as one bulk operation a [64, 32] tile from shared
+//    memory, in place of a float2 atomicAdd a pair from registers; see
+//    PERF.md for what each costs). D 48 runs at 64 columns with
+//    TMA's zero fill (D has its own map dimension) and three k-steps where
+//    D is the reduction. A key row past Tk has zero K and V: its dS adds
+//    nothing to dQ, and its dK, dV are never stored. Two dS^T buffers in
+//    turn let one barrier a tile suffice;
+//  * attn_bwd_bf16 (bf16, other pairs): 64 keys and 128 threads a block,
+//    WMMA m16n16k16 with fp32 accumulation, Q/dO tiles loaded synchronously,
+//    S, dP, P, dS through shared memory, dQ by scalar fp32 atomics (simple
+//    first);
+//  * attn_bwd_f32 (fp32): scalar FMA (WMMA would drop fp32 inputs to TF32);
+//    each thread pair owns one query row for S/dP/dQ and one key row for
+//    dK/dV.
+// A prologue computes delta in fp32 and the dQ scratch is zeroed (in the
+// prologue, or by a memset on the wgmma path); ragged query
+// and key edges are zero-filled and P and dS forced to 0 outside [Tq, Tk].
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
+
+#include "flash_attention_common.cuh"
 
 namespace {
 
 constexpr int BQ = 64;   // query rows per inner tile
 constexpr int BK = 64;   // key/value rows per block
 constexpr int NT = 128;  // threads per block
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Path codes that pose3d_flash_attention_bwd_config reports.
+constexpr int kPathScalar = 0, kPathWmma = 1, kPathWgmma = 2;
 
 struct Args {
   const void* q;
@@ -64,11 +83,11 @@ struct Args {
   const void* o;
   const void* g;      // dO
   const float* lse;   // [B, H, Tq]
-  float* delta;       // [B, H, Tq] scratch
+  float* delta;       // scratch: [B, H, Tq], or rows (below) for wgmma
   float* dq_acc;      // [B, Tq, H, D] fp32 scratch (the dq output for fp32)
   void* dq;           // [B, Tq, H, D] contiguous, input dtype
   void* dk;           // [B, Tk, H, D] contiguous
-  void* dv;           // [B, Tk, H, D] contiguous
+  void* dv;           // [B, Tk, H, Dv] contiguous
   int B, Tq, Tk, H;
   float scale;
   // element strides of batch, token and head (the last dim is contiguous)
@@ -95,10 +114,25 @@ __device__ __forceinline__ void unpack8(const uint4& u, float* f,
   f[3] = __uint_as_float(u.w);
 }
 
-// delta[b, h, t] = sum_d dO * O in fp32, and dq_acc[b, t, h, :] = 0.
-template <typename T, int D>
-__global__ void bwd_prologue(Args a) {
+// rowsum(dO * O) in fp32 over a row of depth DV
+template <typename T, int DV>
+__device__ __forceinline__ float row_delta(const T* o, const T* g) {
   constexpr int VEC = 16 / sizeof(T);
+  float acc = 0.f;
+#pragma unroll
+  for (int d = 0; d < DV; d += VEC) {
+    float fo[8], fg[8];
+    unpack8(*reinterpret_cast<const uint4*>(o + d), fo, o);
+    unpack8(*reinterpret_cast<const uint4*>(g + d), fg, g);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc = fmaf(fg[i], fo[i], acc);
+  }
+  return acc;
+}
+
+// delta[b, h, t] = sum_d dO * O in fp32, and dq_acc[b, t, h, :] = 0.
+template <typename T, int D, int DV>
+__global__ void bwd_prologue(Args a) {
   const long long rows = (long long)a.B * a.Tq * a.H;
   for (long long row = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        row < rows; row += (long long)gridDim.x * blockDim.x) {
@@ -108,16 +142,7 @@ __global__ void bwd_prologue(Args a) {
     const int b = (int)(bt / a.Tq);
     const T* o = static_cast<const T*>(a.o) + b * a.osb + t * a.ost + h * a.osh;
     const T* g = static_cast<const T*>(a.g) + b * a.gsb + t * a.gst + h * a.gsh;
-    float acc = 0.f;
-#pragma unroll
-    for (int d = 0; d < D; d += VEC) {
-      float fo[8], fg[8];
-      unpack8(*reinterpret_cast<const uint4*>(o + d), fo, o);
-      unpack8(*reinterpret_cast<const uint4*>(g + d), fg, g);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) acc = fmaf(fg[i], fo[i], acc);
-    }
-    a.delta[((long long)b * a.H + h) * a.Tq + t] = acc;
+    a.delta[((long long)b * a.H + h) * a.Tq + t] = row_delta<T, DV>(o, g);
     float4* dq = reinterpret_cast<float4*>(a.dq_acc + row * D);
 #pragma unroll
     for (int d = 0; d < D / 4; ++d) dq[d] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -162,34 +187,40 @@ __device__ __forceinline__ void load_rows(float* lse_s, float* delta_s,
   }
 }
 
-template <int D>
+constexpr int imax(int x, int y) { return x > y ? x : y; }
+
+template <int D, int DV>
 struct Bf16Layout {
-  static constexpr int LDH = D + 8;                  // bf16 tile pitch
-  static constexpr int LDS = (D > BK ? D : BK) + 4;  // fp32 S / dP / staging
+  static constexpr int LDH = D + 8;                  // bf16 K, Q pitch
+  static constexpr int LDV = DV + 8;                 // bf16 V, dO pitch
+  static constexpr int LDS = imax(imax(D, DV), BK) + 4;  // fp32 S / dP / staging
   static constexpr int LDP = BK + 8;                 // bf16 P / dS pitch
   static constexpr size_t bytes =
-      (size_t)4 * 64 * LDH * 2      // K, V, Q, dO tiles
+      (size_t)2 * 64 * LDH * 2      // K, Q tiles
+      + (size_t)2 * 64 * LDV * 2    // V, dO tiles
       + (size_t)2 * BQ * LDS * 4    // S (also dQ/dK/dV staging), dP
       + (size_t)2 * BQ * LDP * 2    // P, dS
       + (size_t)2 * BQ * 4;         // lse, delta
 };
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(NT) attn_bwd_bf16(Args a) {
   using namespace nvcuda;
   typedef __nv_bfloat16 bf16;
-  typedef Bf16Layout<D> L;
+  typedef Bf16Layout<D, DV> L;
   constexpr int LDH = L::LDH;
+  constexpr int LDV = L::LDV;
   constexpr int LDS = L::LDS;
   constexpr int LDP = L::LDP;
   constexpr int KD = D / 16;
+  constexpr int KV = DV / 16;
 
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + BK * LDH;
-  bf16* Qs = Vs + BK * LDH;
+  bf16* Qs = Vs + BK * LDV;
   bf16* Gs = Qs + BQ * LDH;
-  float* Ss = reinterpret_cast<float*>(Gs + BQ * LDH);
+  float* Ss = reinterpret_cast<float*>(Gs + BQ * LDV);
   float* dPs = Ss + BQ * LDS;
   bf16* Ps = reinterpret_cast<bf16*>(dPs + BQ * LDS);
   bf16* dSs = Ps + BQ * LDP;
@@ -210,18 +241,18 @@ __global__ void __launch_bounds__(NT) attn_bwd_bf16(Args a) {
   const long long bh = (long long)b * a.H + h;
   const float* lse = a.lse + bh * a.Tq;
   const float* delta = a.delta + bh * a.Tq;
-  const long long row_stride = (long long)a.H * D;  // dq/dk/dv token stride
+  const long long row_stride = (long long)a.H * D;  // dq/dk token stride
+  const long long row_stride_v = (long long)a.H * DV;  // dv token stride
   float* dqb = a.dq_acc + (long long)b * a.Tq * row_stride + h * D;
 
   load_tile<bf16, D, LDH>(Ks, kb, a.kst, k0, a.Tk);
-  load_tile<bf16, D, LDH>(Vs, vb, a.vst, k0, a.Tk);
+  load_tile<bf16, DV, LDV>(Vs, vb, a.vst, k0, a.Tk);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk_f[KD], dv_f[KD];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk_f[KD], dv_f[KV];
 #pragma unroll
-  for (int n = 0; n < KD; ++n) {
-    wmma::fill_fragment(dk_f[n], 0.f);
-    wmma::fill_fragment(dv_f[n], 0.f);
-  }
+  for (int n = 0; n < KD; ++n) wmma::fill_fragment(dk_f[n], 0.f);
+#pragma unroll
+  for (int n = 0; n < KV; ++n) wmma::fill_fragment(dv_f[n], 0.f);
 
   float* Sw = Ss + warp * 16 * LDS;
   float* dPw = dPs + warp * 16 * LDS;
@@ -233,7 +264,7 @@ __global__ void __launch_bounds__(NT) attn_bwd_bf16(Args a) {
   for (int q0 = 0; q0 < a.Tq; q0 += BQ) {
     __syncthreads();  // every warp is done with the previous Q tile
     load_tile<bf16, D, LDH>(Qs, qb, a.qst, q0, a.Tq);
-    load_tile<bf16, D, LDH>(Gs, gb, a.gst, q0, a.Tq);
+    load_tile<bf16, DV, LDV>(Gs, gb, a.gst, q0, a.Tq);
     load_rows(lse_s, delta_s, lse, delta, q0, a.Tq);
     __syncthreads();
 
@@ -245,13 +276,18 @@ __global__ void __launch_bounds__(NT) attn_bwd_bf16(Args a) {
       wmma::fill_fragment(pf, 0.f);
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf, gf;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf, vf;
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
         wmma::load_matrix_sync(qf, Qs + warp * 16 * LDH + kk * 16, LDH);
-        wmma::load_matrix_sync(gf, Gs + warp * 16 * LDH + kk * 16, LDH);
         wmma::load_matrix_sync(kf, Ks + n * 16 * LDH + kk * 16, LDH);
-        wmma::load_matrix_sync(vf, Vs + n * 16 * LDH + kk * 16, LDH);
         wmma::mma_sync(sf, qf, kf, sf);
+      }
+#pragma unroll
+      for (int kk = 0; kk < KV; ++kk) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> gf;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> vf;
+        wmma::load_matrix_sync(gf, Gs + warp * 16 * LDV + kk * 16, LDV);
+        wmma::load_matrix_sync(vf, Vs + n * 16 * LDV + kk * 16, LDV);
         wmma::mma_sync(pf, gf, vf, pf);
       }
       wmma::store_matrix_sync(Sw + n * 16, sf, LDS, wmma::mem_row_major);
@@ -311,16 +347,20 @@ __global__ void __launch_bounds__(NT) attn_bwd_bf16(Args a) {
     // dV += P^T dO and dK += dS^T Q for this warp's 16 key rows; P^T and
     // dS^T are the row-major P and dS tiles read column-major.
 #pragma unroll
-    for (int n = 0; n < KD; ++n) {
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> pt, st;
+      wmma::load_matrix_sync(pt, Ps + kk * 16 * LDP + warp * 16, LDP);
+      wmma::load_matrix_sync(st, dSs + kk * 16 * LDP + warp * 16, LDP);
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> pt, st;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> gf, qf;
-        wmma::load_matrix_sync(pt, Ps + kk * 16 * LDP + warp * 16, LDP);
-        wmma::load_matrix_sync(st, dSs + kk * 16 * LDP + warp * 16, LDP);
-        wmma::load_matrix_sync(gf, Gs + kk * 16 * LDH + n * 16, LDH);
-        wmma::load_matrix_sync(qf, Qs + kk * 16 * LDH + n * 16, LDH);
+      for (int n = 0; n < KV; ++n) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> gf;
+        wmma::load_matrix_sync(gf, Gs + kk * 16 * LDV + n * 16, LDV);
         wmma::mma_sync(dv_f[n], pt, gf, dv_f[n]);
+      }
+#pragma unroll
+      for (int n = 0; n < KD; ++n) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> qf;
+        wmma::load_matrix_sync(qf, Qs + kk * 16 * LDH + n * 16, LDH);
         wmma::mma_sync(dk_f[n], st, qf, dk_f[n]);
       }
     }
@@ -328,34 +368,44 @@ __global__ void __launch_bounds__(NT) attn_bwd_bf16(Args a) {
 
   // Write dV, then dK * scale, for the valid key rows of this warp, staged
   // through the warp's own rows of S.
-  bf16* dvb = static_cast<bf16*>(a.dv) + (long long)b * a.Tk * row_stride + h * D;
+  bf16* dvb = static_cast<bf16*>(a.dv) + (long long)b * a.Tk * row_stride_v + h * DV;
   bf16* dkb = static_cast<bf16*>(a.dk) + (long long)b * a.Tk * row_stride + h * D;
+  __syncwarp();
 #pragma unroll
-  for (int pass = 0; pass < 2; ++pass) {
-    __syncwarp();
+  for (int n = 0; n < KV; ++n) {
+    wmma::store_matrix_sync(Sw + n * 16, dv_f[n], LDS, wmma::mem_row_major);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * DV; i += 32) {
+    const int rr = i / DV;
+    const int c = i % DV;
+    const int t = k0 + warp * 16 + rr;
+    if (t < a.Tk) dvb[t * row_stride_v + c] = __float2bfloat16(Sw[rr * LDS + c]);
+  }
+  __syncwarp();
 #pragma unroll
-    for (int n = 0; n < KD; ++n) {
-      wmma::store_matrix_sync(Sw + n * 16, pass == 0 ? dv_f[n] : dk_f[n], LDS,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-    bf16* out = pass == 0 ? dvb : dkb;
-    const float mul = pass == 0 ? 1.f : a.scale;
-    for (int i = lane; i < 16 * D; i += 32) {
-      const int rr = i / D;
-      const int c = i % D;
-      const int t = k0 + warp * 16 + rr;
-      if (t < a.Tk) out[t * row_stride + c] = __float2bfloat16(Sw[rr * LDS + c] * mul);
+  for (int n = 0; n < KD; ++n) {
+    wmma::store_matrix_sync(Sw + n * 16, dk_f[n], LDS, wmma::mem_row_major);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * D; i += 32) {
+    const int rr = i / D;
+    const int c = i % D;
+    const int t = k0 + warp * 16 + rr;
+    if (t < a.Tk) {
+      dkb[t * row_stride + c] = __float2bfloat16(Sw[rr * LDS + c] * a.scale);
     }
   }
 }
 
-template <int D>
+template <int D, int DV>
 struct F32Layout {
-  static constexpr int LDH = D + 4;   // keeps rows 16-byte aligned
+  static constexpr int LDH = D + 4;    // K, Q pitch (rows 16-byte aligned)
+  static constexpr int LDV = DV + 4;   // V, dO pitch
   static constexpr int LDP = BK + 1;
   static constexpr size_t bytes =
-      (size_t)4 * 64 * LDH * 4      // K, V, Q, dO tiles
+      (size_t)2 * 64 * LDH * 4      // K, Q tiles
+      + (size_t)2 * 64 * LDV * 4    // V, dO tiles
       + (size_t)2 * BQ * LDP * 4    // P, dS
       + (size_t)2 * BQ * 4;         // lse, delta
 };
@@ -375,18 +425,20 @@ __device__ __forceinline__ float dot_row(const float* x, const float* y) {
   return acc;
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(NT) attn_bwd_f32(Args a) {
-  typedef F32Layout<D> L;
+  typedef F32Layout<D, DV> L;
   constexpr int LDH = L::LDH;
+  constexpr int LDV = L::LDV;
   constexpr int LDP = L::LDP;
   constexpr int DH = D / 2;
+  constexpr int DVH = DV / 2;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Ks = reinterpret_cast<float*>(smem);
   float* Vs = Ks + BK * LDH;
-  float* Qs = Vs + BK * LDH;
+  float* Qs = Vs + BK * LDV;
   float* Gs = Qs + BQ * LDH;
-  float* Ps = Gs + BQ * LDH;
+  float* Ps = Gs + BQ * LDV;
   float* dSs = Ps + BQ * LDP;
   float* lse_s = dSs + BQ * LDP;
   float* delta_s = lse_s + BQ;
@@ -409,19 +461,18 @@ __global__ void __launch_bounds__(NT) attn_bwd_f32(Args a) {
   float* dqb = a.dq_acc + (long long)b * a.Tq * row_stride + h * D + half * DH;
 
   load_tile<float, D, LDH>(Ks, kb, a.kst, k0, a.Tk);
-  load_tile<float, D, LDH>(Vs, vb, a.vst, k0, a.Tk);
+  load_tile<float, DV, LDV>(Vs, vb, a.vst, k0, a.Tk);
 
-  float dk[DH], dv[DH];
+  float dk[DH], dv[DVH];
 #pragma unroll
-  for (int i = 0; i < DH; ++i) {
-    dk[i] = 0.f;
-    dv[i] = 0.f;
-  }
+  for (int i = 0; i < DH; ++i) dk[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DVH; ++i) dv[i] = 0.f;
 
   for (int q0 = 0; q0 < a.Tq; q0 += BQ) {
     __syncthreads();
     load_tile<float, D, LDH>(Qs, qb, a.qst, q0, a.Tq);
-    load_tile<float, D, LDH>(Gs, gb, a.gst, q0, a.Tq);
+    load_tile<float, DV, LDV>(Gs, gb, a.gst, q0, a.Tq);
     load_rows(lse_s, delta_s, lse, delta, q0, a.Tq);
     __syncthreads();
 
@@ -436,7 +487,7 @@ __global__ void __launch_bounds__(NT) attn_bwd_f32(Args a) {
         float ds = 0.f;
         if (row_ok && k0 + j < a.Tk) {
           const float s = dot_row<D>(Qs + r * LDH, Ks + j * LDH);
-          const float dp = dot_row<D>(Gs + r * LDH, Vs + j * LDH);
+          const float dp = dot_row<DV>(Gs + r * LDV, Vs + j * LDV);
           p = expf(s * a.scale - l);
           ds = p * (dp - dl);
         }
@@ -466,26 +517,25 @@ __global__ void __launch_bounds__(NT) attn_bwd_f32(Args a) {
     for (int i = 0; i < BQ; ++i) {
       const float p = Ps[i * LDP + r];
       const float ds = dSs[i * LDP + r];
-      const float* gr = Gs + i * LDH + half * DH;
+      const float* gr = Gs + i * LDV + half * DVH;
       const float* qr = Qs + i * LDH + half * DH;
 #pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        dv[d] = fmaf(p, gr[d], dv[d]);
-        dk[d] = fmaf(ds, qr[d], dk[d]);
-      }
+      for (int d = 0; d < DVH; ++d) dv[d] = fmaf(p, gr[d], dv[d]);
+#pragma unroll
+      for (int d = 0; d < DH; ++d) dk[d] = fmaf(ds, qr[d], dk[d]);
     }
   }
 
   const int t = k0 + r;
   if (t < a.Tk) {
-    const long long off = ((long long)b * a.Tk + t) * row_stride + h * D + half * DH;
-    float* dvo = static_cast<float*>(a.dv) + off;
-    float* dko = static_cast<float*>(a.dk) + off;
+    float* dvo = static_cast<float*>(a.dv) +
+                 ((long long)b * a.Tk + t) * a.H * DV + h * DV + half * DVH;
+    float* dko = static_cast<float*>(a.dk) +
+                 ((long long)b * a.Tk + t) * row_stride + h * D + half * DH;
 #pragma unroll
-    for (int i = 0; i < DH; ++i) {
-      dvo[i] = dv[i];
-      dko[i] = dk[i] * a.scale;
-    }
+    for (int i = 0; i < DVH; ++i) dvo[i] = dv[i];
+#pragma unroll
+    for (int i = 0; i < DH; ++i) dko[i] = dk[i] * a.scale;
   }
 }
 
@@ -493,6 +543,333 @@ int grid_1d(long long n, int threads) {
   const long long blocks = (n + threads - 1) / threads;
   return (int)(blocks < 8192 ? (blocks > 0 ? blocks : 1) : 8192);
 }
+
+// ---- bf16, D = Dv in {48, 64}: wgmma on TMA-fed tiles ---------------------
+
+namespace wg {
+
+using namespace hmma;
+typedef __nv_bfloat16 bf16;
+
+constexpr int BKEYS = 128;              // keys a block, 64 a warpgroup
+constexpr int BQT = 64;                 // query rows a tile
+constexpr int STAGES = 4;
+constexpr int kThreads = 384;           // two consumer warpgroups + producer
+constexpr int kCompute = 256;
+constexpr int kProducerRegs = 24;
+constexpr int kComputeRegs = 240;
+constexpr int kConsumerBarrier = 1;     // named barrier of the consumers
+constexpr uint32_t KV_BYTES = BKEYS * 128;   // a [128, 64] K or V tile
+constexpr uint32_t K_OFF = 0, V_OFF = KV_BYTES;
+constexpr uint32_t DS_OFF = 2 * KV_BYTES;    // two [128 keys, 64 queries] dS^T
+constexpr uint32_t DS_BYTES = BKEYS * 128;
+constexpr uint32_t QT_BYTES = BQT * 128;     // a [64, 64] Q or dO tile
+constexpr uint32_t ROWS_BYTES = BQT * 8;     // (lse * log2 e, delta) pairs
+constexpr uint32_t STAGE_BYTES = 2 * QT_BYTES + 1024;   // 1 KB aligned
+constexpr uint32_t RING_OFF = DS_OFF + 2 * DS_BYTES;
+// dQ on its way to the scratch: a [64 queries, 32 columns] fp32 tile for
+// each column half and each of two tiles in turn (128-byte rows, swizzled)
+constexpr uint32_t DQ_OFF = RING_OFF + STAGES * STAGE_BYTES;
+constexpr uint32_t DQ_BYTES = BQT * 128;
+constexpr uint32_t BAR_OFF = DQ_OFF + 4 * DQ_BYTES;
+constexpr size_t SMEM = BAR_OFF + 128 + 1024;   // + alignment slack
+static_assert(SMEM <= 232448, "attn_bwd_wgmma: shared memory");
+
+// Query rows a block's loop covers: Tq rounded up to whole tiles; the rows
+// buffer holds this many (lse * log2 e, delta) pairs per (batch, head).
+__host__ __device__ inline int padded_rows(int Tq) {
+  return (Tq + BQT - 1) / BQT * BQT;
+}
+
+// rows[b, h, t] = (lse * log2 e, delta) for t < Tq, (+inf, 0) up to the
+// padded length. One thread a (b, t, h), the head fastest, so that a warp
+// reads neighbouring rows of o and dO.
+template <int D>
+__global__ void bwd_rows(Args a, float2* __restrict__ rows) {
+  const int tqp = padded_rows(a.Tq);
+  const long long n = (long long)a.B * tqp * a.H;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int h = (int)(i % a.H);
+    const long long bt = i / a.H;
+    const int t = (int)(bt % tqp);
+    const int b = (int)(bt / tqp);
+    const long long bh = (long long)b * a.H + h;
+    float2 out = make_float2(INFINITY, 0.f);
+    if (t < a.Tq) {
+      const bf16* o = static_cast<const bf16*>(a.o) + b * a.osb + t * a.ost + h * a.osh;
+      const bf16* g = static_cast<const bf16*>(a.g) + b * a.gsb + t * a.gst + h * a.gsh;
+      out = make_float2(a.lse[bh * a.Tq + t] * LOG2E, row_delta<bf16, D>(o, g));
+    }
+    rows[bh * tqp + t] = out;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+attn_bwd_wgmma(const __grid_constant__ CUtensorMap map_q,
+               const __grid_constant__ CUtensorMap map_k,
+               const __grid_constant__ CUtensorMap map_v,
+               const __grid_constant__ CUtensorMap map_g,
+               const __grid_constant__ CUtensorMap map_rows,
+               const __grid_constant__ CUtensorMap map_dq,
+               bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq, int Tk,
+               int H, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t full = base + BAR_OFF;
+  const uint32_t empty = full + 8 * STAGES;
+  const uint32_t kvbar = empty + 8 * STAGES;
+  const uint32_t ring = base + RING_OFF;
+
+  const int wgi = warpgroup_index();
+  const int k0 = blockIdx.x * BKEYS;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int nq = (Tq + BQT - 1) / BQT;
+  // consumer warpgroups with a key below Tk; the other one takes no part
+  const int active = Tk - k0 > 64 ? 2 : 1;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * active);   // one arrival a warp
+    }
+    mbar_init(kvbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wgi == 2) {
+    // The producer: K and V once, then query tile j (Q, dO, rows) into
+    // stage j % STAGES once every consumer warp has released it.
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == kCompute) {
+      mbar_expect_tx(kvbar, 2 * KV_BYTES);
+      tma_load_4d(base + K_OFF, &map_k, kvbar, 0, h, k0, b);
+      tma_load_4d(base + V_OFF, &map_v, kvbar, 0, h, k0, b);
+      for (int j = 0; j < nq; ++j) {
+        const int stage = j % STAGES;
+        mbar_wait(empty + 8 * stage, ((j / STAGES) & 1) ^ 1u);
+        const uint32_t dst = ring + stage * STAGE_BYTES;
+        const uint32_t bar = full + 8 * stage;
+        mbar_expect_tx(bar, 2 * QT_BYTES + ROWS_BYTES);
+        tma_load_4d(dst, &map_q, bar, 0, h, j * BQT, b);
+        tma_load_4d(dst + QT_BYTES, &map_g, bar, 0, h, j * BQT, b);
+        tma_load_2d(dst + 2 * QT_BYTES, &map_rows, bar, 2 * j * BQT, b * H + h);
+      }
+    }
+  } else if (wgi < active) {
+    reg_alloc<kComputeRegs>();
+    const int t = threadIdx.x & 127;
+    const int lane = t & 31;
+    const int r_lo = 16 * (t >> 5) + (lane >> 2);   // rows r_lo, r_lo + 8
+    const int cq = 2 * (lane & 3);                  // columns 8j + cq, + 1
+    const float sl2 = scale * LOG2E;
+    // this warpgroup's 64 keys of K and V, K-major A operands
+    const uint64_t kdesc = make_desc(base + K_OFF + wgi * 8192, 16, 1024, kSwz128);
+    const uint64_t vdesc = make_desc(base + V_OFF + wgi * 8192, 16, 1024, kSwz128);
+
+    float st[32], dpt[32], dka[32], dva[32], dqa[16];
+    uint32_t pf[4][4], sf[4][4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = dka[i] = dva[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) dqa[i] = 0.f;
+
+    mbar_wait(kvbar, 0);
+    for (int j = 0; j < nq; ++j) {
+      const int stage = j % STAGES;
+      const uint32_t qt = ring + stage * STAGE_BYTES;
+      const uint32_t gt = qt + QT_BYTES;
+      mbar_wait(full + 8 * stage, (j / STAGES) & 1);
+      // S^T = K Q^T and dP^T = V dO^T for this warpgroup's 64 keys
+      const uint64_t qk = make_desc(qt, 16, 1024, kSwz128);
+      const uint64_t gk = make_desc(gt, 16, 1024, kSwz128);
+      fence_regs(st);
+      fence_regs(dpt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64n64k16<0, 0>(st, kdesc + 2 * kk, qk + 2 * kk, kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64n64k16<0, 0>(dpt, vdesc + 2 * kk, gk + 2 * kk, kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // P^T = exp2(S^T * scale * log2 e - lse * log2 e), dS^T = P^T (dP^T -
+      // delta), on the accumulator's layout (rows keys, columns queries);
+      // bf16 pairs of both are the A fragments of dV and dK, and dS^T goes
+      // to shared memory (128-byte rows, 128-byte swizzle) for dQ.
+      const float* rws = reinterpret_cast<const float*>(
+          smem + (qt - base) + 2 * QT_BYTES);
+      unsigned char* dsb = smem + DS_OFF + (j & 1) * DS_BYTES;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float4 rw = *reinterpret_cast<const float4*>(rws + 2 * (8 * jj + cq));
+        const float p0 = exp2_approx(fmaf(st[4 * jj], sl2, -rw.x));
+        const float p1 = exp2_approx(fmaf(st[4 * jj + 1], sl2, -rw.z));
+        const float p2 = exp2_approx(fmaf(st[4 * jj + 2], sl2, -rw.x));
+        const float p3 = exp2_approx(fmaf(st[4 * jj + 3], sl2, -rw.z));
+        const uint32_t s01 = pack_bf16x2(p0 * (dpt[4 * jj] - rw.y),
+                                         p1 * (dpt[4 * jj + 1] - rw.w));
+        const uint32_t s23 = pack_bf16x2(p2 * (dpt[4 * jj + 2] - rw.y),
+                                         p3 * (dpt[4 * jj + 3] - rw.w));
+        pf[jj >> 1][2 * (jj & 1)] = pack_bf16x2(p0, p1);
+        pf[jj >> 1][2 * (jj & 1) + 1] = pack_bf16x2(p2, p3);
+        sf[jj >> 1][2 * (jj & 1)] = s01;
+        sf[jj >> 1][2 * (jj & 1) + 1] = s23;
+        const uint32_t off = (uint32_t)(64 * wgi + r_lo) * 128u +
+                             (uint32_t)(8 * jj + cq) * 2u;
+        *reinterpret_cast<uint32_t*>(dsb + swz128(off)) = s01;
+        *reinterpret_cast<uint32_t*>(dsb + swz128(off + 8u * 128u)) = s23;
+      }
+      // dV += P^T dO and dK += dS^T Q: four k-steps of 16 queries, dO and Q
+      // MN-major (16 rows = 2 KB each)
+      const uint64_t gm = make_desc(gt, 16, 1024, kSwz128);
+      const uint64_t qm = make_desc(qt, 16, 1024, kSwz128);
+      fence_regs(dva);
+      fence_regs(dka);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        fence_regs(pf[kk]);
+        fence_regs(sf[kk]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16_rs<1>(dva, pf[kk], gm + 128 * kk, 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16_rs<1>(dka, sf[kk], qm + 128 * kk, 1);
+      wgmma_commit();
+      // both warpgroups' dS^T rows are written
+      fence_async_smem();
+      named_barrier(kConsumerBarrier, 128 * active);
+      // dQ[64 queries, 32-column half hf] = dS K over the block's keys: dS^T
+      // is the MN-major A operand (rows keys), K the MN-major B operand
+      const uint64_t dsd =
+          make_desc(base + DS_OFF + (j & 1) * DS_BYTES, 16, 1024, kSwz128);
+      const uint64_t kb = make_desc(base + K_OFF, 16, 1024, kSwz128);
+      for (int hf = wgi; hf < 2; hf += active) {
+        fence_regs(dqa);
+        wgmma_fence();
+        for (int kk = 0; kk < 4 * active; ++kk)
+          wgmma_m64n32k16<1, 1>(dqa, dsd + 128 * kk, kb + 4 * hf + 128 * kk, kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dqa);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          fence_regs(pf[kk]);
+          fence_regs(sf[kk]);
+        }
+        if (hf == wgi && lane == 0) mbar_arrive(empty + 8 * stage);
+        // dQ * scale into this half's tile of the tile's parity, then one
+        // thread adds it into the scratch with a TMA reduction (rows past Tq
+        // and, at D 48, columns past 48 are skipped)
+        const uint32_t dqt = DQ_OFF + (2 * hf + (j & 1)) * DQ_BYTES;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const uint32_t off = (uint32_t)r_lo * 128u + (8 * jj + cq) * 4u;
+          *reinterpret_cast<float2*>(smem + dqt + swz128(off)) =
+              make_float2(dqa[4 * jj] * scale, dqa[4 * jj + 1] * scale);
+          *reinterpret_cast<float2*>(smem + dqt + swz128(off + 1024u)) =
+              make_float2(dqa[4 * jj + 2] * scale, dqa[4 * jj + 3] * scale);
+        }
+        fence_async_smem();
+        named_barrier(2 + wgi, 128);
+        if (t == 0) tma_reduce_add_4d(&map_dq, base + dqt, 32 * hf, h, j * BQT, b);
+      }
+      // one bulk group a tile; before this warpgroup's next barrier, the
+      // group of the tile before has read its tiles, which the next tile
+      // rewrites
+      if (t == 0) {
+        bulk_commit();
+        bulk_wait_read<1>();
+      }
+    }
+    if (t == 0) bulk_wait<0>();
+
+    // dV and dK * scale in bf16, the valid key rows
+    const int key_lo = k0 + 64 * wgi + r_lo, key_hi = key_lo + 8;
+    const long long pitch = (long long)H * D;
+    bf16* dvb = dv + (long long)b * Tk * pitch + (long long)h * D;
+    bf16* dkb = dk + (long long)b * Tk * pitch + (long long)h * D;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      const int col = 8 * jj + cq;
+      if (key_lo < Tk) {
+        *reinterpret_cast<__nv_bfloat162*>(dvb + key_lo * pitch + col) =
+            __floats2bfloat162_rn(dva[4 * jj], dva[4 * jj + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dkb + key_lo * pitch + col) =
+            __floats2bfloat162_rn(dka[4 * jj] * scale, dka[4 * jj + 1] * scale);
+      }
+      if (key_hi < Tk) {
+        *reinterpret_cast<__nv_bfloat162*>(dvb + key_hi * pitch + col) =
+            __floats2bfloat162_rn(dva[4 * jj + 2], dva[4 * jj + 3]);
+        *reinterpret_cast<__nv_bfloat162*>(dkb + key_hi * pitch + col) =
+            __floats2bfloat162_rn(dka[4 * jj + 2] * scale,
+                                  dka[4 * jj + 3] * scale);
+      }
+    }
+  }
+}
+
+template <int D>
+int launch(const Args& a, cudaStream_t st) {
+  const int tqp = padded_rows(a.Tq);
+  const long long n = (long long)a.B * a.H * tqp;
+  float2* rows = reinterpret_cast<float2*>(a.delta);
+  int rc = (int)cudaMemsetAsync(
+      a.dq_acc, 0, (size_t)a.B * a.Tq * a.H * D * sizeof(float), st);
+  if (rc != 0) return rc;
+  bwd_rows<D><<<grid_1d(n, 256), 256, 0, st>>>(a, rows);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  CUtensorMap mq, mk, mv, mg, mr, mdq;
+  rc = attn::map_bthd(&mq, a.q, a.B, a.Tq, a.H, D, a.qsb, a.qst, a.qsh, BQT);
+  if (rc == 0) rc = attn::map_bthd(&mg, a.g, a.B, a.Tq, a.H, D, a.gsb, a.gst, a.gsh, BQT);
+  if (rc == 0) rc = attn::map_bthd(&mk, a.k, a.B, a.Tk, a.H, D, a.ksb, a.kst, a.ksh, BKEYS);
+  if (rc == 0) rc = attn::map_bthd(&mv, a.v, a.B, a.Tk, a.H, D, a.vsb, a.vst, a.vsh, BKEYS);
+  if (rc == 0) {
+    // rows as an fp32 matrix [B * H, 2 * tqp], boxes of one tile's 64 pairs
+    const uint64_t dims[2] = {2 * (uint64_t)tqp, (uint64_t)a.B * a.H};
+    const uint64_t strides[1] = {2 * (uint64_t)tqp * 4};
+    const uint32_t box[2] = {2 * BQT, 1};
+    rc = tma_map(&mr, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, rows, dims, strides,
+                 box, CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+  if (rc == 0) {
+    // the fp32 dQ scratch [B, Tq, H, D], boxes of [64 queries, 32 columns]
+    const uint64_t dims[4] = {(uint64_t)D, (uint64_t)a.H, (uint64_t)a.Tq,
+                              (uint64_t)a.B};
+    const uint64_t strides[3] = {(uint64_t)D * 4, (uint64_t)a.H * D * 4,
+                                 (uint64_t)a.Tq * a.H * D * 4};
+    const uint32_t box[4] = {32, 1, BQT, 1};
+    rc = tma_map(&mdq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, a.dq_acc, dims,
+                 strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  if (rc != 0) return rc;
+  static bool smem_set = false;   // once a process, not every launch
+  if (!smem_set) {
+    rc = (int)cudaFuncSetAttribute(
+        attn_bwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+    if (rc != 0) return rc;
+    smem_set = true;
+  }
+  const dim3 grid((a.Tk + BKEYS - 1) / BKEYS, a.H, a.B);
+  attn_bwd_wgmma<D><<<grid, kThreads, SMEM, st>>>(
+      mq, mk, mv, mg, mr, mdq, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.Tq, a.Tk, a.H, a.scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
 
 template <typename Kernel>
 int launch_main(Kernel kernel, size_t smem, const Args& a, cudaStream_t st) {
@@ -506,18 +883,26 @@ int launch_main(Kernel kernel, size_t smem, const Args& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV>
 int dispatch(bool is_bf16, const Args& a, cudaStream_t st) {
   const long long rows = (long long)a.B * a.Tq * a.H;
-  if (is_bf16) {
-    bwd_prologue<__nv_bfloat16, D><<<grid_1d(rows, 256), 256, 0, st>>>(a);
+  int rc = 0;
+  bool wgmma = false;
+  if constexpr (attn::wgmma_depth(D, DV)) wgmma = is_bf16;
+  if (wgmma) {
+    if constexpr (attn::wgmma_depth(D, DV)) rc = wg::launch<D>(a, st);
   } else {
-    bwd_prologue<float, D><<<grid_1d(rows, 256), 256, 0, st>>>(a);
+    if (is_bf16) {
+      bwd_prologue<__nv_bfloat16, D, DV><<<grid_1d(rows, 256), 256, 0, st>>>(a);
+    } else {
+      bwd_prologue<float, D, DV><<<grid_1d(rows, 256), 256, 0, st>>>(a);
+    }
+    rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+    rc = is_bf16
+             ? launch_main(attn_bwd_bf16<D, DV>, Bf16Layout<D, DV>::bytes, a, st)
+             : launch_main(attn_bwd_f32<D, DV>, F32Layout<D, DV>::bytes, a, st);
   }
-  int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  rc = is_bf16 ? launch_main(attn_bwd_bf16<D>, Bf16Layout<D>::bytes, a, st)
-               : launch_main(attn_bwd_f32<D>, F32Layout<D>::bytes, a, st);
   if (rc != 0 || !is_bf16) return rc;
   const long long n = rows * D;
   cast_to_bf16<<<grid_1d(n, 256), 256, 0, st>>>(
@@ -529,15 +914,16 @@ int dispatch(bool is_bf16, const Args& a, cudaStream_t st) {
 
 extern "C" {
 
-// Launches prologue, main kernel and (bf16) the dQ cast on `stream` and
-// returns the first non-zero cudaGetLastError() (0 on success). is_bf16:
-// 1 for bfloat16, 0 for float32, where dq_acc must be dq itself. Strides
-// are in elements.
+// Launches the prologue, the main kernel and (bf16) the dQ cast on `stream`
+// and returns the first non-zero cudaGetLastError() (0 on success). is_bf16:
+// 1 for bfloat16, 0 for float32, where dq_acc must be dq itself. q, k, dq,
+// dk: depth D; v, o, dO, dv: depth Dv. `delta` is fp32 scratch of the size
+// pose3d_flash_attention_bwd_config reports. Strides are in elements.
 int pose3d_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* g, const void* lse, void* delta, void* dq_acc, void* dq,
     void* dk, void* dv, int is_bf16, int B, int Tq, int Tk, int H, int D,
-    float scale,
+    int Dv, float scale,
     long long qsb, long long qst, long long qsh,
     long long ksb, long long kst, long long ksh,
     long long vsb, long long vst, long long vsh,
@@ -558,13 +944,45 @@ int pose3d_flash_attention_bwd(
   a.gsb = gsb; a.gst = gst; a.gsh = gsh;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bf = is_bf16 != 0;
-  switch (D) {
-    case 32: return dispatch<32>(bf, a, st);
-    case 48: return dispatch<48>(bf, a, st);
-    case 64: return dispatch<64>(bf, a, st);
-    case 128: return dispatch<128>(bf, a, st);
+  switch (attn::pair_index(D, Dv)) {
+    case 0: return dispatch<32, 32>(bf, a, st);
+    case 1: return dispatch<48, 48>(bf, a, st);
+    case 2: return dispatch<64, 64>(bf, a, st);
+    case 3: return dispatch<128, 128>(bf, a, st);
+    case 4: return dispatch<32, 64>(bf, a, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// What pose3d_flash_attention_bwd does for a shape, without launching:
+// cfg[0] the path (0 scalar fp32, 1 WMMA, 2 wgmma), cfg[1] keys a block,
+// cfg[2..4] the main kernel's grid, cfg[5] its dynamic shared memory in
+// bytes, cfg[6] its threads a block, cfg[7] the fp32 scratch `delta` needs
+// (floats). Returns 0, or cudaErrorInvalidValue for a pair that is not
+// built.
+int pose3d_flash_attention_bwd_config(int is_bf16, int B, int Tq, int Tk,
+                                      int H, int D, int Dv, long long* cfg) {
+  const int pair = attn::pair_index(D, Dv);
+  if (pair < 0) return (int)cudaErrorInvalidValue;
+  const size_t wmma_smem[5] = {
+      Bf16Layout<32, 32>::bytes, Bf16Layout<48, 48>::bytes,
+      Bf16Layout<64, 64>::bytes, Bf16Layout<128, 128>::bytes,
+      Bf16Layout<32, 64>::bytes};
+  const size_t f32_smem[5] = {
+      F32Layout<32, 32>::bytes, F32Layout<48, 48>::bytes,
+      F32Layout<64, 64>::bytes, F32Layout<128, 128>::bytes,
+      F32Layout<32, 64>::bytes};
+  if (is_bf16 && attn::wgmma_depth(D, Dv)) {
+    cfg[0] = kPathWgmma, cfg[1] = wg::BKEYS, cfg[5] = (long long)wg::SMEM;
+    cfg[6] = wg::kThreads;
+    cfg[7] = 2LL * B * H * wg::padded_rows(Tq);
+  } else {
+    cfg[0] = is_bf16 ? kPathWmma : kPathScalar, cfg[1] = BK, cfg[6] = NT;
+    cfg[5] = (long long)(is_bf16 ? wmma_smem[pair] : f32_smem[pair]);
+    cfg[7] = (long long)B * H * Tq;
+  }
+  cfg[2] = (Tk + cfg[1] - 1) / cfg[1], cfg[3] = H, cfg[4] = B;
+  return 0;
 }
 
 const char* pose3d_cuda_error_string(int code) {

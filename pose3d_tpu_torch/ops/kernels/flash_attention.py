@@ -2,10 +2,11 @@
 versions, and the autograd Function that pairs them (counterpart of
 ``pose3d_tpu/ops/pallas/flash_attention.py``).
 
-Forward: q ``[B, Tq, H, D]`` and k, v ``[B, Tk, H, D]`` give
-``(o [B, Tq, H, D], lse [B, H, Tq] fp32)``:
+Forward: q ``[B, Tq, H, D]``, k ``[B, Tk, H, D]`` and v ``[B, Tk, H, Dv]``
+give ``(o [B, Tq, H, Dv], lse [B, H, Tq] fp32)``:
 ``o = softmax(QKᵀ/√D) V`` with the softmax in fp32, and
-``lse = log Σ_j exp(s_j/√D)`` per query row.
+``lse = log Σ_j exp(s_j/√D)`` per query row. The value depth Dv may differ
+from D, as the TPU kernel allows (YOLO11's PSA attention: D = Dv/2).
 Backward: q, k, v, o, dO and lse give ``(dq, dk, dv)`` in q's dtype, from
 ``P = exp(s/√D − lse)``, ``δ = rowsum(dO∘O)`` and ``dS = P∘(dO Vᵀ − δ)``.
 
@@ -14,7 +15,12 @@ Backward: q, k, v, o, dO and lse give ``(dq, dk, dv)`` in q's dtype, from
 accept only CUDA tensors; :func:`flash_attention_fwd_reference` and
 :func:`flash_attention_bwd_reference` are the plain PyTorch versions the
 tests and ``chip_smoke.py`` hold them against. :class:`FlashAttention`
-runs the kernel pair on CUDA tensors and the plain pair otherwise.
+runs the kernel pair on CUDA tensors and the plain pair otherwise. Each
+source holds three paths, taken by the shape alone (:func:`launch_config`
+mirrors the choice in plain Python, :func:`library_config` reads it back
+from the built libraries): ``wgmma`` (bf16, D = Dv in {48, 64}: the
+lifter's depths, TMA-fed tiles of 128 query rows or keys a block),
+``wmma`` (bf16, the other pairs) and ``scalar`` (fp32).
 """
 
 from __future__ import annotations
@@ -26,8 +32,114 @@ import torch
 
 from pose3d_tpu_torch.ops.kernels import _build
 
-HEAD_DIMS = (32, 48, 64, 128)
+# the (D, Dv) pairs the kernels are built for: D = Dv at the lifter's and
+# the stage-1 models' depths, and YOLO11's PSA pair (key depth half the
+# value depth)
+PAIRS = ((32, 32), (48, 48), (64, 64), (128, 128), (32, 64))
 _DTYPES = (torch.bfloat16, torch.float32)
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the kernels' paths, as the C entry points number them
+PATHS = ("scalar", "wmma", "wgmma")
+# a block's shared-memory limit on the card
+MAX_SMEM = 232448
+_BLOCK = 64          # query rows (forward) or keys (backward) a block:
+_THREADS = 128       # the WMMA and scalar kernels
+_WG_BLOCK = 128      # the wgmma kernels: two consumer warpgroups of 64
+_WG_THREADS = 384    # and a producer warpgroup
+_WG_QTILE = 64       # query rows a tile of the wgmma backward
+# forward: Q 16 KB + four 32 KB stages of K and V; backward: K and V 32 KB +
+# two 16 KB dSᵀ buffers + four 17 KB stages of Q, dO and (lse, δ) + four
+# 8 KB fp32 dQ tiles; each + barriers and 1 KB of alignment slack
+_WG_SMEM_FWD = 2 * 8192 + 4 * 32768 + 128 + 1024
+_WG_SMEM_BWD = 4 * 16384 + 4 * (2 * 8192 + 1024) + 4 * 8192 + 128 + 1024
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def launch_config(B: int, Tq: int, Tk: int, H: int, D: int, Dv: int,
+                  itemsize: int) -> dict:
+    """What the two entry points do for q ``[B, Tq, H, D]``, k ``[B, Tk,
+    H, D]``, v ``[B, Tk, H, Dv]`` of ``itemsize`` bytes (2: bfloat16, 4:
+    float32); plain Python that mirrors the C dispatch
+    (``pose3d_flash_attention_fwd_config`` / ``_bwd_config`` report the
+    same from the built libraries, :func:`library_config`).
+
+    ``path``: ``"wgmma"`` (bf16, D = Dv in {48, 64}), ``"wmma"`` (bf16,
+    any other pair) or ``"scalar"`` (fp32). ``fwd``: query ``rows`` a
+    block; ``bwd``: keys (``rows``) a block; each with its ``grid`` (x, y,
+    z) = (row blocks, H, B), dynamic shared memory ``smem`` in bytes and
+    ``threads`` a block; ``scratch_floats``: the fp32 scratch the backward
+    needs beside the dQ accumulator (δ, or on the wgmma path the
+    interleaved (lse·log2 e, δ) rows padded to whole 64-row query tiles).
+    Raises ValueError for a pair that is not built."""
+    if (D, Dv) not in PAIRS:
+        raise ValueError(f"(D, Dv) = ({D}, {Dv}) is not built; pairs: "
+                         f"{PAIRS}")
+    if itemsize == 2 and D == Dv and D in (48, 64):
+        path, rows, threads = "wgmma", _WG_BLOCK, _WG_THREADS
+        fwd, bwd = _WG_SMEM_FWD, _WG_SMEM_BWD
+        scratch = 2 * B * H * _ceil(Tq, _WG_QTILE) * _WG_QTILE
+    else:
+        rows, threads, scratch = _BLOCK, _THREADS, B * H * Tq
+        if itemsize == 2:
+            path = "wmma"
+            fwd = (2 * 64 * (D + 8) * 2 + 64 * (Dv + 8) * 2 + 64 * 68 * 4
+                   + 64 * 72 * 2 + 64 * (Dv + 4) * 4)
+            lds = max(D, Dv, 64) + 4
+            bwd = (2 * 64 * (D + 8) * 2 + 2 * 64 * (Dv + 8) * 2
+                   + 2 * 64 * lds * 4 + 2 * 64 * 72 * 2 + 2 * 64 * 4)
+        else:
+            path = "scalar"
+            fwd = (64 * (D + 4) + 64 * (Dv + 4) + 64 * 65) * 4
+            bwd = (2 * 64 * (D + 4) + 2 * 64 * (Dv + 4) + 2 * 64 * 65
+                   + 2 * 64) * 4
+    return {
+        "path": path, "scratch_floats": scratch,
+        "fwd": {"rows": rows, "grid": (_ceil(Tq, rows), H, B), "smem": fwd,
+                "threads": threads},
+        "bwd": {"rows": rows, "grid": (_ceil(Tk, rows), H, B), "smem": bwd,
+                "threads": threads},
+    }
+
+
+def library_config(B: int, Tq: int, Tk: int, H: int, D: int, Dv: int,
+                   itemsize: int) -> dict:
+    """:func:`launch_config` as the built libraries report it (builds
+    them at first use; needs the card's toolkit)."""
+    is_bf16 = int(itemsize == 2)
+    fwd = (ctypes.c_int * 7)()
+    lib = load_library("flash_attention_fwd")
+    lib.pose3d_flash_attention_fwd_config.argtypes = [_I] * 7 + [_P]
+    rc = lib.pose3d_flash_attention_fwd_config(is_bf16, B, Tq, Tk, H, D, Dv,
+                                               fwd)
+    bwd = _bwd_config(load_library("flash_attention_bwd"), is_bf16, B, Tq,
+                      Tk, H, D, Dv)
+    if rc != 0:
+        raise ValueError(f"(D, Dv) = ({D}, {Dv}) is not built")
+    if fwd[0] != bwd[0]:
+        raise RuntimeError(f"forward takes path {fwd[0]}, backward {bwd[0]}")
+    return {
+        "path": PATHS[fwd[0]], "scratch_floats": bwd[7],
+        "fwd": {"rows": fwd[1], "grid": tuple(fwd[2:5]), "smem": fwd[5],
+                "threads": fwd[6]},
+        "bwd": {"rows": bwd[1], "grid": tuple(bwd[2:5]), "smem": bwd[5],
+                "threads": bwd[6]},
+    }
+
+
+def _bwd_config(lib: ctypes.CDLL, is_bf16: int, B: int, Tq: int, Tk: int,
+                H: int, D: int, Dv: int):
+    """The backward's dispatch as its library reports it: path, keys a
+    block, grid (3), smem, threads, scratch floats."""
+    out = (ctypes.c_longlong * 8)()
+    lib.pose3d_flash_attention_bwd_config.argtypes = [_I] * 7 + [_P]
+    rc = lib.pose3d_flash_attention_bwd_config(is_bf16, B, Tq, Tk, H, D, Dv,
+                                               out)
+    if rc != 0:
+        raise ValueError(f"(D, Dv) = ({D}, {Dv}) is not built")
+    return out
 
 
 def flash_attention_fwd_reference(q: torch.Tensor, k: torch.Tensor,
@@ -72,18 +184,28 @@ def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """The kernel reads 16 bytes at a time: the last dim must be
-    contiguous and the base and other strides 16-byte aligned. Views that
-    are not (none on the model's path) are copied."""
+    """The kernels read 16 bytes at a time and through TMA maps over
+    [B, T, H, D]: the last dim must be contiguous, the base and other
+    strides 16-byte aligned, and the layout row-major in that order (a
+    head's row fits in the head stride, H heads in the token stride, T
+    tokens in the batch stride; dims of extent 1 are not checked). Views
+    that are not (none on the model's path: the packed q/k/v are) are
+    copied."""
     per16 = 16 // x.element_size()
-    ok = (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-          and all(s % per16 == 0 for s in x.stride()[:-1]))
+    B, T, H, D = x.shape
+    sb, st, sh, sd = x.stride()
+    ok = (sd == 1 and x.data_ptr() % 16 == 0
+          and all(s % per16 == 0 for s in (sb, st, sh))
+          and (H == 1 or sh >= D)
+          and (T == 1 or st >= H * (sh if H > 1 else D))
+          and (B == 1 or sb >= T * st))
     return x if ok else x.contiguous()
 
 
 def _check(fn: str, q, k, v, **more) -> None:
     """Raise ValueError for anything the kernels do not take. ``more``
-    holds the backward's o and do, which must match q."""
+    holds the backward's o and do, which must have q's shape with v's
+    depth."""
     named = {"q": q, "k": k, "v": v, **more}
     for name, x in named.items():
         if x.dim() != 4:
@@ -95,19 +217,20 @@ def _check(fn: str, q, k, v, **more) -> None:
     if len({x.dtype for x in named.values()}) != 1:
         raise ValueError(f"{fn}: {', '.join(named)} dtypes differ")
     B, Tq, H, D = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[2] != H \
+    Dv = v.shape[3]
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != B or k.shape[2] != H \
             or k.shape[3] != D:
         raise ValueError(
-            f"{fn}: need k, v [B, Tk, H, D] matching q "
-            f"{tuple(q.shape)}; got k {tuple(k.shape)}, v {tuple(v.shape)} "
-            "(a value depth other than D is not supported)"
-        )
+            f"{fn}: need k [B, Tk, H, D] and v [B, Tk, H, Dv] matching q "
+            f"{tuple(q.shape)}; got k {tuple(k.shape)}, v {tuple(v.shape)}")
     for name, x in more.items():
-        if x.shape != q.shape:
-            raise ValueError(f"{fn}: {name} must have q's shape "
-                             f"{tuple(q.shape)}, got {tuple(x.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{fn}: head dim {D} not in {HEAD_DIMS}")
+        if x.shape != (B, Tq, H, Dv):
+            raise ValueError(f"{fn}: {name} must have q's shape with v's "
+                             f"depth {(B, Tq, H, Dv)}, got {tuple(x.shape)}")
+    if (D, Dv) not in PAIRS:
+        raise ValueError(
+            f"{fn}: head dim D={D} with value depth Dv={Dv} is not built; "
+            f"the kernels take (D, Dv) in {PAIRS}")
     if Tq == 0 or k.shape[1] == 0:
         raise ValueError(f"{fn}: empty query or key sequence")
     if B > 65535 or H > 65535:
@@ -121,12 +244,11 @@ def _check(fn: str, q, k, v, **more) -> None:
             "the kernel takes CUDA tensors on one device only")
 
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signature of each library's entry point (see the extern "C" blocks)
 _ARGTYPES = {
-    "flash_attention_fwd": [_P] * 5 + [_I] * 6 + [ctypes.c_float]
+    "flash_attention_fwd": [_P] * 5 + [_I] * 7 + [ctypes.c_float]
     + [_LL] * 9 + [_P],
-    "flash_attention_bwd": [_P] * 11 + [_I] * 6 + [ctypes.c_float]
+    "flash_attention_bwd": [_P] * 11 + [_I] * 7 + [ctypes.c_float]
     + [_LL] * 15 + [_P],
 }
 
@@ -139,9 +261,10 @@ def load_library(name: str) -> ctypes.CDLL:
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the Hopper kernel on PyTorch's current stream. Raises on
-    anything it does not take (non-CUDA tensors, other dtypes or head
-    dims, an empty key sequence) and when the launch is refused; it never
+    """Launch the Hopper kernel on PyTorch's current stream (the path
+    :func:`launch_config` names for the shape). Raises on anything it does
+    not take (non-CUDA tensors, other dtypes, a (D, Dv) pair that is not
+    built, an empty key sequence) and when the launch is refused; it never
     falls back to the plain version.
 
     The output carries no autograd graph, so with grad mode on it raises
@@ -156,16 +279,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     _check("flash_attention_fwd", q, k, v)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     B, Tq, H, D = q.shape
-    Tk = k.shape[1]
+    Tk, Dv = k.shape[1], v.shape[3]
     lib = load_library("flash_attention_fwd")
-    o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
+    o = torch.empty((B, Tq, H, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.pose3d_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), int(q.dtype == torch.bfloat16), B, Tq, Tk, H, D,
-            1.0 / D ** 0.5,
+            Dv, 1.0 / D ** 0.5,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
@@ -183,13 +306,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the Hopper backward (prologue, main kernel and, for bf16,
-    the dQ cast) on PyTorch's current stream; returns contiguous
-    ``(dq, dk, dv)`` in q's dtype. ``do`` may be any strided view (it is
+    the dQ cast; the path :func:`launch_config` names) on PyTorch's
+    current stream; returns contiguous ``(dq, dk, dv)`` in q's dtype, dv
+    of v's depth. ``do`` may be any strided view (it is
     copied when the kernel cannot read it in place). Raises like
     :func:`flash_attention_fwd`; never falls back to the plain version."""
     _check("flash_attention_bwd", q, k, v, o=o, do=do)
     B, Tq, H, D = q.shape
-    Tk = k.shape[1]
+    Tk, Dv = k.shape[1], v.shape[3]
     if (lse.shape != (B, H, Tq) or lse.dtype != torch.float32
             or lse.device != q.device):
         raise ValueError(
@@ -201,9 +325,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = q.device
     dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=dev)
     dk = torch.empty((B, Tk, H, D), dtype=q.dtype, device=dev)
-    dv = torch.empty((B, Tk, H, D), dtype=q.dtype, device=dev)
-    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=dev)
+    dv = torch.empty((B, Tk, H, Dv), dtype=q.dtype, device=dev)
     is_bf16 = q.dtype == torch.bfloat16
+    # the scratch's size from the library that will use it
+    n_delta = _bwd_config(lib, int(is_bf16), B, Tq, Tk, H, D, Dv)[7]
+    delta = torch.empty((n_delta,), dtype=torch.float32, device=dev)
     dq_acc = (torch.empty((B, Tq, H, D), dtype=torch.float32, device=dev)
               if is_bf16 else dq)
     with torch.cuda.device(dev):
@@ -212,7 +338,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            int(is_bf16), B, Tq, Tk, H, D, 1.0 / D ** 0.5,
+            int(is_bf16), B, Tq, Tk, H, D, Dv, 1.0 / D ** 0.5,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3], *do.stride()[:3],
             stream,
@@ -227,7 +353,7 @@ flash_attention_bwd.launches = 0
 
 class FlashAttention(torch.autograd.Function):
     """Differentiable attention: ``FlashAttention.apply(q, k, v,
-    use_kernel)`` → o ``[B, Tq, H, D]``. The forward saves q, k, v, o and
+    use_kernel)`` → o ``[B, Tq, H, Dv]``. The forward saves q, k, v, o and
     the fp32 lse; the backward recomputes P from lse. ``use_kernel`` picks
     the Hopper kernel pair (CUDA tensors only), otherwise the plain
     pair runs."""

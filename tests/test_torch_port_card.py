@@ -23,6 +23,7 @@ from pose3d_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_fwd,
     flash_attention_fwd_reference,
 )
+from pose3d_tpu_torch.ops.kernels import flash_attention as fa
 from pose3d_tpu_torch.ops.kernels.lane_resample import (
     lane_resample,
     lane_resample_reference,
@@ -160,6 +161,113 @@ def test_cuda_backward_reaches_the_patch_embedding():
     assert grads["auto"] is not None and grads["auto"].abs().sum() > 0
     assert torch.allclose(grads["auto"], grads["reference"], rtol=1e-3,
                           atol=1e-5)
+
+
+# (Tq, Tk, H, D): the edges of the wgmma kernels' tiles (64 query rows a
+# warpgroup, 128 a forward block, 128 keys a tile and a backward block, 64
+# query rows a backward tile) at the lifter's depths, and query against key
+# lengths across them
+WGMMA_EDGES = ([(t, t, 3, d) for t in (1, 16, 63, 64, 65, 127, 128, 129)
+                for d in (48, 64)]
+               + [(1, 130, 2, 64), (129, 130, 2, 64), (130, 1, 2, 48),
+                  (130, 63, 2, 48)])
+
+
+def _bitwise_and_close(q, k, v, dtype):
+    """The kernel pair against the plain pair on q, k, v: o and lse (o
+    absolute, lse 1e-3), dq, dk, dv relative to max(1, |ref|); o, lse, dk,
+    dv of a repeat bitwise equal (dq is summed by atomics)."""
+    o, lse = flash_attention_fwd(q, k, v)
+    o2, lse2 = flash_attention_fwd(q, k, v)
+    ro, rlse = flash_attention_fwd_reference(q, k, v)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert (o.float() - ro.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - rlse).abs().max().item() <= 1e-3
+    g = torch.Generator(device="cuda").manual_seed(q.shape[1] + k.shape[1])
+    do = torch.randn(o.shape, generator=g, device="cuda").to(o.dtype)
+    got = flash_attention_bwd(q, k, v, o, do, lse)
+    again = flash_attention_bwd(q, k, v, o, do, lse)
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    for x, r in zip(got, flash_attention_bwd_reference(q, k, v, o, do, lse)):
+        assert x.shape == r.shape and x.dtype == r.dtype
+        scale = max(1.0, r.float().abs().max().item())
+        assert (x.float() - r.float()).abs().max().item() \
+            <= TOL_GRAD[dtype] * scale
+
+
+@pytest.mark.cuda
+def test_flash_attention_wgmma_path_at_its_tile_edges():
+    """bf16 at D 48 and 64 takes the wgmma kernels (asserted from
+    launch_config and the built libraries) and agrees with the plain pair
+    at every tile edge, forward and backward."""
+    _cuda()
+    g = torch.Generator(device="cuda").manual_seed(12)
+    for Tq, Tk, H, D in WGMMA_EDGES:
+        cfg = fa.launch_config(2, Tq, Tk, H, D, D, 2)
+        assert cfg["path"] == "wgmma"
+        assert fa.library_config(2, Tq, Tk, H, D, D, 2) == cfg
+        q = torch.randn(2, Tq, H, D, generator=g, device="cuda").bfloat16()
+        k, v = (torch.randn(2, Tk, H, D, generator=g, device="cuda").bfloat16()
+                for _ in range(2))
+        _bitwise_and_close(q, k, v, "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_packed_views_and_value_depth(dtype):
+    """Packed self-attention views of one [B, T, 3, H, D] projection and a
+    cross attention's [B, Tk, 2, H, D] k/v are read in place, forward and
+    backward; YOLO11x's PSA pair (D 32, Dv 64) runs on the WMMA or scalar
+    kernels, as the TPU kernel takes it."""
+    _cuda()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    for T, H, D in ((130, 4, 48), (257, 12, 64)):
+        qkv = torch.randn(2, T, 3, H, D, generator=g, device="cuda").to(dt)
+        q, k, v = qkv.unbind(2)
+        assert all(fa._aligned(x) is x for x in (q, k, v))
+        _bitwise_and_close(q, k, v, dtype)
+        kv = torch.randn(2, 16, 2, H, D, generator=g, device="cuda").to(dt)
+        _bitwise_and_close(q, *kv.unbind(2), dtype)
+    q, k = (torch.randn(2, 400, 6, 32, generator=g, device="cuda").to(dt)
+            for _ in range(2))
+    v = torch.randn(2, 400, 6, 64, generator=g, device="cuda").to(dt)
+    assert fa.launch_config(2, 400, 400, 6, 32, 64, dt.itemsize)["path"] \
+        == ("wmma" if dtype == "bfloat16" else "scalar")
+    _bitwise_and_close(q, k, v, dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_backward_through_the_wgmma_kernels():
+    """At head dim 64 in bf16 the model's attentions take the wgmma
+    kernels: a loss.backward() launches the backward once per attention and
+    the gradient reaches the patch embedding, finite and within the bf16
+    whole-gradient bound of chip_smoke.py (relative L2 1e-1) of the plain
+    pair's."""
+    _cuda()
+    cfg = TransformerModelConfig(
+        image_size=(64, 64), heatmap_size=32, transformer_embed_dim=256,
+        transformer_heads=4, vit_depth=2, vit_heads=4, final_encoder_depth=1,
+        num_cross_modal_layers=1, regression_hidden_dims=(32, 16),
+        transformer_dropout_rate=0.0, regression_dropout=0.0)
+    g = torch.Generator(device="cuda").manual_seed(14)
+    args = (torch.rand(2, 64, 64, 3, generator=g, device="cuda"),
+            torch.rand(2, 64, 64, 1, generator=g, device="cuda"),
+            torch.rand(2, 17, 2, generator=g, device="cuda"))
+    grads = {}
+    for impl in ("auto", "reference"):
+        torch.manual_seed(0)
+        model = build_model(cfg, device="cuda", dtype=torch.bfloat16,
+                            attention_impl=impl, train=True)
+        before = flash_attention_bwd.launches
+        model(*args).float().square().sum().backward()
+        assert flash_attention_bwd.launches - before == (
+            5 if impl == "auto" else 0)
+        grads[impl] = model.vit_backbone.patch_embed.proj.weight.grad.float()
+    assert torch.isfinite(grads["auto"]).all()
+    assert grads["auto"].abs().sum() > 0
+    rel = (grads["auto"] - grads["reference"]).norm() / grads["reference"].norm()
+    assert rel.item() <= 1e-1
 
 
 # (n, C): the CNN's BatchNorm inputs at microbatch 10 and ragged ones
