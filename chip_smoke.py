@@ -12,7 +12,8 @@ Phases, each fatal on failure:
      forward and backward kernels of ``layer_norm`` and ``mlp_block``:
      eight sources), from ``pose3d_tpu_torch/csrc``, one nvcc per source,
      all started together (build seconds and ptxas
-     register/shared-memory/spill lines);
+     register/shared-memory/spill lines; a spill in ``bn_stats`` or the
+     ``layer_norm`` backward fails);
   3. kernels: each kernel against its plain PyTorch version at every shape
      the paths give it and at ragged ones, in bf16 and fp32, with the
      tolerances below (attention: also at the edges of the ``wgmma``
@@ -22,6 +23,10 @@ Phases, each fatal on failure:
      ``launch_config`` and from the built libraries, and the ``wgmma``
      kernels' ptxas report read: a spill or a serialized ``wgmma`` (C7520,
      C7512) fails; ``bn_stats``: forward and the Function's backward;
+     ``bn_stats`` and the ``layer_norm`` backward, which add partial rows
+     across blocks inside their one launch: one kernel launch a call as
+     ``torch.profiler`` sees it, and the plan ``launch_config`` mirrors
+     equal to the built library's, at every shape;
      ``lane_resample``: order 0 equal, order 1 within 1e-6;
      ``layer_norm`` and ``mlp_block``: forward and backward at the
      lifter's row counts and widths and at ragged ones; ``mlp_block``
@@ -55,6 +60,8 @@ Phases, each fatal on failure:
      backward, and for ``mlp_block`` the three calls ``F.linear → F.gelu →
      F.linear`` and their backward, which write the hidden activation to
      device memory; timed here, used nowhere in the port;
+     ``bn_stats``'s sum over the 59 calls of one microbatch forward beside
+     the bound's sum,
      ``lane_resample`` on the lines that one augmentation with seeded
      draws hands it, its bound counted from those lines; ``layer_norm``
      also at the training-sized 100·1025 rows; for ``mlp_block`` the
@@ -72,9 +79,10 @@ Phases, each fatal on failure:
      ``normalization="batch_pallas"`` trained by ``train_model`` for 3
      optimizer steps at 10 × 10 in ``accum_mode="scan"`` with the published
      dropout and EMA with ``ema_batch_stats``, ``bn_stats`` launched once
-     per BatchNorm per microbatch; (b) one batch-10 fp32 step with the
-     kernel and with the plain statistics (loss, whole gradient, every
-     running mean and variance); (c) ``normalization="batch"`` in the
+     per BatchNorm per microbatch, the step's device time from
+     ``torch.profiler`` beside its host time; (b) one batch-10 fp32 step
+     with the kernel and with the plain statistics (loss, whole gradient,
+     every running mean and variance); (c) ``normalization="batch"`` in the
      default grouped mode at 10 × 10, without ``remat`` when the flat batch
      of 100 fits the card and with it when not (the peak of both is
      printed), and a ``torch.profiler`` split of that step; (d)
@@ -247,6 +255,11 @@ TOL_MLP = {"bfloat16": 2e-2, "float32": 1e-4}
 TOL_ROWOPS_MODULE_F32 = 1e-4
 TOL_ROWOPS_MODULE_BF16_REL_L2 = 2e-2
 TRAIN_ROWS = 100 * 1025     # layer_norm's rows in a grouped 10 x 10 step
+# the two kernels that add partial rows across blocks in their own launch
+# (csrc/row_reduce.cuh): their sources' kernels as ptxas names them
+ROW_REDUCE_KERNELS = {"bn_stats": ("bn_stats_kernel",),
+                      "layer_norm_bwd": ("layer_norm_bwd_wide",
+                                         "layer_norm_bwd")}
 # bn_stats: (n, C) beside the path's own shapes, in bf16 and fp32; max |Δ|
 # of Σx and Σx² against the plain version relative to max(1, max|ref|). Both
 # sum in fp32 in another order: over 625,000 rows of magnitude ~1.5 the
@@ -434,6 +447,96 @@ def _check_attention_build() -> None:
             raise SystemExit(f"{name}: ptxas serialized wgmma: {serial}")
 
 
+def _row_reduce_ptxas(name: str) -> dict:
+    """{kernel<type,args>: (registers, spill store bytes, spill load bytes,
+    shared bytes)} of every instantiation in the build log of
+    ``csrc/<name>.cu`` (``bn_stats`` or ``layer_norm_bwd``)."""
+    import re
+
+    from pose3d_tpu_torch.ops.kernels import _build
+
+    bases = "|".join(ROW_REDUCE_KERNELS[name])
+    out, entry = {}, None
+    for line in _build.build_info[name]["log"].splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(rf"\d+({bases})I(f|13__nv_bfloat16)((?:Li\d+E)+)E",
+                          line)
+            entry = None
+            if m:
+                args = ["bf16" if m.group(2) != "f" else "f32"] + re.findall(
+                    r"Li(\d+)E", m.group(3))
+                entry = f"{m.group(1)}<{','.join(args)}>"
+                out[entry] = [None, 0, 0, 0]
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[entry][1:3] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m:
+            out[entry][0], out[entry][3] = int(m.group(1)), int(m.group(2))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def _check_row_reduce_build() -> None:
+    """ptxas's registers, spills and shared memory for every kernel of the
+    two row-reduce sources; a spill fails the run."""
+    for name in ROW_REDUCE_KERNELS:
+        report = _row_reduce_ptxas(name)
+        if not report:
+            raise SystemExit(f"{name}: no kernel in the build log")
+        for kern, (regs, st, ld, smem) in sorted(report.items()):
+            log(f"[build] {kern}: {regs} registers, spills {st} B stored / "
+                f"{ld} B loaded, {smem} B shared")
+            if st or ld:
+                raise SystemExit(f"{kern} spills registers")
+
+
+def _launches_per_call(torch, fn, calls: int = 3, tries: int = 3) -> dict:
+    """{kernel name: launches per call} that ``torch.profiler`` records
+    over ``calls`` calls of ``fn`` (after one call outside the trace). The
+    trace starts with a short sleep kernel, left out: a trace can miss the
+    first kernel after it starts, and now and then records none; a trace
+    without the sleep kernel is taken again, up to ``tries`` times."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out, slept = {}, False
+        for e in prof.key_averages():
+            if not _is_kernel(e):       # the host's runtime calls
+                continue
+            if "spin" in e.key or "sleep" in e.key:
+                slept = True
+                continue
+            key = e.key.replace("(anonymous namespace)::", "")
+            name = re.split(r"[<(]", re.sub(r"^void ", "", key))[0]
+            name = name.split("::")[-1].strip()
+            out[name] = out.get(name, 0) + e.count / calls
+        if slept:
+            break
+    return out
+
+
+def _one_launch(torch, fn, kernel: str) -> tuple:
+    """(ok, what torch.profiler saw): one launch of ``kernel`` a call and
+    no other kernel."""
+    seen = _launches_per_call(torch, fn)
+    return (len(seen) == 1 and next(iter(seen)).startswith(kernel)
+            and next(iter(seen.values())) == 1), seen
+
+
 def phase_kernels(torch) -> dict:
     from pose3d_tpu_torch.ops.kernels import flash_attention as fa
     from pose3d_tpu_torch.ops.kernels.flash_attention import (
@@ -446,6 +549,7 @@ def phase_kernels(torch) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _check_attention_build()
+    _check_row_reduce_build()
     worst = 0.0
     worst_bwd = 0.0
     failures = []
@@ -560,6 +664,7 @@ def _check_bn_stats(torch, failures: list) -> tuple:
     Function's backward, at the path's shapes (microbatch 10) and the
     ragged ones. Returns the worst forward error seen: max |Δ| of the sums
     as it is, and relative to max(1, max|ref|) as the bound is stated."""
+    from pose3d_tpu_torch.ops.kernels import bn_stats as bn
     from pose3d_tpu_torch.ops.kernels.bn_stats import (
         BnStats,
         bn_stats,
@@ -589,6 +694,13 @@ def _check_bn_stats(torch, failures: list) -> tuple:
                 ok &= (a.shape == (C,) and a.dtype == torch.float32
                        and torch.isfinite(a).all().item() and err <= TOL_BN)
             worst_rel = max(worst_rel, *errs)
+            # one launch a call, on the plan the Python mirror computes
+            one, seen = _one_launch(torch, lambda: bn_stats(x),
+                                    "bn_stats_kernel")
+            plans = [(bn.launch_config(n, C, dtype.itemsize, al),
+                      bn.library_config(n, C, dtype.itemsize, al))
+                     for al in (True, False)]
+            ok &= one and all(a == b for a, b in plans)
             # the Function: kernel forward, closed-form backward
             w = torch.randn(2, C, generator=g, device="cuda")
             grads = []
@@ -599,11 +711,13 @@ def _check_bn_stats(torch, failures: list) -> tuple:
                 grads.append(leaf.grad)
             ok &= (grads[0].dtype == dtype
                    and torch.equal(grads[0], grads[1]))
+            cfg = plans[0][0]
             log(f"[kernel] bn_stats {name:8s} n={n:6d} C={C:4d}: "
                 f"max|d(s1,s2)|/max(1,|ref|)="
                 + ",".join(f"{e:.2e}" for e in errs)
-                + f" (tol {TOL_BN:.0e}); repeats bitwise, backward equal  "
-                f"{'ok' if ok else 'FAIL'}")
+                + f" (tol {TOL_BN:.0e}); repeats bitwise, backward equal; "
+                f"grid {cfg['tiles']}x{cfg['blocks']} as the library plans "
+                f"it; launches a call {seen}  {'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(("bn_stats", name, n, C))
     log(f"[kernel] bn_stats worst over all shapes: max|d| {worst:.3e} in the "
@@ -713,7 +827,8 @@ def _check_row_ops(torch, failures: list) -> dict:
     f32 = torch.float32
     for dtype in (torch.bfloat16, f32):
         name = str(dtype).removeprefix("torch.")
-        shapes = [(r, ROW_WIDTH) for r in ROW_COUNTS] + LN_RAGGED
+        shapes = [(r, ROW_WIDTH) for r in ROW_COUNTS] + LN_RAGGED \
+            + [(TRAIN_ROWS, ROW_WIDTH)]
         for i, (rows, C) in enumerate(shapes):
             t = _row_inputs(torch, rows, C, 0, dtype, 5000 + i)
             x, scale, bias, dy = t["x"], t["scale"], t["bias"], t["dy"]
@@ -735,6 +850,20 @@ def _check_row_ops(torch, failures: list) -> dict:
             held("layer_norm_bwd", label, ("dx", "dscale", "dbias"), grads,
                  again, brefs, (TOL_LN[name], TOL_LN_STATS, TOL_LN_STATS),
                  (dtype, f32, f32))
+            one, seen = _one_launch(
+                torch, lambda: ln.layer_norm_bwd(x, scale, refs[1], refs[2],
+                                                 dy), "layer_norm_bwd")
+            plans = [(ln.launch_config(rows, C, dtype.itemsize, al),
+                      ln.library_config(rows, C, dtype.itemsize, al))
+                     for al in (True, False)]
+            same_plan = all(a == b for a, b in plans)
+            log(f"[kernel] layer_norm_bwd {label}: {plans[0][0]['blocks']} "
+                f"blocks, the library's plan "
+                f"{'the same' if same_plan else 'DIFFERS'}; launches a call "
+                f"{seen}  {'ok' if one and same_plan else 'FAIL'}")
+            if not (one and same_plan):
+                failures.append(("layer_norm_bwd", label, "launches/plan"))
+            del grads, again, brefs
         shapes = [(r, ROW_WIDTH, ROW_HIDDEN, "wgmma") for r in ROW_COUNTS] \
             + [(*s, "wgmma") for s in MLP_RAGGED] + MLP_EDGES
         for i, (rows, D, H, path) in enumerate(shapes):
@@ -1569,8 +1698,14 @@ def phase_cnn(torch, tmp: Path, card: str) -> dict:
     if ra["launches"] != want:
         raise SystemExit("the scan path did not launch bn_stats once per "
                          "BatchNorm per microbatch")
+    busy = _device_busy_ms(_profile_once(
+        torch, lambda: ra["step"](ra["st"], ra["sb"], ra["gen"])))
+    log(f"[time] CNN train step, {A}x{B} batch_pallas scan: device kernels "
+        f"{busy:.1f} ms of the {ra['step_ms']:.1f} ms step (torch.profiler, "
+        f"one step; the rest is the card waiting for the host's launches)  "
+        f"[{card}]")
     out.update(launches=ra["launches"]["bn_stats"], scan_ms=ra["step_ms"],
-               scan_peak=ra["peak"])
+               scan_peak=ra["peak"], scan_busy=busy)
 
     # (d) evaluate (a full and a ragged batch), then (a)'s .pth, served
     st = ra["st"]
@@ -1821,6 +1956,7 @@ def _time_bn_stats(torch, card: str) -> dict:
 
     times = {}
     shapes = _bn_path_shapes(torch, 10)
+    tot = dict(ms=0.0, bound=0.0, library=0.0)
     for n, C in sorted(set(shapes), reverse=True):
         g = torch.Generator(device="cuda").manual_seed(n + C)
         x = torch.randn(n, C, generator=g, device="cuda").bfloat16()
@@ -1841,12 +1977,24 @@ def _time_bn_stats(torch, card: str) -> dict:
             ms=kt, plain_ms=pt, library_ms=lt, bound_ms=bound,
             bound_by="bytes" if nbytes / HBM_BYTES_S >= 3 * n * C / PEAK_FP32
             else "operations")
-        log(f"[time] bn_stats bf16 n={n} C={C} (x{shapes.count((n, C))} per "
-            f"forward): kernel {kt:.4f} ms ({nbytes / kt / 1e6:.0f} GB/s), "
+        calls = shapes.count((n, C))
+        tot["ms"] += calls * kt
+        tot["bound"] += calls * bound
+        tot["library"] += calls * lt
+        log(f"[time] bn_stats bf16 n={n} C={C} (x{calls} per "
+            f"forward): kernel {kt:.4f} ms ({nbytes / kt / 1e6:.0f} GB/s, "
+            f"{bound / kt:.0%} of the bound), "
             f"plain {pt:.4f} ms, torch.batch_norm_stats (mean and 1/sigma, "
             f"not the same function) {lt:.4f} ms, bound {bound:.4f} ms "
             f"(bytes)  [{card}]")
         del xs, x
+    share = tot["bound"] / tot["ms"]
+    log(f"[time] bn_stats over one microbatch forward of the CNN "
+        f"({len(shapes)} calls, sum of calls x ms): kernel {tot['ms']:.4f} "
+        f"ms against a bound of {tot['bound']:.4f} ms ({share:.0%}), "
+        f"torch.batch_norm_stats {tot['library']:.4f} ms; "
+        f"a scan 10x10 step's 10 microbatches: {10 * tot['ms']:.3f} ms "
+        f"against {10 * tot['bound']:.3f}  [{card}]")
     return times
 
 
@@ -2272,9 +2420,9 @@ def _time_row_ops(torch, card: str) -> dict:
         bound, by = _bound(nbytes, 14 * rows * C, PEAK_FP32)
         times[("ln_bwd", rows, C)] = dict(ms=kt, plain_ms=pt, library_ms=lt,
                                           bound_ms=bound, bound_by=by)
-        log(f"[time] layer_norm backward bf16 rows={rows} C={C} (two "
-            f"launches a call: the rows, then the partial rows of dscale "
-            f"and dbias): kernel {kt:.4f} ms ({nbytes / kt / 1e6:.0f} GB/s, "
+        log(f"[time] layer_norm backward bf16 rows={rows} C={C} (one "
+            f"launch a call: the rows, then dscale and dbias added across "
+            f"the blocks in it): kernel {kt:.4f} ms ({nbytes / kt / 1e6:.0f} GB/s, "
             f"{bound / kt:.0%} of the bound), plain {pt:.4f} ms, "
             f"F.layer_norm's autograd backward {lt:.4f} ms, bound "
             f"{bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB)  [{card}]")

@@ -11,208 +11,227 @@
 // What bounds it on this card. 3 operations per element against 2 (bf16) or
 // 4 (fp32) bytes read: far below the ~20 fp32 operations per byte at which
 // the card's fp32 rate, not its memory, would be the limit. So the work is
-// bound by bytes: n*C*itemsize over the memory rate. The largest layer of
-// the 500x500 CNN at microbatch 10 is [625000, 64] bf16 = 80 MB.
+// bound by bytes: n*C*itemsize over the memory rate (the stem's [625000, 64]
+// bf16 at microbatch 10: 80 MB, 0.024 ms). To hold that rate the card needs
+// a few MB of reads in flight, ~32 KB on each SM; and the CNN's path gives
+// it 13 shapes from 1 to 120 MB, half of its calls at 10,240 rows, where a
+// launch or a serial tail costs as much as the reads.
 //
-// Design (a simple kernel that is right comes first):
+// Design:
 //  * the TPU kernel walks row tiles in sequence on one core and carries an
-//    [8, C] accumulator from one grid step to the next. Blocks here run in
-//    parallel and in no order, so the rows are cut into `chunks`; a block
-//    reduces one chunk of rows for one tile of channels and writes a partial
-//    row into p1/p2 [chunks, C]; a second small kernel adds the partial rows
-//    in a fixed order. No atomics: the sums are the same from run to run.
-//    When one chunk covers all rows the first kernel writes s1/s2 directly;
-//  * threads lie along C, so neighbouring threads read neighbouring
-//    addresses of a row. Where the base address, the row stride and C allow
-//    it each thread reads 16 bytes (8 bf16 or 4 fp32 channels) per row and
-//    keeps both sums of its channels in registers; otherwise one channel per
-//    thread (VEC = 1). A block is TX x TY threads (TX*TY = 256): TX
-//    channel-vectors wide, TY rows deep, both powers of two chosen by the
-//    wrapper from C; the TY row lanes are folded in shared memory by a tree
-//    of fixed shape;
-//  * the ragged last chunk is handled by the row bound, not by padding.
+//    [8, C] accumulator from one grid step to the next. Here the columns are
+//    cut into tiles of 8 threads x 16 bytes (64 bf16 / 32 fp32 channels) and
+//    the rows into P runs of whole batches; block (tile, k) reduces run k of
+//    its tile. The grid (tiles, P) is at most 396 blocks, three resident on
+//    each of the 132 SMs, so every block starts at once;
+//  * the stream: a block is 32 row lanes x 8 column threads, each thread
+//    loads 16 bytes from each of 8 rows before it adds any (kUnroll): 32 KB
+//    of reads in flight a block, up to 96 KB an SM, at every shape whose
+//    rows fill a batch. Neighbouring threads read neighbouring 16 bytes of a
+//    row;
+//  * one launch a call: the block folds its row lanes (warp shuffles, then
+//    the eight warps through shared memory, in a fixed order), writes one
+//    partial row [s1 | s2] of its tile, and after a barrier of the tile's
+//    blocks each adds a share of the tile's columns over all its partial
+//    rows (row_reduce.cuh: a cooperative launch, a fixed order of addition,
+//    no atomics in any sum). A shape's sums are the same from run to run;
+//  * where the base address, the row stride or C rule out 16-byte reads, one
+//    channel per thread (VEC = 1) on the same plan: correct, not fast.
+//
+// pose3d_bn_stats_config reports the plan; ops/kernels/bn_stats.py mirrors it
+// in Python to size the scratch and counters.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include <cstdint>
+
+#include "row_reduce.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kTx = 8;                   // threads along a tile's channels
+constexpr int kTy = kThreads / kTx;      // row lanes
+constexpr int kUnroll = 8;               // rows a lane has in flight
+constexpr int kBatch = kTy * kUnroll;    // rows a block has in flight
+constexpr int kPerSM = 3;                // resident blocks an SM
+constexpr int kMaxBlocks = kPerSM * 132;
 
+struct Plan {
+  int vec, tiles, P;
+  long long rpb;            // rows of a block's run, a multiple of kBatch
+  long long scratch_floats, counters;
+};
+
+Plan make_plan(long long n, int C, int is_bf16, int aligned) {
+  Plan p;
+  const int full = is_bf16 ? 8 : 4;
+  p.vec = aligned && C % full == 0 ? full : 1;
+  const int width = kTx * p.vec;
+  p.tiles = (C + width - 1) / width;
+  const long long batches = (n + kBatch - 1) / kBatch;
+  const long long most = kMaxBlocks / p.tiles > 1 ? kMaxBlocks / p.tiles : 1;
+  const long long per_block = (batches + most - 1) / most;
+  p.P = (int)((batches + per_block - 1) / per_block);
+  p.rpb = per_block * kBatch;
+  p.scratch_floats = (long long)p.tiles * p.P * 2 * width;
+  p.counters = 2LL * p.tiles;
+  return p;
+}
+
+// grid (tiles, P), block kThreads. Block (tile, k) reduces rows
+// [k*rpb, min(n, (k+1)*rpb)) of channels [tile*8*VEC, (tile+1)*8*VEC) into
+// partial row k of its tile: [s1 of the tile's channels | s2 of them].
 template <typename T, int VEC>
-struct Loader;
+__global__ void __launch_bounds__(kThreads, kPerSM)
+bn_stats_kernel(const T* __restrict__ x, float* __restrict__ s1,
+                float* __restrict__ s2, float* __restrict__ scratch,
+                unsigned* __restrict__ counters, long long n, int C,
+                long long ld, long long rpb, int P) {
+  constexpr int CT = kTx * VEC;   // channels of a tile
+  constexpr int W = 2 * CT;       // floats of a partial row
+  __shared__ float fold[kThreads / 32][W];
+  __shared__ float4 cbuf[kThreads];
+  const int tx = threadIdx.x % kTx, ty = threadIdx.x / kTx;
+  const int tile = blockIdx.x, k = blockIdx.y;
+  const int c0 = tile * CT + tx * VEC;
+  const long long r0 = (long long)k * rpb;
+  const long long r1 = min(r0 + rpb, n);
 
-template <>
-struct Loader<float, 4> {
-  static __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  }
-};
-
-template <>
-struct Loader<float, 1> {
-  static __device__ __forceinline__ void load(const float* p, float (&v)[1]) {
-    v[0] = *p;
-  }
-};
-
-template <>
-struct Loader<__nv_bfloat16, 8> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float (&v)[8]) {
-    const uint4 t = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&t);
+  float a1[VEC], a2[VEC];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  }
-};
-
-template <>
-struct Loader<__nv_bfloat16, 1> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
-                                              float (&v)[1]) {
-    v[0] = __bfloat162float(*p);
-  }
-};
-
-// grid (chunks, ceil(C / (TX*VEC))), block (TX, TY). Block (i, j) reduces
-// rows [i*rows_per_chunk, min(n, (i+1)*rows_per_chunk)) of channels
-// [j*TX*VEC, (j+1)*TX*VEC) into p1[i, :], p2[i, :].
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-bn_stats_partial(const T* __restrict__ x, float* __restrict__ p1,
-                 float* __restrict__ p2, long long n, int C, long long ld,
-                 long long rows_per_chunk) {
-  __shared__ float sm1[kThreads * VEC];
-  __shared__ float sm2[kThreads * VEC];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int TX = blockDim.x, TY = blockDim.y;
-  const int c0 = (blockIdx.y * TX + tx) * VEC;
-  const long long r0 = (long long)blockIdx.x * rows_per_chunk;
-  const long long r1 = min(r0 + rows_per_chunk, n);
-
-  float s1[VEC], s2[VEC];
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) s1[i] = s2[i] = 0.f;
+  for (int i = 0; i < VEC; ++i) a1[i] = a2[i] = 0.f;
   // VEC > 1 only when C % VEC == 0, so a vector is inside C or outside it
   if (c0 < C) {
     const T* base = x + c0;
-#pragma unroll 4
-    for (long long r = r0 + ty; r < r1; r += TY) {
-      float v[VEC];
-      Loader<T, VEC>::load(base + r * ld, v);
+    for (long long r = r0 + ty; r < r1; r += kBatch) {
+      typename rr::Packed<T, VEC>::type v[kUnroll];
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        s1[i] += v[i];
-        s2[i] = fmaf(v[i], v[i], s2[i]);
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long ru = r + (long long)u * kTy;
+        v[u] = ru < r1 ? rr::Packed<T, VEC>::load(base + ru * ld) : rr::Packed<T, VEC>::zero();
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        float f[VEC];
+        rr::Packed<T, VEC>::unpack(v[u], f);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          a1[i] += f[i];
+          a2[i] = fmaf(f[i], f[i], a2[i]);
+        }
       }
     }
   }
 
-  const int slot = (ty * TX + tx) * VEC;
+  // fold the warp's four row lanes (lanes 8 and 16 apart), then the warps
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    sm1[slot + i] = s1[i];
-    sm2[slot + i] = s2[i];
-  }
-  __syncthreads();
-  for (int half = TY >> 1; half > 0; half >>= 1) {
-    if (ty < half) {
-      const int other = ((ty + half) * TX + tx) * VEC;
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        sm1[slot + i] += sm1[other + i];
-        sm2[slot + i] += sm2[other + i];
-      }
-    }
-    __syncthreads();
-  }
-  if (ty == 0 && c0 < C) {
-    float* o1 = p1 + (long long)blockIdx.x * C + c0;
-    float* o2 = p2 + (long long)blockIdx.x * C + c0;
+  for (int off = kTx; off < 32; off <<= 1) {
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
-      o1[i] = sm1[slot + i];
-      o2[i] = sm2[slot + i];
+      a1[i] += __shfl_xor_sync(0xffffffffu, a1[i], off);
+      a2[i] += __shfl_xor_sync(0xffffffffu, a2[i], off);
     }
   }
-}
-
-// One thread per channel adds the partial rows 0 .. chunks-1 in that order.
-__global__ void __launch_bounds__(kThreads)
-bn_stats_finalize(const float* __restrict__ p1, const float* __restrict__ p2,
-                  float* __restrict__ s1, float* __restrict__ s2, int chunks,
-                  int C) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  float a = 0.f, b = 0.f;
-#pragma unroll 8
-  for (int k = 0; k < chunks; ++k) {
-    a += p1[(long long)k * C + c];
-    b += p2[(long long)k * C + c];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane < kTx) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      fold[warp][lane * VEC + i] = a1[i];
+      fold[warp][CT + lane * VEC + i] = a2[i];
+    }
   }
-  s1[c] = a;
-  s2[c] = b;
+  __syncthreads();
+  float* rows = scratch + (long long)tile * P * W;
+  if (threadIdx.x < W) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) s += fold[w][threadIdx.x];
+    rows[(long long)k * W + threadIdx.x] = s;
+  }
+  const int cbase = tile * CT;
+  auto store = [&](int q, const float4& v) {
+    const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = 4 * q + j;
+      const int c = cbase + col % CT;
+      if (c < C) (col < CT ? s1 : s2)[c] = e[j];
+    }
+  };
+  rr::combine<kThreads>(rows, counters + 2LL * tile, P, W, k, cbuf, store);
 }
 
 template <typename T, int VEC>
-int launch(const void* x, float* s1, float* s2, float* p1, float* p2,
-           long long n, int C, long long ld, int chunks, int tx,
-           cudaStream_t stream) {
-  const int ctiles = (C + tx * VEC - 1) / (tx * VEC);
-  const long long rows_per_chunk = (n + chunks - 1) / chunks;
-  const dim3 grid(chunks, ctiles), block(tx, kThreads / tx);
-  const bool direct = chunks == 1;
-  bn_stats_partial<T, VEC><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(x), direct ? s1 : p1, direct ? s2 : p2, n, C, ld,
-      rows_per_chunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || direct) return (int)err;
-  bn_stats_finalize<<<(C + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      p1, p2, s1, s2, chunks, C);
-  return (int)cudaGetLastError();
+int launch(const void* x, float* s1, float* s2, float* scratch,
+           unsigned* counters, long long n, int C, long long ld,
+           const Plan& p, cudaStream_t stream) {
+  return rr::launch(p.P > 1, bn_stats_kernel<T, VEC>, dim3(p.tiles, p.P),
+                    dim3(kThreads), stream, static_cast<const T*>(x), s1, s2,
+                    scratch, counters, n, C, ld, p.rpb, p.P);
+}
+
+// The kernel a plan launches, for its attributes.
+const void* kernel_for(int is_bf16, int vec) {
+  if (is_bf16) {
+    return vec == 8 ? (const void*)bn_stats_kernel<__nv_bfloat16, 8>
+                    : (const void*)bn_stats_kernel<__nv_bfloat16, 1>;
+  }
+  return vec == 4 ? (const void*)bn_stats_kernel<float, 4>
+                  : (const void*)bn_stats_kernel<float, 1>;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-// x: [n, C] with row stride ld (elements) and contiguous channels; s1, s2:
-// fp32 [C]; p1, p2: fp32 [chunks, C] scratch (unused when chunks == 1).
-// is_bf16: 1 for bfloat16, 0 for float32. vec: channels per thread, 1 or
-// 16 bytes' worth (8 bf16, 4 fp32; then x and ld*itemsize must be 16-byte
-// aligned and C % vec == 0). tx: threads along the channel vectors, a power
-// of two <= 256. Arguments the kernel does not take return
+// The plan of a launch: cfg[0] vec (channels a thread reads at once), [1]
+// column tiles, [2] row runs P, [3] rows a run, [4] resident blocks an SM
+// the kernel is built for, [5] scratch floats, [6] counters, [7] launches a
+// call (1), [8] the kernel's static shared memory in bytes, as built.
+// aligned: x's address and ld * itemsize are multiples of 16 bytes.
+int pose3d_bn_stats_config(long long n, int C, int is_bf16, int aligned,
+                           long long* cfg) {
+  if (n < 1 || C < 1) return (int)cudaErrorInvalidValue;
+  const Plan p = make_plan(n, C, is_bf16, aligned);
+  cfg[0] = p.vec, cfg[1] = p.tiles, cfg[2] = p.P, cfg[3] = p.rpb;
+  cfg[4] = kPerSM, cfg[5] = p.scratch_floats, cfg[6] = p.counters;
+  cfg[7] = 1;
+  cudaFuncAttributes fa;
+  const cudaError_t err = cudaFuncGetAttributes(&fa, kernel_for(is_bf16, p.vec));
+  cfg[8] = (long long)fa.sharedSizeBytes;
+  return (int)err;
+}
+
+// Launches one kernel on `stream` and returns cudaGetLastError() (0 on
+// success). x: [n, C] with row stride ld (elements) and contiguous
+// channels; s1, s2: fp32 [C]; scratch: fp32, scratch_floats of them;
+// counters: n_counters unsigned ints, 0 on entry and left 0 (one buffer for
+// each stream: see row_reduce.cuh). is_bf16: 1 for bfloat16, 0 for float32.
+// The plan is pose3d_bn_stats_config's; scratch or counters smaller than it
+// needs, and arguments the kernel does not take, return
 // cudaErrorInvalidValue.
-int pose3d_bn_stats(const void* x, void* s1, void* s2, void* p1, void* p2,
-                    int is_bf16, long long n, int C, long long ld, int chunks,
-                    int vec, int tx, void* stream) {
-  const int full = is_bf16 ? 8 : 4;
-  if (n < 1 || C < 1 || chunks < 1 || chunks > n || tx < 1 || tx > kThreads ||
-      (tx & (tx - 1)) != 0 || (vec != 1 && vec != full) ||
-      (vec != 1 && C % vec != 0))
+int pose3d_bn_stats(const void* x, void* s1, void* s2, void* scratch,
+                    long long scratch_floats, void* counters,
+                    long long n_counters, int is_bf16, long long n, int C,
+                    long long ld, void* stream) {
+  if (n < 1 || C < 1 || (n > 1 && ld < C)) return (int)cudaErrorInvalidValue;
+  const int itemsize = is_bf16 ? 2 : 4;
+  const int aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                      (ld * itemsize) % 16 == 0;
+  const Plan p = make_plan(n, C, is_bf16, aligned);
+  if (scratch_floats < p.scratch_floats || n_counters < p.counters)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* f1 = static_cast<float*>(s1);
   float* f2 = static_cast<float*>(s2);
-  float* q1 = static_cast<float*>(p1);
-  float* q2 = static_cast<float*>(p2);
+  float* sc = static_cast<float*>(scratch);
+  unsigned* ct = static_cast<unsigned*>(counters);
   if (is_bf16) {
-    if (vec == 8)
-      return launch<__nv_bfloat16, 8>(x, f1, f2, q1, q2, n, C, ld, chunks, tx,
-                                      st);
-    return launch<__nv_bfloat16, 1>(x, f1, f2, q1, q2, n, C, ld, chunks, tx,
-                                    st);
+    if (p.vec == 8)
+      return launch<__nv_bfloat16, 8>(x, f1, f2, sc, ct, n, C, ld, p, st);
+    return launch<__nv_bfloat16, 1>(x, f1, f2, sc, ct, n, C, ld, p, st);
   }
-  if (vec == 4)
-    return launch<float, 4>(x, f1, f2, q1, q2, n, C, ld, chunks, tx, st);
-  return launch<float, 1>(x, f1, f2, q1, q2, n, C, ld, chunks, tx, st);
+  if (p.vec == 4) return launch<float, 4>(x, f1, f2, sc, ct, n, C, ld, p, st);
+  return launch<float, 1>(x, f1, f2, sc, ct, n, C, ld, p, st);
 }
 
 const char* pose3d_cuda_error_string(int code) {

@@ -1,12 +1,19 @@
-"""What the row-op launchers (``layer_norm``, ``mlp_block``) share around a
-launch: the ``[rows, C]`` view that never copies, the refusal of inputs
-whose gradient a raw kernel would drop, and the device context."""
+"""What the launchers share around a launch: the ``[rows, C]`` view that
+never copies, the refusal of inputs whose gradient a raw kernel would drop,
+the device context, and, for the kernels that add partial rows across
+blocks in the same launch (``bn_stats``, ``layer_norm`` backward:
+``csrc/row_reduce.cuh``), the counters of the barrier before that
+combine."""
 
 from __future__ import annotations
 
 import contextlib
+from typing import Dict, Tuple
 
 import torch
+
+# the card's SMs (H100 SXM): the grids of the two kernels are sized to them
+SMS = 132
 
 
 def rows_view(name: str, x: torch.Tensor) -> torch.Tensor:
@@ -48,3 +55,23 @@ def on_device(dev: torch.device):
     return (contextlib.nullcontext()
             if dev.index == torch.cuda.current_device()
             else torch.cuda.device(dev))
+
+
+_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def stream_counters(device: torch.device, n: int) -> torch.Tensor:
+    """The zeroed int32 barrier counters of the combine for kernels
+    launched on ``device``'s current stream, at least ``n`` of them. One
+    buffer per device and stream, made (zeroed, on that stream) at first
+    use or when a call needs more; a kernel leaves every counter it used at
+    0 again. Calls on one stream run one after the other, calls on two
+    streams take two buffers, so no two running kernels share a
+    counter."""
+    stream = torch.cuda.current_stream(device)
+    key = (device.index, stream.cuda_stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf

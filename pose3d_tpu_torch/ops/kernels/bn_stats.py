@@ -16,24 +16,30 @@ forward, and the closed-form plain-PyTorch backward
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 from typing import Tuple
 
 import torch
 
 from pose3d_tpu_torch.ops.kernels import _build
+from pose3d_tpu_torch.ops.kernels._launch import (
+    SMS,
+    on_device,
+    stream_counters,
+)
 
 _DTYPES = (torch.bfloat16, torch.float32)
+# one block is 32 row lanes x 8 threads along a tile of channels (16 bytes
+# a thread: 64 bf16 / 32 fp32 channels); each lane has 8 rows in flight
 _THREADS = 256
-# one 256-thread block reduces one chunk of rows for one tile of channels;
-# the grid aims at this many blocks (4 for each of the card's 132 SMs)
-_TARGET_BLOCKS = 528
-# rows each of a block's row lanes should at least walk
-_MIN_ROWS_PER_LANE = 8
+_TX = 8
+_BATCH = _THREADS // _TX * 8
+# the grid: at most three resident blocks on each of the card's SMs (the
+# launch is cooperative: every block resident at once)
+_PER_SM = 3
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P] * 5 + [_I, _LL, _I, _LL, _I, _I, _I, _P]
+_ARGTYPES = [_P] * 4 + [_LL, _P, _LL, _I, _LL, _I, _LL, _P]
 
 
 def bn_stats_reference(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -49,25 +55,44 @@ def bn_stats_backward(x: torch.Tensor, g1: torch.Tensor,
     return (g1[None, :] + 2.0 * x.float() * g2[None, :]).to(x.dtype)
 
 
-def launch_config(n: int, C: int, itemsize: int, aligned: bool
-                  ) -> Tuple[int, int, int]:
-    """(vec, tx, chunks) of a launch: channels per thread (16 bytes' worth
-    when ``aligned`` and C divides, else 1), threads along the channel
-    vectors (a power of two; the block's other 256/tx threads are row
-    lanes), and the number of row chunks whose partial sums the second
-    kernel adds. A function of the shapes only, so a shape's sums are the
-    same from run to run."""
+def launch_config(n: int, C: int, itemsize: int, aligned: bool) -> dict:
+    """The plan of a launch, mirroring ``pose3d_bn_stats_config`` (which
+    :func:`library_config` reads from the built library): ``vec`` channels
+    a thread reads at once (16 bytes' worth when ``aligned`` and C
+    divides, else 1), ``tiles`` of 8·vec channels, ``blocks`` row runs of
+    ``rows_per_block`` (whole batches of 256 rows) for each tile, the grid
+    ``(tiles, blocks)`` at most ``blocks_per_sm`` blocks on each SM, a
+    block's static shared memory ``smem`` (the eight warps' fold and the
+    combine's lanes), the ``scratch_floats`` of the partial rows [s1 | s2]
+    and the ``counters`` of the barrier before they are added (two a
+    tile), and ``launches``: one a call. A function of the shape only, so
+    a shape's sums are the same from run to run."""
     full = 16 // itemsize
     vec = full if aligned and C % full == 0 else 1
-    vecs = -(-C // vec)
-    tx = 1
-    while tx < vecs and tx < (32 if vec > 1 else _THREADS):
-        tx *= 2
-    ty = _THREADS // tx
-    ctiles = -(-vecs // tx)
-    chunks = min(max(1, _TARGET_BLOCKS // ctiles),
-                 max(1, n // (ty * _MIN_ROWS_PER_LANE)))
-    return vec, tx, chunks
+    width = _TX * vec
+    tiles = -(-C // width)
+    batches = -(-n // _BATCH)
+    per_block = -(-batches // max(1, _PER_SM * SMS // tiles))
+    blocks = -(-batches // per_block)
+    return dict(vec=vec, tiles=tiles, blocks=blocks,
+                rows_per_block=per_block * _BATCH, blocks_per_sm=_PER_SM,
+                smem=8 * 2 * width * 4 + _THREADS * 16,
+                scratch_floats=tiles * blocks * 2 * width,
+                counters=2 * tiles, launches=1)
+
+
+def library_config(n: int, C: int, itemsize: int, aligned: bool) -> dict:
+    """:func:`launch_config` as the built library reports it (builds it at
+    first use): the card's check that the mirror is the C dispatch."""
+    lib = load_library()
+    cfg = (ctypes.c_longlong * 9)()
+    lib.pose3d_bn_stats_config.argtypes = [_LL, _I, _I, _I, _P]
+    rc = lib.pose3d_bn_stats_config(n, C, int(itemsize == 2), int(aligned),
+                                    cfg)
+    _build.raise_if_failed(lib, "bn_stats config", rc)
+    keys = ("vec", "tiles", "blocks", "rows_per_block", "blocks_per_sm",
+            "scratch_floats", "counters", "launches", "smem")
+    return dict(zip(keys, list(cfg)))
 
 
 def load_library() -> ctypes.CDLL:
@@ -120,26 +145,19 @@ def bn_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     ld = x.stride(0) if n > 1 else C
     aligned = (x.data_ptr() % 16 == 0
                and (ld * x.element_size()) % 16 == 0)
-    vec, tx, chunks = launch_config(n, C, x.element_size(), aligned)
+    cfg = launch_config(n, C, x.element_size(), aligned)
     lib = load_library()
     dev = x.device
     out = torch.empty((2, C), dtype=torch.float32, device=dev)
+    scratch = torch.empty(cfg["scratch_floats"], dtype=torch.float32,
+                          device=dev)
     s1 = out.data_ptr()
-    if chunks > 1:
-        partial = torch.empty((2, chunks, C), dtype=torch.float32,
-                              device=dev)
-        p1 = partial.data_ptr()
-    else:
-        p1 = s1                      # unused: the kernel writes s1, s2
-    # entering a device context costs tens of microseconds per launch;
-    # the model's tensors live on the current device
-    on_device = (contextlib.nullcontext()
-                 if dev.index == torch.cuda.current_device()
-                 else torch.cuda.device(dev))
-    with on_device:
+    with on_device(dev):
+        counters = stream_counters(dev, cfg["counters"])
         rc = lib.pose3d_bn_stats(
-            x.data_ptr(), s1, s1 + 4 * C, p1, p1 + 4 * chunks * C,
-            int(x.dtype == torch.bfloat16), n, C, ld, chunks, vec, tx,
+            x.data_ptr(), s1, s1 + 4 * C, scratch.data_ptr(),
+            scratch.numel(), counters.data_ptr(), counters.numel(),
+            int(x.dtype == torch.bfloat16), n, C, ld,
             torch.cuda.current_stream().cuda_stream)
     _build.raise_if_failed(lib, "bn_stats", rc)
     bn_stats.launches += 1

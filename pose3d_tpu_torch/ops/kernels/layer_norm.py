@@ -33,17 +33,16 @@ import torch
 
 from pose3d_tpu_torch.ops.kernels import _build
 from pose3d_tpu_torch.ops.kernels._launch import (
+    SMS,
     on_device,
     refuse_grad_inputs,
     rows_view,
+    stream_counters,
 )
 
 IMPLS = ("auto", "reference")
 _DTYPES = (torch.bfloat16, torch.float32)
 _WARPS = 8            # rows a block works on at a time, one warp each
-# the backward's grid: two blocks for each of the card's 132 SMs; each
-# block leaves one partial row of dscale and dbias
-_BWD_BLOCKS = 264
 # widest row a lane keeps in registers (32 values a lane); wider rows are
 # read twice
 _CACHED_C = 1024
@@ -52,7 +51,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "layer_norm_fwd": [_P] * 6 + [_I, _LL, _I, _LL, ctypes.c_float, _I, _I,
                        _P],
-    "layer_norm_bwd": [_P] * 10 + [_I, _LL, _I, _LL, _I, _I, _I, _P],
+    "layer_norm_bwd": [_P] * 9 + [_LL, _P, _LL, _I, _LL, _I, _LL, _P],
 }
 
 
@@ -90,18 +89,54 @@ def layer_norm_bwd_reference(x: torch.Tensor, scale: torch.Tensor,
             (gf * xhat).sum(0).to(scale.dtype), gf.sum(0).to(scale.dtype))
 
 
-def launch_config(rows: int, C: int, itemsize: int, aligned: bool
-                  ) -> Tuple[int, int, int]:
-    """(vec, cached, bwd_blocks) of a launch: values a lane reads at once
-    (16 bytes' worth when ``aligned`` and C divides, else 1), whether a
-    lane keeps its share of the row in registers (C <= 1024), and the
-    number of blocks of the backward, each of which walks a contiguous run
-    of rows. A function of the shapes only, so a shape's gradients are the
-    same from run to run."""
+def launch_config(rows: int, C: int, itemsize: int, aligned: bool) -> dict:
+    """The plan of a launch. ``vec``: values a lane reads at once (16
+    bytes' worth when ``aligned`` and C divides, else 1); ``cached``:
+    whether a lane keeps its share of the row in registers (C <= 1024),
+    both kernels. The backward's, mirroring ``pose3d_layer_norm_bwd_config``
+    (which :func:`library_config` reads from the built library): ``nv``
+    vectors a lane keeps of a row (0 when not cached), ``blocks`` of 8 warps
+    on contiguous runs of ``rows_per_block`` rows, at most
+    ``blocks_per_sm`` (two for bf16 rows of up to 768 columns, else one) on
+    each of the card's SMs (the launch is cooperative: every block resident
+    at once), a block's static shared memory ``smem`` (the warps' fold when
+    cached, else the combine's lanes), the ``scratch_floats`` of the
+    blocks' partial rows [dscale | dbias] (C rounded up to 4 each; and a
+    row for each warp when not cached), the two ``counters`` of the
+    barrier before they are added, and ``launches``: one a call. A
+    function of the shape only, so a shape's gradients are the same from
+    run to run."""
     full = 16 // itemsize
     vec = full if aligned and C % full == 0 else 1
-    blocks = max(1, min(_BWD_BLOCKS, -(-rows // _WARPS)))
-    return vec, int(C <= _CACHED_C), blocks
+    cached = int(C <= _CACHED_C)
+    nv = 0 if not cached else (
+        _CACHED_C // 32 if vec == 1 else -(-C // (32 * vec)))
+    per_sm = 2 if vec == 8 and nv <= 3 else 1
+    blocks = min(SMS * per_sm, -(-rows // _WARPS))
+    rpb = -(-rows // blocks)
+    blocks = -(-rows // rpb)
+    width = 2 * (-(-C // 4) * 4)
+    scratch = blocks * width * (1 if cached else 1 + _WARPS)
+    return dict(vec=vec, cached=cached, nv=nv, blocks=blocks,
+                rows_per_block=rpb, blocks_per_sm=per_sm,
+                smem=_WARPS * _CACHED_C * 4 if cached else 32 * _WARPS * 16,
+                scratch_floats=scratch, counters=2, launches=1)
+
+
+def library_config(rows: int, C: int, itemsize: int, aligned: bool) -> dict:
+    """The backward's part of :func:`launch_config` as the built library
+    reports it (builds it at first use): the card's check that the mirror
+    is the C dispatch."""
+    lib = load_library("layer_norm_bwd")
+    cfg = (ctypes.c_longlong * 10)()
+    lib.pose3d_layer_norm_bwd_config.argtypes = [_LL, _I, _I, _I, _P]
+    rc = lib.pose3d_layer_norm_bwd_config(rows, C, int(itemsize == 2),
+                                          int(aligned), cfg)
+    _build.raise_if_failed(lib, "layer_norm_bwd config", rc)
+    keys = ("vec", "cached", "nv", "blocks", "rows_per_block",
+            "blocks_per_sm", "scratch_floats", "counters", "launches",
+            "smem")
+    return dict(zip(keys, list(cfg)))
 
 
 def load_library(name: str) -> ctypes.CDLL:
@@ -164,14 +199,15 @@ def layer_norm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     y = torch.empty((rows, C), dtype=x.dtype, device=x.device)
     stats = torch.empty((2, rows), dtype=f32, device=x.device)
     ld, aligned = _ld_aligned(x2, y)
-    vec, cached, _ = launch_config(rows, C, x.element_size(), aligned)
+    cfg = launch_config(rows, C, x.element_size(), aligned)
     lib = load_library("layer_norm_fwd")
     with on_device(x.device):
         rc = lib.pose3d_layer_norm_fwd(
             x2.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
             stats[0].data_ptr(), stats[1].data_ptr(),
             int(x.dtype == torch.bfloat16), rows, C, ld, float(eps),
-            vec, cached, torch.cuda.current_stream().cuda_stream)
+            cfg["vec"], cfg["cached"],
+            torch.cuda.current_stream().cuda_stream)
     _build.raise_if_failed(lib, "layer_norm_fwd", rc)
     layer_norm_fwd.launches += 1
     return y.view(x.shape), stats[0], stats[1]
@@ -183,12 +219,11 @@ layer_norm_fwd.launches = 0
 def layer_norm_bwd(x: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
                    rstd: torch.Tensor, g: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the Hopper backward kernel (and its small second kernel,
-    which adds the blocks' partial rows of dscale and dbias in a fixed
-    order: no atomics) on PyTorch's current stream: ``(dx`` like x,
+    """Launch the Hopper backward kernel on PyTorch's current stream (one
+    launch: the blocks' partial rows of dscale and dbias are added in the
+    same launch, in a fixed order, no atomics in any sum): ``(dx`` like x,
     ``dscale, dbias`` in scale's dtype). ``g`` must be contiguous and of
-    x's dtype and shape. One call counts as one launch. Raises as
-    :func:`layer_norm_fwd` does."""
+    x's dtype and shape. Raises as :func:`layer_norm_fwd` does."""
     refuse_grad_inputs("layer_norm_bwd", "layer_norm()", x, scale, mean, rstd,
                        g)
     x2 = rows_view("layer_norm_bwd", x)
@@ -201,22 +236,20 @@ def layer_norm_bwd(x: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
            mean=(mean, (rows,), f32), rstd=(rstd, (rows,), f32),
            g=(g, tuple(x.shape), x.dtype))
     dx = torch.empty((rows, C), dtype=x.dtype, device=x.device)
-    ld, aligned = _ld_aligned(x2, g, dx)
-    vec, cached, blocks = launch_config(rows, C, x.element_size(), aligned)
-    # one partial row a block when a lane keeps its sums in registers, one
-    # a warp when the sums live in the partial rows themselves
-    parts = blocks if cached else blocks * _WARPS
-    partial = torch.empty((2, parts, C), dtype=f32, device=x.device)
+    ld, aligned = _ld_aligned(x2, g, dx, scale)
+    cfg = launch_config(rows, C, x.element_size(), aligned)
+    scratch = torch.empty(cfg["scratch_floats"], dtype=f32, device=x.device)
     out = torch.empty((2, C), dtype=f32, device=x.device)
     lib = load_library("layer_norm_bwd")
     with on_device(x.device):
+        counters = stream_counters(x.device, cfg["counters"])
         rc = lib.pose3d_layer_norm_bwd(
             x2.data_ptr(), scale.data_ptr(), mean.data_ptr(),
             rstd.data_ptr(), g.data_ptr(), dx.data_ptr(),
-            partial[0].data_ptr(), partial[1].data_ptr(),
-            out[0].data_ptr(), out[1].data_ptr(),
-            int(x.dtype == torch.bfloat16), rows, C, ld, blocks,
-            vec, cached, torch.cuda.current_stream().cuda_stream)
+            out[0].data_ptr(), out[1].data_ptr(), scratch.data_ptr(),
+            scratch.numel(), counters.data_ptr(), counters.numel(),
+            int(x.dtype == torch.bfloat16), rows, C, ld,
+            torch.cuda.current_stream().cuda_stream)
     _build.raise_if_failed(lib, "layer_norm_bwd", rc)
     layer_norm_bwd.launches += 1
     return (dx.view(x.shape), out[0].to(scale.dtype),

@@ -23,6 +23,7 @@ from pose3d_tpu_torch.ops.kernels.flash_attention import (
     flash_attention_fwd,
     flash_attention_fwd_reference,
 )
+from pose3d_tpu_torch.ops.kernels import bn_stats as bn
 from pose3d_tpu_torch.ops.kernels import flash_attention as fa
 from pose3d_tpu_torch.ops.kernels.lane_resample import (
     lane_resample,
@@ -602,6 +603,80 @@ def test_layer_norm_kernels_match_plain_version(dtype):
     ry, _, _ = ln.layer_norm_fwd_reference(wide[:, 8:72], scale[:64],
                                            bias[:64])
     assert _rel_err(y, ry) <= TOL_LN[dtype]
+
+
+def _kernel_launches(fn, calls=3):
+    """{kernel name: launches per call} that torch.profiler records over
+    ``calls`` calls of ``fn``, after one call outside the trace. The trace
+    starts with a short sleep kernel, left out (a trace can miss the first
+    kernel after it starts); a trace without it is taken again."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        keys = [(e.key, e.count) for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA")]
+        if any("spin" in k or "sleep" in k for k, _ in keys):
+            break
+    return {k: c / calls for k, c in keys
+            if "spin" not in k and "sleep" not in k}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_row_reduce_kernels_launch_once_and_repeat_bitwise(dtype):
+    """bn_stats and the layer_norm backward add their partial rows across
+    blocks inside their one launch: torch.profiler sees one kernel a call,
+    the sums repeat bitwise, and the plan the Python mirror computes is the
+    built library's; a row-strided view (unaligned base) is read in
+    place."""
+    _cuda()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    wide = torch.randn(1000, 96, generator=g, device="cuda").to(dt)
+    for x in [torch.randn(n, C, generator=g, device="cuda").to(dt)
+              for n, C in ((625000, 64), (10240, 512), (7, 3))] + [
+            wide[::2, 8:72], wide[:, 3:67]]:
+        n, C = x.shape
+        seen = _kernel_launches(lambda: bn_stats(x))
+        assert list(seen.values()) == [1] and "bn_stats" in next(iter(seen))
+        a, b = bn_stats(x), bn_stats(x)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        for got, ref in zip(a, bn_stats_reference(x)):
+            scale = max(1.0, ref.abs().max().item())
+            assert (got - ref).abs().max().item() <= TOL_BN * scale
+        ld = x.stride(0)
+        al = x.data_ptr() % 16 == 0 and ld * x.element_size() % 16 == 0
+        assert (bn.launch_config(n, C, x.element_size(), al)
+                == bn.library_config(n, C, x.element_size(), al))
+    for rows, C, view in ((8200, 768, False), (513, 100, False),
+                          (64, 64, True)):
+        base = torch.randn(rows, 96 if view else C, generator=g,
+                           device="cuda").to(dt)
+        x = base[:, 8:72] if view else base
+        scale = torch.randn(C, generator=g, device="cuda") * 0.1 + 1.0
+        _, mean, rstd = ln.layer_norm_fwd_reference(x, scale, scale * 0)
+        dy = torch.randn(rows, C, generator=g, device="cuda").to(dt)
+
+        def bwd():
+            return ln.layer_norm_bwd(x, scale, mean, rstd, dy)
+        seen = _kernel_launches(bwd)
+        assert list(seen.values()) == [1] and "layer_norm_bwd" in next(
+            iter(seen))
+        a, b = bwd(), bwd()
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+        refs = ln.layer_norm_bwd_reference(x, scale, mean, rstd, dy)
+        assert _rel_err(a[0], refs[0]) <= TOL_LN[dtype]
+        assert _rel_err(a[1], refs[1]) <= TOL_LN_STATS
+        assert _rel_err(a[2], refs[2]) <= TOL_LN_STATS
+        for al in (True, False):
+            assert (ln.launch_config(rows, C, x.element_size(), al)
+                    == ln.library_config(rows, C, x.element_size(), al))
 
 
 # fused MLP, kernel against plain version, relative to max(1, max|ref|).

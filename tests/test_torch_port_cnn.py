@@ -114,7 +114,8 @@ def test_plain_bn_stats_matches_pallas(n, C, dtype):
 def test_bn_stats_wrapper_rejects_and_plans():
     """The kernel wrapper raises for what it does not take and counts no
     launch it did not make; the launch plan covers every row and channel
-    of the path's shapes with power-of-two blocks of 256 threads."""
+    of the path's shapes in one launch whose grid fits the card's
+    resident blocks."""
     before = bn_stats.launches
     with pytest.raises(ValueError, match="CUDA"):
         bn_stats(torch.zeros(4, 8))
@@ -131,15 +132,16 @@ def test_bn_stats_wrapper_rejects_and_plans():
                  (640, 1024), (10, 512), (1, 3), (7, 3), (1025, 64)]:
         for itemsize in (2, 4):
             for aligned in (True, False):
-                vec, tx, chunks = launch_config(n, C, itemsize, aligned)
+                cfg = launch_config(n, C, itemsize, aligned)
+                vec, tiles, blocks = cfg["vec"], cfg["tiles"], cfg["blocks"]
                 assert vec in (1, 16 // itemsize) and C % vec == 0
                 assert not aligned or C % (16 // itemsize) or vec > 1
-                assert tx & (tx - 1) == 0 and 1 <= tx <= 256
-                assert 1 <= chunks <= n
-                rows = -(-n // chunks)
-                assert rows * chunks >= n           # every row covered
-                ctiles = -(-C // (tx * vec))
-                assert ctiles * tx * vec >= C and ctiles <= 65535
+                assert cfg["launches"] == 1
+                assert 1 <= blocks <= n
+                rows = cfg["rows_per_block"]
+                assert rows * blocks >= n           # every row covered
+                assert tiles * 8 * vec >= C and tiles <= 65535
+                assert blocks == 1 or tiles * blocks <= 3 * 132
 
 
 # --- the two BatchNorm flavours ----------------------------------------------
