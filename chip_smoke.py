@@ -12,8 +12,8 @@ Phases, each fatal on failure:
      forward and backward kernels of ``layer_norm`` and ``mlp_block``:
      eight sources), from ``pose3d_tpu_torch/csrc``, one nvcc per source,
      all started together (build seconds and ptxas
-     register/shared-memory/spill lines; a spill in ``bn_stats`` or the
-     ``layer_norm`` backward fails);
+     register/shared-memory/spill lines; a spill in ``bn_stats`` or in
+     either ``layer_norm`` kernel fails);
   3. kernels: each kernel against its plain PyTorch version at every shape
      the paths give it and at ragged ones, in bf16 and fp32, with the
      tolerances below (attention: also at the edges of the ``wgmma``
@@ -24,9 +24,11 @@ Phases, each fatal on failure:
      kernels' ptxas report read: a spill or a serialized ``wgmma`` (C7520,
      C7512) fails; ``bn_stats``: forward and the Function's backward;
      ``bn_stats`` and the ``layer_norm`` backward, which add partial rows
-     across blocks inside their one launch: one kernel launch a call as
-     ``torch.profiler`` sees it, and the plan ``launch_config`` mirrors
-     equal to the built library's, at every shape;
+     across blocks inside their one launch, and the ``layer_norm``
+     forward, a persistent row stream: one kernel launch a call as
+     ``torch.profiler`` sees it, and the plan the Python mirror computes
+     (``launch_config``, ``fwd_launch_config``) equal to the built
+     library's, at every shape;
      ``lane_resample``: order 0 equal, order 1 within 1e-6;
      ``layer_norm`` and ``mlp_block``: forward and backward at the
      lifter's row counts and widths and at ragged ones; ``mlp_block``
@@ -255,11 +257,14 @@ TOL_MLP = {"bfloat16": 2e-2, "float32": 1e-4}
 TOL_ROWOPS_MODULE_F32 = 1e-4
 TOL_ROWOPS_MODULE_BF16_REL_L2 = 2e-2
 TRAIN_ROWS = 100 * 1025     # layer_norm's rows in a grouped 10 x 10 step
-# the two kernels that add partial rows across blocks in their own launch
-# (csrc/row_reduce.cuh): their sources' kernels as ptxas names them
+# the row kernels on csrc/row_reduce.cuh's stream (the two that add partial
+# rows across blocks in their own launch, and the layer_norm forward): their
+# sources' kernels as ptxas names them
 ROW_REDUCE_KERNELS = {"bn_stats": ("bn_stats_kernel",),
                       "layer_norm_bwd": ("layer_norm_bwd_wide",
-                                         "layer_norm_bwd")}
+                                         "layer_norm_bwd"),
+                      "layer_norm_fwd": ("layer_norm_fwd_ring",
+                                         "layer_norm_fwd_rows")}
 # bn_stats: (n, C) beside the path's own shapes, in bf16 and fp32; max |Δ|
 # of Σx and Σx² against the plain version relative to max(1, max|ref|). Both
 # sum in fp32 in another order: over 625,000 rows of magnitude ~1.5 the
@@ -450,7 +455,7 @@ def _check_attention_build() -> None:
 def _row_reduce_ptxas(name: str) -> dict:
     """{kernel<type,args>: (registers, spill store bytes, spill load bytes,
     shared bytes)} of every instantiation in the build log of
-    ``csrc/<name>.cu`` (``bn_stats`` or ``layer_norm_bwd``)."""
+    ``csrc/<name>.cu`` (a key of ``ROW_REDUCE_KERNELS``)."""
     import re
 
     from pose3d_tpu_torch.ops.kernels import _build
@@ -474,15 +479,18 @@ def _row_reduce_ptxas(name: str) -> dict:
                       line)
         if m:
             out[entry][1:3] = [int(m.group(1)), int(m.group(2))]
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        m = re.search(r"Used (\d+) registers", line)
         if m:
-            out[entry][0], out[entry][3] = int(m.group(1)), int(m.group(2))
+            out[entry][0] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            out[entry][3] = int(m.group(1))
     return {k: tuple(v) for k, v in out.items()}
 
 
 def _check_row_reduce_build() -> None:
     """ptxas's registers, spills and shared memory for every kernel of the
-    two row-reduce sources; a spill fails the run."""
+    three row sources; a spill fails the run."""
     for name in ROW_REDUCE_KERNELS:
         report = _row_reduce_ptxas(name)
         if not report:
@@ -842,6 +850,21 @@ def _check_row_ops(torch, failures: list) -> dict:
                  (dtype, f32, f32))
             if got[1].shape != (rows,):
                 failures.append(("layer_norm_fwd", label, "stats shape"))
+            one, seen = _one_launch(
+                torch, lambda: ln.layer_norm_fwd(x, scale, bias, 1e-6),
+                "layer_norm_fwd")
+            plans = [(ln.fwd_launch_config(rows, C, dtype.itemsize, al),
+                      ln.fwd_library_config(rows, C, dtype.itemsize, al))
+                     for al in (True, False)]
+            same_plan = all(a == b for a, b in plans)
+            cfg = plans[0][0]
+            log(f"[kernel] layer_norm_fwd {label}: {cfg['blocks']} blocks "
+                f"({cfg['blocks_per_sm']} an SM), {cfg['rows_per_warp']} "
+                f"rows a warp, the library's plan "
+                f"{'the same' if same_plan else 'DIFFERS'}; launches a call "
+                f"{seen}  {'ok' if one and same_plan else 'FAIL'}")
+            if not (one and same_plan):
+                failures.append(("layer_norm_fwd", label, "launches/plan"))
             grads = ln.layer_norm_bwd(x, scale, refs[1], refs[2], dy)
             torch.cuda.synchronize()
             again = ln.layer_norm_bwd(x, scale, refs[1], refs[2], dy)
@@ -1438,16 +1461,22 @@ def _is_kernel(e) -> bool:
     return str(getattr(e, "device_type", "")).endswith("CUDA")
 
 
-def _profile_once(torch, fn):
-    """``torch.profiler``'s averaged rows of one synchronised call."""
+def _profile_once(torch, fn, tries: int = 3):
+    """``torch.profiler``'s averaged rows of one synchronised call. Now and
+    then a trace records no kernel at all; the call is then traced again,
+    up to ``tries`` times (the caller's check of an empty trace stays)."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    return prof.key_averages()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = prof.key_averages()
+        if any(_is_kernel(e) for e in rows):
+            break
+    return rows
 
 
 def _device_busy_ms(rows) -> float:

@@ -2,11 +2,12 @@
 // this directory: the shared-memory matrix descriptor and its swizzles,
 // wgmma (warpgroup MMA, bf16 x bf16 -> fp32) with its fence / commit / wait,
 // with A from shared memory or from registers, mbarriers, TMA tile loads with
-// the host-side tensor map (2-D, or a strided 4-D view), and the convention
-// by which a multi-stage ring of tiles is walked. Small inline device
-// functions around inline PTX; no framework, no library. It holds the forms
-// its kernels call and no others: a kernel that needs another width adds
-// that form here by the layouts below.
+// the host-side tensor map (2-D, or a strided 4-D view), 1-D bulk copies (the
+// layer_norm forward's row ring), and the convention by which a multi-stage
+// ring of tiles is walked. Small inline device functions around inline PTX;
+// no framework, no library. It holds the forms its kernels call and no
+// others: a kernel that needs another width adds that form here by the
+// layouts below.
 //
 // ACCUMULATOR LAYOUT of an m64nN tile (N a multiple of 8), on which every
 // epilogue depends. The 128 threads of a warpgroup hold D[64, N] in N/2
@@ -345,6 +346,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// 1-D bulk copy (no tensor map): `bytes` (a multiple of 16) from global `src`
+// land at shared address `dst` (both on 16 bytes), counted on mbarrier `bar`.
+// One thread issues it.
+__device__ __forceinline__ void bulk_load_1d(uint32_t dst, const void* src,
+                                             uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

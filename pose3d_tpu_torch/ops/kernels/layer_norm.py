@@ -46,11 +46,11 @@ _WARPS = 8            # rows a block works on at a time, one warp each
 # widest row a lane keeps in registers (32 values a lane); wider rows are
 # read twice
 _CACHED_C = 1024
+_STAGES = 4           # groups of eight rows in flight in a forward block
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
-    "layer_norm_fwd": [_P] * 6 + [_I, _LL, _I, _LL, ctypes.c_float, _I, _I,
-                       _P],
+    "layer_norm_fwd": [_P] * 6 + [_I, _LL, _I, _LL, ctypes.c_float, _P],
     "layer_norm_bwd": [_P] * 9 + [_LL, _P, _LL, _I, _LL, _I, _LL, _P],
 }
 
@@ -89,23 +89,68 @@ def layer_norm_bwd_reference(x: torch.Tensor, scale: torch.Tensor,
             (gf * xhat).sum(0).to(scale.dtype), gf.sum(0).to(scale.dtype))
 
 
+def fwd_launch_config(rows: int, C: int, itemsize: int,
+                      aligned: bool) -> dict:
+    """The forward's plan, mirroring ``pose3d_layer_norm_fwd_config``
+    (which :func:`fwd_library_config` reads from the built library).
+    ``vec``: values a lane reads at once (16 bytes' worth when ``aligned``
+    and C divides, else 1); ``cached``: the TMA ring (``vec`` > 1 and C <=
+    1024: each row read once, through shared memory, a lane keeping ``nv``
+    16-byte vectors of it), else the row loop (read twice, ``nv`` 0). A
+    persistent grid of ``blocks`` of ``threads`` (the ring: eight consumer
+    warps and a producer warp; the loop: eight warps), at most
+    ``blocks_per_sm`` on each of the card's SMs: the ring two where a lane
+    keeps at most 64 words (its ``nv`` vectors and its columns of scale and
+    bias), else one; the loop two. Warp g of the grid's W warps takes rows
+    g, g + W, ...: at most ``rows_per_warp`` of them. The ring's ``stages``
+    of eight rows take ``smem`` bytes of dynamic shared memory. ``launches``:
+    one a call. ``aligned``: x, y, scale and bias start on 16 bytes and the
+    row stride in bytes is a multiple of 16. A function of the shape only,
+    so a shape's outputs are the same from run to run."""
+    full = 16 // itemsize
+    vec = full if aligned and C % full == 0 else 1
+    cached = int(vec > 1 and C <= _CACHED_C)
+    nv = -(-C // (32 * vec)) if cached else 0
+    per_sm = 2 if nv * (4 + 2 * vec) <= 64 else 1
+    blocks = min(SMS * per_sm, -(-rows // _WARPS))
+    return dict(vec=vec, cached=cached, nv=nv, blocks=blocks,
+                threads=32 * (_WARPS + cached),
+                rows_per_warp=-(-rows // (blocks * _WARPS)),
+                blocks_per_sm=per_sm, stages=_STAGES * cached,
+                smem=_STAGES * _WARPS * C * itemsize * cached, launches=1)
+
+
+def fwd_library_config(rows: int, C: int, itemsize: int,
+                       aligned: bool) -> dict:
+    """:func:`fwd_launch_config` as the built library reports it (builds it
+    at first use): the card's check that the mirror is the C plan."""
+    lib = load_library("layer_norm_fwd")
+    cfg = (ctypes.c_longlong * 10)()
+    lib.pose3d_layer_norm_fwd_config.argtypes = [_LL, _I, _I, _I, _P]
+    rc = lib.pose3d_layer_norm_fwd_config(rows, C, int(itemsize == 2),
+                                          int(aligned), cfg)
+    _build.raise_if_failed(lib, "layer_norm_fwd config", rc)
+    keys = ("vec", "cached", "nv", "blocks", "threads", "rows_per_warp",
+            "blocks_per_sm", "stages", "smem", "launches")
+    return dict(zip(keys, list(cfg)))
+
+
 def launch_config(rows: int, C: int, itemsize: int, aligned: bool) -> dict:
-    """The plan of a launch. ``vec``: values a lane reads at once (16
-    bytes' worth when ``aligned`` and C divides, else 1); ``cached``:
-    whether a lane keeps its share of the row in registers (C <= 1024),
-    both kernels. The backward's, mirroring ``pose3d_layer_norm_bwd_config``
-    (which :func:`library_config` reads from the built library): ``nv``
-    vectors a lane keeps of a row (0 when not cached), ``blocks`` of 8 warps
-    on contiguous runs of ``rows_per_block`` rows, at most
-    ``blocks_per_sm`` (two for bf16 rows of up to 768 columns, else one) on
-    each of the card's SMs (the launch is cooperative: every block resident
-    at once), a block's static shared memory ``smem`` (the warps' fold when
-    cached, else the combine's lanes), the ``scratch_floats`` of the
-    blocks' partial rows [dscale | dbias] (C rounded up to 4 each; and a
-    row for each warp when not cached), the two ``counters`` of the
-    barrier before they are added, and ``launches``: one a call. A
-    function of the shape only, so a shape's gradients are the same from
-    run to run."""
+    """The backward's plan, mirroring ``pose3d_layer_norm_bwd_config``
+    (which :func:`library_config` reads from the built library). ``vec``:
+    values a lane reads at once (16 bytes' worth when ``aligned`` and C
+    divides, else 1); ``cached``: whether a lane keeps its share of the row
+    in registers (C <= 1024); ``nv`` vectors a lane keeps of a row (0 when
+    not cached), ``blocks`` of 8 warps on contiguous runs of
+    ``rows_per_block`` rows, at most ``blocks_per_sm`` (two for bf16 rows of
+    up to 768 columns, else one) on each of the card's SMs (the launch is
+    cooperative: every block resident at once), a block's static shared
+    memory ``smem`` (the warps' fold when cached, else the combine's lanes),
+    the ``scratch_floats`` of the blocks' partial rows [dscale | dbias] (C
+    rounded up to 4 each; and a row for each warp when not cached), the two
+    ``counters`` of the barrier before they are added, and ``launches``: one
+    a call. A function of the shape only, so a shape's gradients are the
+    same from run to run."""
     full = 16 // itemsize
     vec = full if aligned and C % full == 0 else 1
     cached = int(C <= _CACHED_C)
@@ -124,9 +169,9 @@ def launch_config(rows: int, C: int, itemsize: int, aligned: bool) -> dict:
 
 
 def library_config(rows: int, C: int, itemsize: int, aligned: bool) -> dict:
-    """The backward's part of :func:`launch_config` as the built library
-    reports it (builds it at first use): the card's check that the mirror
-    is the C dispatch."""
+    """:func:`launch_config` (the backward's) as the built library reports
+    it (builds it at first use): the card's check that the mirror is the C
+    dispatch."""
     lib = load_library("layer_norm_bwd")
     cfg = (ctypes.c_longlong * 10)()
     lib.pose3d_layer_norm_bwd_config.argtypes = [_LL, _I, _I, _I, _P]
@@ -183,12 +228,14 @@ def _ld_aligned(x2: torch.Tensor, *others) -> Tuple[int, bool]:
 def layer_norm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                    eps: float = 1e-6
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the Hopper forward kernel on PyTorch's current stream:
-    ``(y`` like x, ``mean, rstd`` fp32 ``[rows])``. Raises on anything it
-    does not take (non-CUDA tensors, other dtypes, a last axis that is not
-    contiguous, scale or bias that are not fp32 ``[C]``) and when the
-    launch is refused; it never copies and never falls back to the plain
-    version. With grad mode on it raises for an input that requires grad:
+    """Launch the Hopper forward kernel on PyTorch's current stream (one
+    launch of a persistent grid; the C entry point takes the plan that
+    :func:`fwd_launch_config` mirrors, from the shape and the alignment of
+    these addresses): ``(y`` like x, ``mean, rstd`` fp32 ``[rows])``.
+    Raises on anything it does not take (non-CUDA tensors, other dtypes, a
+    last axis that is not contiguous, scale or bias that are not fp32
+    ``[C]``) and when the launch is refused; it never copies and never falls
+    back to the plain version. With grad mode on it raises for an input that requires grad:
     differentiate through :func:`layer_norm`."""
     refuse_grad_inputs("layer_norm_fwd", "layer_norm()", x, scale, bias)
     x2 = rows_view("layer_norm_fwd", x)
@@ -198,15 +245,13 @@ def layer_norm_fwd(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
            bias=(bias, (C,), f32))
     y = torch.empty((rows, C), dtype=x.dtype, device=x.device)
     stats = torch.empty((2, rows), dtype=f32, device=x.device)
-    ld, aligned = _ld_aligned(x2, y)
-    cfg = launch_config(rows, C, x.element_size(), aligned)
+    ld = x2.stride(0) if rows > 1 else C
     lib = load_library("layer_norm_fwd")
     with on_device(x.device):
         rc = lib.pose3d_layer_norm_fwd(
             x2.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
             stats[0].data_ptr(), stats[1].data_ptr(),
             int(x.dtype == torch.bfloat16), rows, C, ld, float(eps),
-            cfg["vec"], cfg["cached"],
             torch.cuda.current_stream().cuda_stream)
     _build.raise_if_failed(lib, "layer_norm_fwd", rc)
     layer_norm_fwd.launches += 1

@@ -1,35 +1,45 @@
-"""Build the two cross-row reduction kernels of ``pose3d_tpu_torch``
-(``bn_stats`` and the ``layer_norm`` backward) and check and time them
-alone on the card: the quick loop for work on those kernels (the whole of
-``chip_smoke.py`` takes minutes).
+"""Build the row kernels of ``pose3d_tpu_torch`` that stream rows and
+reduce them (``bn_stats``, the ``layer_norm`` backward, both adding partial
+rows across blocks in their one launch, and the ``layer_norm`` forward, a
+persistent row stream) and check and time them alone on the card: the
+quick loop for work on those kernels (the whole of ``chip_smoke.py`` takes
+minutes).
 
     PYTHONPATH=. python scripts/row_reduce_card.py [--no-time]
     PYTHONPATH=. python scripts/row_reduce_card.py --variants
     cd DIR && PYTHONPATH=. python <repo>/scripts/row_reduce_card.py \
         --times-only
     PYTHONPATH=. python scripts/row_reduce_card.py --scan-step
+    ... [--kernels layer_norm_fwd,layer_norm_bwd]
 
 Prints ptxas's registers and spills per kernel (a spill fails), then, for
-both kernels at every shape the paths give them (``bn_stats``: the 13
+the three kernels at every shape the paths give them (``bn_stats``: the 13
 shapes of the 500x500 CNN's BatchNorms at microbatch 10; ``layer_norm``:
 the lifter's 8,200 and 102,500 rows at C 768) and at ragged ones, in bf16
-and fp32: ``launch_config`` against the plan the built library reports,
-the max |Δ| against the plain version, a bitwise repeat, and the kernels
-``torch.profiler`` sees in one call (one). Then (bf16) the device time of
-each kernel at the path's shapes beside its bound, its plain version and
-the nearest library call, each launch's own time from ``torch.profiler``,
+and fp32: the Python mirror of the plan (``launch_config`` and
+``fwd_launch_config``) against the plan the built library reports, the max
+|Δ| against the plain version, a bitwise repeat, and the kernels
+``torch.profiler`` sees in one call (one). Then the device time of each
+kernel at the path's shapes (bf16; the ``layer_norm`` forward also fp32 at
+8,200 rows) beside its bound, the nearest library call (and its device time
+from ``torch.profiler``), each launch's own time from ``torch.profiler``,
 and ``bn_stats``'s sum over one microbatch forward (Σ calls × ms).
 ``--times-only`` prints the times alone, and also runs from an unpacked
-earlier commit's package. ``--variants`` rebuilds the two sources with a
-part taken out (the combine; the row stream; the dx stores) and times each
-beside the unchanged source: a variant's outputs are wrong by
-construction, only its time means something. ``--scan-step`` times the
-full-width CNN's scan 10x10 optimizer step (``batch_pallas``, 590 calls
-of ``bn_stats``), on the host and as device kernels, also from an earlier
-commit's package. Kernel times are the device's:
-calls queued behind a busy stream, inputs rotated through 256 MB of copies
-so that none is in the 50 MB L2. Exits 1 on a disagreement. Needs one CUDA
-card and nvcc.
+earlier commit's package. ``--variants`` rebuilds the sources with a part
+taken out (the combine; the row stream; the dx or y stores; the x reads;
+the forward's arithmetic, its streaming hint, or all of it) or with another
+plan (the forward's stages, its blocks an SM), loads
+``scripts/layer_norm_fwd_register_stream.cu`` (the forward as a register
+stream, the design measured against its TMA ring) in the forward's place,
+and times each beside the unchanged source: a variant that takes a part
+out is wrong by construction, only its time means something (the
+forward's max |Δy| is printed beside each).
+``--scan-step`` times the full-width CNN's scan 10x10 optimizer step
+(``batch_pallas``, 590 calls of ``bn_stats``), on the host and as device
+kernels, also from an earlier commit's package. ``--kernels`` keeps the
+named kernels only. Kernel times are the device's: calls queued behind a
+busy stream, inputs rotated through 256 MB of copies so that none is in
+the 50 MB L2. Exits 1 on a disagreement. Needs one CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -135,6 +145,7 @@ def _rotating(tensors, nbytes):
 
 
 def _ln_inputs(rows, C, dt, seed):
+    """x, scale, bias, the plain forward's mean and rstd, and a cotangent."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rand(*s):
@@ -142,14 +153,42 @@ def _ln_inputs(rows, C, dt, seed):
     x = (rand(rows, C) * 1.5 + 0.3).to(dt)
     scale, bias = rand(C) * 0.1 + 1.0, rand(C) * 0.1
     _, mean, rstd = ln.layer_norm_fwd_reference(x, scale, bias, 1e-6)
-    return x, scale, mean, rstd, rand(rows, C).to(dt)
+    return x, scale, bias, mean, rstd, rand(rows, C).to(dt)
 
 
-def check() -> int:
+def _check_ln_fwd(rows, C, dt, x, scale, bias) -> bool:
+    name = str(dt)[6:]
+    cfgs = [(ln.fwd_launch_config(rows, C, dt.itemsize, al),
+             ln.fwd_library_config(rows, C, dt.itemsize, al))
+            for al in (True, False)]
+    got = ln.layer_norm_fwd(x, scale, bias, 1e-6)
+    torch.cuda.synchronize()
+    again = ln.layer_norm_fwd(x, scale, bias, 1e-6)
+    errs = [_rel(a, r) for a, r in zip(
+        got, ln.layer_norm_fwd_reference(x, scale, bias, 1e-6))]
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    kern = _kernels(lambda: ln.layer_norm_fwd(x, scale, bias, 1e-6), 3)
+    ok = (all(a == b for a, b in cfgs) and same
+          and errs[0] <= TOL_LN[dt] and max(errs[1:]) <= TOL_LN_STATS
+          and len(kern) == 1 and list(kern.values())[0][0] == 1)
+    cfg = cfgs[0][0]
+    print(f"[check] layer_norm_fwd {name:8s} rows={rows:6d} C={C:4d} "
+          f"blocks {cfg['blocks']} ({cfg['blocks_per_sm']} an SM) "
+          f"rows a warp {cfg['rows_per_warp']} nv={cfg['nv']}: y "
+          f"{errs[0]:.2e} mean {errs[1]:.2e} rstd {errs[2]:.2e}, repeat "
+          f"{'equal' if same else 'DIFFERS'}, kernels "
+          f"{ {k: v[0] for k, v in kern.items()} }"
+          f"{'' if ok else '  FAIL ' + str(cfgs)}", flush=True)
+    return ok
+
+
+def check(kernels) -> int:
     bad = 0
     for dt in (torch.bfloat16, torch.float32):
         name = str(dt)[6:]
         for i, (n, C) in enumerate(list(BN_PATH) + BN_RAGGED):
+            if "bn_stats" not in kernels:
+                break
             g = torch.Generator(device="cuda").manual_seed(100 + i)
             x = (torch.randn(n, C, generator=g, device="cuda") * 1.5
                  + 0.3).to(dt)
@@ -174,7 +213,11 @@ def check() -> int:
                   f"{ {k: v[0] for k, v in kern.items()} }"
                   f"{'' if ok else '  FAIL ' + str(cfgs)}", flush=True)
         for i, (rows, C) in enumerate(LN_PATH + LN_RAGGED):
-            x, scale, mean, rstd, dy = _ln_inputs(rows, C, dt, 200 + i)
+            x, scale, bias, mean, rstd, dy = _ln_inputs(rows, C, dt, 200 + i)
+            if "layer_norm_fwd" in kernels:
+                bad += not _check_ln_fwd(rows, C, dt, x, scale, bias)
+            if "layer_norm_bwd" not in kernels:
+                continue
             cfgs = [(ln.launch_config(rows, C, dt.itemsize, al),
                      ln.library_config(rows, C, dt.itemsize, al))
                     for al in (True, False)]
@@ -204,10 +247,19 @@ def _split(kern) -> str:
     return ", ".join(f"{k} x{v[0]:g} {v[1]:.4f} ms" for k, v in kern.items())
 
 
-def times() -> None:
+def _device_ms(kern) -> float:
+    """The device ms of one call, summed over its kernels."""
+    return sum(v[1] for v in kern.values())
+
+
+def times(kernels) -> None:
     card = torch.cuda.get_device_name(0)
+    if "layer_norm_fwd" in kernels:
+        times_ln_fwd(card)
     tot = {"kernel": 0.0, "bound": 0.0, "library": 0.0}
     for (n, C), calls in BN_PATH.items():
+        if "bn_stats" not in kernels:
+            break
         g = torch.Generator(device="cuda").manual_seed(n + C)
         x = torch.randn(n, C, generator=g, device="cuda").bfloat16()
         nxt = _rotating((x,), n * C * 2)
@@ -223,13 +275,17 @@ def times() -> None:
               f"{kt:.4f} ms ({bound / kt:.0%} of the bound {bound:.4f}), "
               f"batch_norm_stats {lt:.4f}; profiler: {_split(kern)}  "
               f"[{card}]", flush=True)
-    print(f"[time] bn_stats over one microbatch forward (59 calls): kernel "
-          f"{tot['kernel']:.4f} ms, bound {tot['bound']:.4f} "
-          f"({tot['bound'] / tot['kernel']:.0%}), batch_norm_stats "
-          f"{tot['library']:.4f}; a scan 10x10 step (x10): "
-          f"{10 * tot['kernel']:.3f} ms  [{card}]", flush=True)
+    if "bn_stats" in kernels:
+        print(f"[time] bn_stats over one microbatch forward (59 calls): "
+              f"kernel {tot['kernel']:.4f} ms, bound {tot['bound']:.4f} "
+              f"({tot['bound'] / tot['kernel']:.0%}), batch_norm_stats "
+              f"{tot['library']:.4f}; a scan 10x10 step (x10): "
+              f"{10 * tot['kernel']:.3f} ms  [{card}]", flush=True)
     for rows, C in LN_PATH:
-        x, scale, mean, rstd, dy = _ln_inputs(rows, C, torch.bfloat16, 300)
+        if "layer_norm_bwd" not in kernels:
+            break
+        x, scale, _, mean, rstd, dy = _ln_inputs(rows, C, torch.bfloat16,
+                                                 300)
         nxt = _rotating((x, dy), rows * C * 2)
         kt = _ms(lambda: ln.layer_norm_bwd(nxt()[0], scale, mean, rstd,
                                            nxt()[1]))
@@ -258,6 +314,42 @@ def times() -> None:
         del graphs, nxt
 
 
+# the layer_norm forward's timed shapes: the path's two row counts in bf16,
+# the lifter's in fp32
+LN_FWD_TIMED = [(8 * 1025, 768, torch.bfloat16), (100 * 1025, 768,
+                                                  torch.bfloat16),
+                (8 * 1025, 768, torch.float32)]
+
+
+def _ln_fwd_bound(rows, C, itemsize) -> float:
+    """ms: x read once, y written once, scale, bias, mean and rstd; some
+    eight operations an element at the fp32 rate."""
+    nbytes = 2 * rows * C * itemsize + 2 * C * 4 + 2 * rows * 4
+    return max(nbytes / HBM_BYTES_S, 8 * rows * C / PEAK_FP32) * 1e3
+
+
+def times_ln_fwd(card) -> None:
+    """The forward at LN_FWD_TIMED: CUDA events around 20 queued calls
+    with inputs rotated through 256 MB, torch.profiler's time a launch,
+    and F.layer_norm (bf16 scale and bias for a bf16 x: it takes one
+    dtype) the same two ways."""
+    for rows, C, dt in LN_FWD_TIMED:
+        x, scale, bias, *_ = _ln_inputs(rows, C, dt, 300)
+        nxt = _rotating((x,), rows * C * dt.itemsize)
+        kt = _ms(lambda: ln.layer_norm_fwd(nxt()[0], scale, bias, 1e-6))
+        kern = _kernels(lambda: ln.layer_norm_fwd(nxt()[0], scale, bias,
+                                                  1e-6))
+        sl, bl = scale.to(dt), bias.to(dt)
+        lt = _ms(lambda: F.layer_norm(nxt()[0], (C,), sl, bl, 1e-6))
+        lk = _kernels(lambda: F.layer_norm(nxt()[0], (C,), sl, bl, 1e-6))
+        bound = _ln_fwd_bound(rows, C, dt.itemsize)
+        print(f"[time] layer_norm forward {str(dt)[6:]} rows={rows} C={C}: "
+              f"{kt:.4f} ms ({bound / kt:.0%} of the bound {bound:.4f}), "
+              f"F.layer_norm {lt:.4f} ms ({_device_ms(lk):.4f} of device "
+              f"kernels); profiler: {_split(kern)}  [{card}]", flush=True)
+        del nxt
+
+
 NO_COMBINE = [("rr::combine<", "if (false) rr::combine<")]
 NO_ROWS = {"bn_stats": [("for (long long r = r0 + ty; r < r1;",
                          "for (long long r = r1; r < r1;")],
@@ -277,10 +369,47 @@ PLANS = {("bn_stats", "four blocks an SM"): (
     (bn, "_PER_SM", 4))}
 VARIANTS["bn_stats"] += [(tag, subs) for (name, tag), (subs, _) in
                          PLANS.items() if name == "bn_stats"]
+# the forward: its parts taken out one at a time, other plans, and the
+# register stream, a source of its own (a path in place of the
+# substitutions)
+VARIANTS["layer_norm_fwd"] = [
+    ("unchanged", []),
+    ("plain y stores (no streaming hint)", [
+        ("__stcs(reinterpret_cast<uint4*>(p), t);",
+         "*reinterpret_cast<uint4*>(p) = t;"),
+        ("__stcs(reinterpret_cast<float4*>(p), make_float4(",
+         "*reinterpret_cast<float4*>(p) = (make_float4(")]),
+    ("two stages", [("constexpr int kStages = 4;",
+                     "constexpr int kStages = 2;")]),
+    ("one block an SM", [("return nv * (4 + 2 * vec) <= 64 ? 2 : 1;",
+                          "return 1;")]),
+    ("the stream alone (rows into the ring and released)", [
+        ("if (r >= a.rows) continue;", "if (r >= 0) continue;")]),
+    ("no y stores (x read, mean and rstd written)", [
+        ("store_y<T, VEC>(y + r * C + c, o);",
+         "if (r < 0) store_y<T, VEC>(y + r * C + c, o);")]),
+    ("no x reads (y, mean and rstd written)", [
+        ("hmma::mbar_expect_tx(bar, n * row_bytes);",
+         "hmma::mbar_arrive(bar);"),
+        ("for (int w = 0; w < n; ++w) {", "for (int w = 0; w < 0; ++w) {")]),
+    ("empty kernel", [
+        ("const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;",
+         "if (a.rows > 0) return;\n  "
+         "const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;"),
+        ("const int lane = threadIdx.x & 31;",
+         "if (a.rows > 0) return;\n  const int lane = threadIdx.x & 31;")]),
+    ("the register stream",
+     Path(__file__).with_name("layer_norm_fwd_register_stream.cu")),
+]
 
 
 def _build_variant(out_dir: Path, name: str, tag: str, subs):
-    src = (_build.CSRC_DIR / f"{name}.cu").read_text()
+    """``csrc/<name>.cu`` with ``subs`` applied (or the source at the path
+    ``subs``), built with the package's flags; the loaded library."""
+    if isinstance(subs, Path):
+        src, subs = subs.read_text(), []
+    else:
+        src = (_build.CSRC_DIR / f"{name}.cu").read_text()
     for old, new in subs:
         if old not in src:
             raise SystemExit(f"{name} / {tag}: {old!r} not in the source")
@@ -293,32 +422,41 @@ def _build_variant(out_dir: Path, name: str, tag: str, subs):
          "-o", str(so), str(cu)], capture_output=True, text=True)
     if proc.returncode != 0:
         raise SystemExit(f"{name} / {tag}: nvcc failed\n{proc.stderr[-3000:]}")
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        proc.stderr + proc.stdout)
+    if any(int(a) or int(b) for a, b in spills):
+        print(f"[variant] {name} {tag}: ptxas reports a spill", flush=True)
     return ctypes.CDLL(str(so))
 
 
-def variants() -> None:
+def variants(kernels) -> None:
     """Each variant's library stands in for the built one under the same
     wrapper, at the stem and at a 10,240-row shape (bn_stats) and at both
-    row counts (layer_norm backward), bf16."""
+    row counts (layer_norm), bf16. A forward variant's max |Δy| against the
+    plain version at 8,200 rows goes beside its times."""
     card = torch.cuda.get_device_name(0)
-    calls = {}
+    calls, fwd_inputs = {}, None
     for n, C in ((625000, 64), (156250, 384), (39690, 768), (10240, 512)):
         x = torch.randn(n, C, device="cuda").bfloat16()
         nxt = _rotating((x,), n * C * 2)
         calls.setdefault("bn_stats", []).append(
             (f"n={n} C={C}", lambda nxt=nxt: bn.bn_stats(nxt()[0])))
     for rows, C in LN_PATH:
-        x, scale, mean, rstd, dy = _ln_inputs(rows, C, torch.bfloat16, 400)
+        x, scale, bias, mean, rstd, dy = _ln_inputs(rows, C, torch.bfloat16,
+                                                    400)
+        fwd_inputs = fwd_inputs or (x, scale, bias)
         nxt = _rotating((x, dy), rows * C * 2)
         calls.setdefault("layer_norm_bwd", []).append(
             (f"rows={rows} C={C}",
              lambda nxt=nxt, s=scale, m=mean, r=rstd: ln.layer_norm_bwd(
                  nxt()[0], s, m, r, nxt()[1])))
-    loaders = {"bn_stats": bn.load_library,
-               "layer_norm_bwd": lambda: ln.load_library("layer_norm_bwd")}
+        calls.setdefault("layer_norm_fwd", []).append(
+            (f"rows={rows} C={C}",
+             lambda nxt=nxt, s=scale, b=bias: ln.layer_norm_fwd(
+                 nxt()[0], s, b, 1e-6)))
     with tempfile.TemporaryDirectory() as tmp:
         jobs = [(name, tag, subs) for name, vs in VARIANTS.items()
-                for tag, subs in vs]
+                if name in kernels for tag, subs in vs]
         with ThreadPoolExecutor(len(jobs)) as ex:
             libs = list(ex.map(lambda j: _build_variant(Path(tmp), *j), jobs))
         for (name, tag, _), lib in zip(jobs, libs):
@@ -330,9 +468,14 @@ def variants() -> None:
             if value is not None:
                 setattr(mod, attr, value)
             try:
-                loaders[name]()
+                _load(name)
                 parts = [f"{label} {_ms(fn):.4f} ms"
                          for label, fn in calls[name]]
+                if name == "layer_norm_fwd":
+                    x, scale, bias = fwd_inputs
+                    y = ln.layer_norm_fwd(x, scale, bias, 1e-6)[0]
+                    ref = ln.layer_norm_fwd_reference(x, scale, bias, 1e-6)[0]
+                    parts.append(f"max|dy|/max(1,|ref|) {_rel(y, ref):.2e}")
             finally:
                 _build._libs[name] = built
                 setattr(mod, attr, kept)
@@ -393,9 +536,18 @@ def scan_step() -> None:
           flush=True)
 
 
+NAMES = ("bn_stats", "layer_norm_fwd", "layer_norm_bwd")
+
+
+def _load(name):
+    return bn.load_library() if name == "bn_stats" else ln.load_library(name)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--no-time", action="store_true")
+    ap.add_argument("--kernels", default=",".join(NAMES),
+                    help="comma-separated, of " + ", ".join(NAMES))
     ap.add_argument("--variants", action="store_true")
     ap.add_argument("--scan-step", action="store_true",
                     help="the CNN's scan 10x10 step, host and device ms; "
@@ -404,14 +556,16 @@ def main() -> int:
                     help="times at the path's shapes, no checks: also for an "
                     "earlier commit's package, which has no library_config")
     args = ap.parse_args()
+    kernels = args.kernels.split(",")
+    if not set(kernels) <= set(NAMES):
+        ap.error(f"--kernels: {kernels} not all in {NAMES}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(smi, torch.__version__, torch.version.cuda, flush=True)
     bad = 0
-    bn.load_library()
-    ln.load_library("layer_norm_bwd")
-    for name in ("bn_stats", "layer_norm_bwd"):
+    for name in NAMES:
+        _load(name)
         info = _build.build_info[name]
         print(f"[build] {name}: {info['seconds']:.1f} s")
         for line in info["log"].splitlines():
@@ -423,17 +577,17 @@ def main() -> int:
             if m and (int(m.group(1)) or int(m.group(2))):
                 bad += 1
     if args.variants:
-        variants()
+        variants(kernels)
         return 0
     if args.scan_step:
         scan_step()
         return 0
     if args.times_only:
-        times()
+        times(kernels)
         return 0
-    bad += check()
+    bad += check(kernels)
     if not args.no_time and not bad:
-        times()
+        times(kernels)
     print("FAIL" if bad else "OK")
     return 1 if bad else 0
 

@@ -679,6 +679,36 @@ def test_row_reduce_kernels_launch_once_and_repeat_bitwise(dtype):
                     == ln.library_config(rows, C, x.element_size(), al))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_layer_norm_fwd_launches_once_on_its_plan(dtype):
+    """The forward is one launch of a persistent grid: torch.profiler sees
+    one kernel a call, outputs repeat bitwise, and the plan the Python
+    mirror computes is the built library's, on the TMA ring (aligned rows of
+    at most 1,024 columns) and on the row loop (a wide row, an unaligned
+    view)."""
+    _cuda()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    wide = torch.randn(64, 96, generator=g, device="cuda").to(dt)
+    for x in [torch.randn(n, C, generator=g, device="cuda").to(dt)
+              for n, C in ((8200, 768), (513, 640), (130, 2056))] + [
+            wide[:, 3:67]]:
+        rows, C = x.shape
+        scale = torch.randn(C, generator=g, device="cuda") * 0.1 + 1.0
+        bias = torch.randn(C, generator=g, device="cuda") * 0.1
+        seen = _kernel_launches(lambda: ln.layer_norm_fwd(x, scale, bias))
+        assert list(seen.values()) == [1] and "layer_norm_fwd" in next(
+            iter(seen))
+        a, b = (ln.layer_norm_fwd(x, scale, bias) for _ in range(2))
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+        ref = ln.layer_norm_fwd_reference(x, scale, bias)
+        assert _rel_err(a[0], ref[0]) <= TOL_LN[dtype]
+        for al in (True, False):
+            assert (ln.fwd_launch_config(rows, C, x.element_size(), al)
+                    == ln.fwd_library_config(rows, C, x.element_size(), al))
+
+
 # fused MLP, kernel against plain version, relative to max(1, max|ref|).
 # fp32: summation order only (sums of 768 to 8,200 terms), 1e-4. bf16: both
 # sides round gelu(a) and da to bf16 from fp32 values that differ in the
