@@ -114,10 +114,28 @@ Phases, each fatal on failure:
      against the same with ``impl="reference"`` (output and all seven
      gradients) and against the module path the model runs
      (``block.mlp(layer_norm(x, block.norm2))`` and autograd), in bf16 and,
-     with TF32 off, in fp32.
+     with TF32 off, in fp32;
+ 10. cli: the training path from the shell on the committed chunk fixture
+     (``tests/torch_port_fixtures``): the decode route this machine has
+     (the native library built from ``native/*.cc``, else cv2) held against
+     the fixture's committed pixels (PNG equal, JPEG within one level); the
+     full-width CNN from ``pose3d_tpu_torch.cli.main`` at 10 × 10 with
+     rotation, stopped by SIGTERM after its step-2 checkpoint and resumed
+     by the same command line (``--checkpoint auto``) to step 4: resumed at
+     the saved step and data position, retention and the best pointer as
+     the JAX rules say, ``lane_resample`` 4 a step, finite losses; the
+     transformer for 2 steps with a validation (20 attention launches a
+     pass each way); the ``batch_pallas`` CNN in scan for a step
+     (``bn_stats`` once per BatchNorm per microbatch); ``cli.evaluate
+     --per-action`` on the best checkpoint against an in-process
+     ``evaluate`` of the restored state; and the host feed:
+     ``train_model``'s step time with the device prefetch, without its
+     feeder thread and with the synchronous copy, beside the bare step, the
+     CNN from the chunk pipeline, and a checkpoint save of each model.
 
-Standard output ends with a JSON line of the kernels and, last, one JSON
-line ``{"ok": true, "device": {...}}``. Without CUDA, or without the
+Standard output ends with a JSON line of the kernels (``launches`` on
+the path that first drives each kernel, ``cli_launches`` on phase 10's
+runs) and, last, one JSON line ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
 
@@ -2699,6 +2717,470 @@ def phase_times(torch, card: str, sl: dict) -> dict:
     return times
 
 
+# --- the training CLI on chunk files (pose3d_tpu_torch.cli) ----------------
+
+FIXTURE = ROOT / "tests" / "torch_port_fixtures"
+# The committed fixture's pixels were decoded at their stored size by the
+# native decoder (libjpeg's integer IDCT): the depth PNG must come back
+# equal from any route, a JPEG within one level of it (another libjpeg
+# build, or a route without DCT scaling, rounds its IDCT or upsampling
+# differently by at most one level on these smooth images).
+TOL_JPEG_LEVELS = 1
+CLI_STEPS = 4           # the CNN: stopped after step 2, resumed to step 4
+CLI_EVAL = 2            # --eval-interval of the CNN and transformer runs
+CLI_TF_STEPS = 2
+CLI_SCAN_STEPS = 1
+TOL_CLI_EVAL = 1e-4     # cli.evaluate against an in-process evaluate
+FEED_STEPS, FEED_WINDOW = 9, 3  # train_model runs of the host-feed times
+
+
+class _CliWriter(_Scalars):
+    """The recording writer handed to the CLI's ``train_model``."""
+
+    def add_image(self, *a, **k):
+        pass
+
+    def add_text(self, *a, **k):
+        pass
+
+    def close(self):
+        pass
+
+
+def _cli_decode(card: str) -> str:
+    """Decode the fixture's committed samples at their stored size through
+    the route this machine has, and hold them against the committed
+    pixels; time a 500 x 500 decode of a whole chunk."""
+    from pose3d_tpu_torch.data import chunks, native
+
+    route = native.decode_route()
+    why = native.build_error()
+    if route == "cv2":
+        import cv2
+
+        route_text = (f"cv2 {cv2.__version__} (the native library did not "
+                      f"build: {why.splitlines()[0] if why else '?'})")
+    else:
+        route_text = f"native ({native.library_path().relative_to(ROOT)})"
+    want = np.load(FIXTURE / "pixels.npz")
+    files = [str(f) for f in want["image_file"]]
+    store = chunks.open_chunk_store(
+        FIXTURE / "train" / "dataset_chunk_000000.tar.gz", mode="stream")
+    samples = sorted((s for s in store.samples if s["image_file"] in files),
+                     key=lambda s: files.index(s["image_file"]))
+    hw = tuple(want["image"].shape[1:3])
+    recs = chunks.decode_chunk_samples(samples, store, hw,
+                                       pixel_dtype="uint8")
+    got_img = np.stack([r["image"] for r in recs]).astype(np.int16)
+    got_dep = np.stack([r["depth"] for r in recs]).astype(np.int16)
+    d_img = int(np.abs(got_img - want["image"]).max())
+    d_dep = int(np.abs(got_dep - want["depth"]).max())
+    ok = (len(recs) == len(files) and d_dep == 0
+          and d_img <= TOL_JPEG_LEVELS)
+    ms = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        full = chunks.decode_chunk_samples(store.samples, store, (500, 500),
+                                           pixel_dtype="uint8")
+        ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"[cli] decode route: {route_text}; the fixture's {len(files)} "
+        f"committed samples at {hw[0]}x{hw[1]}: JPEG max |d| {d_img} levels "
+        f"(tol {TOL_JPEG_LEVELS}), PNG max |d| {d_dep} (tol 0)  "
+        f"{'ok' if ok else 'FAIL'}")
+    per = (f"{'/'.join(f'{t:.1f}' for t in ms)} ms = "
+           f"{min(ms) / len(full):.2f}-{max(ms) / len(full):.2f} ms a sample")
+    log(f"[time] host decode of one chunk ({len(full)} samples, "
+        f"{store.samples[0]['image_size'][1]}x"
+        f"{store.samples[0]['image_size'][0]} JPEG + depth PNG → 500x500 "
+        f"uint8, {route}): {per} (this fixture's small sources, not "
+        f"Human3.6M's 1000x1000)  [{card}]")
+    if not ok:
+        raise SystemExit("the decode route does not give the committed "
+                         "pixels")
+    return route
+
+
+def _run_cli(torch, cli_main, argv, cwd: Path, stop_after=None) -> dict:
+    """``cli.main.main(argv)`` in ``cwd``; its ``train_model`` gets a
+    recording writer, the launch counts are zeroed just before it and read
+    just after. ``stop_after``: SIGTERM to this process right after the
+    checkpoint of that step is written (the CLI's handler then stops the
+    run at the next step, as a preemption would)."""
+    import os
+    import signal
+
+    from pose3d_tpu_torch.train import loop
+
+    cwd.mkdir(parents=True, exist_ok=True)
+    rec = {}
+    real_train, real_save = cli_main.train_model, loop.ckpt.save_checkpoint
+
+    def train(state, *a, **kw):
+        rec.update(start_step=kw["start_step"], data_state=kw["data_state"],
+                   writer=_CliWriter())
+        kw["writer"] = rec["writer"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        out = real_train(state, *a, **kw)
+        torch.cuda.synchronize()
+        rec.update(launches=launch_counts(), wall=time.perf_counter() - t0,
+                   peak=torch.cuda.max_memory_allocated() / 2 ** 30)
+        return out
+
+    def save(path, *a, **kw):
+        out = real_save(path, *a, **kw)
+        if stop_after is not None and str(path).endswith(
+                f"_step_{stop_after}"):
+            os.kill(os.getpid(), signal.SIGTERM)
+        return out
+
+    here = os.getcwd()
+    os.chdir(cwd)
+    try:
+        with mock.patch.object(cli_main, "train_model", train), \
+                mock.patch.object(loop.ckpt, "save_checkpoint", save):
+            rec["last_step"] = cli_main.main(argv)
+    finally:
+        os.chdir(here)
+    tags = rec["writer"].tags
+    rec["losses"] = [v for _, v in tags.get("Loss/train_step", [])]
+    rec["val"] = dict(tags.get("Metrics/MPJPE_validation_epoch_avg", []))
+    return rec
+
+
+def _checkpoints(cwd: Path, model_type: str) -> dict:
+    from pose3d_tpu_torch.core.config import GlobalConfig
+    from pose3d_tpu_torch.train import checkpoint as ckpt
+
+    prefix = str(cwd / GlobalConfig().checkpoint_prefix)
+    best = ckpt.best_checkpoint_path(prefix, model_type)
+    return {"steps": [s for s, _ in ckpt._sibling_checkpoints(prefix,
+                                                              model_type)],
+            "best": json.loads(best.read_text()) if best.exists() else None,
+            "path": lambda step: ckpt.checkpoint_path(prefix, model_type,
+                                                      step)}
+
+
+def _cli_cnn(torch, cli_main, tmp: Path, card: str) -> dict:
+    """The full-width CNN through the CLI with rotation: a run stopped by
+    SIGTERM after step 2's checkpoint, then the same command line resumed
+    to step 4 from ``--checkpoint auto``."""
+    from pose3d_tpu_torch.core.config import GlobalConfig
+    from pose3d_tpu_torch.train import checkpoint as ckpt
+
+    g = GlobalConfig()
+    cwd = tmp / "cli_cnn"
+    argv = ["--chunks-dir", str(FIXTURE), "--device", "cuda",
+            "--model-type", "cnn", "--batch-size", str(g.batch_size),
+            "--grad-accum", str(g.gradient_accumulation_steps),
+            "--pixel-dtype", "uint8", "--augment-device",
+            "--augment-device-rotation", "--eval-interval", str(CLI_EVAL),
+            "--keep-checkpoints", "1", "--no-tensorboard",
+            "--num-steps", str(CLI_STEPS), "--log-interval", "1",
+            "--checkpoint", "auto", "--cache-dir", str(tmp / "cli_cache")]
+    first = _run_cli(torch, cli_main, argv, cwd, stop_after=CLI_EVAL)
+    saved = _checkpoints(cwd, "cnn")
+    meta2 = ckpt.load_checkpoint_meta(saved["path"](CLI_EVAL))
+    second = _run_cli(torch, cli_main, argv, cwd)
+    after = _checkpoints(cwd, "cnn")
+    vals = {**first["val"], **second["val"]}
+    best_step = min(sorted(vals), key=lambda s: vals[s])
+    want_lane = {**dict.fromkeys(KERNELS, 0), "lane_resample": 4 * CLI_EVAL}
+    checks = {
+        "stopped at step 2 by SIGTERM": (first["last_step"] == CLI_EVAL
+                                          and first["start_step"] == 0),
+        "a checkpoint at step 2 with its data_state": (
+            CLI_EVAL in saved["steps"] and "data_state" in meta2),
+        "resumed at step 2 with the saved data_state": (
+            second["start_step"] == CLI_EVAL
+            and second["data_state"] == meta2["data_state"]),
+        "ran to step 4": second["last_step"] == CLI_STEPS,
+        "best = lowest validation MPJPE": (
+            after["best"] is not None and after["best"]["step"] == best_step),
+        "retention keeps the newest and the best": (
+            after["steps"] == sorted({CLI_STEPS, best_step})),
+        "lane_resample 4 a step, no other kernel": (
+            first["launches"] == want_lane
+            and second["launches"] == want_lane),
+        "finite losses at every step": (
+            len(first["losses"] + second["losses"]) == CLI_STEPS
+            and np.isfinite(first["losses"] + second["losses"]).all()),
+    }
+    log(f"[cli] (a) CNN 500x500 from the CLI, 10x10 grouped, rotation on: "
+        f"run 1 stopped at step {first['last_step']} "
+        f"({first['wall']:.1f} s, losses {first['losses']}), run 2 resumed "
+        f"at step {second['start_step']} with data_state "
+        f"{second['data_state']} (saved: {meta2.get('data_state')}) to step "
+        f"{second['last_step']} ({second['wall']:.1f} s, losses "
+        f"{second['losses']}); validation MPJPE {vals}; checkpoints left "
+        f"{after['steps']}, best {after['best'] and after['best']['step']}; "
+        f"launches {first['launches']['lane_resample']} + "
+        f"{second['launches']['lane_resample']} lane_resample; peak "
+        f"{max(first['peak'], second['peak']):.2f} GiB")
+    for what, ok in checks.items():
+        log(f"[cli] (a) {what}: {'ok' if ok else 'FAIL'}")
+    if not all(checks.values()):
+        raise SystemExit("the CNN from the CLI failed a check")
+    return {"cwd": cwd, "best": after["best"], "launches": {
+        k: first["launches"][k] + second["launches"][k] for k in KERNELS}}
+
+
+def _cli_transformer(torch, cli_main, tmp: Path) -> dict:
+    """Two grouped 10 x 10 steps of the full transformer from the CLI, a
+    validation at step 2: 20 forward launches a pass (train and
+    validation batches), 20 backward launches a step."""
+    from pose3d_tpu_torch.core.config import GlobalConfig
+
+    g = GlobalConfig()
+    B = g.batch_size
+    rec = _run_cli(torch, cli_main, [
+        "--chunks-dir", str(FIXTURE), "--device", "cuda",
+        "--model-type", "transformer", "--batch-size", str(B),
+        "--grad-accum", str(g.gradient_accumulation_steps),
+        "--eval-interval", str(CLI_EVAL), "--num-steps", str(CLI_TF_STEPS),
+        "--no-tensorboard", "--log-interval", "1", "--checkpoint", "auto",
+        "--cache-dir", str(tmp / "cli_cache")], tmp / "cli_transformer")
+    n_val = sum(int(np.ceil(n / B)) for n in _fixture_counts("test"))
+    attn = sum(PASS_LAUNCHES.values())
+    want = {**dict.fromkeys(KERNELS, 0),
+            "flash_attention_fwd": attn * (CLI_TF_STEPS + n_val),
+            "flash_attention_bwd": attn * CLI_TF_STEPS}
+    ok = (rec["last_step"] == CLI_TF_STEPS and rec["launches"] == want
+          and len(rec["losses"]) == CLI_TF_STEPS
+          and np.isfinite(rec["losses"]).all() and bool(rec["val"]))
+    log(f"[cli] (b) transformer 512x512 from the CLI, 10x10 grouped: "
+        f"{rec['last_step']} steps in {rec['wall']:.1f} s, losses "
+        f"{rec['losses']}, validation MPJPE {rec['val']}; launches "
+        f"{rec['launches']} (want {attn} forward a pass over "
+        f"{CLI_TF_STEPS} train + {n_val} validation batches, {attn} "
+        f"backward a step); peak {rec['peak']:.2f} GiB  "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the transformer from the CLI failed a check")
+    return rec["launches"]
+
+
+def _cli_scan(torch, cli_main, tmp: Path) -> dict:
+    """The full-width CNN with ``normalization="batch_pallas"`` in the scan
+    mode from the CLI: ``bn_stats`` once per BatchNorm per microbatch."""
+    from pose3d_tpu_torch.core.config import GlobalConfig
+
+    g = GlobalConfig()
+    A, B = g.gradient_accumulation_steps, g.batch_size
+    rec = _run_cli(torch, cli_main, [
+        "--chunks-dir", str(FIXTURE), "--device", "cuda",
+        "--model-type", "cnn", "--model-args",
+        json.dumps({"normalization": "batch_pallas"}),
+        "--accum-mode", "scan", "--batch-size", str(B), "--grad-accum",
+        str(A), "--eval-interval", "1000", "--num-steps",
+        str(CLI_SCAN_STEPS), "--no-tensorboard", "--log-interval", "1",
+        "--checkpoint", "auto", "--cache-dir", str(tmp / "cli_cache")],
+        tmp / "cli_scan")
+    n_bn = len(_bn_path_shapes(torch, B))
+    want = {**dict.fromkeys(KERNELS, 0),
+            "bn_stats": n_bn * A * CLI_SCAN_STEPS}
+    ok = (rec["last_step"] == CLI_SCAN_STEPS and rec["launches"] == want
+          and np.isfinite(rec["losses"]).all())
+    log(f"[cli] (c) CNN batch_pallas scan from the CLI: {rec['last_step']} "
+        f"step in {rec['wall']:.1f} s, losses {rec['losses']}; launches "
+        f"{rec['launches']} (want {n_bn} BatchNorms x {A} microbatches x "
+        f"{CLI_SCAN_STEPS})  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the scan CNN from the CLI failed a check")
+    return rec["launches"]
+
+
+def _fixture_counts(prefix: str) -> list:
+    from pose3d_tpu_torch.data.chunks import (
+        count_chunk_samples,
+        list_chunk_files,
+    )
+
+    return [count_chunk_samples(f) for f in list_chunk_files(FIXTURE, prefix)]
+
+
+def _cli_evaluate(torch, cnn: dict) -> None:
+    """``cli.evaluate --per-action`` on the CNN's best checkpoint against an
+    in-process ``evaluate`` of the same restored state."""
+    import contextlib as _ctx
+    import io as _io
+
+    from pose3d_tpu_torch.cli import evaluate as cli_eval
+    from pose3d_tpu_torch.core.config import GlobalConfig, make_model_config
+    from pose3d_tpu_torch.data.pipeline import (
+        BatchLoader,
+        StreamingChunkedDataset,
+    )
+    from pose3d_tpu_torch.models import build_model
+    from pose3d_tpu_torch.train import checkpoint as ckpt, loop
+    from pose3d_tpu_torch.train.state import create_train_state
+    from pose3d_tpu_torch.train.step import make_eval_step
+
+    g = GlobalConfig()
+    path = Path(cnn["best"]["path"])
+    out = _io.StringIO()
+    with _ctx.redirect_stdout(out):
+        got = cli_eval.main(["--checkpoint", str(path), "--chunks-dir",
+                             str(FIXTURE), "--per-action", "--device",
+                             "cuda"])
+    printed = json.loads(out.getvalue().strip().splitlines()[-1])
+    meta = ckpt.load_checkpoint_meta(path)
+    cfg = make_model_config(meta["model_type"], **meta["model_args"])
+    model = build_model(cfg, device="cuda",
+                        dtype=getattr(torch, g.compute_dtype), train=True)
+    st, _ = ckpt.restore_train_state(create_train_state(model), path)
+    ds = StreamingChunkedDataset("test", str(FIXTURE),
+                                 image_size=tuple(cfg.image_size),
+                                 shuffle=False, shuffle_chunks=False,
+                                 pixel_dtype="uint8")
+    want = loop.evaluate(make_eval_step(), st,
+                         BatchLoader(ds, g.batch_size, drop_last=False),
+                         per_action=True)
+    errs = {k: abs(got[k] - want[k]) / abs(want[k])
+            for k in ("mpjpe", "pa_mpjpe")}
+    ok = (max(errs.values()) <= TOL_CLI_EVAL and printed == got
+          and set(got["per_action"]) == set(want["per_action"])
+          and got["checkpoint_step"] == cnn["best"]["step"])
+    log(f"[cli] (d) cli.evaluate --per-action on the best checkpoint (step "
+        f"{got['checkpoint_step']}): MPJPE {got['mpjpe']:.4f}, PA-MPJPE "
+        f"{got['pa_mpjpe']:.4f} mm, {len(got['per_action'])} actions; an "
+        f"in-process evaluate of the restored state {want['mpjpe']:.4f} / "
+        f"{want['pa_mpjpe']:.4f} (relative {errs['mpjpe']:.1e} / "
+        f"{errs['pa_mpjpe']:.1e}, tol {TOL_CLI_EVAL:.0e})  "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("cli.evaluate disagrees with evaluate")
+
+
+def _sync_feed(iterator, device, depth: int = 2):
+    """The port's host feed before the device prefetch: each superbatch
+    copied from pageable memory on the step's stream when the step needs
+    it, nothing read ahead."""
+    from pose3d_tpu_torch.train import loop
+
+    for b in iterator:
+        yield {**loop.to_device(b, device),
+               **{k: v for k, v in b.items() if k.startswith("_")}}
+
+
+def _cli_host_feed(torch, tmp: Path, card: str) -> dict:
+    """``train_model``'s ``Perf/step_time_ms`` (log windows of
+    ``FEED_WINDOW`` steps after the first) with the device prefetch and with
+    the synchronous feed, in turns, from in-memory numpy batches; the bare
+    grouped step on a device-resident superbatch; the CNN from the chunk
+    pipeline; and a checkpoint save of each model."""
+    from pose3d_tpu_torch.core.config import (
+        CNNModelConfig,
+        GlobalConfig,
+        TransformerModelConfig,
+    )
+    from pose3d_tpu_torch.data.pipeline import (
+        BatchLoader,
+        StreamingChunkedDataset,
+    )
+    from pose3d_tpu_torch.models import build_model
+    from pose3d_tpu_torch.train import checkpoint as ckpt, loop, \
+        state as tstate, step as tstep
+
+    g = GlobalConfig()
+    A, B = g.gradient_accumulation_steps, g.batch_size
+    out = {}
+    for cfg in (CNNModelConfig(), TransformerModelConfig()):
+        name = cfg.model_type
+        hw, J = tuple(cfg.image_size), cfg.num_joints
+        model = build_model(cfg, device="cuda", dtype=torch.bfloat16,
+                            train=True,
+                            generator=torch.Generator("cuda").manual_seed(0))
+        st = tstate.create_train_state(model, ema=True)
+
+        def run(loader, feed, epochs=1):
+            w = _Scalars()
+            ctx = (contextlib.nullcontext() if feed == "prefetch" else
+                   mock.patch.object(loop, "_device_prefetch", _sync_feed))
+            with ctx:
+                loop.train_model(
+                    st, loader, writer=w, gradient_accumulation_steps=A,
+                    num_steps=st.step + FEED_STEPS, max_epochs=epochs,
+                    log_interval_steps=FEED_WINDOW,
+                    eval_interval_steps=10 ** 9,
+                    preview_interval_steps=10 ** 9, ema_decay=0.999)
+            return [v for _, v in w.tags["Perf/step_time_ms"]]
+
+        # in memory before the runs: the feed's own work is all they time
+        batches = list(_train_batches(50, A * FEED_STEPS, B, hw, J))
+        times = {"prefetch": [], "sync": []}
+        for feed in ("prefetch", "sync", "sync", "prefetch"):
+            times[feed] += run(iter(batches), feed)
+        del batches
+        sb = loop.to_device(next(loop._superbatches(
+            _train_batches(60, A, B, hw, J), A)), "cuda")
+        step = tstep.make_train_step(ema_decay=0.999)
+        gen = torch.Generator("cuda").manual_seed(1)
+        bare = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(st, sb, gen)
+            torch.cuda.synchronize()
+            bare.append((time.perf_counter() - t) * 1e3)
+        bare = bare[1:]
+        del sb
+        chunks_ms = None
+        if name == "cnn":
+            ds = StreamingChunkedDataset(
+                "train", str(FIXTURE), image_size=hw,
+                cache_dir=tmp / "feed_cache", pixel_dtype="uint8")
+            # a looping loader: the epoch cap is the stream's own counter
+            chunks_ms = run(BatchLoader(ds, B, loop=True), "prefetch",
+                            epochs=10 ** 6)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        saved = ckpt.save_checkpoint(tmp / f"save_{name}", st, name,
+                                     cfg.to_dict())
+        save_ms = (time.perf_counter() - t) * 1e3
+        size = (saved / "state.pt").stat().st_size
+        out[name] = dict(**times, bare=bare, chunks=chunks_ms,
+                         save_ms=save_ms, save_bytes=size)
+        fmt = lambda xs: "/".join(f"{x:.1f}" for x in xs)  # noqa: E731
+        log(f"[time] host feed, {name} 10x10 grouped, train_model's "
+            f"Perf/step_time_ms over windows of {FEED_WINDOW} steps: device "
+            f"prefetch {fmt(times['prefetch'])} ms, synchronous copy "
+            f"(the port before it) {fmt(times['sync'])} ms, the bare step "
+            f"on a device-resident superbatch {fmt(bare)} ms"
+            + (f"; from the chunk pipeline (decode, collate, prefetch) "
+               f"{fmt(chunks_ms)} ms" if chunks_ms else "")
+            + f"  [{card}]")
+        log(f"[time] checkpoint save, {name} (model, AdamW moments, EMA): "
+            f"{save_ms:.0f} ms for {size / 2 ** 20:.0f} MiB  [{card}]")
+        shutil.rmtree(saved, ignore_errors=True)
+        del st, model, step, gen
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_cli(torch, tmp: Path, card: str) -> dict:
+    """The training path from the shell: the decode route, the CNN from
+    ``cli.main`` stopped and resumed, the transformer, the scan CNN with
+    ``bn_stats``, ``cli.evaluate``, and the host feed's times."""
+    from pose3d_tpu_torch.cli import main as cli_main
+
+    torch.cuda.empty_cache()
+    route = _cli_decode(card)
+    cnn = _cli_cnn(torch, cli_main, tmp, card)
+    torch.cuda.empty_cache()
+    tf = _cli_transformer(torch, cli_main, tmp)
+    torch.cuda.empty_cache()
+    scan = _cli_scan(torch, cli_main, tmp)
+    torch.cuda.empty_cache()
+    _cli_evaluate(torch, cnn)
+    torch.cuda.empty_cache()
+    feed = _cli_host_feed(torch, tmp, card)
+    launches = {k: cnn["launches"][k] + tf[k] + scan[k] for k in KERNELS}
+    return {"route": route, "launches": launches, "feed": feed}
+
+
 def phase_imports() -> None:
     """The port, every module of it imported, has loaded nothing of JAX,
     flax or the JAX package."""
@@ -2749,6 +3231,7 @@ def main() -> int:
         rows = phase_rowops(torch, card)
         tr = phase_train(torch, Path(tmp), card)
         cnn = phase_cnn(torch, Path(tmp), card)
+        cli = phase_cli(torch, Path(tmp), card)
     phase_imports()
     # (file:line of the TPU kernel, launches on its main path, key of the
     # shape its times are given at)
@@ -2784,6 +3267,7 @@ def main() -> int:
         "source": f"pose3d_tpu_torch/csrc/{name}.cu",
         "replaces": replaces,
         "launches": launches,
+        "cli_launches": cli["launches"][name],
         **worst[name],
         **times[key],
     } for name, (replaces, launches, key) in kernels.items()]}))

@@ -12,8 +12,12 @@ Ported so far: both lifters (transformer and CNN), served — reference
 :mod:`pose3d_tpu_torch.serve_http` — and trained —
 :mod:`pose3d_tpu_torch.train` (losses, metrics, AdamW, grouped/scan
 accumulation with grouped BatchNorm, EMA of weights and BatchNorm
-statistics, evaluation, ``train_model``) writing a ``.pth`` the server
-loads. Attention runs through hand-written Hopper flash-attention forward
+statistics, evaluation, ``train_model`` with a device prefetch,
+checkpoints and resume) writing a ``.pth`` the server loads, from the
+shell too: :mod:`pose3d_tpu_torch.cli.main` trains on chunk files
+(:mod:`pose3d_tpu_torch.data`: the chunk stores, the native decoder built
+from ``native/*.cc``, the streaming pipeline) and
+:mod:`pose3d_tpu_torch.cli.evaluate` evaluates. Attention runs through hand-written Hopper flash-attention forward
 and backward kernels (``csrc/flash_attention_fwd.cu``,
 ``csrc/flash_attention_bwd.cu``); the CNN's ``normalization=
 "batch_pallas"`` BatchNorm takes its statistics from the hand-written

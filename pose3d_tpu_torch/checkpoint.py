@@ -51,15 +51,16 @@ def _read(path) -> Tuple[dict, str, dict]:
     return sd, model_type, model_args
 
 
-def load_pose_model(path, device="cuda", *, dtype=torch.bfloat16
-                    ) -> Tuple[nn.Module, object]:
+def load_pose_model(path, device="cuda", *, dtype=torch.bfloat16,
+                    **build_kw) -> Tuple[nn.Module, object]:
     """Rebuild the architecture (``model_type`` "transformer" or "cnn")
     from the checkpoint's ``model_args`` and strict-load its weights, and
-    for the CNN its BatchNorm running statistics, onto ``device``. Returns
-    (model, config)."""
+    for the CNN its BatchNorm running statistics, onto ``device``
+    (``build_kw``: further keywords of ``build_model``). Returns (model,
+    config)."""
     sd, model_type, model_args = _read(path)
     cfg = make_model_config(model_type, **model_args)
-    model = build_model(cfg, device=device, dtype=dtype)
+    model = build_model(cfg, device=device, dtype=dtype, **build_kw)
     try:
         model.load_state_dict(sd, strict=True)
     except RuntimeError as e:

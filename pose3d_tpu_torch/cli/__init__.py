@@ -1,0 +1,3 @@
+"""Command-line entry points (counterpart of ``pose3d_tpu.cli``):
+``python -m pose3d_tpu_torch.cli.main`` trains, ``python -m
+pose3d_tpu_torch.cli.evaluate`` evaluates."""

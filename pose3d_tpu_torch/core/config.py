@@ -14,6 +14,17 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
+# Bones of the Human3.6M 17-joint skeleton: 0 pelvis, 1-3 right leg, 4-6
+# left leg, 7 spine, 8 thorax, 9 neck, 10 head, 11-13 left arm, 14-16 right
+# arm.
+CONNECTIONS_H36M: Tuple[Tuple[int, int], ...] = (
+    (0, 1), (1, 2), (2, 3),
+    (0, 4), (4, 5), (5, 6),
+    (0, 7), (7, 8), (8, 9), (9, 10),
+    (8, 11), (11, 12), (12, 13),
+    (8, 14), (14, 15), (15, 16),
+)
+
 # Left/right joint pairs of the Human3.6M 17-joint skeleton, swapped when a
 # sample is mirrored.
 SYMMETRIC_JOINTS_H36M: Tuple[Tuple[int, int], ...] = (
@@ -25,16 +36,21 @@ SYMMETRIC_JOINTS_H36M: Tuple[Tuple[int, int], ...] = (
 class GlobalConfig:
     """Training hyperparameters: the fields of the JAX package's
     ``GlobalConfig`` that the port's training runs read, with the same
-    names and defaults (batch 10 × accumulation 10, AdamW lr 1e-3 and
+    names and defaults (batch 10 × accumulation 10, a validation and
+    checkpoint every 5,000 steps, a preview every 50, AdamW lr 1e-3 and
     weight decay 0.01, loss weights mse 1, l1 1, inter-joint 100,
-    abs-root 1, bf16 compute over fp32 parameters). Device augmentation
-    has its own ``ops.augment_device.DeviceAugmentConfig``; data paths,
-    host-pipeline, host-augmentation, cadence and mesh fields come with
-    the modules that read them."""
+    abs-root 1, TensorBoard under ``./logs``, checkpoints named
+    ``model_epoch__<type>_step_<N>``, bf16 compute over fp32 parameters).
+    Device augmentation has its own
+    ``ops.augment_device.DeviceAugmentConfig``; host-augmentation and mesh
+    fields come with the modules that read them."""
 
     random_seed: int = 42
     batch_size: int = 10
     gradient_accumulation_steps: int = 10
+    eval_interval: int = 5000
+    preview_interval: int = 50
+    model_type: str = "cnn"
 
     inter_joint_loss_weight: float = 100.0
     abs_root_loss_weight: float = 1.0
@@ -43,6 +59,9 @@ class GlobalConfig:
 
     learning_rate: float = 1e-3
     weight_decay: float = 0.01
+
+    log_dir: str = "./logs"
+    checkpoint_prefix: str = "model_epoch_"
 
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"

@@ -1,3 +1,6 @@
-"""Host-side batch encoding (counterpart of ``pose3d_tpu.data``). The JAX
+"""Host input pipeline (counterpart of ``pose3d_tpu.data``): chunk stores
+and decoding (``chunks``, ``native``), the streaming dataset and batch
+loader (``pipeline``), collation and the transfer encoding (``collate``).
+Numpy only; OpenCV is imported only where it is the decoder. The JAX
 package's ``pose3d_tpu.data`` is not imported: its ``__init__`` loads the
 chunk reader and OpenCV."""

@@ -645,10 +645,10 @@ def test_loop_scalars_match_jax(loop_runs, tag, rtol):
 def test_keyboard_interrupt_saves_and_returns_like_jax(jax_tiny, tmp_path):
     """Ctrl-C while the loader is read: both loops end training, write
     what they reached and return ``(state, step)``. The interrupt comes in
-    place of the sixth batch, after two whole superbatches: the port has
-    trained on both; the JAX loop reads one superbatch ahead of its step
-    (its device prefetch, which the port does not have yet) and so meets
-    the interrupt one step earlier."""
+    place of the sixth batch, in the third superbatch: both loops read one
+    superbatch ahead of their step (the device prefetch hands a superbatch
+    out once the next one is read), so both meet the interrupt before
+    step 2 and stop after step 1."""
     batches, _ = _superbatch(8, 4, 2)
     kw = dict(num_steps=10, max_epochs=5, eval_interval_steps=100)
     jw, jn = _jax_loop_run(jax_tiny, tmp_path,
@@ -656,9 +656,9 @@ def test_keyboard_interrupt_saves_and_returns_like_jax(jax_tiny, tmp_path):
     pw, pn, st, pth = _port_loop_run(
         jax_tiny, tmp_path, _LoopingLoader(batches, interrupt_at=5), None,
         **kw)
-    assert pn == 2 and st.step == 2 and jn == 1
-    assert [s for s, _ in pw.scalars["Loss/train_step"]] == [1, 2]
-    assert [s for s, _ in jw.scalars["Loss/train_step"]] == [1]
+    assert pn == jn == 1 and st.step == 1
+    assert [s for s, _ in pw.scalars["Loss/train_step"]] \
+        == [s for s, _ in jw.scalars["Loss/train_step"]] == [1]
     loaded, _ = load_pose_model(pth, "cpu", dtype=torch.float32)
     for (name, p), q in zip(st.model.named_parameters(),
                             loaded.parameters()):

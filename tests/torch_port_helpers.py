@@ -76,3 +76,84 @@ def assert_params_close(got, want, grads, lr: float = 1e-3, grad_tol=1e-4):
         err = np.abs(t.detach().numpy() - ref)
         assert err[~tiny].max(initial=0) <= 1e-6, name
         assert err.max(initial=0) <= 2 * lr, name
+
+
+# --- the committed chunk fixture ---------------------------------------------
+
+FIXTURE_DIR = __import__("pathlib").Path(__file__).parent / "torch_port_fixtures"
+# (prefix, chunk index, samples, actions, seed) of each chunk of the fixture
+FIXTURE_CHUNKS = (("train", 0, 25, 3, 3), ("train", 1, 25, 3, 3),
+                  ("test", 2, 12, 2, 5))
+FIXTURE_HW = (96, 128)
+# samples of train chunk 0 whose pixels, decoded at their stored size, are
+# committed beside the chunks (pixels.npz)
+FIXTURE_PIXEL_SAMPLES = 3
+
+
+class _SmoothRng:
+    """A numpy Generator whose ``integers`` draws of image shape are smooth
+    fields (a few random low-frequency cosines and a ramp, clipped to the
+    range); every other draw is the wrapped generator's."""
+
+    def __init__(self, rng):
+        self._rng = rng
+
+    def integers(self, low, high, size=None, dtype=np.int64):
+        if size is None or len(size) < 2:
+            return self._rng.integers(low, high, size=size, dtype=dtype)
+        h, w = size[:2]
+        yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w),
+                             indexing="ij")
+        chans = []
+        for _ in range(size[2] if len(size) > 2 else 1):
+            f = self._rng.uniform(0.5, 2.0, size=(3, 2))
+            ph = self._rng.uniform(0, 2 * np.pi, size=3)
+            field = 0.3 * (xx * self._rng.uniform(-1, 1)
+                           + yy * self._rng.uniform(-1, 1))
+            for (fy, fx), p in zip(f, ph):
+                field += 0.25 * np.cos(2 * np.pi * (fy * yy + fx * xx) + p)
+            chans.append(field)
+        field = np.stack(chans, -1) if len(size) > 2 else chans[0]
+        lo, hi = float(low), float(high) - 1
+        field = (field - field.min()) / max(np.ptp(field), 1e-9)
+        return np.round(lo + field * (hi - lo)).astype(dtype)
+
+    def __getattr__(self, name):
+        return getattr(self._rng, name)
+
+
+def write_card_fixture(out_dir):
+    """Write the chunk fixture (``FIXTURE_CHUNKS`` through
+    ``helpers_synthetic.make_synthetic_chunk``, with smooth images so that
+    the JPEGs stay small) and ``pixels.npz``: the uint8 image and depth of
+    the first ``FIXTURE_PIXEL_SAMPLES`` samples of train chunk 0 as the
+    native decoder gives them at their stored size. Needs cv2."""
+    import shutil
+    from pathlib import Path
+    from unittest import mock
+
+    from helpers_synthetic import make_synthetic_chunk
+
+    from pose3d_tpu_torch.data.chunks import (
+        decode_chunk_samples,
+        open_chunk_store,
+    )
+
+    out_dir = Path(out_dir)
+    real = np.random.default_rng
+    with mock.patch.object(np.random, "default_rng",
+                           lambda seed: _SmoothRng(real(seed))):
+        paths = [make_synthetic_chunk(out_dir, idx, num_samples=n,
+                                      image_hw=FIXTURE_HW, prefix=prefix,
+                                      seed=seed, num_actions=actions)[0]
+                 for prefix, idx, n, actions, seed in FIXTURE_CHUNKS]
+    shutil.rmtree(out_dir / "_stage")
+    store = open_chunk_store(paths[0], mode="stream")
+    recs = decode_chunk_samples(store.samples[:FIXTURE_PIXEL_SAMPLES], store,
+                                FIXTURE_HW, pixel_dtype="uint8")
+    np.savez_compressed(
+        out_dir / "pixels.npz",
+        image=np.stack([r["image"] for r in recs]),
+        depth=np.stack([r["depth"] for r in recs]),
+        image_file=np.array([r["image_path"] for r in recs]))
+    return paths
