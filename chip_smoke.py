@@ -131,11 +131,29 @@ Phases, each fatal on failure:
      ``evaluate`` of the restored state; and the host feed:
      ``train_model``'s step time with the device prefetch, without its
      feeder thread and with the synchronous copy, beside the bare step, the
-     CNN from the chunk pipeline, and a checkpoint save of each model.
+     CNN from the chunk pipeline, and a checkpoint save of each model;
+ 11. data: the data path from the shell: a synthetic preprocessed
+     Human3.6M layout (subjects 1, 5, 6, 7, 8, 9, 11; 1000×1000 JPEG
+     frames, 8-bit depth PNGs, keypoint JSON, the three annotation JSONs)
+     through ``pose3d_tpu_torch.cli.chunker``, ``cli.split`` (train
+     1, 5, 6, 7, 8; test 9, 11) and ``cli.rechunker``, each timed in its
+     own process, with the sample counts, the routing by subject and the
+     shuffled set checked; ``PoseAugmentor``'s time a sample at 500×500;
+     the host feed alone, twice with and twice without the augmentor;
+     the full-width CNN (10 grouped 10×10 steps, no kernel) and the
+     transformer (10 steps and a validation, 20 attention launches a pass
+     each way) trained with ``--augment`` from the shuffled archives,
+     beside the same runs without it, their step times read after the
+     first epoch; a ``batch_pallas:N`` CNN in scan for
+     a step (``bn_stats`` once per BatchNorm at or above N pixels a sample
+     per microbatch, none below); ``cli.evaluate`` on the test split from
+     bare state_dicts (the CNN with no hint, the transformer with
+     ``--model-type transformer`` and refused without it); a
+     ``batch_dot`` ``.pth`` loaded and served.
 
 Standard output ends with a JSON line of the kernels (``launches`` on
 the path that first drives each kernel, ``cli_launches`` on phase 10's
-runs) and, last, one JSON line ``{"ok": true, "device": {...}}``. Without CUDA, or without the
+runs, ``data_launches`` on phase 11's) and, last, one JSON line ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
 
@@ -143,8 +161,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -3181,6 +3201,439 @@ def phase_cli(torch, tmp: Path, card: str) -> dict:
     return {"route": route, "launches": launches, "feed": feed}
 
 
+# --- phase 11: the data path from the shell ----------------------------------
+
+# Frames per subject of the synthetic Human3.6M layout: the train subjects
+# give 300 samples, three 10 x 10 steps in one epoch; the test subjects 20.
+DATA_FRAMES = {1: 60, 5: 60, 6: 60, 7: 60, 8: 60, 9: 10, 11: 10}
+DATA_TRAIN, DATA_TEST = (1, 5, 6, 7, 8), (9, 11)
+DATA_HW = (1000, 1000)  # Human3.6M's frame size (height, width)
+DATA_CHUNK = 100        # samples an archive: chunker, splitter, shuffler
+# Steps of each training run from the shuffled archives: 10 steps are 3+
+# epochs of the 300 train samples. The step times read are those after
+# the first epoch (steps 4-10): by then the read-ahead of up to two
+# archives, filled while step 1 builds, is spent, and the feed runs at its
+# own rate.
+DATA_STEPS, DATA_WARM = 10, 3
+# batch_pallas:N: at 500 x 500 the stem and stage 1 have 250² and 125²
+# pixels a sample, stage 2 63², stage 3 32²: N = 4000 leaves the stem and
+# stage 1 on the kernel and puts stage 2 and after under the gate.
+DATA_GATE = 4000
+AUG_TIMED = 40          # samples PoseAugmentor is timed over
+
+
+def _smooth_u8(rng, hw, channels: int) -> np.ndarray:
+    """A smooth seeded uint8 field of ``hw``: a 12 x 12 draw resized with
+    cubic interpolation (a JPEG of it stays small, unlike noise)."""
+    import cv2
+
+    small = rng.integers(0, 256, (12, 12, channels), dtype=np.uint8)
+    big = cv2.resize(small, (hw[1], hw[0]), interpolation=cv2.INTER_CUBIC)
+    return big.reshape(*hw, channels) if channels > 1 else big
+
+
+def _write_raw_layout(root: Path, frames: dict, hw) -> int:
+    """A synthetic preprocessed Human3.6M layout: per frame a JPEG, an
+    8-bit depth PNG and a metadata JSON (YOLO-style keypoints, depth range)
+    from stage 1, and per subject the three annotation JSONs (data,
+    camera, joint_3d). Returns the number of frames."""
+    import cv2
+
+    rng = np.random.default_rng(20)
+    ann, imgs, proc = root / "annotations", root / "images", root / "processed"
+    ann.mkdir(parents=True)
+    h, w = hw
+    jobs = []
+    for subject, n in frames.items():
+        images, annotations, joints, cameras = [], [], {}, {}
+        for cam in (1, 2):
+            a = rng.uniform(-0.3, 0.3)
+            R = [[np.cos(a), 0.0, np.sin(a)], [0.0, 1.0, 0.0],
+                 [-np.sin(a), 0.0, np.cos(a)]]
+            cameras[str(cam)] = {"R": R, "t": rng.normal(0, 50, 3).tolist(),
+                                 "f": [1145.0, 1143.8], "c": [512.5, 515.4]}
+        for i in range(n):
+            action, cam = 2 + i % 3, 1 + i % 2
+            folder = (f"s_{subject:02d}_act_{action:02d}_subact_01_"
+                      f"ca_{cam:02d}")
+            stem = f"{folder}_{i:06d}"
+            (imgs / folder).mkdir(parents=True, exist_ok=True)
+            (proc / folder).mkdir(parents=True, exist_ok=True)
+            kpts = rng.uniform(0.2, 0.8, (17, 2)) * [w, h]
+            meta = {"image_size": [w, h],
+                    "keypoints": [[{"x": float(x), "y": float(y),
+                                    "confidence": 0.9} for x, y in kpts]],
+                    "depth_min": 1.5, "depth_max": 7.5}
+            (proc / folder / f"{stem}.json").write_text(json.dumps(meta))
+            jobs.append((imgs / folder / f"{stem}.jpg",
+                         proc / folder / f"{stem}_depth.png",
+                         int(rng.integers(1 << 30))))
+            img_id = subject * 100000 + i
+            images.append({"id": img_id, "file_name": f"{folder}/{stem}.jpg",
+                           "action_idx": action, "subaction_idx": 1,
+                           "frame_idx": i, "cam_idx": cam,
+                           "subject": subject, "width": w, "height": h})
+            annotations.append({"image_id": img_id, "bbox": [0, 0, w, h]})
+            joints.setdefault(str(action), {}).setdefault("1", {})[str(i)] = (
+                rng.normal(0, 250, (17, 3)) + [0, 0, 5000]).tolist()
+        for name, blob in (("data", {"images": images,
+                                     "annotations": annotations}),
+                           ("camera", cameras), ("joint_3d", joints)):
+            (ann / f"Human36M_subject{subject}_{name}.json").write_text(
+                json.dumps(blob))
+
+    def write(job):
+        jpg, png, seed = job
+        r = np.random.default_rng(seed)
+        if not (cv2.imwrite(str(jpg), _smooth_u8(r, hw, 3))
+                and cv2.imwrite(str(png), _smooth_u8(r, hw, 1))):
+            raise SystemExit(f"cv2 could not write {jpg}")
+
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(write, jobs))
+    return len(jobs)
+
+
+def _data_tool(name: str, argv, cwd: Path) -> tuple:
+    """``python -m pose3d_tpu_torch.cli.<name> argv`` in a process of its
+    own: (seconds, standard output); a non-zero exit fails the phase."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", f"pose3d_tpu_torch.cli.{name}", *argv],
+        cwd=cwd, env={**os.environ, "PYTHONPATH": str(ROOT)},
+        capture_output=True, text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    if out.returncode:
+        log(out.stderr[-4000:])
+        raise SystemExit(f"cli.{name} exited {out.returncode}")
+    return dt, out.stdout
+
+
+def _archive_samples(d: Path) -> list:
+    """(subject, action, frame, camera) of every sample of every archive
+    under ``d``, in archive order, and the number of archives."""
+    from pose3d_tpu_torch.data import chunks
+
+    keys, tars = [], sorted(d.glob("*.tar.*"))
+    for tar in tars:
+        for s in chunks.open_chunk_store(tar, mode="stream").samples:
+            keys.append((s["subject"], s["action"], s["frame_idx"],
+                         s["cam_idx"]))
+    return keys, len(tars)
+
+
+def _data_tools(tmp: Path, card: str) -> Path:
+    """Raw layout → ``cli.chunker`` → ``cli.split`` → ``cli.rechunker``,
+    each checked; returns the training directory (``train/`` the shuffled
+    set, ``test/`` the test split)."""
+    root = tmp / "h36m"
+    t0 = time.perf_counter()
+    n = _write_raw_layout(root, DATA_FRAMES, DATA_HW)
+    log(f"[data] raw layout: {n} frames of {DATA_HW[1]}x{DATA_HW[0]} JPEG + "
+        f"8-bit depth PNG + keypoint JSON, subjects {list(DATA_FRAMES)}, "
+        f"written in {time.perf_counter() - t0:.1f} s "
+        f"({sum(f.stat().st_size for f in root.rglob('*') if f.is_file()) / 2**20:.1f} MiB)")
+    flow = tmp / "flow"
+    flow.mkdir()
+    times = {}
+    times["chunker"], _ = _data_tool("chunker", [
+        "--subjects", *map(str, DATA_FRAMES), "--output", "chunks",
+        "--chunk-size", str(DATA_CHUNK),
+        "--annotations-path", str(root / "annotations"),
+        "--images-path", str(root / "images"),
+        "--processed-path", str(root / "processed")], tmp)
+    times["split"], said = _data_tool("split", [
+        "--input-dir", "chunks", "--output-dir", "split",
+        "--train-subjects", ",".join(map(str, DATA_TRAIN)),
+        "--test-subjects", ",".join(map(str, DATA_TEST)),
+        "--new-chunk-size", str(DATA_CHUNK)], tmp)
+    times["rechunker"], _ = _data_tool("rechunker", [
+        "--input-dir", "split/train", "--output-dir", str(flow / "train"),
+        "--chunk-size", str(DATA_CHUNK), "--seed", "3"], tmp)
+    (flow / "test").symlink_to(tmp / "split" / "test")
+    chunked, n_chunks = _archive_samples(tmp / "chunks")
+    train, n_train = _archive_samples(tmp / "split" / "train")
+    test, n_test = _archive_samples(tmp / "split" / "test")
+    shuffled, n_shuf = _archive_samples(flow / "train")
+    want = {s: sum(DATA_FRAMES[k] for k in subs)
+            for s, subs in (("train", DATA_TRAIN), ("test", DATA_TEST))}
+    checks = {
+        f"the chunker wrote all {n} frames in {n_chunks} archives": (
+            len(chunked) == n and len(set(chunked)) == n and n_chunks > 1),
+        f"the split holds {want['train']} train and {want['test']} test "
+        "samples": (len(train), len(test)) == (want["train"], want["test"]),
+        "routing by subject exact": (
+            {k[0] for k in train} == set(DATA_TRAIN)
+            and {k[0] for k in test} == set(DATA_TEST)
+            and sorted(train + test) == sorted(chunked)),
+        "the shuffled set equals the train split, in another order": (
+            sorted(shuffled) == sorted(train) and shuffled != train),
+    }
+    log(f"[data] cli.split said {said.strip()!r}; archives: chunker "
+        f"{n_chunks}, train {n_train}, test {n_test}, shuffled {n_shuf}")
+    for what, ok in checks.items():
+        log(f"[data] {what}: {'ok' if ok else 'FAIL'}")
+    if not all(checks.values()):
+        raise SystemExit("the data tools failed a check")
+    for name, samples in (("chunker", n), ("split", n),
+                          ("rechunker", len(train))):
+        log(f"[time] cli.{name} (its own process, interpreter start "
+            f"included): {times[name]:.2f} s for {samples} samples = "
+            f"{samples / times[name]:.1f} samples/s  [{card}]")
+    return flow
+
+
+def _time_host_augment(flow: Path, card: str) -> None:
+    """``PoseAugmentor``'s ms per sample on 500 x 500 uint8 samples decoded
+    from the shuffled archives, on this host's CPU."""
+    from pose3d_tpu_torch.data import augment, chunks
+
+    tar = sorted((flow / "train").glob("*.tar.*"))[0]
+    store = chunks.open_chunk_store(tar, mode="stream")
+    recs = chunks.decode_chunk_samples(store.samples[:AUG_TIMED], store,
+                                       (500, 500), pixel_dtype="uint8")
+    aug = augment.PoseAugmentor(seed=0)
+    ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        outs = [aug(r) for r in recs]
+        ms.append((time.perf_counter() - t0) * 1e3 / len(recs))
+    ok = all(o["image"].shape == (500, 500, 3) and o["image"].dtype
+             == np.float32 and np.isfinite(o["joints_3d"]).all()
+             for o in outs)
+    log(f"[time] host PoseAugmentor (flip, rotation, scale, translate, "
+        f"colour; cv2 on one thread) at 500x500 from uint8: "
+        f"{'/'.join(f'{t:.2f}' for t in ms)} ms a sample over {len(recs)} "
+        f"samples  [{card}]")
+    if not ok:
+        raise SystemExit("PoseAugmentor gave a bad sample")
+
+
+def _time_host_feed(flow: Path, card: str) -> None:
+    """The host feed alone, no step: one epoch of the shuffled archives
+    through ``StreamingChunkedDataset`` + ``BatchLoader`` at 500 x 500 in
+    batches of 10, without and with the host augmentor, each setting twice
+    in turn: the least time a 10 x 10 step fed from these archives can
+    take."""
+    from pose3d_tpu_torch.data.pipeline import (
+        BatchLoader,
+        StreamingChunkedDataset,
+    )
+
+    ms = {False: [], True: []}
+    for augment in (False, True, False, True):
+        ds = StreamingChunkedDataset("train", str(flow),
+                                     image_size=(500, 500),
+                                     pixel_dtype="uint8",
+                                     use_augmentation=augment)
+        ds.training = True
+        t0 = time.perf_counter()
+        n = sum(len(b["image"]) for b in BatchLoader(ds, 10))
+        ms[augment].append((time.perf_counter() - t0) / n * 100 * 1e3)
+    for augment in (False, True):
+        log(f"[time] host feed alone, {'with' if augment else 'without'} "
+            f"PoseAugmentor: an epoch of {n} samples decoded from "
+            f"{DATA_HW[1]}x{DATA_HW[0]} to 500x500 and collated, "
+            f"{'/'.join(f'{t:.0f}' for t in ms[augment])} ms per 100 samples "
+            f"(a 10x10 step's) in two epochs  [{card}]")
+
+
+def _data_train(torch, cli_main, flow: Path, cwd: Path, model_type: str,
+                augment: bool, extra=(), steps=None) -> dict:
+    """``cli.main`` at 10 x 10 from the shuffled archives in ``cwd``; the
+    CNN without validation, the transformer with one at its last step."""
+    from pose3d_tpu_torch.core.config import GlobalConfig
+
+    g = GlobalConfig()
+    steps = steps or DATA_STEPS
+    rec = _run_cli(torch, cli_main, [
+        "--chunks-dir", str(flow), "--device", "cuda",
+        "--model-type", model_type, "--batch-size", str(g.batch_size),
+        "--grad-accum", str(g.gradient_accumulation_steps),
+        "--pixel-dtype", "uint8", "--num-steps", str(steps),
+        "--eval-interval", str(steps if model_type == "transformer"
+                               else 1000),
+        "--no-tensorboard", "--log-interval", "1",
+        *(["--augment"] if augment else []), *extra], cwd)
+    rec["step_ms"] = [v for s, v in rec["writer"].tags.get(
+        "Perf/step_time_ms", []) if s > DATA_WARM]
+    return rec
+
+
+def _data_evaluate(torch, flow: Path, tmp: Path) -> dict:
+    """``cli.evaluate`` on the test split from bare state_dicts of both
+    full-width lifters: the CNN with no hint, the transformer with
+    ``--model-type transformer`` (and refused as a CNN without it)."""
+    import contextlib as _ctx
+    import io as _io
+
+    from pose3d_tpu_torch.cli import evaluate as cli_eval
+    from pose3d_tpu_torch.core.config import (
+        CNNModelConfig,
+        TransformerModelConfig,
+    )
+    from pose3d_tpu_torch.models import build_model
+
+    launches = dict.fromkeys(KERNELS, 0)
+    n_val = int(np.ceil(sum(DATA_FRAMES[s] for s in DATA_TEST) / 10))
+    for cfg in (CNNModelConfig(), TransformerModelConfig()):
+        model = build_model(cfg, device="cuda", generator=torch.Generator(
+            "cuda").manual_seed(21))
+        pth = tmp / f"bare_{cfg.model_type}.pth"
+        torch.save({k: v.cpu() for k, v in model.state_dict().items()}, pth)
+        del model
+        torch.cuda.empty_cache()
+        argv = ["--checkpoint", str(pth), "--chunks-dir", str(flow),
+                "--device", "cuda"]
+        refused = None
+        if cfg.model_type == "transformer":
+            try:
+                cli_eval.main(argv)
+            except ValueError as e:
+                refused = str(e)
+            argv += ["--model-type", "transformer"]
+        out = _io.StringIO()
+        zero_launch_counts()
+        with _ctx.redirect_stdout(out):
+            got = cli_eval.main(argv)
+        counts = launch_counts()
+        want = ({**dict.fromkeys(KERNELS, 0), "flash_attention_fwd":
+                 sum(PASS_LAUNCHES.values()) * n_val}
+                if cfg.model_type == "transformer"
+                else dict.fromkeys(KERNELS, 0))
+        ok = (np.isfinite([got["mpjpe"], got["pa_mpjpe"]]).all()
+              and json.loads(out.getvalue().strip().splitlines()[-1]) == got
+              and counts == want
+              and (cfg.model_type == "cnn" or (
+                  refused is not None and "cnn" in refused)))
+        log(f"[data] cli.evaluate of a bare {cfg.model_type} state_dict "
+            f"({'--model-type transformer' if refused else 'no hint'}) on "
+            f"the test split: MPJPE {got['mpjpe']:.2f}, PA-MPJPE "
+            f"{got['pa_mpjpe']:.2f} mm; launches {counts}"
+            + (f"; without the hint: {refused[:90]!r}"
+               if cfg.model_type == "transformer" else "")
+            + f"  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("cli.evaluate of a bare state_dict failed")
+        for k in KERNELS:
+            launches[k] += counts[k]
+    return launches
+
+
+def _data_serve_batch_dot(torch, tmp: Path) -> None:
+    """A ``normalization="batch_dot"`` CNN written as a ``.pth`` loads and
+    ``serve_http`` answers one ``/predict`` with its eval forward."""
+    from pose3d_tpu_torch.checkpoint import load_pose_model, save_pose_model
+    from pose3d_tpu_torch.core.config import CNNModelConfig
+    from pose3d_tpu_torch.models import build_model
+
+    cfg = CNNModelConfig(normalization="batch_dot")
+    model = build_model(cfg, device="cuda", generator=torch.Generator(
+        "cuda").manual_seed(22))
+    pth = save_pose_model(model, tmp / "cnn_batch_dot.pth")
+    del model
+    loaded, lcfg = load_pose_model(pth, "cuda")
+    req = _request_inputs(23, 2, tuple(cfg.image_size), cfg.num_joints)
+    with torch.no_grad():
+        direct = loaded(*[torch.from_numpy(a).cuda() for a in req]).float()
+    del loaded
+    torch.cuda.empty_cache()
+    zero_launch_counts()
+    with _serving(pth) as base:
+        got = _post(base + "/predict", req)
+        _, meta = _get(base + "/meta")
+    rel = float(np.linalg.norm(got - direct.cpu().numpy())
+                / np.linalg.norm(direct.cpu().numpy()))
+    ok = (lcfg.normalization == "batch_dot" and got.shape == (2, 17, 3)
+          and rel <= TOL_SLICE_REL_L2 and not any(launch_counts().values())
+          and meta["artifact"]["model_type"] == "cnn")
+    log(f"[data] batch_dot .pth loaded ({lcfg.normalization}) and served: "
+        f"/predict {got.shape}, vs its eval forward rel L2 {rel:.3e} (tol "
+        f"{TOL_SLICE_REL_L2:.0e})  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the batch_dot checkpoint does not serve")
+
+
+def phase_data(torch, tmp: Path, card: str) -> dict:
+    """The data path from the shell: a synthetic Human3.6M layout through
+    ``cli.chunker``, ``cli.split`` and ``cli.rechunker``; the host
+    augmentor's time; the full-width CNN and the transformer trained with
+    ``--augment`` from the shuffled archives beside the same runs without
+    it; a ``batch_pallas:N`` CNN in scan with its gate; ``cli.evaluate``
+    from bare state_dicts; a ``batch_dot`` ``.pth`` served."""
+    from pose3d_tpu_torch.cli import main as cli_main
+
+    torch.cuda.empty_cache()
+    flow = _data_tools(tmp, card)
+    _time_host_augment(flow, card)
+    _time_host_feed(flow, card)
+    attn = sum(PASS_LAUNCHES.values())
+    n_val = int(np.ceil(sum(DATA_FRAMES[s] for s in DATA_TEST) / 10))
+    runs = {}
+    for model_type in ("cnn", "transformer"):
+        for augment in (True, False):
+            rec = _data_train(torch, cli_main, flow,
+                              tmp / f"data_{model_type}_{augment}",
+                              model_type, augment)
+            gc.collect()
+            torch.cuda.empty_cache()
+            steps = DATA_STEPS
+            want = dict.fromkeys(KERNELS, 0)
+            if model_type == "transformer":
+                want.update(flash_attention_fwd=attn * (steps + n_val),
+                            flash_attention_bwd=attn * steps)
+            ok = (rec["last_step"] == steps and rec["launches"] == want
+                  and len(rec["losses"]) == steps
+                  and np.isfinite(rec["losses"]).all()
+                  and (model_type == "cnn" or bool(rec["val"])))
+            log(f"[data] {model_type} {'--augment' if augment else 'no augmentation'} "
+                f"from the shuffled archives, 10x10 grouped: "
+                f"{rec['last_step']} steps in {rec['wall']:.1f} s, losses "
+                f"{rec['losses']}, validation {rec['val']}; launches "
+                f"{rec['launches']}; peak {rec['peak']:.2f} GiB  "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"the {model_type} from the shuffled "
+                                 "archives failed a check")
+            runs[model_type, augment] = rec
+    for model_type in ("cnn", "transformer"):
+        def fmt(xs):
+            return (f"median {statistics.median(xs):.1f} ms (min "
+                    f"{min(xs):.1f}, max {max(xs):.1f}, {len(xs)} steps)")
+
+        log(f"[time] {model_type} 10x10 grouped from the shuffled archives "
+            f"({DATA_HW[1]}x{DATA_HW[0]} JPEG decoded to the model's size by "
+            f"the route of [cli]), train_model's Perf/step_time_ms of steps "
+            f"{DATA_WARM + 1}-{DATA_STEPS}, after the first epoch: --augment "
+            f"{fmt(runs[model_type, True]['step_ms'])}, without "
+            f"{fmt(runs[model_type, False]['step_ms'])}  [{card}]")
+
+    A = 10
+    gate = f"batch_pallas:{DATA_GATE}"
+    rec = _data_train(torch, cli_main, flow, tmp / "data_gate", "cnn", True,
+                      extra=("--model-args",
+                             json.dumps({"normalization": gate}),
+                             "--accum-mode", "scan"), steps=1)
+    per_sample = [n for n, _ in _bn_path_shapes(torch, 1)]
+    over = sum(n >= DATA_GATE for n in per_sample)
+    want = {**dict.fromkeys(KERNELS, 0), "bn_stats": over * A}
+    ok = (rec["last_step"] == 1 and rec["launches"] == want
+          and 0 < over < len(per_sample) and np.isfinite(rec["losses"]).all())
+    log(f"[data] CNN {gate} in scan, --augment, one step: losses "
+        f"{rec['losses']}; launches {rec['launches']} (want {over} of "
+        f"{len(per_sample)} BatchNorms at or above {DATA_GATE} pixels a "
+        f"sample x {A} microbatches)  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the batch_pallas:N gate failed a check")
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                + rec["launches"][k] for k in KERNELS}
+    ev = _data_evaluate(torch, flow, tmp)
+    _data_serve_batch_dot(torch, tmp)
+    return {k: launches[k] + ev[k] for k in KERNELS}
+
+
 def phase_imports() -> None:
     """The port, every module of it imported, has loaded nothing of JAX,
     flax or the JAX package."""
@@ -3232,6 +3685,7 @@ def main() -> int:
         tr = phase_train(torch, Path(tmp), card)
         cnn = phase_cnn(torch, Path(tmp), card)
         cli = phase_cli(torch, Path(tmp), card)
+        data = phase_data(torch, Path(tmp), card)
     phase_imports()
     # (file:line of the TPU kernel, launches on its main path, key of the
     # shape its times are given at)
@@ -3268,6 +3722,7 @@ def main() -> int:
         "replaces": replaces,
         "launches": launches,
         "cli_launches": cli["launches"][name],
+        "data_launches": data[name],
         **worst[name],
         **times[key],
     } for name, (replaces, launches, key) in kernels.items()]}))

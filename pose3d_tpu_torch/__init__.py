@@ -16,8 +16,10 @@ statistics, evaluation, ``train_model`` with a device prefetch,
 checkpoints and resume) writing a ``.pth`` the server loads, from the
 shell too: :mod:`pose3d_tpu_torch.cli.main` trains on chunk files
 (:mod:`pose3d_tpu_torch.data`: the chunk stores, the native decoder built
-from ``native/*.cc``, the streaming pipeline) and
-:mod:`pose3d_tpu_torch.cli.evaluate` evaluates. Attention runs through hand-written Hopper flash-attention forward
+from ``native/*.cc``, the streaming pipeline, host augmentation with
+``--augment``) and :mod:`pose3d_tpu_torch.cli.evaluate` evaluates; the
+dataset tools (``cli.chunker``, ``cli.split``, ``cli.rechunker``) write the
+chunk archives from a preprocessed Human3.6M layout. Attention runs through hand-written Hopper flash-attention forward
 and backward kernels (``csrc/flash_attention_fwd.cu``,
 ``csrc/flash_attention_bwd.cu``); the CNN's ``normalization=
 "batch_pallas"`` BatchNorm takes its statistics from the hand-written

@@ -5,6 +5,9 @@ The schema is the reference project's:
 ``{"model_state_dict", "model_type", "model_args", ...}``, the form
 ``pose3d-convert --to-torch`` writes. A bare state_dict and ``module.``
 (DDP) key prefixes are accepted too, as the reference's own loader does.
+Where the file does not name its ``model_type``, the caller's hint
+(``model_type=``, the CLIs' ``--model-type``) names it, else "cnn", the
+reference's default model, as the JAX package's ``convert`` has it.
 """
 
 from __future__ import annotations
@@ -19,9 +22,10 @@ from pose3d_tpu_torch.core.config import make_model_config
 from pose3d_tpu_torch.models.factory import build_model
 
 
-def _read(path) -> Tuple[dict, str, dict]:
+def _read(path, model_type=None) -> Tuple[dict, str, dict]:
     """→ (state_dict, model_type, model_args); raises ValueError with the
-    reason when the file is not a checkpoint this loader reads."""
+    reason when the file is not a checkpoint this loader reads.
+    ``model_type`` is the hint for a file that does not name its own."""
     path = Path(path)
     if not path.is_file():
         raise FileNotFoundError(f"checkpoint not found: {path}")
@@ -38,10 +42,10 @@ def _read(path) -> Tuple[dict, str, dict]:
                          f"{type(ckpt).__name__}")
     if "model_state_dict" in ckpt:
         sd = ckpt["model_state_dict"]
-        model_type = ckpt.get("model_type", "transformer")
+        model_type = ckpt.get("model_type", model_type or "cnn")
         model_args = dict(ckpt.get("model_args") or {})
     elif ckpt and all(isinstance(v, torch.Tensor) for v in ckpt.values()):
-        sd, model_type, model_args = ckpt, "transformer", {}
+        sd, model_type, model_args = ckpt, model_type or "cnn", {}
     else:
         raise ValueError(
             f"{path}: neither a reference checkpoint (no 'model_state_dict') "
@@ -52,13 +56,13 @@ def _read(path) -> Tuple[dict, str, dict]:
 
 
 def load_pose_model(path, device="cuda", *, dtype=torch.bfloat16,
-                    **build_kw) -> Tuple[nn.Module, object]:
-    """Rebuild the architecture (``model_type`` "transformer" or "cnn")
-    from the checkpoint's ``model_args`` and strict-load its weights, and
-    for the CNN its BatchNorm running statistics, onto ``device``
-    (``build_kw``: further keywords of ``build_model``). Returns (model,
-    config)."""
-    sd, model_type, model_args = _read(path)
+                    model_type=None, **build_kw) -> Tuple[nn.Module, object]:
+    """Rebuild the architecture ("transformer" or "cnn": the checkpoint's
+    ``model_type``, else the ``model_type`` hint, else "cnn") from the
+    checkpoint's ``model_args`` and strict-load its weights, and for the
+    CNN its BatchNorm running statistics, onto ``device`` (``build_kw``:
+    further keywords of ``build_model``). Returns (model, config)."""
+    sd, model_type, model_args = _read(path, model_type)
     cfg = make_model_config(model_type, **model_args)
     model = build_model(cfg, device=device, dtype=dtype, **build_kw)
     try:

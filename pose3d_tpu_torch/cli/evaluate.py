@@ -46,6 +46,11 @@ def build_parser():
     p.add_argument("--pixel-dtype", choices=["uint8", "float32"],
                    default="uint8",
                    help="Host-pipeline pixel representation (see cli.main)")
+    p.add_argument("--model-type", choices=["cnn", "transformer"],
+                   default=None,
+                   help="Architecture hint for converting a BARE torch "
+                        "state_dict .pth (self-describing checkpoints "
+                        "ignore it)")
     p.add_argument("--device", type=str, default="cuda",
                    help="Device (default: cuda; raises without a card)")
     p.add_argument("--batch-size", type=int, default=None)
@@ -94,6 +99,7 @@ def _load_state(args, device, dtype):
     from pose3d_tpu_torch.checkpoint import load_pose_model
 
     model, cfg = load_pose_model(path, device, dtype=dtype,
+                                 model_type=args.model_type,
                                  attention_impl=impl)
     step = int(torch.load(path, map_location="cpu", weights_only=True,
                           mmap=True).get("step", 0))

@@ -16,9 +16,8 @@ Usage:
       --train-chunks 0 1 2 --val-chunks 3 --model-type cnn \\
       --checkpoint auto
 
-Flags of features not ported yet (host ``--augment``, ``--vit-weights``,
-the mesh and multi-process flags) are refused with an error that names
-ROADMAP.md.
+Flags of features not ported yet (``--vit-weights``, the mesh and
+multi-process flags) are refused with an error that names ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -47,7 +46,6 @@ logger = logging.getLogger("Training")
 
 # flag → what it would need; each is refused, never accepted and ignored
 NOT_PORTED = {
-    "augment": "host augmentation (data/augment.py, PoseAugmentor)",
     "vit_weights": "pretrained ViT weights (stage1/port.py)",
     "param_sharding": "parameter sharding (parallel/fsdp.py)",
     "multislice": "hybrid meshes (core/mesh.py)",
@@ -143,6 +141,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "(cli.evaluate --ema)")
     p.add_argument("--no-tensorboard", action="store_true",
                    help="Disable TensorBoard logging")
+    p.add_argument("--augment", action="store_true",
+                   help="Enable data augmentation on the train set "
+                        "(host-side, reference-parity path)")
     p.add_argument("--augment-device", action="store_true",
                    help="Augment on the device inside the train step "
                         "(ops/augment_device): flip, scale, translate and "
@@ -178,7 +179,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Report PA-MPJPE with the reference's transposed-"
                         "rotation convention instead of true Procrustes")
     # not ported yet: refused in main()
-    p.add_argument("--augment", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--vit-weights", type=str, default=None,
                    help=argparse.SUPPRESS)
     p.add_argument("--param-sharding", type=str, default=None,
@@ -215,6 +215,9 @@ def main(argv=None):
                          "to pose3d_tpu_torch yet (ROADMAP.md Queue 1)")
     if args.augment_device_rotation and not args.augment_device:
         parser.error("--augment-device-rotation requires --augment-device")
+    if args.augment and args.augment_device:
+        parser.error("--augment (host) and --augment-device are mutually "
+                     "exclusive — pick one augmentation path")
     device = resolve_device(args.device)
     cfg = GlobalConfig()
     np.random.seed(cfg.random_seed)
@@ -323,8 +326,9 @@ def main(argv=None):
     root_relative = not args.absolute_pose
     train_ds = StreamingChunkedDataset(
         "train", args.chunks_dir, chunk_indices=args.train_chunks,
-        image_size=image_size, cache_dir=cache_dir, shuffle=True,
-        shuffle_chunks=True, root_relative=root_relative,
+        image_size=image_size, cache_dir=cache_dir,
+        use_augmentation=args.augment,
+        shuffle=True, shuffle_chunks=True, root_relative=root_relative,
         chunk_io=args.chunk_io, pixel_dtype=args.pixel_dtype)
     train_ds.training = True
     if data_state:

@@ -25,7 +25,7 @@ def state_dict_from_jax(variables: Dict, cfg) -> "OrderedDict[str, torch.Tensor]
     """JAX ``variables`` (``{"params": ..., "batch_stats": ...}``, numpy
     leaves) → an ordered torch state_dict in the reference's key order.
     ``cfg`` may be either package's config (only field names are read). The
-    CNN is taken with ``normalization`` "batch" or "batch_pallas"."""
+    CNN is taken with every ``normalization`` the port builds."""
     model_type = getattr(cfg, "model_type", "transformer")
     if model_type == "cnn":
         writer = export_reference_cnn(variables, cfg)

@@ -48,8 +48,8 @@ def _conv_k(kernel) -> np.ndarray:  # flax [kh, kw, I/g, O] → torch [O, I/g, k
 def _x_cba(w: _Writer, p: Dict, s: Dict, prefix: str) -> None:
     """ConvBnAct params/stats → reference ConvBnAct keys (conv → norm →
     act registration order). flax names the norm ``BatchNorm_0`` under
-    normalization="batch" and ``DotStatsBatchNorm_0`` under
-    "batch_pallas"; the leaves are the same."""
+    normalization="batch" and ``DotStatsBatchNorm_0`` under "batch_dot"
+    and "batch_pallas[:N]"; the leaves are the same."""
     conv = p["Conv_0"]
     w.p(prefix + "conv.weight", _conv_k(conv["kernel"]))
     if "bias" in conv:
@@ -190,14 +190,16 @@ def export_reference_cnn(variables: Dict, cfg) -> _Writer:
     """Map the JAX CNN's variables ({params, batch_stats}) onto a reference
     ``CNNPoseEstimation.state_dict()`` — a :class:`_Writer` whose ``sd`` is
     the ordered state_dict (numpy values, exact torch key order) and whose
-    ``param_keys`` is the ``model.parameters()`` order. Both BatchNorm
-    settings the port builds are taken: "batch" and "batch_pallas".
+    ``param_keys`` is the ``model.parameters()`` order. Every BatchNorm
+    setting the port builds is taken: "batch", "batch_dot", "batch_pallas"
+    and "batch_pallas:N".
     """
     norm = getattr(cfg, "normalization", "batch")
-    if norm not in ("batch", "batch_pallas"):
+    if norm not in ("batch", "batch_dot", "batch_pallas") \
+            and not norm.startswith("batch_pallas:"):
         raise ValueError(
-            "torch export supports normalization='batch' and "
-            f"'batch_pallas'; got {norm!r}"
+            "torch export supports normalization 'batch', 'batch_dot', "
+            f"'batch_pallas' and 'batch_pallas:N'; got {norm!r}"
         )
     params = variables["params"]
     stats = variables["batch_stats"]

@@ -41,9 +41,10 @@ class GlobalConfig:
     weight decay 0.01, loss weights mse 1, l1 1, inter-joint 100,
     abs-root 1, TensorBoard under ``./logs``, checkpoints named
     ``model_epoch__<type>_step_<N>``, bf16 compute over fp32 parameters).
-    Device augmentation has its own
-    ``ops.augment_device.DeviceAugmentConfig``; host-augmentation and mesh
-    fields come with the modules that read them."""
+    Host augmentation is ``--augment`` alone, with ``PoseAugmentor``'s
+    default ranges; device augmentation has its own
+    ``ops.augment_device.DeviceAugmentConfig``; mesh fields come with the
+    modules that read them."""
 
     random_seed: int = 42
     batch_size: int = 10
@@ -77,9 +78,11 @@ class CNNModelConfig:
     128/256/512 of depths 3/4/5 with expand ratios 1/3/6, WASP, 8×8 global
     pooling to 1024 features, head 1024/512).
 
-    ``normalization``: "batch" (BatchNorm with flax's numerics) or
+    ``normalization``: "batch" (BatchNorm with flax's numerics),
     "batch_pallas" (the BatchNorm whose batch statistics come from the
-    hand-written ``bn_stats`` kernel)."""
+    hand-written ``bn_stats`` kernel), "batch_pallas:N" (the kernel only
+    for layers of N pixels a sample or more) or "batch_dot" (the same
+    BatchNorm with plain statistics)."""
 
     model_type: str = "cnn"
     image_size: Tuple[int, int] = (500, 500)

@@ -7,8 +7,9 @@ split over shards round-robin by (shard_id, num_shards); ``BatchLoader``
 emits fixed-shape numpy batches, each stamped with ``_pos`` (epoch, raw
 samples consumed), the data position a checkpoint records.
 
-Host augmentation (``use_augmentation``, the JAX package's
-``PoseAugmentor``) is not ported yet (ROADMAP.md Queue 1) and is refused.
+``use_augmentation`` runs the host ``PoseAugmentor`` (``data/augment.py``,
+``augmentation_config`` its keywords) over each sample of a dataset whose
+``training`` is set, in the consumer's thread, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -293,11 +294,11 @@ class StreamingChunkedDataset:
                 )
             self.chunk_files = self.chunk_files[shard_id::num_shards]
 
-        if use_augmentation or augmentation_config:
-            raise NotImplementedError(
-                "host augmentation (PoseAugmentor) is not ported yet "
-                "(ROADMAP.md Queue 1); use the device augmentation "
-                "(ops.augment_device) instead")
+        self.augmentor = None
+        if use_augmentation:
+            from pose3d_tpu_torch.data.augment import PoseAugmentor
+
+            self.augmentor = PoseAugmentor(**(augmentation_config or {}))
 
         if cache_dir:
             self.cache_dir = Path(cache_dir) / prefix / f"shard_{shard_id}"
@@ -372,7 +373,13 @@ class StreamingChunkedDataset:
                 if item is None:
                     return
                 _, samples = item
-                yield from samples
+                for s in samples:
+                    if self.augmentor is not None and self.training:
+                        pos = s.get("_raw_pos")
+                        s = self.augmentor(s)
+                        if pos is not None:  # survive augmentor rebuilds
+                            s["_raw_pos"] = pos
+                    yield s
         finally:
             prefetcher.close()
 

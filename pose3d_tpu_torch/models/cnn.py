@@ -21,8 +21,9 @@ cast at use; BatchNorm statistics are fp32.
 Two BatchNorm numerics, each matched to its JAX counterpart:
 :class:`BatchNorm` (flax ``nn.BatchNorm``, ``normalization="batch"``)
 normalises in fp32 and casts at the end; :class:`DotStatsBatchNorm`
-(``"batch_pallas"``) takes Σx and Σx² from the hand-written ``bn_stats``
-kernel and normalises in the compute dtype. Both use the biased variance
+(``"batch_pallas"``, ``"batch_pallas:N"`` and ``"batch_dot"``) takes Σx
+and Σx² from the hand-written ``bn_stats`` kernel or as plain fp32 sums
+and normalises in the compute dtype. Both use the biased variance
 ``max(E[x²] − E[x]², 0)`` for the batch and for the running statistics,
 and ``running = 0.9·running + 0.1·batch``.
 """
@@ -179,30 +180,41 @@ class BatchNorm(_BatchNormBase):
 
 
 class DotStatsBatchNorm(_BatchNormBase):
-    """The JAX package's ``DotStatsBatchNorm(stats="pallas")``: Σx and Σx²
-    of the ``[N·H·W, C]`` view from the ``bn_stats`` kernel (fp32), then
-    mean and ``rsqrt(var + eps)·weight`` cast to ``dtype`` and the
-    normalisation done in ``dtype``.
+    """The JAX package's ``DotStatsBatchNorm``: fp32 Σx and Σx² of the
+    ``[N·H·W, C]`` view, then mean and ``rsqrt(var + eps)·weight`` cast to
+    ``dtype`` and the normalisation done in ``dtype``.
 
     ``stats_impl``: "auto" launches the Hopper kernel for CUDA tensors and
     runs the plain version for CPU tensors; "reference" runs the plain
-    version everywhere."""
+    version everywhere. ``"batch_dot"`` is built with "reference": its TPU
+    statistics path is a compiler workaround and is not ported. The plain
+    sums square x in fp32, so in bf16 they differ from JAX's ``batch_dot``,
+    which squares x in bf16 before its fp32 contraction.
 
-    def __init__(self, features: int, *, stats_impl: str = "auto",
-                 device=None):
+    ``min_pixels`` (the N of ``"batch_pallas:N"``): a layer with fewer
+    pixels per sample takes the plain sums and launches nothing, as the JAX
+    gate does; ``gated`` records that decision at the last train-mode
+    forward (None before)."""
+
+    def __init__(self, features: int, *, min_pixels: int = 0,
+                 stats_impl: str = "auto", device=None):
         super().__init__(features, device=device)
         if stats_impl not in ("auto", "reference"):
             raise ValueError(f"unknown stats_impl {stats_impl!r}")
+        self.min_pixels = min_pixels
         self.stats_impl = stats_impl
+        self.gated = None
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         x = x.to(dtype)
         if self.training:
             C = x.shape[-1]
             n = x.numel() // C
+            self.gated = n // x.shape[0] < self.min_pixels
+            launch = (not self.gated and x.is_cuda
+                      and self.stats_impl == "auto")
             # a view, never a copy of x
-            s1, s2 = BnStats.apply(
-                x.view(n, C), self.stats_impl == "auto" and x.is_cuda)
+            s1, s2 = BnStats.apply(x.view(n, C), launch)
             mean = s1 / n
             var = (s2 / n - mean * mean).clamp_min(0.0)
             self._update_running(mean.detach()[None], var.detach()[None])
@@ -213,15 +225,21 @@ class DotStatsBatchNorm(_BatchNormBase):
 
 
 def _norm(name: str, features: int, *, stats_impl: str = "auto", device=None):
-    """Normalisation factory. Ported: "batch" and "batch_pallas"."""
+    """Normalisation factory. Ported: "batch", "batch_dot", "batch_pallas"
+    and "batch_pallas:N"; any other name raises (the JAX factory's
+    fallthrough to BatchNorm would hide a typo)."""
     if name == "batch":
         return BatchNorm(features, device=device)
-    if name == "batch_pallas":
-        return DotStatsBatchNorm(features, stats_impl=stats_impl,
+    if name == "batch_dot":
+        return DotStatsBatchNorm(features, stats_impl="reference",
                                  device=device)
+    if name == "batch_pallas" or name.startswith("batch_pallas:"):
+        min_pixels = int(name.split(":")[1]) if ":" in name else 0
+        return DotStatsBatchNorm(features, min_pixels=min_pixels,
+                                 stats_impl=stats_impl, device=device)
     raise NotImplementedError(
-        f"normalization {name!r} is not ported (ported: batch, "
-        "batch_pallas)")
+        f"normalization {name!r} is not ported (ported: batch, batch_dot, "
+        "batch_pallas, batch_pallas:N)")
 
 
 def _conv2d(x: torch.Tensor, conv: nn.Conv2d, dtype) -> torch.Tensor:

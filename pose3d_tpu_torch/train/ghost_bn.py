@@ -39,16 +39,17 @@ from pose3d_tpu_torch.models.cnn import (  # noqa: F401
 @contextlib.contextmanager
 def grouped_batchnorm(model: nn.Module, groups: int):
     """Inside the block every plain BatchNorm of ``model`` works per group
-    of ``batch / groups`` consecutive samples. The ``bn_stats``-kernel
-    flavour is refused rather than mis-grouped: its statistics would cover
-    the whole flat batch and change the training semantics."""
+    of ``batch / groups`` consecutive samples. ``DotStatsBatchNorm`` (the
+    ``bn_stats``-kernel and ``batch_dot`` flavours) is refused rather than
+    mis-grouped, as the JAX grouped step refuses it: its statistics would
+    cover the whole flat batch and change the training semantics."""
     norms = []
     for mod in model.modules():
         if isinstance(mod, DotStatsBatchNorm):
             raise NotImplementedError(
                 "accum_mode='grouped' supports normalization='batch' only; "
                 f"use accum_mode='scan' with {type(mod).__name__} "
-                "(normalization='batch_pallas')")
+                "(normalization='batch_pallas[:N]' or 'batch_dot')")
         if isinstance(mod, nn.modules.batchnorm._BatchNorm):
             raise NotImplementedError(
                 f"grouped accumulation cannot group {type(mod).__name__}; "

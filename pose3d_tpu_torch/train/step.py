@@ -9,8 +9,8 @@ step, updating the state in place. Accumulation modes:
   means. Every plain BatchNorm works per group of B samples for the
   duration of the step (:mod:`pose3d_tpu_torch.train.ghost_bn`), so
   statistics, running averages and gradients equal the scan path's; the
-  ``bn_stats``-kernel BatchNorm (``normalization="batch_pallas"``) is
-  refused, as in the JAX package.
+  ``DotStatsBatchNorm`` (``normalization`` "batch_pallas[:N]" and
+  "batch_dot") is refused, as in the JAX package.
 * ``"scan"``: A sequential forward/backward passes, gradients summed and
   then divided by A (the reference's accumulation loop); activations of
   one microbatch at a time, and the BatchNorm running statistics move from

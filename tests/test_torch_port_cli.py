@@ -194,7 +194,7 @@ def test_summary_writer_needs_a_tensorboard_package(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--augment"], ["--vit-weights", "vit.pth"], ["--param-sharding", "fsdp"],
+    ["--vit-weights", "vit.pth"], ["--param-sharding", "fsdp"],
     ["--multislice"], ["--coordinator", "localhost:1234"],
     ["--num-processes", "2"], ["--process-id", "0"],
 ])

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 from helpers_synthetic import make_synthetic_chunk
+import torch_port_helpers as helpers
 from torch_port_helpers import (
     FIXTURE_DIR,
     FIXTURE_HW,
@@ -31,17 +32,7 @@ ROOT = Path(__file__).resolve().parents[1]
 HW = (40, 48)
 
 
-@pytest.fixture
-def jax_on_port_library(monkeypatch):
-    """The JAX package's native path loading the port's library (the same
-    sources and flags): its Python layer against the port's, on one
-    decoder. The committed ``native/libposedec.so`` is built with
-    ``-march=native`` and rounds differently
-    (``test_committed_binary_differs_by_its_compiler_flags``)."""
-    monkeypatch.setenv("POSEDEC_LIB", str(native.library_path()))
-    monkeypatch.setattr(jnative, "_LIB", None)
-    monkeypatch.setattr(jnative, "_SEARCHED", False)
-    assert native.native_available() and jnative.native_available()
+jax_on_port_library = pytest.fixture(helpers.jax_on_port_library)
 
 
 @pytest.fixture(scope="module")
@@ -239,12 +230,6 @@ def test_resume_fast_forward_matches_jax(chunk_dir, jax_on_port_library):
         want = _stream(jpipeline, chunk_dir, epoch, consumed, n=16 - at)
         assert [_key(b) for b in got] == [_key(b) for b in full[at:]]
         assert [_key(b) for b in got] == [_key(b) for b in want]
-
-
-def test_host_augmentation_is_refused(chunk_dir):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        pipeline.StreamingChunkedDataset("train", chunk_dir,
-                                         use_augmentation=True)
 
 
 def test_native_library_is_built_from_the_sources():

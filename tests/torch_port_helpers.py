@@ -54,6 +54,22 @@ def jax_forward(model, variables, args) -> np.ndarray:
     return np.asarray(fn(variables, *args), np.float32)
 
 
+def jax_on_port_library(monkeypatch):
+    """The JAX package's native path loading the port's library (the same
+    sources and flags): its Python layer against the port's, on one
+    decoder. The committed ``native/libposedec.so`` is built with
+    ``-march=native`` and rounds differently
+    (``test_committed_binary_differs_by_its_compiler_flags``). Test files
+    make it a fixture."""
+    from pose3d_tpu.data import native as jnative
+    from pose3d_tpu_torch.data import native
+
+    monkeypatch.setenv("POSEDEC_LIB", str(native.library_path()))
+    monkeypatch.setattr(jnative, "_LIB", None)
+    monkeypatch.setattr(jnative, "_SEARCHED", False)
+    assert native.native_available() and jnative.native_available()
+
+
 def rel_l2(a, b) -> float:
     a = np.asarray(a, np.float64)
     b = np.asarray(b, np.float64)
