@@ -149,12 +149,31 @@ Phases, each fatal on failure:
      per microbatch, none below); ``cli.evaluate`` on the test split from
      bare state_dicts (the CNN with no hint, the transformer with
      ``--model-type transformer`` and refused without it); a
-     ``batch_dot`` ``.pth`` loaded and served.
+     ``batch_dot`` ``.pth`` loaded and served;
+ 12. export: (a) the full transformer from ``cli.main`` on the fixture,
+     grouped 10 × 10 with the published dropout, with and without
+     ``--remat`` (40 forward and 20 backward attention launches a pass
+     with it), and the bare remat step against the plain one from one
+     seeded state and generator (loss, whole gradient, step time, peak
+     memory); (b) one timed grouped 10 × 10 step of the full-width CNN with
+     each of ``identity``, ``instance``, ``layer`` and ``group``; (c)
+     ``cli.infer`` in its own process for a full-width transformer and CNN
+     ``.pth`` on 16 cached 1,000×1,000 frames at batch 8, the saved joints
+     against a direct forward on the same decompacted inputs; (d)
+     ``cli.export`` of both lifters (dynamic ``xla``, the transformer's
+     ``pallas`` with the custom operator in its graph and 20 launches a
+     call, ``--batch-size 8``, ``--quantize int8``), each artifact against
+     the live model at batches 1, 3 and 8 (int8: the dequantised weights'),
+     the ``xla`` ones in a process that cannot import the port; (e)
+     ``serve_http --artifact`` of the ``pallas`` and the static artifacts,
+     ``/predict`` timed at batch 1 and 8, a batch of 3 padded.
 
 Standard output ends with a JSON line of the kernels (``launches`` on
 the path that first drives each kernel, ``cli_launches`` on phase 10's
-runs, ``data_launches`` on phase 11's) and, last, one JSON line ``{"ok": true, "device": {...}}``. Without CUDA, or without the
-repository beside it, the script exits non-zero and prints no result.
+runs, ``data_launches`` on phase 11's, ``export_launches`` on phase 12's)
+and, last, one JSON line ``{"ok": true, "device": {...}}``. Without CUDA,
+or without the repository beside it, the script exits non-zero and prints
+no result.
 """
 
 from __future__ import annotations
@@ -170,6 +189,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import textwrap
 import threading
 import time
 import urllib.error
@@ -1181,17 +1201,24 @@ def phase_slice(torch, tmp: Path) -> dict:
 
 
 class _serving:
-    """The port's HTTP server on a free local port for a ``.pth``, healthy
-    on entry (its URL), shut down and joined on exit."""
+    """The port's HTTP server on a free local port for a ``.pth`` (or, with
+    ``artifact``, an exported artifact directory), healthy on entry (its
+    URL), shut down and joined on exit."""
 
-    def __init__(self, pth):
+    def __init__(self, pth, artifact: bool = False):
         self.pth = pth
+        self.artifact = artifact
 
     def __enter__(self) -> str:
-        from pose3d_tpu_torch.serve_http import make_server
+        from pose3d_tpu_torch.serve_http import (
+            make_artifact_server,
+            make_server,
+        )
 
-        self.srv = make_server(self.pth, "127.0.0.1", 0, device="cuda",
-                               max_batch=8)
+        self.srv = (make_artifact_server(self.pth, "127.0.0.1", 0,
+                                         max_batch=8) if self.artifact
+                    else make_server(self.pth, "127.0.0.1", 0, device="cuda",
+                                     max_batch=8))
         self.thread = threading.Thread(target=self.srv.serve_forever,
                                        daemon=True)
         self.thread.start()
@@ -1342,9 +1369,13 @@ def phase_train(torch, tmp: Path, card: str) -> dict:
                           p.to(torch.float8_e5m2).float(), do.float())
         return dq, dk, dv.to(q.dtype)
 
+    def plain_fwd(q, k, v):
+        # in place of the launch behind the forward's custom operator
+        return tuple(t.contiguous()
+                     for t in flash_attention_fwd_reference(q, k, v))
+
     plain = runs[bf16, "reference"][1]
-    iso = one_step(bf16, "auto",
-                   flash_attention_fwd=flash_attention_fwd_reference)[1]
+    iso = one_step(bf16, "auto", _launch_fwd=plain_fwd)[1]
     ctl = one_step(bf16, "reference",
                    flash_attention_bwd_reference=bwd_p_e5m2)[1]
     rel_b, rel_c = rel_l2(iso, plain), rel_l2(ctl, plain)
@@ -3634,6 +3665,594 @@ def phase_data(torch, tmp: Path, card: str) -> dict:
     return {k: launches[k] + ev[k] for k in KERNELS}
 
 
+# -- phase 12: export -----------------------------------------------------------
+
+EXPORT_STEPS = 3        # the transformer from the CLI, with and without --remat
+INFER_IMAGES, INFER_BATCH = 16, 8
+INFER_HW = (1000, 1000)  # Human3.6M's frame size (height, width)
+EXPORT_BATCHES = (1, 3, 8)
+EXPORT_STATIC = 8
+CNN_NORMS = ("identity", "instance", "layer", "group")
+# a remat step against the plain step from the same state, masks and
+# batch: the forward is the same arithmetic, so the loss must come out
+# bitwise; the gradients differ by the order of the attention backward's
+# dQ reductions only (7.8e-4 to 8.1e-4 whole-gradient relative L2 on the
+# card), held to the attention backward's bound TOL_BWD_STEP_REL_L2. The
+# loss cannot see a recomputation that draws other dropout masks, so every
+# run also takes the step with a plain checkpoint, which redraws them from
+# the generator, and fails unless that control lands beyond the bound.
+
+
+def _remat_cli(torch, cli_main, tmp: Path, remat: bool) -> dict:
+    """The full transformer from the CLI on the committed fixture, grouped
+    10 x 10 with the published dropout, for ``EXPORT_STEPS`` steps, with or
+    without ``--remat``; no validation."""
+    from pose3d_tpu_torch.core.config import GlobalConfig
+
+    g = GlobalConfig()
+    return _run_cli(torch, cli_main, [
+        "--chunks-dir", str(FIXTURE), "--device", "cuda",
+        "--model-type", "transformer", "--batch-size", str(g.batch_size),
+        "--grad-accum", str(g.gradient_accumulation_steps),
+        "--eval-interval", str(10 ** 6), "--num-steps", str(EXPORT_STEPS),
+        "--no-tensorboard", "--log-interval", "1",
+        "--cache-dir", str(tmp / "cli_cache"), *(["--remat"] if remat else [])],
+        tmp / f"export_remat_{int(remat)}")
+
+
+def _remat_steps(torch, card: str) -> dict:
+    """The bare grouped 10 x 10 step of the full transformer (published
+    dropout, bf16) with and without remat, from the same seeded state,
+    generator and device-resident superbatch: loss, whole gradient, launch
+    counts, peak memory and step time."""
+    from pose3d_tpu_torch.core.config import GlobalConfig, \
+        TransformerModelConfig
+    from torch.utils.checkpoint import checkpoint
+
+    from pose3d_tpu_torch.models import build_model, transformer
+    from pose3d_tpu_torch.ops.losses import LossWeights
+    from pose3d_tpu_torch.train import loop, state as tstate, step as tstep
+
+    def _redrawing_remat(fn, gen, *tensors):
+        return checkpoint(fn, *tensors, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    g = GlobalConfig()
+    A, B = g.gradient_accumulation_steps, g.batch_size
+    weights = LossWeights(g.mse_loss_weight, g.l1_loss_weight,
+                          g.inter_joint_loss_weight, g.abs_root_loss_weight)
+    cfg = TransformerModelConfig()
+    hw, J = tuple(cfg.image_size), cfg.num_joints
+    sb = loop.to_device(next(loop._superbatches(
+        _train_batches(31, A, B, hw, J), A)), "cuda")
+    runs = {}
+    for remat in (False, True, "control"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = build_model(cfg, device="cuda", dtype=torch.bfloat16,
+                            train=True, remat=bool(remat),
+                            generator=torch.Generator("cuda").manual_seed(0))
+        st = tstate.create_train_state(model, g.learning_rate,
+                                       g.weight_decay)
+        step = tstep.make_train_step(weights, accum_mode="grouped")
+        gen = torch.Generator("cuda").manual_seed(g.random_seed + 5)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        with (mock.patch.object(transformer, "_remat", _redrawing_remat)
+              if remat == "control" else contextlib.nullcontext()):
+            m = step(st, sb, gen)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        grad = torch.cat([p.grad.flatten() for p in st.trainable()]).clone()
+        if remat == "control":
+            runs[remat] = dict(loss=m["total_loss"].item(), grad=grad)
+            del model, st, step, m
+            continue
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(st, sb, gen)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        runs[remat] = dict(loss=m["total_loss"].item(), grad=grad,
+                           launches=launches, peak=peak, runs=ts,
+                           ms=statistics.median(ts))
+        del model, st, step, m
+    del sb
+    return runs
+
+
+def _export_remat(torch, cli_main, tmp: Path, card: str) -> dict:
+    attn = sum(PASS_LAUNCHES.values())
+    plain_cli = _remat_cli(torch, cli_main, tmp, False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    remat_cli = _remat_cli(torch, cli_main, tmp, True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for rec, remat in ((plain_cli, False), (remat_cli, True)):
+        fwd = attn * (2 if remat else 1) * EXPORT_STEPS
+        want = {**dict.fromkeys(KERNELS, 0), "flash_attention_fwd": fwd,
+                "flash_attention_bwd": attn * EXPORT_STEPS}
+        ms = [v for _, v in rec["writer"].tags.get("Perf/step_time_ms", [])]
+        ok = (rec["last_step"] == EXPORT_STEPS and rec["launches"] == want
+              and len(rec["losses"]) == EXPORT_STEPS
+              and np.isfinite(rec["losses"]).all())
+        log(f"[export] (a) transformer 512x512 from the CLI"
+            f"{' --remat' if remat else ''}, 10x10 grouped, published "
+            f"dropout: {rec['last_step']} steps in {rec['wall']:.1f} s, "
+            f"losses {rec['losses']}; train_model's step times "
+            f"{[round(t, 1) for t in ms]} ms; launches {rec['launches']} "
+            f"(want {attn * (2 if remat else 1)} forward and {attn} backward "
+            f"a pass); peak {rec['peak']:.2f} GiB  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("the transformer from the CLI"
+                             f"{' with --remat' if remat else ''} failed a "
+                             "check")
+    runs = _remat_steps(torch, card)
+    p, r, c = runs[False], runs[True], runs["control"]
+    dl = abs(r["loss"] - p["loss"]) / abs(p["loss"])
+    rel, rel_c = (((x["grad"] - p["grad"]).double().norm()
+                   / p["grad"].double().norm()).item() for x in (r, c))
+    bitwise = torch.equal(r["grad"], p["grad"])
+    want = {False: {"flash_attention_fwd": attn, "flash_attention_bwd": attn},
+            True: {"flash_attention_fwd": 2 * attn,
+                   "flash_attention_bwd": attn}}
+    launches_ok = all(
+        runs[m]["launches"] == {**dict.fromkeys(KERNELS, 0), **want[m]}
+        for m in (False, True))
+    ok = (launches_ok and np.isfinite(r["loss"])
+          and (r["loss"] == p["loss"] or dl <= TOL_STEP_LOSS["bfloat16"])
+          and rel <= TOL_BWD_STEP_REL_L2 < rel_c)
+    log(f"[export] (a) bare grouped 10x10 step from one seeded state and "
+        f"generator: remat loss {r['loss']!r} vs plain {p['loss']!r} "
+        f"({'bitwise' if r['loss'] == p['loss'] else f'rel {dl:.2e}'}); "
+        f"gradient rel L2 {rel:.3e} over {p['grad'].numel()} values "
+        f"({'bitwise' if bitwise else 'not bitwise'}; tol "
+        f"{TOL_BWD_STEP_REL_L2:.0e}); control, a plain checkpoint that "
+        f"redraws the masks: loss {c['loss']!r}, gradient rel L2 "
+        f"{rel_c:.3e} (must exceed the tol); launches remat "
+        f"{ {k: v for k, v in r['launches'].items() if v} }, plain "
+        f"{ {k: v for k, v in p['launches'].items() if v} }  "
+        f"{'ok' if ok else 'FAIL'}")
+    for name, x in (("plain", p), ("--remat", r)):
+        log(f"[time] transformer train step, 10x10 grouped, published "
+            f"dropout, bf16, {name}: {x['ms']:.1f} ms (median of "
+            f"{'/'.join(f'{t:.1f}' for t in x['runs'])}) = "
+            f"{100 / x['ms'] * 1e3:.1f} images/s on a device-resident "
+            f"superbatch; peak memory {x['peak']:.2f} GiB  [{card}]")
+    if not ok:
+        raise SystemExit("the remat step disagrees with the plain step")
+    del runs, p, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: plain_cli["launches"][k] + remat_cli["launches"][k]
+            for k in KERNELS}
+
+
+def _export_norms(torch, card: str) -> None:
+    """One grouped 10 x 10 step of the full-width CNN with each per-sample
+    normalisation after a first step: finite loss, step time, peak
+    memory, and no kernel launched (the coordinate attention's BatchNorms
+    are the plain ones)."""
+    from pose3d_tpu_torch.core.config import CNNModelConfig, GlobalConfig
+    from pose3d_tpu_torch.models import build_model
+    from pose3d_tpu_torch.ops.losses import LossWeights
+    from pose3d_tpu_torch.train import loop, state as tstate, step as tstep
+
+    g = GlobalConfig()
+    A, B = g.gradient_accumulation_steps, g.batch_size
+    weights = LossWeights(g.mse_loss_weight, g.l1_loss_weight,
+                          g.inter_joint_loss_weight, g.abs_root_loss_weight)
+    base = CNNModelConfig()
+    sb = loop.to_device(next(loop._superbatches(
+        _train_batches(41, A, B, tuple(base.image_size), base.num_joints),
+        A)), "cuda")
+    for norm in CNN_NORMS:
+        cfg = dataclasses.replace(base, normalization=norm)
+        model = build_model(cfg, device="cuda", dtype=torch.bfloat16,
+                            train=True,
+                            generator=torch.Generator("cuda").manual_seed(1))
+        st = tstate.create_train_state(model, g.learning_rate,
+                                       g.weight_decay)
+        step = tstep.make_train_step(weights, accum_mode="grouped")
+        gen = torch.Generator("cuda").manual_seed(2)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        ts, losses = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = step(st, sb, gen)
+            losses.append(m["total_loss"].item())
+            ts.append((time.perf_counter() - t) * 1e3)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_bn = sum(1 for n, _ in model.named_buffers()
+                   if n.endswith("running_mean"))
+        ok = (np.isfinite(losses).all() and not any(launch_counts().values())
+              and st.step == 2)
+        log(f"[export] (b) CNN 500x500 normalization={norm!r}, 10x10 "
+            f"grouped, bf16: losses {losses}, {n_bn} BatchNorms left (the "
+            f"coordinate attention's), launches "
+            f"{ {k: v for k, v in launch_counts().items() if v} or 'none'}  "
+            f"{'ok' if ok else 'FAIL'}")
+        log(f"[time] CNN train step, 10x10 grouped, normalization={norm!r}: "
+            f"{ts[1]:.1f} ms ({100 / ts[1] * 1e3:.1f} images/s; the first "
+            f"step {ts[0]:.1f} ms); peak memory {peak:.2f} GiB  [{card}]")
+        if not ok:
+            raise SystemExit(f"the CNN with {norm} failed a check")
+        del model, st, step, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    del sb
+
+
+def _write_infer_folder(root: Path) -> None:
+    """``INFER_IMAGES`` smooth seeded 1000x1000 JPEG frames with their
+    cached stage-1 artifacts: ``<stem>_depth.png`` and ``<stem>.json``
+    (one person's 17 keypoints, the depth range)."""
+    import cv2
+
+    rng = np.random.default_rng(61)
+    root.mkdir(parents=True)
+    h, w = INFER_HW
+    for i in range(INFER_IMAGES):
+        stem = f"frame_{i:03d}"
+        img = _smooth_u8(rng, INFER_HW, 3)
+        cv2.imwrite(str(root / f"{stem}.jpg"), img)
+        cv2.imwrite(str(root / f"{stem}_depth.png"),
+                    _smooth_u8(rng, INFER_HW, 1))
+        person = [{"x": float(rng.uniform(0.2, 0.8) * w),
+                   "y": float(rng.uniform(0.2, 0.8) * h),
+                   "conf": float(rng.uniform(0.3, 1.0))} for _ in range(17)]
+        (root / f"{stem}.json").write_text(json.dumps({
+            "image_size": [w, h], "keypoints": [person],
+            "depth_min": float(rng.uniform(1.0, 2.0)),
+            "depth_max": float(rng.uniform(4.0, 6.0))}))
+
+
+def _subprocess_json(code: str, cwd: Path, timeout: int = 600) -> tuple:
+    """Run ``code`` in a fresh interpreter with the repository on its path:
+    (the JSON object on the last line of its standard output, its standard
+    error)."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    out = subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=timeout)
+    if out.returncode != 0:
+        raise SystemExit(f"subprocess failed ({out.returncode}):\n"
+                         f"{out.stderr[-4000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1]), out.stderr
+
+
+def _export_infer(torch, tmp: Path, pths: dict, card: str) -> dict:
+    """``cli.infer`` on ``INFER_IMAGES`` cached 1000x1000 frames, at batch
+    ``INFER_BATCH``, in its own process for each lifter; the saved joints
+    against a direct forward (plain attention) on the same decompacted
+    inputs."""
+    import cv2
+
+    from pose3d_tpu_torch.checkpoint import load_pose_model
+    from pose3d_tpu_torch.cli.infer import compact_inputs
+    from pose3d_tpu_torch.stage1 import CachedStage1
+    from pose3d_tpu_torch.train.step import decompact_batch
+
+    folder = tmp / "infer_frames"
+    _write_infer_folder(folder)
+    files = sorted(folder.glob("frame_*.jpg"))
+    s1s = CachedStage1().predict(files)
+    raws = [cv2.cvtColor(cv2.imread(str(f)), cv2.COLOR_BGR2RGB)
+            for f in files]
+    launches = dict.fromkeys(KERNELS, 0)
+    for model_type, pth in pths.items():
+        out_dir = tmp / f"infer_{model_type}"
+        code = textwrap.dedent(f"""
+            import json, sys
+            from pose3d_tpu_torch.cli import infer
+            from pose3d_tpu_torch.ops.kernels.flash_attention import (
+                flash_attention_fwd)
+            argv = ["--checkpoint_path", {str(pth)!r},
+                    "--input_folder", {str(folder)!r},
+                    "--output_folder", {str(out_dir)!r},
+                    "--batch-size", "{INFER_BATCH}"]
+            n = infer.main(argv)
+            fwd = flash_attention_fwd.launches
+            infer.main(argv)   # again, warm: the steady rate
+            print(json.dumps({{"n": n, "fwd": fwd}}))
+        """)
+        t0 = time.perf_counter()
+        res, err = _subprocess_json(code, tmp)
+        wall = time.perf_counter() - t0
+        rate = [ln for ln in err.splitlines()
+                if "Inference processing complete" in ln]
+        model, cfg = load_pose_model(pth, "cuda",
+                                     attention_impl="reference")
+        want = []
+        with torch.inference_mode():
+            for i in range(0, len(files), INFER_BATCH):
+                batch = {k: torch.from_numpy(v).cuda() for k, v in
+                         compact_inputs(raws[i:i + INFER_BATCH],
+                                        s1s[i:i + INFER_BATCH],
+                                        tuple(cfg.image_size)).items()}
+                b = decompact_batch(batch)
+                want.append(model(b["image"], b["depth"], b["keypoints_2d"])
+                            .float().cpu().numpy())
+        want = np.concatenate(want)
+        got = np.stack([np.load(out_dir / f"{f.stem}_pred_joints3d.npy")
+                        for f in files])
+        rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        n_pass = -(-len(files) // INFER_BATCH)
+        attn = sum(PASS_LAUNCHES.values())
+        want_fwd = attn * n_pass if model_type == "transformer" else 0
+        ok = (res["n"] == len(files) and res["fwd"] == want_fwd
+              and len(rate) == 2
+              and got.shape == want.shape and np.isfinite(got).all()
+              and rel <= TOL_SLICE_REL_L2)
+        log(f"[export] (c) cli.infer, {model_type} .pth, {len(files)} cached "
+            f"{INFER_HW[1]}x{INFER_HW[0]} JPEG frames at batch {INFER_BATCH},"
+            f" own process ({wall:.1f} s with start-up and load): "
+            f"{res['n']} joint files, forward launches {res['fwd']} (want "
+            f"{want_fwd}); against a direct forward (plain attention) on "
+            f"the same decompacted inputs rel L2 {rel:.3e} (tol "
+            f"{TOL_SLICE_REL_L2:.0e})  {'ok' if ok else 'FAIL'}")
+        runs = [r.split("complete: ")[-1] for r in rate]
+        log(f"[time] cli.infer {model_type}, {len(files)} frames at batch "
+            f"{INFER_BATCH}: first run in the process (CUDA context, "
+            f"library handles, the lifter's first calls) {runs[0]}; the "
+            f"same command again {runs[-1]}  [{card}]")
+        if not ok:
+            raise SystemExit(f"cli.infer of the {model_type} failed a check")
+        launches["flash_attention_fwd"] += res["fwd"]
+        del model
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _live_outputs(torch, model, batches, seed: int, hw, J) -> dict:
+    with torch.inference_mode():
+        return {b: model(*[torch.from_numpy(x).cuda() for x in
+                           _request_inputs(seed + b, b, hw, J)])
+                .float().cpu().numpy() for b in batches}
+
+
+def _artifact_outputs(torch, program, batches, seed: int, hw, J,
+                      static=None) -> dict:
+    """The program's answers at each batch; a static program gets each
+    batch padded with zeros to its size, its answers sliced back."""
+    out = {}
+    with torch.inference_mode():
+        for b in batches:
+            x = _request_inputs(seed + b, b, hw, J)
+            if static is not None:
+                x = [np.concatenate([a, np.zeros((static - b, *a.shape[1:]),
+                                                 a.dtype)]) for a in x]
+            y = program(*[torch.from_numpy(a).cuda() for a in x])
+            out[b] = y.float().cpu().numpy()[:b]
+    return out
+
+
+def _export_artifacts(torch, tmp: Path, pths: dict, card: str) -> dict:
+    """``cli.export`` of both lifters: dynamic ``xla``, the transformer
+    with ``--attention-backend pallas``, ``--batch-size 8`` and
+    ``--quantize int8``; each artifact against the live model at batches
+    1, 3 and 8; the ``pallas`` graph's operator and its launches; the
+    ``xla`` artifact loaded where ``pose3d_tpu_torch`` cannot be
+    imported."""
+    from pose3d_tpu_torch import serve
+    from pose3d_tpu_torch.cli import export as cli_export
+    from pose3d_tpu_torch.checkpoint import load_pose_model
+
+    variants = {"xla": [], "pallas": ["--attention-backend", "pallas"],
+                "static": ["--batch-size", str(EXPORT_STATIC)],
+                "int8": ["--quantize", "int8"]}
+    arts = {}
+    launches = dict.fromkeys(KERNELS, 0)
+    for model_type, pth in pths.items():
+        live, cfg = load_pose_model(pth, "cuda",
+                                    attention_impl="reference")
+        hw, J = tuple(cfg.image_size), cfg.num_joints
+        want = _live_outputs(torch, live, EXPORT_BATCHES, 70, hw, J)
+        deq = dict(serve.dequantize_variables(serve.quantize_variables(live)))
+        live.load_state_dict(deq)
+        want8 = _live_outputs(torch, live, EXPORT_BATCHES, 70, hw, J)
+        del live, deq
+        for name, extra in variants.items():
+            if name == "pallas" and model_type != "transformer":
+                continue
+            path = tmp / f"art_{model_type}_{name}"
+            t0 = time.perf_counter()
+            cli_export.main(["--checkpoint", str(pth), "--output", str(path),
+                             *extra])
+            secs = time.perf_counter() - t0
+            meta = serve.load_exported_meta(path)
+            program = serve.load_exported(path).module()
+            static = EXPORT_STATIC if name == "static" else None
+            got = _artifact_outputs(torch, program, EXPORT_BATCHES, 70, hw, J,
+                                    static)
+            ref = want8 if name == "int8" else want
+            rels = {b: float(np.linalg.norm(got[b] - ref[b])
+                             / np.linalg.norm(ref[b])) for b in got}
+            extra_ok, note = True, ""
+            if name == "pallas":
+                x = [torch.from_numpy(a).cuda()
+                     for a in _request_inputs(79, 8, hw, J)]
+                zero_launch_counts()
+                with torch.inference_mode():
+                    program(*x)
+                torch.cuda.synchronize()
+                n = launch_counts()["flash_attention_fwd"]
+                attn = sum(PASS_LAUNCHES.values())
+                extra_ok = (meta["custom_ops"]
+                            == ["pose3d_torch::flash_attention_fwd"]
+                            and n == attn)
+                launches["flash_attention_fwd"] += n
+                note = (f"; graph ops {meta['custom_ops']}, one batch-8 call "
+                        f"launched the forward kernel {n} times (want {attn})")
+            elif meta["custom_ops"]:
+                extra_ok, note = False, f"; custom ops {meta['custom_ops']}"
+            mib = meta["payload_bytes"] / 2 ** 20
+            ok = (extra_ok and all(np.isfinite(got[b]).all() for b in got)
+                  and all(v <= TOL_SLICE_REL_L2 for v in rels.values()))
+            on = " on the dequantised weights" if name == "int8" else ""
+            log(f"[export] (d) cli.export {model_type} {name}: {mib:.1f} MiB "
+                f"in {secs:.1f} s, inputs {meta['inputs'][0]}; against the "
+                f"live model{on} rel L2 "
+                f"{ {b: float(f'{v:.3e}') for b, v in rels.items()} } (tol "
+                f"{TOL_SLICE_REL_L2:.0e}){note}  {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"the {model_type} {name} artifact failed a "
+                                 "check")
+            arts[model_type, name] = path
+            del program
+            torch.cuda.empty_cache()
+        mib = {v: serve.load_exported_meta(arts[model_type, v])[
+            "payload_bytes"] / 2 ** 20 for v in ("xla", "int8")}
+        log(f"[time] {model_type} artifact sizes: fp32 {mib['xla']:.1f} MiB, "
+            f"int8 {mib['int8']:.1f} MiB ({mib['int8'] / mib['xla']:.3f} of "
+            f"it)  [{card}]")
+        np.savez(tmp / f"xla_{model_type}.npz",
+                 *_request_inputs(73, 3, hw, J), want=want[3])
+    # the xla artifacts where the port cannot be imported
+    code = textwrap.dedent(f"""
+        import importlib.abc, json, sys
+        import numpy as np, torch
+        BLOCKED = ("pose3d_tpu_torch", "pose3d_tpu", "jax", "jaxlib", "flax")
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError(name + " is blocked")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        out = {{}}
+        for mt, path in {[(m, str(arts[m, "xla"] / "model.pt2"))
+                          for m in pths]!r}:
+            d = np.load(f"xla_{{mt}}.npz")
+            x = [torch.from_numpy(d[f"arr_{{i}}"]).cuda() for i in range(3)]
+            with torch.inference_mode():
+                got = torch.export.load(path).module()(*x).float().cpu()
+            want = d["want"]
+            out[mt] = float(np.linalg.norm(got.numpy() - want)
+                            / np.linalg.norm(want))
+        print(json.dumps({{"rel": out, "loaded": sorted(
+            m for m in sys.modules if m.split(".")[0] in BLOCKED)}}))
+    """)
+    res, _ = _subprocess_json(code, tmp)
+    ok = (not res["loaded"]
+          and all(v <= TOL_SLICE_REL_L2 for v in res["rel"].values()))
+    log(f"[export] (d) the xla artifacts loaded by torch.export.load in a "
+        f"process where pose3d_tpu_torch, pose3d_tpu and JAX cannot be "
+        f"imported: batch-3 answers against the live model rel L2 "
+        f"{res['rel']}; of those packages in sys.modules: "
+        f"{res['loaded'] or 'none'}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the xla artifact does not stand alone")
+    return {"arts": arts, "launches": launches}
+
+
+def _export_serve(torch, tmp: Path, arts: dict, card: str) -> dict:
+    """``serve_http --artifact`` of the transformer's ``pallas`` artifact
+    and its static-batch one: ``/predict`` at batch 1 and 8 timed, the
+    static one padding a batch of 3 to its size; answers against the live
+    model."""
+    from pose3d_tpu_torch.checkpoint import load_pose_model
+    from pose3d_tpu_torch.serve_http import _bucket
+
+    live, cfg = load_pose_model(arts["pth"], "cuda",
+                                attention_impl="reference")
+    hw, J = tuple(cfg.image_size), cfg.num_joints
+    want = _live_outputs(torch, live, (1, 3, 8), 90, hw, J)
+    del live
+    torch.cuda.empty_cache()
+    attn = sum(PASS_LAUNCHES.values())
+    launches = dict.fromkeys(KERNELS, 0)
+    for name in ("pallas", "static"):
+        zero_launch_counts()
+        with _serving(arts["transformer", name], artifact=True) as base:
+            got = {b: _post(base + "/predict",
+                            _request_inputs(90 + b, b, hw, J))
+                   for b in (1, 3, 8)}
+            _, meta = _get(base + "/meta")
+            latency = {}
+            for b in (1, 8):
+                a = _request_inputs(7, b, hw, J)
+                ts = []
+                for _ in range(10):
+                    t = time.perf_counter()
+                    _post(base + "/predict", a)
+                    ts.append((time.perf_counter() - t) * 1e3)
+                latency[b] = statistics.median(ts)
+            _, meta2 = _get(base + "/meta")
+        counts = launch_counts()
+        calls = meta2["batching"]["device_calls"]
+        rels = {b: float(np.linalg.norm(got[b] - want[b])
+                         / np.linalg.norm(want[b])) for b in got}
+        pads = meta["batching"]["samples_padded"]
+        # the warmup's 1, then 1, 3 and 8, each in calls of at most 8,
+        # padded to the static size or (dynamic) to a power of two
+        static = EXPORT_STATIC if name == "static" else None
+        want_pads = sum((static or _bucket(c, 8)) - c
+                        for b in (1, 1, 3, 8)
+                        for c in [min(8 if static is None else static,
+                                      b - lo)
+                                  for lo in range(0, b, static or 8)])
+        want_fwd = attn * calls if name == "pallas" else 0
+        ok = (all(v <= TOL_SLICE_REL_L2 for v in rels.values())
+              and pads == want_pads
+              and meta["batching"]["static_batch"] == static
+              and meta["artifact"]["format"] == "pose3d_tpu_torch/export/v1"
+              and counts["flash_attention_fwd"] == want_fwd)
+        log(f"[export] (e) serve_http --artifact (transformer {name}): "
+            f"/predict batches 1, 3, 8 against the live model rel L2 "
+            f"{ {b: float(f'{v:.3e}') for b, v in rels.items()} }; padded "
+            f"samples {pads} (want {want_pads}); /meta static_batch "
+            f"{meta['batching']['static_batch']}; forward launches "
+            f"{counts['flash_attention_fwd']} over {calls} device calls  "
+            f"{'ok' if ok else 'FAIL'}")
+        log(f"[time] /predict from the {name} artifact, median of 10: "
+            f"batch 1 {latency[1]:.1f} ms, batch 8 {latency[8]:.1f} ms  "
+            f"[{card}]")
+        if not ok:
+            raise SystemExit(f"serving the {name} artifact failed a check")
+        launches["flash_attention_fwd"] += counts["flash_attention_fwd"]
+    return launches
+
+
+def phase_export(torch, tmp: Path, card: str) -> dict:
+    """The transformer's ``--remat`` from the CLI and its bare step against
+    the plain one; the CNN's four per-sample normalisations; ``cli.infer``
+    on cached 1000x1000 frames; ``cli.export`` of both lifters; ``serve_http
+    --artifact``. Returns the kernels' launches on these paths."""
+    from pose3d_tpu_torch.checkpoint import save_pose_model
+    from pose3d_tpu_torch.cli import main as cli_main
+    from pose3d_tpu_torch.core.config import CNNModelConfig, \
+        TransformerModelConfig
+    from pose3d_tpu_torch.models import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = _export_remat(torch, cli_main, tmp, card)
+    _export_norms(torch, card)
+    pths = {}
+    for cfg in (TransformerModelConfig(), CNNModelConfig()):
+        model = build_model(cfg, device="cuda", generator=torch.Generator(
+            "cuda").manual_seed(81))
+        pths[cfg.model_type] = Path(save_pose_model(
+            model, tmp / f"export_{cfg.model_type}.pth"))
+        del model
+    torch.cuda.empty_cache()
+    runs = [_export_infer(torch, tmp, pths, card)]
+    ex = _export_artifacts(torch, tmp, pths, card)
+    runs.append(ex["launches"])
+    runs.append(_export_serve(torch, tmp, {**ex["arts"],
+                                           "pth": pths["transformer"]}, card))
+    return {k: launches[k] + sum(r[k] for r in runs) for k in KERNELS}
+
+
 def phase_imports() -> None:
     """The port, every module of it imported, has loaded nothing of JAX,
     flax or the JAX package."""
@@ -3686,6 +4305,7 @@ def main() -> int:
         cnn = phase_cnn(torch, Path(tmp), card)
         cli = phase_cli(torch, Path(tmp), card)
         data = phase_data(torch, Path(tmp), card)
+        export = phase_export(torch, Path(tmp), card)
     phase_imports()
     # (file:line of the TPU kernel, launches on its main path, key of the
     # shape its times are given at)
@@ -3723,6 +4343,7 @@ def main() -> int:
         "launches": launches,
         "cli_launches": cli["launches"][name],
         "data_launches": data[name],
+        "export_launches": export[name],
         **worst[name],
         **times[key],
     } for name, (replaces, launches, key) in kernels.items()]}))

@@ -19,9 +19,15 @@ shell too: :mod:`pose3d_tpu_torch.cli.main` trains on chunk files
 from ``native/*.cc``, the streaming pipeline, host augmentation with
 ``--augment``) and :mod:`pose3d_tpu_torch.cli.evaluate` evaluates; the
 dataset tools (``cli.chunker``, ``cli.split``, ``cli.rechunker``) write the
-chunk archives from a preprocessed Human3.6M layout. Attention runs through hand-written Hopper flash-attention forward
-and backward kernels (``csrc/flash_attention_fwd.cu``,
-``csrc/flash_attention_bwd.cu``); the CNN's ``normalization=
+chunk archives from a preprocessed Human3.6M layout; ``cli.infer`` lifts
+images with cached stage-1 artifacts (:mod:`pose3d_tpu_torch.stage1`),
+``cli.export`` writes a ``torch.export`` program (:mod:`pose3d_tpu_torch.
+serve`, optionally int8) that ``serve_http --artifact`` serves, and
+``cli.convert`` turns a ``.pth`` into a training checkpoint and back.
+Attention runs through hand-written Hopper flash-attention forward and
+backward kernels (``csrc/flash_attention_fwd.cu``,
+``csrc/flash_attention_bwd.cu``; the forward as the custom operator
+``pose3d_torch::flash_attention_fwd``); the CNN's ``normalization=
 "batch_pallas"`` BatchNorm takes its statistics from the hand-written
 ``csrc/bn_stats.cu``.
 

@@ -15,7 +15,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import logging
 from pathlib import Path
@@ -23,7 +22,7 @@ from pathlib import Path
 import torch
 
 from pose3d_tpu_torch.cli.main import ATTENTION_IMPL, resolve_device
-from pose3d_tpu_torch.core.config import GlobalConfig, make_model_config
+from pose3d_tpu_torch.core.config import GlobalConfig
 
 logger = logging.getLogger("Evaluate")
 
@@ -74,36 +73,16 @@ def build_parser():
 
 def _load_state(args, device, dtype):
     """(TrainState, step, model_type, image_size) from either checkpoint
-    form."""
-    from pose3d_tpu_torch.models import build_model
-    from pose3d_tpu_torch.train import checkpoint as ckpt
+    form (``checkpoint.load_pose_model``: ``--ema`` puts a directory's EMA
+    weights and statistics into the model)."""
+    from pose3d_tpu_torch.checkpoint import checkpoint_step, load_pose_model
     from pose3d_tpu_torch.train.state import create_train_state
 
-    impl = ATTENTION_IMPL[args.attention_backend]
-    path = Path(args.checkpoint)
-    if path.is_dir():
-        meta = ckpt.load_checkpoint_meta(path)
-        model_type = meta["model_type"]
-        cfg = make_model_config(model_type, **meta.get("model_args", {}))
-        if args.ema and not ckpt.checkpoint_has_ema(path):
-            raise SystemExit(f"--ema: checkpoint {path} carries no EMA "
-                             "weights (train with --ema-decay to record them)")
-        model = build_model(cfg, device=device, dtype=dtype,
-                            attention_impl=impl, train=True)
-        state = create_train_state(model, ema=args.ema)
-        state, _ = ckpt.restore_train_state(state, path)
-        return state, int(meta.get("step", 0)), model_type, cfg.image_size
-    if args.ema:
-        raise SystemExit("--ema needs a training checkpoint directory; a "
-                         ".pth holds one set of weights")
-    from pose3d_tpu_torch.checkpoint import load_pose_model
-
-    model, cfg = load_pose_model(path, device, dtype=dtype,
-                                 model_type=args.model_type,
-                                 attention_impl=impl)
-    step = int(torch.load(path, map_location="cpu", weights_only=True,
-                          mmap=True).get("step", 0))
-    return create_train_state(model), step, cfg.model_type, cfg.image_size
+    model, cfg = load_pose_model(
+        args.checkpoint, device, dtype=dtype, model_type=args.model_type,
+        ema=args.ema, attention_impl=ATTENTION_IMPL[args.attention_backend])
+    return (create_train_state(model), checkpoint_step(args.checkpoint),
+            cfg.model_type, cfg.image_size)
 
 
 def run(args) -> dict:
@@ -112,7 +91,6 @@ def run(args) -> dict:
         StreamingChunkedDataset,
     )
     from pose3d_tpu_torch.train.loop import evaluate
-    from pose3d_tpu_torch.train.state import with_ema_params
     from pose3d_tpu_torch.train.step import make_eval_step
 
     device = resolve_device(args.device)
@@ -132,11 +110,8 @@ def run(args) -> dict:
         pixel_dtype=args.pixel_dtype)
     val_loader = BatchLoader(val_ds, batch_size, drop_last=False)
     eval_step = make_eval_step(compat_pa=args.compat_pa_metric)
-    view = (with_ema_params(state) if args.ema
-            else contextlib.nullcontext(state))
-    with view:
-        metrics = evaluate(eval_step, state, val_loader,
-                           per_action=args.per_action)
+    metrics = evaluate(eval_step, state, val_loader,
+                       per_action=args.per_action)
     per_action = metrics.pop("per_action", None)
     metrics = {k: float(v) for k, v in metrics.items()}
     metrics["checkpoint_step"] = step

@@ -163,8 +163,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "kernels on the card) or 'xla' (the plain PyTorch "
                         "pair)")
     p.add_argument("--remat", action="store_true",
-                   help="Recompute the CNN's blocks in the backward pass: "
-                        "lower peak memory at a throughput cost")
+                   help="Recompute the model's blocks in the backward "
+                        "pass (the CNN's backbone blocks and WASP, the "
+                        "transformer's encoder and fusion blocks): lower "
+                        "peak memory at a throughput cost")
     p.add_argument("--accum-mode", type=str, default="grouped",
                    choices=["grouped", "scan"],
                    help="Gradient accumulation: 'grouped' (default) one "
@@ -264,10 +266,6 @@ def main(argv=None):
                        args.checkpoint)
 
     model_cfg = make_model_config(model_type, **model_args)
-    if args.remat and model_type != "cnn":
-        parser.error("--remat: the transformer's remat is not ported to "
-                     "pose3d_tpu_torch yet (ROADMAP.md Queue 1); it applies "
-                     "to the CNN")
     model = build_model(
         model_cfg, device=device, dtype=getattr(torch, cfg.compute_dtype),
         attention_impl=ATTENTION_IMPL[args.attention_backend],

@@ -1,7 +1,7 @@
 """Map the JAX package's variable trees onto the reference project's torch
 ``state_dict`` names (the port's own numpy-only counterpart of
-``pose3d_tpu/compat_export.py``; optimizer-state export comes with the
-checkpoint slice).
+``pose3d_tpu/compat_export.py``), and the export of a port training
+checkpoint as a reference ``.pth`` (:func:`export_torch_checkpoint`).
 
 The state_dict is emitted in the reference modules' exact torch
 registration order, including the buffers a strict ``load_state_dict``
@@ -45,16 +45,33 @@ def _conv_k(kernel) -> np.ndarray:  # flax [kh, kw, I/g, O] → torch [O, I/g, k
     return np.transpose(np.asarray(kernel), (3, 2, 0, 1))
 
 
+def _sub(s: Dict, name: str) -> Dict:
+    """The statistics subtree of submodule ``name``: empty where it holds
+    no BatchNorm (``batch_stats`` has no entry for it then)."""
+    return s.get(name, {})
+
+
 def _x_cba(w: _Writer, p: Dict, s: Dict, prefix: str) -> None:
     """ConvBnAct params/stats → reference ConvBnAct keys (conv → norm →
     act registration order). flax names the norm ``BatchNorm_0`` under
     normalization="batch" and ``DotStatsBatchNorm_0`` under "batch_dot"
-    and "batch_pallas[:N]"; the leaves are the same."""
+    and "batch_pallas[:N]" (scale, bias and running statistics), a
+    ``GroupNorm_0`` under "instance" and "layer" and ``_G_0/GroupNorm_0``
+    under "group" (scale and bias: ``torch.nn.GroupNorm``'s weight and
+    bias), and nothing under "identity"."""
     conv = p["Conv_0"]
     w.p(prefix + "conv.weight", _conv_k(conv["kernel"]))
     if "bias" in conv:
         w.p(prefix + "conv.bias", conv["bias"])
-    name = "BatchNorm_0" if "BatchNorm_0" in p else "DotStatsBatchNorm_0"
+    gn = p.get("GroupNorm_0") or p.get("_G_0", {}).get("GroupNorm_0")
+    if gn is not None:
+        w.p(prefix + "norm.weight", gn["scale"])
+        w.p(prefix + "norm.bias", gn["bias"])
+        return
+    name = next((n for n in ("BatchNorm_0", "DotStatsBatchNorm_0")
+                 if n in p), None)
+    if name is None:            # identity
+        return
     bn = p[name]
     st = s[name]
     w.p(prefix + "norm.weight", bn["scale"])
@@ -65,8 +82,8 @@ def _x_cba(w: _Writer, p: Dict, s: Dict, prefix: str) -> None:
 
 
 def _x_dwsep(w, p, s, prefix):
-    _x_cba(w, p["ConvBnAct_0"], s["ConvBnAct_0"], prefix + "depthwise.")
-    _x_cba(w, p["ConvBnAct_1"], s["ConvBnAct_1"], prefix + "pointwise.")
+    _x_cba(w, p["ConvBnAct_0"], _sub(s, "ConvBnAct_0"), prefix + "depthwise.")
+    _x_cba(w, p["ConvBnAct_1"], _sub(s, "ConvBnAct_1"), prefix + "pointwise.")
 
 
 def _x_se(w, p, prefix):
@@ -108,7 +125,7 @@ def _x_attention(w, p, s, prefix, att_type):
     elif att_type == "eca":
         _x_eca(w, p["ECABlock_0"], prefix)
     elif att_type == "coord":
-        _x_coord(w, p["CoordAttention_0"], s["CoordAttention_0"], prefix)
+        _x_coord(w, p["CoordAttention_0"], _sub(s, "CoordAttention_0"), prefix)
 
 
 def _x_inverted_residual(w, p, s, prefix, expand_ratio: int, att_type: str):
@@ -117,17 +134,17 @@ def _x_inverted_residual(w, p, s, prefix, expand_ratio: int, att_type: str):
     idx = 0
     cba_i = 0
     if expand_ratio != 1:
-        _x_cba(w, p[f"ConvBnAct_{cba_i}"], s[f"ConvBnAct_{cba_i}"],
+        _x_cba(w, p[f"ConvBnAct_{cba_i}"], _sub(s, f"ConvBnAct_{cba_i}"),
                f"{prefix}conv.{idx}.")
         idx += 1
         cba_i += 1
-    _x_cba(w, p[f"ConvBnAct_{cba_i}"], s[f"ConvBnAct_{cba_i}"],
+    _x_cba(w, p[f"ConvBnAct_{cba_i}"], _sub(s, f"ConvBnAct_{cba_i}"),
            f"{prefix}conv.{idx}.")
     idx += 1
     cba_i += 1
     _x_attention(w, p, s, f"{prefix}conv.{idx}.", att_type)
     idx += 1
-    _x_cba(w, p[f"ConvBnAct_{cba_i}"], s[f"ConvBnAct_{cba_i}"],
+    _x_cba(w, p[f"ConvBnAct_{cba_i}"], _sub(s, f"ConvBnAct_{cba_i}"),
            f"{prefix}conv.{idx}.")
 
 
@@ -135,21 +152,26 @@ def _x_dual_path(w, p, s, prefix, has_shortcut: bool, att_type):
     """Registration order residual_path, dense_path, attention, fusion,
     shortcut — note attention registers BEFORE
     fusion/shortcut even though it is applied last in forward."""
-    _x_cba(w, p["ConvBnAct_0"], s["ConvBnAct_0"], prefix + "residual_path.0.")
-    _x_dwsep(w, p["DepthwiseSeparableConv_0"], s["DepthwiseSeparableConv_0"],
+    _x_cba(w, p["ConvBnAct_0"], _sub(s, "ConvBnAct_0"),
+           prefix + "residual_path.0.")
+    _x_dwsep(w, p["DepthwiseSeparableConv_0"],
+             _sub(s, "DepthwiseSeparableConv_0"),
              prefix + "residual_path.1.")
-    _x_cba(w, p["ConvBnAct_1"], s["ConvBnAct_1"], prefix + "residual_path.2.")
-    _x_cba(w, p["ConvBnAct_2"], s["ConvBnAct_2"], prefix + "dense_path.0.")
-    _x_dwsep(w, p["DepthwiseSeparableConv_1"], s["DepthwiseSeparableConv_1"],
+    _x_cba(w, p["ConvBnAct_1"], _sub(s, "ConvBnAct_1"),
+           prefix + "residual_path.2.")
+    _x_cba(w, p["ConvBnAct_2"], _sub(s, "ConvBnAct_2"),
+           prefix + "dense_path.0.")
+    _x_dwsep(w, p["DepthwiseSeparableConv_1"],
+             _sub(s, "DepthwiseSeparableConv_1"),
              prefix + "dense_path.1.")
     if att_type:
         _x_attention(w, p, s, prefix + "attention.", att_type)
     nxt = 3
     fusion_idx = nxt + (1 if has_shortcut else 0)
-    _x_cba(w, p[f"ConvBnAct_{fusion_idx}"], s[f"ConvBnAct_{fusion_idx}"],
+    _x_cba(w, p[f"ConvBnAct_{fusion_idx}"], _sub(s, f"ConvBnAct_{fusion_idx}"),
            prefix + "fusion.")
     if has_shortcut:
-        _x_cba(w, p[f"ConvBnAct_{nxt}"], s[f"ConvBnAct_{nxt}"],
+        _x_cba(w, p[f"ConvBnAct_{nxt}"], _sub(s, f"ConvBnAct_{nxt}"),
                prefix + "shortcut.")
 
 
@@ -158,12 +180,13 @@ def _x_wasp(w, p, s, prefix):
     parameters before its children), then conv1x1, atrous branches, global
     branch, fusion."""
     w.p(prefix + "weights", p["branch_weights"])
-    _x_cba(w, p["ConvBnAct_0"], s["ConvBnAct_0"], prefix + "conv1x1.")
+    _x_cba(w, p["ConvBnAct_0"], _sub(s, "ConvBnAct_0"), prefix + "conv1x1.")
     for i in range(4):
-        _x_cba(w, p[f"ConvBnAct_{i + 1}"], s[f"ConvBnAct_{i + 1}"],
+        _x_cba(w, p[f"ConvBnAct_{i + 1}"], _sub(s, f"ConvBnAct_{i + 1}"),
                f"{prefix}atrous_branches.{i}.")
-    _x_cba(w, p["ConvBnAct_5"], s["ConvBnAct_5"], prefix + "global_branch.1.")
-    _x_cba(w, p["ConvBnAct_6"], s["ConvBnAct_6"], prefix + "fusion.")
+    _x_cba(w, p["ConvBnAct_5"], _sub(s, "ConvBnAct_5"),
+           prefix + "global_branch.1.")
+    _x_cba(w, p["ConvBnAct_6"], _sub(s, "ConvBnAct_6"), prefix + "fusion.")
 
 
 def _x_pose_head(w, p, prefix, n_hidden: int):
@@ -186,27 +209,31 @@ def _heatmap_grids(heatmap_size: int) -> Tuple[np.ndarray, np.ndarray]:
     return x_grid, y_grid
 
 
+NORMALIZATIONS = ("batch", "batch_dot", "batch_pallas", "identity",
+                  "instance", "layer", "group")
+
+
 def export_reference_cnn(variables: Dict, cfg) -> _Writer:
     """Map the JAX CNN's variables ({params, batch_stats}) onto a reference
     ``CNNPoseEstimation.state_dict()`` — a :class:`_Writer` whose ``sd`` is
     the ordered state_dict (numpy values, exact torch key order) and whose
-    ``param_keys`` is the ``model.parameters()`` order. Every BatchNorm
-    setting the port builds is taken: "batch", "batch_dot", "batch_pallas"
-    and "batch_pallas:N".
+    ``param_keys`` is the ``model.parameters()`` order. Every
+    ``normalization`` the port builds is taken: "batch", "batch_dot",
+    "batch_pallas", "batch_pallas:N", "identity", "instance", "layer" and
+    "group".
     """
     norm = getattr(cfg, "normalization", "batch")
-    if norm not in ("batch", "batch_dot", "batch_pallas") \
-            and not norm.startswith("batch_pallas:"):
+    if norm not in NORMALIZATIONS and not norm.startswith("batch_pallas:"):
         raise ValueError(
-            "torch export supports normalization 'batch', 'batch_dot', "
-            f"'batch_pallas' and 'batch_pallas:N'; got {norm!r}"
+            f"torch export supports normalization {NORMALIZATIONS} and "
+            f"'batch_pallas:N'; got {norm!r}"
         )
     params = variables["params"]
-    stats = variables["batch_stats"]
+    stats = variables.get("batch_stats", {})
     w = _Writer()
 
-    _x_cba(w, params["ConvBnAct_0"], stats["ConvBnAct_0"], "conv1.0.")
-    _x_cba(w, params["ConvBnAct_1"], stats["ConvBnAct_1"], "conv1.1.")
+    _x_cba(w, params["ConvBnAct_0"], _sub(stats, "ConvBnAct_0"), "conv1.0.")
+    _x_cba(w, params["ConvBnAct_1"], _sub(stats, "ConvBnAct_1"), "conv1.1.")
 
     x_grid, y_grid = _heatmap_grids(cfg.heatmap_size)
     w.b("heatmap_generator.x_grid", x_grid)
@@ -215,16 +242,16 @@ def export_reference_cnn(variables: Dict, cfg) -> _Writer:
     for prefix, name, is_dual, att, expand, has_shortcut, _, _ \
             in iter_cnn_stage_blocks(cfg):
         if is_dual:
-            _x_dual_path(w, params[name], stats[name], prefix,
+            _x_dual_path(w, params[name], _sub(stats, name), prefix,
                          has_shortcut=has_shortcut, att_type=att)
         else:
-            _x_inverted_residual(w, params[name], stats[name], prefix,
+            _x_inverted_residual(w, params[name], _sub(stats, name), prefix,
                                  expand, att)
 
-    _x_wasp(w, params["WASPModule_0"], stats["WASPModule_0"], "wasp.")
+    _x_wasp(w, params["WASPModule_0"], _sub(stats, "WASPModule_0"), "wasp.")
 
     # global features: Sequential[pool, ConvBnAct, ECA, pool]
-    _x_cba(w, params["ConvBnAct_2"], stats["ConvBnAct_2"],
+    _x_cba(w, params["ConvBnAct_2"], _sub(stats, "ConvBnAct_2"),
            "global_features.1.")
     _x_eca(w, params["ECABlock_0"], "global_features.2.")
 
@@ -425,3 +452,90 @@ def export_reference_transformer(variables: Dict, cfg) -> _Writer:
     _x_lin(w, head[f"Dense_{n_hidden}"],
            f"pose_head.decoder.{3 * n_hidden}.")
     return w
+
+
+# -- a port checkpoint directory → a reference .pth ----------------------------
+
+def _fresh_torch_optimizer(n_params: int, lr: float, weight_decay: float
+                           ) -> Dict:
+    """A momentum-free but loadable AdamW ``state_dict`` over ``n_params``
+    parameters (the reference loads one unconditionally on resume); its
+    ``param_groups`` schema is the installed torch's own."""
+    import torch
+
+    dummies = [torch.nn.Parameter(torch.zeros(1)) for _ in range(n_params)]
+    return torch.optim.AdamW(dummies, lr=lr,
+                             weight_decay=weight_decay).state_dict()
+
+
+def export_torch_checkpoint(checkpoint_dir: str, out_path: str,
+                            ema: bool = False, lr: float = 1e-3,
+                            weight_decay: float = 0.01,
+                            include_optimizer: bool = True) -> str:
+    """Write a training checkpoint directory of the port as a
+    reference-schema ``.pth`` (``step``, ``global_step``,
+    ``model_state_dict``, ``optimizer_state_dict``, ``model_args``,
+    ``model_type``): what ``pose3d_tpu.compat_export.export_torch_checkpoint``
+    writes from a JAX checkpoint directory.
+
+    The state_dict is the port model's own (reference names and order).
+    The optimizer's moments and per-parameter step are the checkpoint's
+    AdamW state (the port's optimizer runs over ``model.parameters()`` in
+    that order); its ``param_groups`` carry ``lr`` and ``weight_decay``.
+    A checkpoint whose optimizer does not cover every parameter (a frozen
+    backbone) gets a momentum-free state with a warning, as in JAX.
+    ``ema=True`` writes the EMA parameters and BatchNorm statistics and no
+    moments (they belong to the live weights)."""
+    import logging
+
+    import torch
+
+    from pose3d_tpu_torch.core.config import make_model_config
+    from pose3d_tpu_torch.models.factory import parameter_names
+    from pose3d_tpu_torch.train.checkpoint import load_checkpoint
+
+    logger = logging.getLogger("pose3d_tpu_torch.compat_export")
+    tree, meta = load_checkpoint(checkpoint_dir)
+    model_type = meta["model_type"]
+    n_params = len(parameter_names(make_model_config(
+        model_type, **meta.get("model_args", {}))))
+    sd = OrderedDict(tree["model"])
+    if ema:
+        if "ema_params" not in tree:
+            raise ValueError(
+                f"checkpoint {checkpoint_dir} carries no EMA weights "
+                "(train with --ema-decay to record them)")
+        sd.update(tree["ema_params"])
+        # the buffers come from the averaged mirror too (an older
+        # checkpoint without it: the live statistics)
+        sd.update(tree.get("ema_batch_stats") or {})
+    opt_sd = _fresh_torch_optimizer(n_params, lr, weight_decay)
+    if include_optimizer and not ema:
+        saved = tree["optimizer"]
+        covered = sum(len(g["params"]) for g in saved["param_groups"])
+        if covered != n_params:
+            logger.warning(
+                "optimizer state not exported (it covers %d of %d "
+                "parameters: frozen subtrees); the reference rebuilds fresh "
+                "moments", covered, n_params)
+        else:
+            opt_sd["state"] = {
+                int(i): {"step": torch.as_tensor(s["step"],
+                                                 dtype=torch.float32),
+                         "exp_avg": s["exp_avg"].float(),
+                         "exp_avg_sq": s["exp_avg_sq"].float()}
+                for i, s in saved["state"].items()}
+    step = int(meta.get("step", 0))
+    model_args = dict(meta.get("model_args", {}))
+    model_args.pop("model_type", None)  # the reference passes it apart
+    torch.save({
+        "step": step,
+        "global_step": step,
+        "model_state_dict": sd,
+        "optimizer_state_dict": opt_sd,
+        "model_args": model_args,
+        "model_type": model_type,
+    }, out_path)
+    logger.info("Exported %s (step %d, %s%s) -> %s", checkpoint_dir, step,
+                model_type, " EMA" if ema else "", out_path)
+    return str(out_path)

@@ -25,6 +25,14 @@ CONNECTIONS_H36M: Tuple[Tuple[int, int], ...] = (
     (8, 14), (14, 15), (15, 16),
 )
 
+# Bones of the COCO 17-keypoint skeleton of the 2D detector's outputs (the
+# inference CLI's keypoint panel).
+CONNECTIONS_COCO: Tuple[Tuple[int, int], ...] = (
+    (0, 1), (0, 2), (1, 3), (2, 4), (0, 5), (0, 6), (5, 7), (7, 9),
+    (6, 8), (8, 10), (5, 6), (5, 11), (6, 12), (11, 12), (11, 13),
+    (13, 15), (12, 14), (14, 16),
+)
+
 # Left/right joint pairs of the Human3.6M 17-joint skeleton, swapped when a
 # sample is mirrored.
 SYMMETRIC_JOINTS_H36M: Tuple[Tuple[int, int], ...] = (

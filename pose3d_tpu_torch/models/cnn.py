@@ -26,6 +26,11 @@ and Σx² from the hand-written ``bn_stats`` kernel or as plain fp32 sums
 and normalises in the compute dtype. Both use the biased variance
 ``max(E[x²] − E[x]², 0)`` for the batch and for the running statistics,
 and ``running = 0.9·running + 0.1·batch``.
+
+The per-sample normalisations (``normalization`` "instance", "layer" and
+"group") are :class:`GroupNorm` with flax ``nn.GroupNorm``'s numerics, and
+"identity" has no module; a CNN with these keeps only the coordinate
+attention's fixed BatchNorms.
 """
 
 from __future__ import annotations
@@ -224,10 +229,111 @@ class DotStatsBatchNorm(_BatchNormBase):
         return (x - mean.to(dtype)) * inv + self.bias.to(dtype)
 
 
+GN_EPS = 1e-6      # flax nn.GroupNorm's epsilon
+
+
+class _GroupNormFn(torch.autograd.Function):
+    """flax ``nn.GroupNorm`` over ``x [N, ..., C]`` in G groups of C/G
+    channels, with a closed-form backward, so that autograd keeps x in its
+    own dtype and no fp32 copy of the activation. Per sample and group:
+    fp32 mean and E[x²] over the spatial axes and the group's channels,
+    ``var = max(E[x²] − mean², 0)`` (flax's ``use_fast_variance``), then
+    ``(x − mean)·(rsqrt(var + 1e-6)·weight) + bias`` in fp32, cast to
+    ``out_dtype``.
+
+    ``apply(x, weight, bias, groups, out_dtype)`` → y of x's shape."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, groups: int, out_dtype):
+        N, C = x.shape[0], x.shape[-1]
+        xg = x.view(N, -1, groups, C // groups)   # a view: never a copy
+        m = xg.shape[1] * xg.shape[3]
+        f32 = torch.float32
+        mean = xg.sum((1, 3), dtype=f32) / m                     # [N, G]
+        mean2 = torch.linalg.vector_norm(
+            xg, dim=(1, 3), dtype=f32).square() / m
+        raw = mean2 - mean * mean
+        inv = torch.rsqrt(raw.clamp_min(0.0) + GN_EPS)           # [N, G]
+        w = weight.view(groups, C // groups)
+        k = inv[:, None, :, None] * w                     # [N, 1, G, C/G]
+        y = torch.addcmul(bias.view(groups, C // groups),
+                          xg - mean[:, None, :, None], k)
+        ctx.save_for_backward(x, weight, mean, inv, raw > 0)
+        ctx.groups, ctx.m = groups, m
+        return y.to(out_dtype).view(x.shape)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        # With x̂ = (x − mean)·inv and a = weight·dy, per sample and group:
+        #   dx = inv·a − inv·Σa/m − x̂·inv·Σ(a·x̂)/m = k·dy + c1·x + c0,
+        # k = inv·weight per channel, c1 and c0 per sample and group, so
+        # dy and x are read in their own dtype.
+        x, weight, mean, inv, positive = ctx.saved_tensors
+        G, m = ctx.groups, ctx.m
+        N, C = x.shape[0], x.shape[-1]
+        f32 = torch.float32
+        xg = x.view(N, -1, G, C // G)
+        dyg = dy.reshape(N, -1, G, C // G)
+        w = weight.view(G, C // G)
+        sdy = dyg.sum(1, dtype=f32)                              # [N, G, C/G]
+        sdyx = dyg.to(f32, copy=True).mul_(xg).sum(1)            # Σ dy·x
+        a1 = (sdy * w).sum(-1)                                   # Σ a
+        a2 = (sdyx * w).sum(-1)                                  # Σ a·x
+        sax = (a2 - mean * a1) * inv                             # Σ a·x̂
+        # a variance clamped at 0 is a constant: its term drops out
+        c1 = -(inv * inv * sax * positive) / m
+        c0 = -(inv * a1) / m - c1 * mean
+        k = inv[:, None, :, None] * w
+        dx = torch.addcmul(c0[:, None, :, None], dyg, k)
+        dx.addcmul_(xg, c1[:, None, :, None])
+        dw = ((sdyx - mean[..., None] * sdy) * inv[..., None]).sum(0)
+        return (dx.to(x.dtype).view(x.shape), dw.reshape(C),
+                sdy.sum(0).reshape(C), None, None)
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm`` (epsilon 1e-6, fast variance, fp32 statistics
+    and affine, output in the compute dtype) over the last axis of a dense
+    ``[N, ..., C]`` tensor, in ``groups`` groups; the same arithmetic in
+    train and eval mode. Parameters under ``torch.nn.GroupNorm``'s names
+    (``weight``, ``bias``)."""
+
+    def __init__(self, features: int, groups: int, *, device=None):
+        super().__init__()
+        if groups <= 0 or features % groups:
+            raise ValueError(f"Number of groups ({groups}) does not divide "
+                             f"the number of channels ({features}).")
+        self.features = features
+        self.groups = groups
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return _GroupNormFn.apply(x, self.weight, self.bias, self.groups,
+                                  dtype)
+
+
+class Identity(nn.Module):
+    """``normalization="identity"``: no parameters, x in ``dtype``."""
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return x.to(dtype)
+
+
 def _norm(name: str, features: int, *, stats_impl: str = "auto", device=None):
-    """Normalisation factory. Ported: "batch", "batch_dot", "batch_pallas"
-    and "batch_pallas:N"; any other name raises (the JAX factory's
+    """Normalisation factory. Ported: "batch", "batch_dot", "batch_pallas",
+    "batch_pallas:N", and the JAX factory's "identity", "instance" (one
+    group a channel: what the JAX factory means by ``group_size=1``, which
+    the installed flax refuses to build), "layer" (one group) and "group"
+    (``min(32, C)`` groups); any other name raises (the JAX factory's
     fallthrough to BatchNorm would hide a typo)."""
+    if name == "identity":
+        return Identity()
+    if name in ("instance", "layer", "group"):
+        groups = {"instance": features, "layer": 1,
+                  "group": min(32, features)}[name]
+        return GroupNorm(features, groups, device=device)
     if name == "batch":
         return BatchNorm(features, device=device)
     if name == "batch_dot":
@@ -239,7 +345,7 @@ def _norm(name: str, features: int, *, stats_impl: str = "auto", device=None):
                                  stats_impl=stats_impl, device=device)
     raise NotImplementedError(
         f"normalization {name!r} is not ported (ported: batch, batch_dot, "
-        "batch_pallas, batch_pallas:N)")
+        "batch_pallas, batch_pallas:N, identity, instance, layer, group)")
 
 
 def _conv2d(x: torch.Tensor, conv: nn.Conv2d, dtype) -> torch.Tensor:

@@ -18,6 +18,7 @@ from pose3d_tpu_torch.models.cnn import (
     CNNPoseEstimation,
     CoordAttention,
     ECABlock,
+    GroupNorm,
     _BatchNormBase,
 )
 from pose3d_tpu_torch.models.transformer import (
@@ -69,7 +70,8 @@ def _init_cnn_weights(model: nn.Module, gen: torch.Generator) -> None:
     """Random init from ``gen``, after the JAX package's initialisers:
     Kaiming-normal (fan-out) for every conv and Linear with zero bias,
     LeCun-normal for the ECA and CoordAttention convs, WASP branch weights
-    1/n, BatchNorm scale 1, bias 0, running mean 0 and variance 1."""
+    1/n, BatchNorm scale 1, bias 0, running mean 0 and variance 1,
+    GroupNorm scale 1, bias 0."""
     lecun = {id(c) for m in model.modules()
              for c in ((m.conv,) if isinstance(m, ECABlock) else
                        (m.conv1, m.conv_h, m.conv_w)
@@ -90,6 +92,9 @@ def _init_cnn_weights(model: nn.Module, gen: torch.Generator) -> None:
             mod.running_mean.zero_()
             mod.running_var.fill_(1.0)
             mod.num_batches_tracked.zero_()
+        elif isinstance(mod, GroupNorm):
+            nn.init.ones_(mod.weight)
+            nn.init.zeros_(mod.bias)
         elif isinstance(mod, HeatmapGrid):
             mod.reset_buffers()
     model.wasp.weights.fill_(1.0 / model.wasp.weights.numel())
@@ -106,7 +111,8 @@ def build_model(config, *, device="cuda", dtype=torch.bfloat16,
     this raises unless the caller asks for ``device="cpu"``.
     ``dtype`` is the compute dtype; see :class:`TransformerPoseEstimation`
     for ``attention_impl`` and :class:`CNNPoseEstimation` for
-    ``stats_impl`` and ``remat`` (each is read by its own model only).
+    ``stats_impl`` (each is read by its own model only); ``remat``
+    rematerialises either model's blocks in the backward pass.
     Load trained weights with ``load_state_dict``.
 
     By default the model is frozen in eval mode (serving). ``train=True``
@@ -129,10 +135,22 @@ def build_model(config, *, device="cuda", dtype=torch.bfloat16,
                                       stats_impl=stats_impl, remat=remat)
         else:
             model = TransformerPoseEstimation(
-                config, dtype=dtype, attention_impl=attention_impl)
+                config, dtype=dtype, attention_impl=attention_impl,
+                remat=remat)
     model = model.to_empty(device=generator.device)
     (_init_cnn_weights if is_cnn else _init_weights)(model, generator)
     return model.to(device).train(train).requires_grad_(train)
+
+
+def parameter_names(config) -> list:
+    """The model's parameter names in ``model.parameters()`` order (built
+    on the meta device: nothing is allocated)."""
+    if isinstance(config, str):
+        config = make_model_config(config)
+    cls = (CNNPoseEstimation if isinstance(config, CNNModelConfig)
+           else TransformerPoseEstimation)
+    with torch.device("meta"):
+        return [n for n, _ in cls(config).named_parameters()]
 
 
 def dummy_inputs(config, batch_size: int = 1, device="cuda"

@@ -25,6 +25,12 @@ and after each hidden activation of the head (``regression_dropout``).
 in the JAX package. Masks are drawn only in train mode (``model.train()``),
 from the ``generator`` the caller passes to ``forward``; in eval mode the
 forward is the inference forward, untouched.
+
+``remat`` recomputes each ViT block, fusion block and final encoder block
+in the backward pass (``torch.utils.checkpoint``) instead of keeping its
+activations, as the JAX model's ``nn.remat`` does; the parameter names do
+not change. The recomputation draws the block's dropout masks again from
+the generator state the block first started from (:func:`_remat`).
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from typing import Optional
 import torch
 from torch import nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from pose3d_tpu_torch.core.config import TransformerModelConfig
 from pose3d_tpu_torch.models.common import (
@@ -76,6 +83,35 @@ def _attend(q_in, kv_in, w_in, b_in, out: nn.Linear, heads: int, dtype,
         k, v = kv.view(B, kv_in.shape[1], 2, heads, hd).unbind(2)
     o = dot_product_attention(q, k, v, impl=impl)
     return dropout(linear(o.reshape(B, Tq, D), out, dtype), rate, gen)
+
+
+def _remat(fn, gen: Optional[torch.Generator], *tensors):
+    """``fn(*tensors)`` under ``torch.utils.checkpoint``. The masks of
+    ``gen`` must come out the same in the recomputation, and checkpoint
+    restores only the global default generators, not a caller's: so the
+    generator's state before the first run is kept, set again for the
+    recomputation, and the state the recomputation found is put back after
+    it, leaving the generator where the forward pass left it."""
+    if gen is None:
+        return checkpoint(fn, *tensors, use_reentrant=False,
+                          preserve_rng_state=False)
+    start = gen.get_state()
+    runs = 0
+
+    def run(*xs):
+        nonlocal runs
+        runs += 1
+        if runs == 1:
+            return fn(*xs)
+        found = gen.get_state()
+        gen.set_state(start)
+        try:
+            return fn(*xs)
+        finally:
+            gen.set_state(found)
+    # no global generator is drawn from: every mask comes from gen
+    return checkpoint(run, *tensors, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 class TimmAttention(nn.Module):
@@ -225,9 +261,10 @@ class ViTBackbone(nn.Module):
 
     def __init__(self, in_ch: int, image_size, dim: int, depth: int,
                  heads: int, patch: int, *, dropout: float = 0.0,
-                 device=None):
+                 remat: bool = False, device=None):
         super().__init__()
         self.rate = dropout
+        self.remat = remat
         n = (image_size[0] // patch) * (image_size[1] // patch)
         self.cls_token = nn.Parameter(torch.empty(1, 1, dim, device=device))
         self.pos_embed = nn.Parameter(
@@ -247,8 +284,17 @@ class ViTBackbone(nn.Module):
         tokens = torch.cat([cls, tokens], dim=1) + self.pos_embed.to(dtype)
         tokens = dropout(tokens, self.rate, gen)
         for blk in self.blocks:
-            tokens = blk(tokens, dtype, impl, gen)
+            tokens = _block(blk, self.remat, gen, tokens, dtype=dtype,
+                            impl=impl)
         return layer_norm(tokens, self.norm, dtype)
+
+
+def _block(blk: nn.Module, remat: bool, gen, *tensors, **kw):
+    """``blk(*tensors, **kw, gen=gen)``, rematerialised when ``remat`` and
+    gradients are being recorded."""
+    if not (remat and torch.is_grad_enabled()):
+        return blk(*tensors, gen=gen, **kw)
+    return _remat(lambda *xs: blk(*xs, gen=gen, **kw), gen, *tensors)
 
 
 class HeatmapGrid(nn.Module):
@@ -281,17 +327,20 @@ class TransformerPoseEstimation(nn.Module):
     :func:`dot_product_attention`: "auto" (kernels on CUDA, plain versions
     on CPU) or "reference" (plain versions everywhere). In train mode
     with a dropout rate above 0, ``generator`` (a ``torch.Generator`` on
-    the model's device) is required and draws every dropout mask."""
+    the model's device) is required and draws every dropout mask.
+    ``remat`` rematerialises the encoder and fusion blocks (module
+    docstring)."""
 
     def __init__(self, config: TransformerModelConfig, *,
                  dtype=torch.bfloat16, attention_impl: str = "auto",
-                 device=None):
+                 remat: bool = False, device=None):
         super().__init__()
         cfg = config
         D = cfg.transformer_embed_dim
         self.config = cfg
         self.dtype = dtype
         self.attention_impl = attention_impl
+        self.remat = remat
         hp = cfg.heatmap_patch_size
         n_hm = (cfg.heatmap_size // hp) ** 2
         n_img = ((cfg.image_size[0] // cfg.vit_patch_size)
@@ -305,7 +354,8 @@ class TransformerPoseEstimation(nn.Module):
         rate = cfg.transformer_dropout_rate
         self.vit_backbone = ViTBackbone(
             cfg.image_in_channels, cfg.image_size, D, cfg.vit_depth,
-            cfg.vit_heads, cfg.vit_patch_size, dropout=0.0, device=device)
+            cfg.vit_heads, cfg.vit_patch_size, dropout=0.0, remat=remat,
+            device=device)
         self.heatmap_generator = HeatmapGrid(cfg.heatmap_size, device=device)
         self.heatmap_patch_embed = PatchEmbedding(
             cfg.heatmap_in_channels, D, hp, device=device)
@@ -345,7 +395,8 @@ class TransformerPoseEstimation(nn.Module):
                      + self.pos_embed_hm.to(dt))
 
         for blk in self.cross_modal_fusion_layers:
-            img_tokens, hm_tokens = blk(img_tokens, hm_tokens, dt, impl, gen)
+            img_tokens, hm_tokens = _block(blk, self.remat, gen, img_tokens,
+                                           hm_tokens, dtype=dt, impl=impl)
 
         B, _, D = img_tokens.shape
         cls = self.final_cls_token.to(dt).expand(B, 1, D)
@@ -353,6 +404,7 @@ class TransformerPoseEstimation(nn.Module):
                   + self.final_pos_embed.to(dt))
         tokens = dropout(tokens, cfg.transformer_dropout_rate, gen)
         for blk in self.final_encoder:
-            tokens = blk(tokens, dt, impl, gen)
+            tokens = _block(blk, self.remat, gen, tokens, dtype=dt,
+                            impl=impl)
         cls_out = layer_norm(tokens[:, 0], self.norm_out, dt)
         return self.pose_head(cls_out, dt, gen)

@@ -4,9 +4,12 @@ Every call goes through the autograd Function
 :class:`~pose3d_tpu_torch.ops.kernels.flash_attention.FlashAttention`, so
 the output is differentiable on every device. ``impl="auto"`` sends a CUDA
 tensor to the hand-written forward and backward kernels and a CPU tensor to
-their plain versions; it never silently degrades a CUDA tensor to the plain
+their plain versions, the forward through the custom operator
+``pose3d_torch::flash_attention_fwd`` on either device (an exported program
+holds the operator); it never silently degrades a CUDA tensor to the plain
 path. ``impl="reference"`` forces the plain pair on any device (the on-card
-comparisons in ``chip_smoke.py``); no serving or training path sets it.
+comparisons in ``chip_smoke.py``, and the ``xla`` attention backend of the
+CLIs, whose exported programs hold plain tensor operations only).
 """
 
 from __future__ import annotations
@@ -24,5 +27,4 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, Tq, H, D] in the input dtype, with the softmax in fp32."""
     if impl not in IMPLS:
         raise ValueError(f"attention impl {impl!r} not in {IMPLS}")
-    use_kernel = impl == "auto" and q.device.type != "cpu"
-    return FlashAttention.apply(q, k, v, use_kernel)
+    return FlashAttention.apply(q, k, v, impl == "auto")

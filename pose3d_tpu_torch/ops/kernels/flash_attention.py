@@ -15,7 +15,12 @@ Backward: q, k, v, o, dO and lse give ``(dq, dk, dv)`` in q's dtype, from
 accept only CUDA tensors; :func:`flash_attention_fwd_reference` and
 :func:`flash_attention_bwd_reference` are the plain PyTorch versions the
 tests and ``chip_smoke.py`` hold them against. :class:`FlashAttention`
-runs the kernel pair on CUDA tensors and the plain pair otherwise. Each
+runs the kernel pair on CUDA tensors and the plain pair otherwise; its
+forward reaches the kernel through one registered custom operator,
+``torch.ops.pose3d_torch.flash_attention_fwd`` (CUDA: the kernel; CPU: the
+plain version; a fake that gives the outputs' shapes, types and strides),
+so that ``torch.export`` can trace a model that runs it and carry the
+kernel inside the exported program. Each
 source holds three paths, taken by the shape alone (:func:`launch_config`
 mirrors the choice in plain Python, :func:`library_config` reads it back
 from the built libraries): ``wgmma`` (bf16, D = Dv in {48, 64}: the
@@ -276,6 +281,14 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
             "flash_attention_fwd: inputs require grad, and the raw kernel "
             "would drop their gradients; call FlashAttention.apply or "
             "ops.attention.dot_product_attention instead")
+    return _launch_fwd(q, k, v)
+
+
+def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The launch behind :func:`flash_attention_fwd` and the custom
+    operator's CUDA implementation; counts ``flash_attention_fwd.launches``.
+    Contiguous outputs, whatever the strides of q, k and v."""
     _check("flash_attention_fwd", q, k, v)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     B, Tq, H, D = q.shape
@@ -300,6 +313,34 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 
 flash_attention_fwd.launches = 0
+
+
+@torch.library.custom_op("pose3d_torch::flash_attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward as one operator of PyTorch's dispatcher,
+    ``torch.ops.pose3d_torch.flash_attention_fwd(q, k, v) -> (o, lse)``:
+    on CUDA tensors it launches the kernel (or raises: there is no fallback),
+    on CPU tensors it runs the plain version. Reached through
+    :class:`FlashAttention` or under ``no_grad``: it has no autograd formula
+    of its own. An exported program that holds it needs this module
+    imported before it is loaded."""
+    return _launch_fwd(q, k, v)
+
+
+@flash_attention_fwd_op.register_kernel("cpu")
+def _(q, k, v):
+    o, lse = flash_attention_fwd_reference(q, k, v)
+    return o.contiguous(), lse.contiguous()
+
+
+@flash_attention_fwd_op.register_fake
+def _(q, k, v):
+    # the real outputs' shapes, types and (contiguous) strides
+    B, Tq, H, _ = q.shape
+    return (q.new_empty((B, Tq, H, v.shape[3])),
+            q.new_empty((B, H, Tq), dtype=torch.float32))
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -354,17 +395,18 @@ flash_attention_bwd.launches = 0
 class FlashAttention(torch.autograd.Function):
     """Differentiable attention: ``FlashAttention.apply(q, k, v,
     use_kernel)`` → o ``[B, Tq, H, Dv]``. The forward saves q, k, v, o and
-    the fp32 lse; the backward recomputes P from lse. ``use_kernel`` picks
-    the Hopper kernel pair (CUDA tensors only), otherwise the plain
-    pair runs."""
+    the fp32 lse; the backward recomputes P from lse. ``use_kernel`` sends
+    the forward through the custom operator (the Hopper kernel on CUDA
+    tensors, its plain version on CPU ones) and the backward to the
+    Hopper kernel on CUDA tensors; otherwise the plain pair runs."""
 
     @staticmethod
     def forward(ctx, q, k, v, use_kernel: bool):
-        fwd = flash_attention_fwd if use_kernel else \
-            flash_attention_fwd_reference
+        fwd = torch.ops.pose3d_torch.flash_attention_fwd if use_kernel \
+            else flash_attention_fwd_reference
         o, lse = fwd(q, k, v)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.use_kernel = use_kernel
+        ctx.use_kernel = use_kernel and q.is_cuda
         return o
 
     @staticmethod
@@ -372,5 +414,6 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         bwd = flash_attention_bwd if ctx.use_kernel else \
             flash_attention_bwd_reference
-        return (*bwd(*ctx.saved_tensors[:4], do, ctx.saved_tensors[4]),
-                None)
+        # read once: a rematerialised block unpacks each saved tensor once
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*bwd(q, k, v, o, do, lse), None)

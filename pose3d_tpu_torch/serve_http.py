@@ -1,20 +1,30 @@
-"""Micro-batching HTTP server for a reference ``.pth`` lifter checkpoint
-(counterpart of ``pose3d_tpu/serve_http.py``, lifter-only mode).
+"""Micro-batching HTTP server for the lifter (counterpart of
+``pose3d_tpu/serve_http.py``): a reference ``.pth`` checkpoint
+(``--checkpoint``) or an exported artifact (``--artifact``, the output of
+``pose3d_tpu_torch.cli.export``).
 
 Requests queue on the host and one dispatcher forms device batches:
 ``MicroBatcher`` coalesces concurrent requests (up to ``max_batch`` samples
 or ``max_wait_ms``) into power-of-two device batches, padded with zeros and
-sliced back, and ``_Handler`` serves ``POST /predict`` (npz in, npz out,
-``X-Batch-*`` timing headers), ``GET /healthz`` (200 once the warmup batch
-has run) and ``GET /meta`` over the standard library's
-``ThreadingHTTPServer``. The device call is the port's model on ``device``
-(default ``cuda``; there is no fallback to the CPU when CUDA is absent).
-The full-pipeline mode (``/predict_image``) waits for the stage-1 port.
+sliced back (a static-batch artifact pads every call to its own size), and
+``_Handler`` serves ``POST /predict`` (npz in, npz out, ``X-Batch-*``
+timing headers), ``GET /healthz`` (200 once the warmup batch has run) and
+``GET /meta`` (an artifact's sidecar, or what the checkpoint is) over the
+standard library's ``ThreadingHTTPServer``. A checkpoint runs as the port's
+model on ``--device`` (default ``cuda``; there is no fallback to the CPU
+when CUDA is absent); an artifact runs on the device its weights were
+exported on.
+
+``--checkpoint`` here serves the lifter alone; in the JAX package it
+serves the full pipeline (stage 1 + lifter, ``/predict_image``, with
+``--ema`` and ``--allow-untrained``), which waits for the stage-1 port
+(ROADMAP.md, Queue 1, stage 1).
 
 Usage:
   python -m pose3d_tpu_torch.serve_http --checkpoint model.pth
+  python -m pose3d_tpu_torch.serve_http --artifact exported/
 where ``model.pth`` comes from ``pose3d-convert <ckpt_dir> model.pth
---to-torch``.
+--to-torch`` and ``exported/`` from ``pose3d_tpu_torch.cli.export``.
 """
 
 from __future__ import annotations
@@ -28,13 +38,19 @@ import threading
 import time
 from concurrent.futures import Future
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
 
 from pose3d_tpu_torch.checkpoint import load_pose_model
 from pose3d_tpu_torch.ops.kernels import flash_attention
-from pose3d_tpu_torch.serve import make_serving_fn
+from pose3d_tpu_torch.serve import (
+    load_exported,
+    load_exported_meta,
+    make_serving_fn,
+)
 
 logger = logging.getLogger("pose3d_tpu_torch.serve_http")
 
@@ -54,15 +70,20 @@ class MicroBatcher:
     """Coalesce concurrent predict requests into device batches.
 
     ``call_fn(image, depth, keypoints_2d) -> joints`` runs one device
-    batch (``serve.make_serving_fn``); calls are padded to power-of-two
-    buckets ≤ ``max_batch``.
+    batch (``serve.make_serving_fn``). ``static_batch`` pins every device
+    call to that exact size (a static-batch artifact); otherwise calls are
+    padded to power-of-two buckets ≤ ``max_batch``.
     """
 
     def __init__(self, call_fn, *, max_batch: int = 8,
-                 max_wait_ms: float = 5.0):
+                 max_wait_ms: float = 5.0,
+                 static_batch: Optional[int] = None):
+        if static_batch is not None:
+            max_batch = static_batch
         self._call_fn = call_fn
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_ms) / 1e3
+        self.static_batch = static_batch
         self._queue: queue.Queue = queue.Queue()
         self._closed = False
         self.device_calls = 0
@@ -113,6 +134,7 @@ class MicroBatcher:
             "samples_padded": self.samples_padded,
             "max_batch": self.max_batch,
             "max_wait_ms": self.max_wait_s * 1e3,
+            "static_batch": self.static_batch,
         }
 
     # -- dispatcher ---------------------------------------------------
@@ -156,7 +178,8 @@ class MicroBatcher:
         for lo in range(0, n, self.max_batch):
             chunk = [a[lo:lo + self.max_batch] for a in arrays]
             cn = chunk[0].shape[0]
-            target = _bucket(cn, self.max_batch)
+            target = (self.static_batch if self.static_batch is not None
+                      else _bucket(cn, self.max_batch))
             if cn < target:
                 pad = target - cn
                 self.samples_padded += pad
@@ -277,36 +300,20 @@ class _Handler(BaseHTTPRequestHandler):
         self.wfile.write(body)
 
 
-def make_server(checkpoint, host: str = "127.0.0.1", port: int = 8000, *,
-                device: str = "cuda", dtype=torch.bfloat16,
-                max_batch: int = 8, max_wait_ms: float = 5.0,
-                request_timeout_s: float = 60.0) -> ThreadingHTTPServer:
-    """Build (but do not start) the server; the caller runs
-    ``serve_forever()``, then ``shutdown()``, ``batcher.close()`` and
-    ``server_close()``. ``dtype`` is the model's compute dtype. A warmup
-    batch runs on a background thread and ``/healthz`` turns 200 once it
-    has."""
-    device = torch.device(device)  # "cuda" without a card raises in the load
-    model, cfg = load_pose_model(checkpoint, device, dtype=dtype)
-    if device.type == "cuda" and cfg.model_type == "transformer":
-        # build before any thread can reach the kernel (the CNN's eval
-        # forward runs none: its BatchNorms read their running statistics)
-        flash_attention.load_library("flash_attention_fwd")
-    batcher = MicroBatcher(make_serving_fn(model), max_batch=max_batch,
-                           max_wait_ms=max_wait_ms)
+def _start(call_fn, image_hw, num_joints, artifact_meta, host, port, *,
+           max_batch, max_wait_ms, request_timeout_s,
+           static_batch=None) -> ThreadingHTTPServer:
+    """The server around one device call: its batcher, the request
+    contract, and a warmup batch on a background thread (``/healthz``
+    turns 200 once it has run)."""
+    batcher = MicroBatcher(call_fn, max_batch=max_batch,
+                           max_wait_ms=max_wait_ms, static_batch=static_batch)
     srv = ThreadingHTTPServer((host, port), _Handler)
     srv.batcher = batcher
-    srv.image_hw = tuple(cfg.image_size)
-    srv.num_joints = cfg.num_joints
+    srv.image_hw = tuple(image_hw)
+    srv.num_joints = num_joints
     srv.timeout_s = request_timeout_s
-    srv.artifact_meta = {
-        "checkpoint": str(checkpoint),
-        "model_type": cfg.model_type,
-        "framework": f"torch {torch.__version__}",
-        "device": (torch.cuda.get_device_name(device)
-                   if device.type == "cuda" else str(device)),
-        "dtype": str(model.dtype).removeprefix("torch."),
-    }
+    srv.artifact_meta = artifact_meta
     srv.ready = False
     srv.warmup_error = None
 
@@ -329,24 +336,123 @@ def make_server(checkpoint, host: str = "127.0.0.1", port: int = 8000, *,
     return srv
 
 
+def make_server(checkpoint, host: str = "127.0.0.1", port: int = 8000, *,
+                device: str = "cuda", dtype=torch.bfloat16,
+                max_batch: int = 8, max_wait_ms: float = 5.0,
+                request_timeout_s: float = 60.0) -> ThreadingHTTPServer:
+    """Build (but do not start) the server of a ``.pth`` checkpoint; the
+    caller runs ``serve_forever()``, then ``shutdown()``,
+    ``batcher.close()`` and ``server_close()``. ``dtype`` is the model's
+    compute dtype."""
+    device = torch.device(device)  # "cuda" without a card raises in the load
+    model, cfg = load_pose_model(checkpoint, device, dtype=dtype)
+    if device.type == "cuda" and cfg.model_type == "transformer":
+        # build before any thread can reach the kernel (the CNN's eval
+        # forward runs none: its BatchNorms read their running statistics)
+        flash_attention.load_library("flash_attention_fwd")
+    meta = {
+        "checkpoint": str(checkpoint),
+        "model_type": cfg.model_type,
+        "framework": f"torch {torch.__version__}",
+        "device": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else str(device)),
+        "dtype": str(model.dtype).removeprefix("torch."),
+    }
+    return _start(make_serving_fn(model), cfg.image_size, cfg.num_joints,
+                  meta, host, port, max_batch=max_batch,
+                  max_wait_ms=max_wait_ms,
+                  request_timeout_s=request_timeout_s)
+
+
+def load_artifact_call(artifact_dir):
+    """(call_fn, static_batch, image_hw, num_joints, device) of an exported
+    artifact: the contract read from the program's input shapes (a
+    symbolic batch: ``static_batch`` None)."""
+    exported = load_exported(artifact_dir)
+    sig = exported.graph_signature
+    shapes = [n.meta["val"].shape for n in exported.graph.nodes
+              if n.op == "placeholder" and n.name in sig.user_inputs]
+    img, kpts = shapes[0], shapes[2]
+    static_batch = img[0] if isinstance(img[0], int) else None
+    module = exported.module()
+    device = next(module.buffers()).device
+    return (make_serving_fn(module), static_batch,
+            (int(img[1]), int(img[2])), int(kpts[1]), device)
+
+
+def make_artifact_server(artifact_dir, host: str = "127.0.0.1",
+                         port: int = 8000, *, max_batch: int = 8,
+                         max_wait_ms: float = 5.0,
+                         request_timeout_s: float = 60.0
+                         ) -> ThreadingHTTPServer:
+    """Build (but do not start) the server of an exported artifact (the
+    JAX package's ``make_server``): a static-batch artifact pins every
+    device call to its own size; ``/meta`` serves its sidecar."""
+    meta = load_exported_meta(artifact_dir)
+    call_fn, static_batch, image_hw, num_joints, device = \
+        load_artifact_call(artifact_dir)
+    if device.type == "cuda" and "pose3d_torch::flash_attention_fwd" in \
+            meta.get("custom_ops", ()):
+        flash_attention.load_library("flash_attention_fwd")
+    return _start(call_fn, image_hw, num_joints, meta, host, port,
+                  max_batch=max_batch, max_wait_ms=max_wait_ms,
+                  request_timeout_s=request_timeout_s,
+                  static_batch=static_batch)
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(
-        description="Serve a reference-schema .pth lifter checkpoint with "
-                    "dynamic micro-batching (POST npz to /predict)")
-    p.add_argument("--checkpoint", required=True,
-                   help=".pth from pose3d-convert --to-torch")
-    p.add_argument("--device", default="cuda")
+        description="Serve the lifter with dynamic micro-batching (POST npz "
+                    "to /predict): a reference-schema .pth (--checkpoint) "
+                    "or an exported artifact (--artifact)")
+    mode = p.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--artifact",
+                      help="pose3d_tpu_torch.cli.export output directory")
+    mode.add_argument("--checkpoint",
+                      help=".pth from pose3d-convert --to-torch (the lifter "
+                           "alone)")
+    p.add_argument("--device", default=None,
+                   help="--checkpoint: device (default cuda); an artifact "
+                        "runs where its weights were exported")
+    p.add_argument("--ema", action="store_true",
+                   help="Not with --artifact (export the averaged weights "
+                        "with cli.export --ema); the pipeline mode's "
+                        "--checkpoint --ema is not ported")
+    p.add_argument("--allow-untrained", action="store_true",
+                   help="Not ported (the pipeline mode's stage-1 networks)")
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--max-batch", type=int, default=8,
-                   help="device batch cap")
+                   help="device batch cap (a static-batch artifact pins "
+                        "its own size)")
     p.add_argument("--max-wait-ms", type=float, default=5.0,
                    help="how long to hold a partial batch for coalescing")
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    srv = make_server(args.checkpoint, args.host, args.port,
-                      device=args.device, max_batch=args.max_batch,
-                      max_wait_ms=args.max_wait_ms)
+    if args.artifact:
+        if args.ema:
+            raise SystemExit(
+                "--ema applies to --checkpoint pipeline mode; for artifact "
+                "mode export the averaged weights with cli.export --ema")
+        if args.device is not None:
+            p.error("--device: an artifact runs on the device its weights "
+                    "were exported on (cli.export --device)")
+    if args.allow_untrained or (args.checkpoint and args.ema):
+        p.error("--ema/--allow-untrained with --checkpoint belong to the "
+                "full-pipeline mode (stage 1 + lifter, /predict_image), "
+                "which is not ported to pose3d_tpu_torch yet (ROADMAP.md, "
+                "Queue 1, stage 1)")
+    if args.artifact:
+        if not Path(args.artifact).exists():
+            raise SystemExit(f"artifact not found: {args.artifact}")
+        srv = make_artifact_server(args.artifact, args.host, args.port,
+                                   max_batch=args.max_batch,
+                                   max_wait_ms=args.max_wait_ms)
+    else:
+        srv = make_server(args.checkpoint, args.host, args.port,
+                          device=args.device or "cuda",
+                          max_batch=args.max_batch,
+                          max_wait_ms=args.max_wait_ms)
     try:
         srv.serve_forever()
     except KeyboardInterrupt:

@@ -181,35 +181,47 @@ def create_train_state(model: nn.Module, learning_rate: float = 1e-3,
                       ema_stats)
 
 
-@contextlib.contextmanager
-def with_ema_params(state: TrainState):
-    """Inside the block the model holds the EMA parameters and the EMA
-    BatchNorm statistics (for eval or export); the live ones come back
-    after it. No-op without EMA. A state that averaged the parameters of a
-    BatchNorm model but not its statistics (an older checkpoint) warns: the
-    averaged weights then run with the live statistics."""
-    if state.ema_params is None:
-        yield state
-        return
-    slots = dict(state.model.named_parameters())
-    ema = dict(state.ema_params)
-    stats = batch_stats(state.model)
-    if state.ema_batch_stats is not None:
+def ema_slots(model: nn.Module, ema_params: Dict[str, torch.Tensor],
+              ema_batch_stats: Optional[Dict[str, torch.Tensor]],
+              stacklevel: int = 2) -> Dict[str, tuple]:
+    """state_dict name → (the model's tensor, its EMA value): every
+    parameter and, where the EMA averaged them, the BatchNorm running
+    statistics. EMA of the parameters of a BatchNorm model without its
+    statistics (an older checkpoint) warns: the averaged weights then run
+    with the live running statistics."""
+    slots = dict(model.named_parameters())
+    ema = dict(ema_params)
+    stats = batch_stats(model)
+    if ema_batch_stats is not None:
         slots.update(stats)
-        ema.update(state.ema_batch_stats)
+        ema.update(ema_batch_stats)
     elif stats:
         warnings.warn(
             "the state carries ema_params but no ema_batch_stats for a "
             "model with BatchNorm: the averaged weights run with the live "
             "running statistics (build the state with "
-            "create_train_state(..., ema=True))", stacklevel=3)
-    live = {n: t.detach().clone() for n, t in slots.items()}
+            "create_train_state(..., ema=True))", stacklevel=stacklevel + 1)
+    return {n: (t, ema[n]) for n, t in slots.items()}
+
+
+@contextlib.contextmanager
+def with_ema_params(state: TrainState):
+    """Inside the block the model holds the EMA parameters and the EMA
+    BatchNorm statistics (for eval or export); the live ones come back
+    after it. No-op without EMA; see :func:`ema_slots` for a state without
+    EMA statistics."""
+    if state.ema_params is None:
+        yield state
+        return
+    slots = ema_slots(state.model, state.ema_params, state.ema_batch_stats,
+                      stacklevel=3)
+    live = {n: t.detach().clone() for n, (t, _) in slots.items()}
     try:
         with torch.no_grad():
-            for n, t in slots.items():
-                t.copy_(ema[n])
+            for t, e in slots.values():
+                t.copy_(e)
         yield state
     finally:
         with torch.no_grad():
-            for n, t in slots.items():
+            for n, (t, _) in slots.items():
                 t.copy_(live[n])

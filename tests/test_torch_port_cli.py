@@ -211,16 +211,38 @@ def test_flags_not_ported_are_refused(chunks_dir, flag, capsys, tmp_path,
 
 def test_transformer_remat_and_rotation_alone_are_refused(
         chunks_dir, capsys, tmp_path, monkeypatch):
+    """The transformer's ``--remat`` is ported: one step of a small
+    transformer from the CLI runs with every encoder and fusion block
+    rematerialised and writes its checkpoint. Device rotation without
+    ``--augment-device`` is still refused."""
+    from pose3d_tpu_torch.models import transformer
+
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit):
-        port_main.main(["--chunks-dir", str(chunks_dir), "--device", "cpu",
-                        "--model-type", "transformer", "--remat"])
-    assert "ROADMAP.md" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         port_main.main(["--chunks-dir", str(chunks_dir), "--device", "cpu",
                         "--augment-device-rotation"])
     assert "requires --augment-device" in capsys.readouterr().err
     assert list(tmp_path.iterdir()) == []
+    calls = []
+    real = transformer.checkpoint
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(transformer, "checkpoint", counted)
+    tiny = dict(image_size=[32, 32], heatmap_size=32, heatmap_patch_size=16,
+                transformer_embed_dim=32, transformer_heads=2, vit_depth=1,
+                vit_heads=2, final_encoder_depth=1, num_cross_modal_layers=1,
+                regression_hidden_dims=[16])
+    port_main.main(["--chunks-dir", str(chunks_dir), "--device", "cpu",
+                    "--model-type", "transformer", "--model-args",
+                    json.dumps(tiny), "--remat", "--batch-size", "2",
+                    "--grad-accum", "2", "--num-steps", "1",
+                    "--eval-interval", "100", "--no-tensorboard"])
+    assert len(calls) == 3              # 1 ViT + 1 fusion + 1 final block
+    meta = ckpt.load_checkpoint_meta(tmp_path / f"{PREFIX}_transformer_step_1")
+    assert meta["step"] == 1 and meta["model_type"] == "transformer"
 
 
 def test_device_cuda_raises_without_a_card(chunks_dir, tmp_path):

@@ -729,7 +729,7 @@ def test_cnn_pth_round_trip_and_http(jax_cnn, tmp_path):
 
 def test_cnn_refuses_unported_normalisation_and_missing_generator():
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(CNNModelConfig(**TINY_CNN, normalization="group"),
+        build_model(CNNModelConfig(**TINY_CNN, normalization="switchable"),
                     device="cpu")
     cfg = dataclasses.replace(CNNModelConfig(**TINY_CNN),
                               regression_dropout=0.2)

@@ -331,8 +331,9 @@ BLOCKED = ("cv2", "matplotlib", "PIL", "tensorboard", "tensorboardX",
 def test_port_imports_and_decodes_without_optional_packages():
     """A fresh process in which cv2, matplotlib, PIL, TensorBoard,
     TensorFlow and JAX cannot be imported imports every module of the port
-    and decodes the fixture through the native library, which is the one
-    built from the sources."""
+    (the inference, export and conversion CLIs, ``serve`` and
+    ``stage1.api`` among them) and decodes the fixture through the native
+    library, which is the one built from the sources."""
     code = textwrap.dedent(f"""
         import importlib, importlib.abc, json, pkgutil, sys
         from pathlib import Path
@@ -351,6 +352,10 @@ def test_port_imports_and_decodes_without_optional_packages():
             pose3d_tpu_torch.__path__, "pose3d_tpu_torch.")]
         for n in names:
             importlib.import_module(n)
+        new = {{"pose3d_tpu_torch.cli.infer", "pose3d_tpu_torch.cli.export",
+               "pose3d_tpu_torch.cli.convert", "pose3d_tpu_torch.serve",
+               "pose3d_tpu_torch.stage1.api"}}
+        assert new <= set(names), sorted(new - set(names))
         from pose3d_tpu_torch.data import chunks, native
         f = Path({str(FIXTURE_DIR)!r}) / "train" / "dataset_chunk_000000.tar.gz"
         store = chunks.open_chunk_store(f, mode="stream")

@@ -139,10 +139,11 @@ def test_build_model_defaults_to_the_card(model_type):
 
 
 def test_state_dict_from_jax_rejects_cnn():
-    """The CNN bridge takes the two BatchNorm settings the port builds and
-    refuses the other normalisations, whose variables it cannot name."""
+    """The CNN bridge takes the normalisations the port builds and refuses
+    any other name (the JAX factory's fallthrough to BatchNorm), whose
+    variables it cannot name."""
     from pose3d_tpu.core.config import CNNModelConfig
 
     with pytest.raises(ValueError, match="batch_pallas"):
         state_dict_from_jax({"params": {}, "batch_stats": {}},
-                            CNNModelConfig(normalization="group"))
+                            CNNModelConfig(normalization="switchable"))

@@ -178,14 +178,18 @@ def test_loader_rejects_unreadable_checkpoints(tmp_path):
 
 def test_port_imports_no_jax():
     """In a fresh process, importing every module of the port (the package
-    is walked) and running a tiny lifter of each kind loads nothing of
-    JAX, flax or the JAX package."""
+    is walked; the inference, export and conversion CLIs, ``serve`` and
+    ``stage1.api`` among them) and running a tiny lifter of each kind
+    loads nothing of JAX, flax or the JAX package."""
     code = (
         "import importlib, pkgutil, sys, torch\n"
         "import pose3d_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    pose3d_tpu_torch.__path__, 'pose3d_tpu_torch.')]\n"
         "assert len(names) > 20, names\n"
+        "assert {'pose3d_tpu_torch.cli.infer', 'pose3d_tpu_torch.cli.export',\n"
+        "        'pose3d_tpu_torch.cli.convert', 'pose3d_tpu_torch.serve',\n"
+        "        'pose3d_tpu_torch.stage1.api'} <= set(names), names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "from pose3d_tpu_torch.core.config import (CNNModelConfig,\n"
