@@ -167,10 +167,25 @@ Phases, each fatal on failure:
      the ``xla`` ones in a process that cannot import the port; (e)
      ``serve_http --artifact`` of the ``pallas`` and the static artifacts,
      ``/predict`` timed at batch 1 and 8, a batch of 3 padded.
+ 13. stage1: YOLO11x-pose at 640 and DepthPro (apple/DepthPro-hf's
+     architecture) at 1536², with seeded random weights written as a plain
+     upstream-named ``.pt`` and as a ``.safetensors`` by a minimal writer
+     here (the architecture read from its shapes); the main path, the
+     provider with ``attention_backend="pallas"`` on two frames (2 + 72
+     launches); (a) each network's ``"pallas"`` against ``"xla"``, fp32
+     and bf16, the path of each attention shape asserted, a zeroed
+     attention as a control beyond the bf16 bound; (b) launches a call;
+     (c) ``cli.preprocess`` on 16 1000x1000 frames in two folders, its
+     artifacts against the provider, a second run that skips, ``cli.infer
+     --stage1 cached`` and ``--stage1 jax``; (d) ``serve_http
+     --checkpoint`` (the full pipeline) at batch 1 and 8 against a direct
+     provider + lifter call; (e) times: forwards, the attention kernel at
+     the two stage-1 shapes, the preprocess pieces, ``/predict_image``.
 
 Standard output ends with a JSON line of the kernels (``launches`` on
 the path that first drives each kernel, ``cli_launches`` on phase 10's
-runs, ``data_launches`` on phase 11's, ``export_launches`` on phase 12's)
+runs, ``data_launches`` on phase 11's, ``export_launches`` on phase 12's,
+``stage1_launches`` on phase 13's main path)
 and, last, one JSON line ``{"ok": true, "device": {...}}``. Without CUDA,
 or without the repository beside it, the script exits non-zero and prints
 no result.
@@ -4253,9 +4268,738 @@ def phase_export(torch, tmp: Path, card: str) -> dict:
     return {k: launches[k] + sum(r[k] for r in runs) for k in KERNELS}
 
 
+# --- stage 1 ------------------------------------------------------------------
+
+S1_YOLO_SCALE, S1_YOLO_SIZE = "x", 640      # YOLO11x-pose at 640
+S1_DEPTH_SIZE = 1536                        # apple/DepthPro-hf at 1536²
+S1_FRAMES = {"cam_a": 8, "cam_b": 8}        # 1000x1000 JPEG frames a folder
+S1_HW = (1000, 1000)
+S1_BATCH = 8                                # preprocess and cli.infer batch
+S1_SERVE_BATCHES = (1, 8)
+S1_TIMED = 3                                # timed forwards a setting
+# relative L2, kernel against plain: fp32 (the CLIs' dtype, the scalar
+# kernel) differs by summation order only; bf16 (wmma for the PSA pair,
+# wgmma for Dinov2) rounds P and o to bf16, so it is the lifter's slice
+# bound. A deliberately wrong attention (its output zeroed) must land
+# beyond the bf16 bound.
+TOL_S1 = {"float32": 1e-4, "bfloat16": 2e-2}
+TOL_S1_SERVE = 2e-2     # /predict_image against a direct provider + lifter
+
+
+def _s1_init_(torch, model, gen) -> None:
+    """Seeded weights for a random-weight run, on the model's device:
+    convolutions and transposed convolutions N(0, 1/fan_in) (LeCun: the
+    activations shrink a little a layer and stay finite through both
+    networks in bf16), linear layers the same (unit-variance q and k, so
+    that attention is not uniform and its output matters), biases 0;
+    BatchNorm weight 1 + N(0, 0.1²), bias, running mean N(0, 0.1²),
+    running variance U(0.5, 1.5); LayerNorm (1, 0); Dinov2's LayerScale
+    0.1 and its class token and positions N(0, 0.02²)."""
+    from torch import nn
+
+    def normal(t, std):
+        t.copy_(torch.randn(t.shape, generator=gen, device=t.device) * std)
+
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                w = m.weight
+                fan_in = (w.shape[0] if isinstance(m, nn.ConvTranspose2d)
+                          else w.shape[1]) * (w[0, 0].numel()
+                                              if w.dim() > 2 else 1)
+                normal(w, fan_in ** -0.5)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif hasattr(m, "running_var"):
+                normal(m.weight, 0.1)
+                m.weight.add_(1.0)
+                normal(m.bias, 0.1)
+                normal(m.running_mean, 0.1)
+                m.running_var.copy_(torch.rand(
+                    m.running_var.shape, generator=gen,
+                    device=m.running_var.device) + 0.5)
+            elif hasattr(m, "lambda1"):
+                m.lambda1.fill_(0.1)
+            elif hasattr(m, "cls_token"):
+                normal(m.cls_token, 0.02)
+                normal(m.position_embeddings, 0.02)
+
+
+def _write_safetensors(path: Path, tensors: dict) -> None:
+    """A minimal ``.safetensors`` writer (F32): the 8-byte little-endian
+    header length, the JSON header padded to 8 bytes, the raw tensors."""
+    header, offset = {}, 0
+    for k, t in tensors.items():
+        n = t.numel() * 4
+        header[k] = {"dtype": "F32", "shape": list(t.shape),
+                     "data_offsets": [offset, offset + n]}
+        offset += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for t in tensors.values():
+            f.write(t.detach().float().contiguous().cpu().numpy().data)
+
+
+def _s1_calibrate_depth_head(torch, model, pixels) -> float:
+    """Set the depth head's last bias so that the canonical inverse depth
+    is positive (before its ReLU) for 97% of one forward's pixels, as a
+    trained model's is; returns the bias."""
+    head = model.head.layers[4]
+    seen = []
+    hook = head.register_forward_hook(lambda m, i, o: seen.append(o))
+    with torch.inference_mode():
+        model(pixels)
+    hook.remove()
+    q = float(torch.quantile(seen[0].float().flatten()[::97], 0.03))
+    with torch.no_grad():
+        head.bias.sub_(q)
+    return -q
+
+
+def _s1_write_weights(torch, tmp: Path, dev: str) -> dict:
+    """YOLO11x-pose as a plain upstream-named state_dict ``.pt`` (with the
+    ``num_batches_tracked`` and fixed DFL keys upstream files carry) and
+    DepthPro at apple/DepthPro-hf's architecture as ``.safetensors`` (with
+    its never-read mask tokens, no config.json: the architecture comes
+    from the shapes), both with :func:`_s1_init_` weights from seeded
+    generators; a full-width transformer lifter ``.pth``."""
+    from pose3d_tpu_torch.checkpoint import save_pose_model
+    from pose3d_tpu_torch.core.config import TransformerModelConfig
+    from pose3d_tpu_torch.models import build_model
+    from pose3d_tpu_torch.stage1.depthpro import DepthProDepthEstimator
+    from pose3d_tpu_torch.stage1.yolo11 import YOLO11Pose
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(131)
+    with torch.device(dev):
+        yolo = YOLO11Pose(S1_YOLO_SCALE)
+    _s1_init_(torch, yolo, gen)
+    sd = {k: v.cpu() for k, v in yolo.state_dict().items()}
+    for k in [k for k in sd if k.endswith(".running_var")]:
+        sd[k.replace("running_var", "num_batches_tracked")] = \
+            torch.tensor(0)
+    sd["model.23.dfl.conv.weight"] = torch.arange(
+        16, dtype=torch.float32).view(1, 16, 1, 1)
+    paths = {"yolo": tmp / "yolo11x-pose.pt"}
+    torch.save(sd, paths["yolo"])
+    n_yolo = sum(p.numel() for p in yolo.parameters())
+    del yolo, sd
+    with torch.device(dev):
+        dp = DepthProDepthEstimator().eval()
+    _s1_init_(torch, dp, gen)
+    pix = torch.rand(1, 3, S1_DEPTH_SIZE, S1_DEPTH_SIZE, generator=gen,
+                     device=dev) * 2 - 1
+    bias = _s1_calibrate_depth_head(torch, dp, pix)
+    with torch.no_grad():
+        dp.fov_model.head.layers[-1].bias.fill_(60.0)   # degrees
+    sd = dict(dp.state_dict())
+    D = dp.arch.vit.hidden_size
+    for enc in ("depth_pro.encoder.patch_encoder", "depth_pro.encoder."
+                "image_encoder", "fov_model.fov_encoder"):
+        sd[f"{enc}.model.embeddings.mask_token"] = torch.zeros(1, D)
+    n_dp = sum(p.numel() for p in dp.parameters())
+    paths["depth"] = tmp / "depthpro" / "model.safetensors"
+    paths["depth"].parent.mkdir()
+    _write_safetensors(paths["depth"], sd)
+    del dp, sd, pix
+    lifter = build_model(TransformerModelConfig(), device=dev,
+                         generator=torch.Generator(dev).manual_seed(132))
+    paths["lifter"] = Path(save_pose_model(lifter, tmp / "s1_lifter.pth"))
+    del lifter
+    torch.cuda.empty_cache()
+    log(f"[stage1] weights: YOLO11{S1_YOLO_SCALE}-pose {n_yolo / 1e6:.1f} M "
+        f"params -> {paths['yolo'].name} "
+        f"({paths['yolo'].stat().st_size / 1e6:.0f} MB); DepthPro "
+        f"{n_dp / 1e6:.1f} M params -> .safetensors "
+        f"({paths['depth'].stat().st_size / 1e9:.2f} GB, depth head bias "
+        f"{bias:.3g}); transformer lifter .pth; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def _s1_frames(root: Path) -> list:
+    """``S1_FRAMES`` smooth seeded 1000x1000 JPEG frames in two folders."""
+    import cv2
+
+    rng = np.random.default_rng(141)
+    files = []
+    for name, n in S1_FRAMES.items():
+        (root / name).mkdir(parents=True)
+        for i in range(n):
+            f = root / name / f"frame_{i:03d}.jpg"
+            cv2.imwrite(str(f), _smooth_u8(rng, S1_HW, 3))
+            files.append(f)
+    return files
+
+
+def _rgb(f: Path) -> np.ndarray:
+    import cv2
+
+    return cv2.cvtColor(cv2.imread(str(f)), cv2.COLOR_BGR2RGB)
+
+
+def _rel(a, b) -> float:
+    a, b = (np.asarray(x, np.float64) for x in (a, b))
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _s1_inputs(torch, rgbs) -> tuple:
+    """The two networks' input batches of ``rgbs`` as their backends make
+    them: YOLO's letterboxed [B, 3, 640, 640] in [0, 1], DepthPro's
+    [B, 3, 1536, 1536] in [-1, 1]."""
+    import cv2
+
+    from pose3d_tpu_torch.stage1.yolo11 import letterbox_params
+
+    s = S1_YOLO_SIZE
+    yb = np.full((len(rgbs), s, s, 3), 114 / 255.0, np.float32)
+    for i, im in enumerate(rgbs):
+        _, nw, nh, left, top = letterbox_params(*im.shape[:2], s)
+        yb[i, top:top + nh, left:left + nw] = cv2.resize(
+            im, (nw, nh), interpolation=cv2.INTER_LINEAR) / 255.0
+    db = np.stack([cv2.resize(im, (S1_DEPTH_SIZE, S1_DEPTH_SIZE),
+                              interpolation=cv2.INTER_LINEAR)
+                   for im in rgbs]).astype(np.float32) / 255.0
+    db = (db - 0.5) / 0.5
+    return tuple(torch.from_numpy(x).cuda().permute(0, 3, 1, 2)
+                 .contiguous() for x in (yb, db))
+
+
+def _s1_flat(torch, out) -> np.ndarray:
+    """A network's outputs as one fp64 vector: YOLO's raw heads, or
+    DepthPro's canonical inverse depth (its FOV apart)."""
+    if isinstance(out, list):
+        return torch.cat([t.flatten() for lvl in out for t in lvl]).double() \
+            .cpu().numpy()
+    return out[0].double().flatten().cpu().numpy()
+
+
+@contextlib.contextmanager
+def _tf32(torch, matmul: bool, cudnn: bool):
+    """The process-wide TF32 flags set for a block, restored after. The
+    CLIs run with PyTorch's defaults (cuBLAS without TF32, cuDNN with it);
+    the comparisons and fp32 times without it anywhere (as the rest of
+    this script): a TF32 convolution rounds its inputs to 10 bits, which
+    turns an fp32 attention's last-bit difference into ~5e-4 downstream."""
+    was = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+    torch.backends.cudnn.allow_tf32 = cudnn
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = was
+
+
+@contextlib.contextmanager
+def _zeroed_attention(torch):
+    """A deliberately wrong attention: every attention's output zeroed."""
+    from pose3d_tpu_torch.stage1 import depthpro, yolo11
+
+    def wrong(q, k, v, *, impl="auto"):
+        return torch.zeros(q.shape[:3] + v.shape[3:], dtype=v.dtype,
+                           device=v.device)
+
+    with mock.patch.object(yolo11, "dot_product_attention", wrong), \
+            mock.patch.object(depthpro, "dot_product_attention", wrong):
+        yield
+
+
+def _s1_attention_paths(torch, dtype_name: str, depth_b: int, yolo_b: int):
+    """The kernel path the two stage-1 attention shapes take, from
+    ``launch_config`` and from the built library, asserted: bf16 D = Dv =
+    64 (Dinov2) ``wgmma``, bf16 (32, 64) (YOLO's PSA) ``wmma``, fp32
+    ``scalar``."""
+    from pose3d_tpu_torch.ops.kernels import flash_attention as fa
+
+    item = 2 if dtype_name == "bfloat16" else 4
+    out = {}
+    for name, (B, T, H, D, Dv), want in (
+            ("depthpro", (depth_b, 577, 16, 64, 64),
+             "wgmma" if item == 2 else "scalar"),
+            ("yolo", (yolo_b, 400, 6, 32, 64),
+             "wmma" if item == 2 else "scalar")):
+        py = fa.launch_config(B, T, T, H, D, Dv, item)["path"]
+        lib = fa.library_config(B, T, T, H, D, Dv, item)["path"]
+        if not py == lib == want:
+            raise SystemExit(f"stage-1 {name} attention {dtype_name} "
+                             f"{(B, T, H, D, Dv)}: launch_config {py}, "
+                             f"library {lib}, want {want}")
+        out[name] = want
+    return out
+
+
+def _s1_forward_ms(torch, model, x, iters: int) -> tuple:
+    """(host-synced ms a forward, peak device memory GB) over ``iters``
+    forwards after one warm-up."""
+    with torch.inference_mode():
+        model(x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            model(x)
+        torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) * 1e3 / iters,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _s1_networks(torch, provider, rgbs, card: str) -> None:
+    """(a), (b) and (e) on the provider's two networks, fp32 then bf16,
+    TF32 off: "pallas" against "xla" on the same weights and inputs
+    (relative L2), a zeroed attention against the bf16 bound (bf16), the
+    launches of one call of each, and the forward times at batch 1 and 2
+    with peak memory."""
+    nets = {"yolo": provider.kp_model, "depthpro": provider.depth_model}
+    n_layers = provider.depth_model.arch.vit.num_layers
+    want_launches = {"yolo": len(provider.kp_model.model[10].m),
+                     "depthpro": 3 * n_layers}
+    yx, dx = _s1_inputs(torch, rgbs[:2])
+    xs = {"yolo": yx, "depthpro": dx}
+    failures = []
+    with _tf32(torch, False, False):
+        _s1_compare(torch, nets, xs, want_launches, failures, card)
+    if failures:
+        raise SystemExit(f"stage-1 kernel against plain failed: {failures}")
+
+
+def _s1_compare(torch, nets, xs, want_launches, failures, card) -> None:
+    from pose3d_tpu_torch.stage1.yolo11 import (
+        cast_for_inference,
+        set_attention_backend,
+    )
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).removeprefix("torch.")
+        for name, model in nets.items():
+            cast_for_inference(model, dtype)
+        paths = _s1_attention_paths(torch, dn, 2 * 35, 2)
+        for name, model in nets.items():
+            x = xs[name]
+            outs, counts = {}, {}
+            for backend in ("xla", "pallas"):
+                set_attention_backend(model, backend)
+                zero_launch_counts()
+                with torch.inference_mode():
+                    out = model(x)
+                torch.cuda.synchronize()
+                counts[backend] = launch_counts()
+                outs[backend] = out
+            set_attention_backend(model, "xla")
+            rel = _rel(_s1_flat(torch, outs["pallas"]),
+                       _s1_flat(torch, outs["xla"]))
+            fov = ""
+            if name == "depthpro":
+                frel = _rel(outs["pallas"][1].cpu(), outs["xla"][1].cpu())
+                fov = f", FOV rel L2 {frel:.3e}"
+                rel = max(rel, frel)
+            finite = all(np.isfinite(_s1_flat(torch, o)).all()
+                         for o in outs.values())
+            n_p = counts["pallas"]["flash_attention_fwd"]
+            other = sum(v for k, v in counts["pallas"].items()
+                        if k != "flash_attention_fwd") + sum(
+                counts["xla"].values())
+            ok = (finite and rel <= TOL_S1[dn]
+                  and n_p == want_launches[name] and other == 0)
+            line = (f"[stage1] (a,b) {name} {dn} batch 2, \"pallas\" "
+                    f"({paths[name]}) against \"xla\": rel L2 {rel:.3e}"
+                    f"{fov} (tol {TOL_S1[dn]:.0e}); launches pallas {n_p} "
+                    f"(want {want_launches[name]}), xla and other kernels "
+                    f"{other}")
+            if dn == "bfloat16":
+                with _zeroed_attention(torch), torch.inference_mode():
+                    ctl = _rel(_s1_flat(torch, model(x)),
+                               _s1_flat(torch, outs["xla"]))
+                ok = ok and ctl > TOL_S1["bfloat16"]
+                line += (f"; control (attention zeroed) {ctl:.3e} (must "
+                         f"exceed {TOL_S1['bfloat16']:.0e})")
+            log(line + f"  {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"{name} {dn}")
+            del outs
+            for b in (1, 2):
+                for backend in ("xla", "pallas"):
+                    set_attention_backend(model, backend)
+                    ms, gb = _s1_forward_ms(torch, model, x[:b], S1_TIMED)
+                    log(f"[time] stage1 {name} forward {dn} {backend} batch "
+                        f"{b}: {ms:.1f} ms ({b * 1e3 / ms:.2f} images/s), "
+                        f"peak {gb:.1f} GB  [{card}]")
+                set_attention_backend(model, "xla")
+            torch.cuda.empty_cache()
+
+
+def _s1_attention_times(torch, card: str) -> None:
+    """The forward kernel's device ms at the two stage-1 shapes (DepthPro's
+    patch encoder at batch 2: B 70, 577 tokens, 16 heads, D 64; YOLO11x's
+    PSA at batch 2: 400 tokens, 6 heads, D 32, Dv 64), both dtypes, beside
+    the plain version, ``scaled_dot_product_attention`` (a yardstick,
+    timed only) and the bound: the two products' FLOPs over the dtype's
+    peak (bf16 tensor cores; fp32 outside them) against q, k, v read and
+    o, lse written over the memory rate."""
+    import torch.nn.functional as F
+
+    from pose3d_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_fwd,
+        flash_attention_fwd_reference,
+    )
+
+    for name, (B, T, H, D, Dv) in (("depthpro", (70, 577, 16, 64, 64)),
+                                   ("yolo", (2, 400, 6, 32, 64))):
+        for dtype, peak in ((torch.bfloat16, PEAK_BF16),
+                            (torch.float32, PEAK_FP32)):
+            g = torch.Generator("cuda").manual_seed(151)
+            q, k = (torch.randn(B, T, H, D, generator=g, device="cuda")
+                    .to(dtype) for _ in range(2))
+            v = torch.randn(B, T, H, Dv, generator=g, device="cuda").to(dtype)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            with torch.inference_mode():
+                kern, plain = _interleaved(
+                    torch, lambda: flash_attention_fwd_reference(q, k, v),
+                    lambda: flash_attention_fwd(q, k, v), 10,
+                    queue_behind=True)
+                lib = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt), 10, queue_behind=True)
+                backend = _sdpa_backend(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt))
+            item = q.element_size()
+            flop = 2 * B * H * T * T * (D + Dv)
+            nbytes = B * T * H * (2 * D + 2 * Dv) * item + B * H * T * 4
+            bound, by = _bound(nbytes, flop, peak)
+            log(f"[time] stage1 attention {name} {str(dtype)[6:]} "
+                f"{(B, T, H, D, Dv)}: kernel {kern:.4f} ms, plain "
+                f"{plain:.4f} ms, scaled_dot_product_attention ({backend}) "
+                f"{lib:.4f} ms, bound {bound:.4f} ms ({by}; "
+                f"{bound / kern:.0%} of it)  [{card}]")
+            del q, k, v, qt, kt, vt
+
+
+def _s1_host_split(torch, provider, files, card: str) -> None:
+    """One preprocess batch's time, in the provider's pieces: decode (cv2), the host resizes alone (letterbox to 640, to
+    1536), YOLO (its backend: letterbox, forward, decode) and DepthPro
+    (its backend: resize, forward in micro-batches of 2, resize back,
+    invert)."""
+    import cv2
+
+    from pose3d_tpu_torch.stage1.yolo11 import letterbox_params
+
+    t0 = time.perf_counter()
+    rgbs = [_rgb(f) for f in files]
+    t1 = time.perf_counter()
+    for im in rgbs:
+        _, nw, nh, _, _ = letterbox_params(*im.shape[:2], S1_YOLO_SIZE)
+        cv2.resize(im, (nw, nh), interpolation=cv2.INTER_LINEAR)
+        cv2.resize(im, (S1_DEPTH_SIZE, S1_DEPTH_SIZE),
+                   interpolation=cv2.INTER_LINEAR)
+    t2 = time.perf_counter()
+    parts = {"decode": t1 - t0, "host resize": t2 - t1}
+    for name, backend in (("yolo", provider._kp), ("depthpro",
+                                                   provider._depth)):
+        torch.cuda.synchronize()       # warm: the references ran them
+        t = time.perf_counter()
+        for i in range(0, len(rgbs), S1_BATCH):
+            backend.predict(rgbs[i:i + S1_BATCH])
+        torch.cuda.synchronize()
+        parts[name] = time.perf_counter() - t
+    total = parts["decode"] + parts["yolo"] + parts["depthpro"]
+    log(f"[time] stage1 preprocess pieces over {len(files)} "
+        f"{S1_HW[1]}x{S1_HW[0]} frames, fp32 \"xla\" (the CLI's), batches "
+        f"of {S1_BATCH}: " + ", ".join(f"{k} {v * 1e3:.0f} ms"
+                                       for k, v in parts.items())
+        + f" (yolo and depthpro include their host resizes); "
+        f"{len(files) / total:.2f} images/s  [{card}]")
+
+
+def _s1_artifacts_agree(out: Path, files, want) -> str:
+    """The preprocess artifacts of ``files`` against the provider's
+    Stage1Results ``want``: pixel keypoints within 1 px, confidences
+    within 1e-4, the depth PNG within one 8-bit level; keypoints in the
+    frame, depth finite and positive at its size."""
+    import cv2
+
+    worst_px = worst_c = worst_lvl = 0.0
+    for f, w in zip(files, want):
+        d = out / f.parent.name
+        meta = json.loads((d / f"{f.stem}.json").read_text())
+        png = cv2.imread(str(d / f"{f.stem}_depth.png"),
+                         cv2.IMREAD_UNCHANGED)
+        h, wd = S1_HW
+        if (meta["image_size"] != [wd, h] or png.shape != S1_HW
+                or not (np.isfinite([meta["depth_min"], meta["depth_max"]])
+                        .all() and meta["depth_min"] > 0)):
+            raise SystemExit(f"preprocess artifact of {f} malformed")
+        kp = meta["keypoints"][0]
+        px = np.array([[k["x"], k["y"]] for k in kp], np.float64)
+        conf = np.array([k["conf"] for k in kp])
+        if not ((px >= 0) & (px <= [wd, h])).all():
+            raise SystemExit(f"keypoints of {f} outside the frame")
+        ref = np.round(w.keypoints[:, :2] * [wd, h])
+        lo, hi = float(w.depth.min()), float(w.depth.max())
+        ref_png = ((w.depth - lo) / (hi - lo if hi > lo else 1.0)
+                   * 255.0).astype(np.uint8)
+        worst_px = max(worst_px, float(np.abs(px - ref).max()))
+        worst_c = max(worst_c, float(np.abs(conf - w.keypoints[:, 2]).max()))
+        worst_lvl = max(worst_lvl, float(np.abs(png.astype(int)
+                                                - ref_png.astype(int)).max()))
+    ok = worst_px <= 1 and worst_c <= 1e-4 and worst_lvl <= 1
+    msg = (f"against the provider's predict_batch: keypoints within "
+           f"{worst_px:.0f} px, confidences {worst_c:.2e}, depth PNG "
+           f"{worst_lvl:.0f} levels")
+    if not ok:
+        raise SystemExit("preprocess artifacts disagree " + msg)
+    return msg
+
+
+def _s1_preprocess(torch, tmp: Path, paths: dict, files, want,
+                   card: str) -> None:
+    """(c): ``python -m pose3d_tpu_torch.cli.preprocess`` on the frames,
+    the artifacts against the provider; a second run skips every folder
+    (``finished.txt``); ``cli.infer --stage1 cached`` over the artifacts
+    and ``cli.infer --stage1 jax`` with the weights, finite joints."""
+    src, out = files[0].parent.parent, tmp / "s1_artifacts"
+    argv = [str(src), str(out), "--kp-weights", str(paths["yolo"]),
+            "--depth-weights", str(paths["depth"]),
+            "--batch-size", str(S1_BATCH)]
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m",
+                          "pose3d_tpu_torch.cli.preprocess", *argv],
+                         cwd=tmp, env=env, capture_output=True, text=True,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise SystemExit(f"preprocess failed:\n{run.stderr[-4000:]}")
+    done = [ln.split("complete: ")[-1] for ln in run.stderr.splitlines()
+            if "Preprocessing complete" in ln]
+    log(f"[stage1] (c) cli.preprocess, {len(files)} {S1_HW[1]}x{S1_HW[0]} "
+        f"JPEG frames in {len(S1_FRAMES)} folders, own process "
+        f"({wall:.1f} s with start-up and weight loading): {done}; "
+        + _s1_artifacts_agree(out, files, want) + "  ok")
+    log(f"[time] stage1 cli.preprocess: {done[0] if done else '?'}  [{card}]")
+    for f in files:                       # the cached provider reads beside
+        shutil.copy(f, out / f.parent.name / f.name)
+    one = out / files[0].parent.name
+    code = textwrap.dedent(f"""
+        import json
+        from pose3d_tpu_torch.cli import infer, preprocess
+        rerun = preprocess.main({argv!r})
+        cached = infer.main(["--checkpoint_path", {str(paths['lifter'])!r},
+                             "--input_folder", {str(one)!r},
+                             "--output_folder", {str(tmp / 's1_cached')!r},
+                             "--batch-size", "{S1_BATCH}"])
+        jax = infer.main(["--checkpoint_path", {str(paths['lifter'])!r},
+                          "--input_folder", {str(src / files[0].parent.name)!r},
+                          "--output_folder", {str(tmp / 's1_jax')!r},
+                          "--stage1", "jax",
+                          "--kp-weights", {str(paths['yolo'])!r},
+                          "--depth-weights", {str(paths['depth'])!r},
+                          "--batch-size", "{S1_BATCH}"])
+        print(json.dumps({{"rerun": rerun, "cached": cached, "jax": jax}}))
+    """)
+    t0 = time.perf_counter()
+    res, err = _subprocess_json(code, tmp)
+    wall = time.perf_counter() - t0
+    n_one = S1_FRAMES[files[0].parent.name]
+    joints = [np.load(p) for d in ("s1_cached", "s1_jax")
+              for p in sorted((tmp / d).glob("*_pred_joints3d.npy"))]
+    ok = (res == {"rerun": 0, "cached": n_one, "jax": n_one}
+          and len(joints) == 2 * n_one
+          and all(j.shape == (17, 3) and np.isfinite(j).all()
+                  for j in joints))
+    log(f"[stage1] (c) second process ({wall:.1f} s): preprocess again "
+        f"into the same tree: {res['rerun']} images (finished.txt in each "
+        f"folder); cli.infer --stage1 cached "
+        f"{res['cached']} and --stage1 jax {res['jax']} joint files (want "
+        f"{n_one} each), finite  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the stage-1 CLIs failed a check")
+
+
+def _post_image(url: str, body: bytes) -> tuple:
+    req = urllib.request.Request(url, data=body, method="POST")
+    with urllib.request.urlopen(req, timeout=600) as r:
+        data = np.load(io.BytesIO(r.read()))
+        return (data["joints_3d"], data["keypoints"],
+                int(r.headers["X-Batch-Size"]))
+
+
+def _s1_serve(torch, tmp: Path, paths: dict, bodies, want,
+              card: str) -> None:
+    """(d): ``serve_http --checkpoint <lifter .pth> --kp-weights
+    --depth-weights`` in its own process; ``/predict_image`` at batch 1 (one
+    request) and 8 (eight concurrent requests, coalesced), against a
+    direct provider + lifter call on the same decoded frames; ``/predict``
+    answers 404; the process is stopped."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    log_path = tmp / "s1_serve.log"
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pose3d_tpu_torch.serve_http",
+             "--checkpoint", str(paths["lifter"]), "--kp-weights",
+             str(paths["yolo"]), "--depth-weights", str(paths["depth"]),
+             "--host", "127.0.0.1", "--port", str(port),
+             "--max-wait-ms", "500"], cwd=tmp, env=env, stdout=logf,
+            stderr=subprocess.STDOUT)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        t0 = time.monotonic()
+        while True:
+            if proc.poll() is not None:
+                raise SystemExit("serve_http exited:\n"
+                                 + log_path.read_text()[-4000:])
+            try:
+                if _get(base + "/healthz")[0] == 200:
+                    break
+            except (urllib.error.URLError, ConnectionError):
+                pass
+            if time.monotonic() - t0 > 600:
+                raise SystemExit("serve_http not healthy after 600 s")
+            time.sleep(0.5)
+        up = time.monotonic() - t0
+        try:
+            _post_image(base + "/predict", bodies[0])
+            code = 200
+        except urllib.error.HTTPError as e:
+            code = e.code
+        lat, rels, sizes = {}, [], {}
+        for b in S1_SERVE_BATCHES:
+            ts = []
+            for _ in range(3):
+                t = time.perf_counter()
+                with ThreadPoolExecutor(b) as ex:
+                    got = list(ex.map(lambda x: _post_image(
+                        base + "/predict_image", x), bodies[:b]))
+                ts.append((time.perf_counter() - t) * 1e3)
+            lat[b] = statistics.median(ts)
+            sizes[b] = max(g[2] for g in got)
+            rels += [_rel(g[0], w) for g, w in zip(got, want[:b])]
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    top = max(S1_SERVE_BATCHES)
+    ok = code == 404 and max(rels) <= TOL_S1_SERVE and sizes[top] == top
+    log(f"[stage1] (d) serve_http --checkpoint (pipeline) healthy after "
+        f"{up:.1f} s; /predict_image at batch 1 and 8 concurrent: device "
+        f"batches {sizes}; joints against a direct provider + lifter call "
+        f"rel L2 max {max(rels):.3e} (tol {TOL_S1_SERVE:.0e}); /predict "
+        f"{code}  {'ok' if ok else 'FAIL'}")
+    log(f"[time] stage1 /predict_image (1000x1000 JPEG, stage 1 fp32 + the "
+        f"transformer lifter), median of 3: batch 1 {lat[1]:.0f} ms, batch "
+        f"8 (8 concurrent requests) {lat[8]:.0f} ms  [{card}]")
+    if not ok:
+        raise SystemExit("pipeline serving failed a check")
+
+
+def _s1_main_path(torch, provider, rgbs) -> dict:
+    """The main path: the provider with ``attention_backend="pallas"`` on
+    two frames, every count set to 0 just before and read just after
+    (2 PSA launches for YOLO11x, 3 x 24 for DepthPro); finite keypoints,
+    depth finite and positive at the frame's size."""
+    from pose3d_tpu_torch.stage1.yolo11 import set_attention_backend
+
+    for model in (provider.kp_model, provider.depth_model):
+        set_attention_backend(model, "pallas")
+    zero_launch_counts()
+    main = provider.predict_batch(rgbs[:2])
+    launches = launch_counts()
+    for model in (provider.kp_model, provider.depth_model):
+        set_attention_backend(model, "xla")
+    want = (len(provider.kp_model.model[10].m)
+            + 3 * provider.depth_model.arch.vit.num_layers)
+    ok = (launches["flash_attention_fwd"] == want
+          and sum(launches.values()) == want
+          and all(np.isfinite(r.keypoints).all() and r.depth.shape == S1_HW
+                  and np.isfinite(r.depth).all() and (r.depth > 0).all()
+                  for r in main))
+    log(f"[stage1] main path: predict_batch of 2 frames with "
+        f"attention_backend=\"pallas\": launches {launches} (want "
+        f"flash_attention_fwd {want}: YOLO 2 + DepthPro 72); keypoints "
+        f"finite, depth finite and positive at {S1_HW}  "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the stage-1 main path failed a check")
+    return launches
+
+
+def phase_stage1(torch, tmp: Path, card: str) -> dict:
+    """Stage 1 at the published widths with seeded random weights:
+    YOLO11x-pose at 640 and DepthPro (apple/DepthPro-hf) at 1536², from a
+    plain upstream-named ``.pt`` and a ``.safetensors`` written here.
+    (main path) the provider with ``attention_backend="pallas"`` on two
+    frames; (a) each network's "pallas" against "xla" on the same weights
+    and inputs, fp32 and bf16, the path of each attention shape asserted,
+    and a zeroed attention as a control; (b) launches: 72 a DepthPro
+    call, 2 a YOLO11x call, 0 with "xla"; (c) ``cli.preprocess`` on 16
+    1000x1000 frames in two folders, its artifacts against the provider,
+    a second run that skips, ``cli.infer`` with ``--stage1 cached`` and
+    ``--stage1 jax``; (d) pipeline serving; (e) times. Returns the
+    launches of the main path."""
+    from pose3d_tpu_torch.checkpoint import load_pose_model
+    from pose3d_tpu_torch.cli.infer import make_lifter
+    from pose3d_tpu_torch.stage1.models import TorchStage1
+
+    import cv2
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths = _s1_write_weights(torch, tmp, "cuda")
+    files = _s1_frames(tmp / "s1_frames")
+    t0 = time.perf_counter()
+    provider = TorchStage1(kp_weights=str(paths["yolo"]),
+                           depth_weights=str(paths["depth"]),
+                           kp_input_size=S1_YOLO_SIZE,
+                           depth_input_size=S1_DEPTH_SIZE)
+    log(f"[stage1] provider (fp32, \"xla\": the CLIs') loaded in "
+        f"{time.perf_counter() - t0:.1f} s; DepthPro "
+        f"{provider.depth_model.arch.vit.num_layers} layers x 3 encoders, "
+        f"architecture from the shapes")
+    # the main path, the references for (c) and (d) and the host split
+    # under the CLIs' TF32 flags (PyTorch's defaults)
+    rgbs = [_rgb(f) for f in files]
+    with _tf32(torch, False, True):
+        launches = _s1_main_path(torch, provider, rgbs)
+        want_s1 = provider.predict_batch(rgbs)
+        bodies = [cv2.imencode(".jpg", cv2.imread(str(f)))[1].tobytes()
+                  for f in files[:max(S1_SERVE_BATCHES)]]
+        decoded = [cv2.cvtColor(cv2.imdecode(np.frombuffer(b, np.uint8),
+                                             cv2.IMREAD_COLOR),
+                                cv2.COLOR_BGR2RGB) for b in bodies]
+        lifter, cfg = load_pose_model(paths["lifter"], "cuda")
+        want_joints = make_lifter(lifter, cfg)(
+            decoded, provider.predict_batch(decoded))
+        del lifter
+        _s1_host_split(torch, provider, files[:S1_BATCH], card)
+    _s1_networks(torch, provider, rgbs, card)
+    del provider
+    gc.collect()
+    torch.cuda.empty_cache()
+    _s1_attention_times(torch, card)
+    _s1_preprocess(torch, tmp, paths, files, want_s1, card)
+    _s1_serve(torch, tmp, paths, bodies, want_joints, card)
+    log(f"[stage1] phase seconds: {time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
 def phase_imports() -> None:
-    """The port, every module of it imported, has loaded nothing of JAX,
-    flax or the JAX package."""
+    """The port, every module of it imported (the stage-1 modules and the
+    preprocess CLI among them), has loaded nothing of JAX, flax or the JAX
+    package, nor transformers, safetensors, timm or ultralytics."""
     import importlib
     import pkgutil
 
@@ -4263,13 +5007,19 @@ def phase_imports() -> None:
 
     names = [m.name for m in pkgutil.walk_packages(
         pose3d_tpu_torch.__path__, "pose3d_tpu_torch.")]
+    stage1 = {f"pose3d_tpu_torch.stage1.{m}" for m in (
+        "api", "port", "yolo11", "yolo_port", "depthpro", "depthpro_port",
+        "models")} | {"pose3d_tpu_torch.cli.preprocess"}
+    if not stage1 <= set(names):
+        raise SystemExit(f"stage-1 modules missing: {stage1 - set(names)}")
     for name in names:
         importlib.import_module(name)
-    bad = sorted(m for m in sys.modules
-                 if m.split(".")[0] in ("jax", "jaxlib", "flax",
-                                        "pose3d_tpu"))
-    log(f"[imports] {len(names)} modules of pose3d_tpu_torch imported; "
-        f"of jax, jaxlib, flax, pose3d_tpu in sys.modules: {bad or 'none'}")
+    banned = ("jax", "jaxlib", "flax", "pose3d_tpu", "transformers",
+              "safetensors", "timm", "ultralytics")
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+    log(f"[imports] {len(names)} modules of pose3d_tpu_torch imported "
+        f"(the {len(stage1)} stage-1 ones among them); of "
+        f"{', '.join(banned)} in sys.modules: {bad or 'none'}")
     if bad:
         raise SystemExit(f"the port imported {bad}")
 
@@ -4306,6 +5056,7 @@ def main() -> int:
         cli = phase_cli(torch, Path(tmp), card)
         data = phase_data(torch, Path(tmp), card)
         export = phase_export(torch, Path(tmp), card)
+        stage1 = phase_stage1(torch, Path(tmp), card)
     phase_imports()
     # (file:line of the TPU kernel, launches on its main path, key of the
     # shape its times are given at)
@@ -4344,6 +5095,7 @@ def main() -> int:
         "cli_launches": cli["launches"][name],
         "data_launches": data[name],
         "export_launches": export[name],
+        "stage1_launches": stage1[name],
         **worst[name],
         **times[key],
     } for name, (replaces, launches, key) in kernels.items()]}))

@@ -6,15 +6,20 @@ keypoints | depth | 3D pose).
 
 ``--checkpoint_path`` takes a training checkpoint directory of the port
 (``--ema``: its EMA weights) or a reference-schema ``.pth``, as
-``cli.evaluate`` does. Stage 1 is ``--stage1 cached``: the preprocess
-artifacts beside each image. The JAX package's stage-1 networks and the
-flags that drive them are refused with an error that names ROADMAP.md.
-Runs on the card (``--device cuda``, the default; without CUDA it raises)
-unless ``--device cpu`` is given.
+``cli.evaluate`` does. Stage 1 is ``--stage1 cached`` (the preprocess
+artifacts beside each image) or ``--stage1 jax``: the keypoint and depth
+networks (``--kp-weights`` or its reference alias ``--yolo_model_path``,
+``--depth-weights``; without both, the untrained networks, which only
+``--allow-untrained`` permits). ``--data-parallel`` is refused with an
+error that names ROADMAP.md. Runs on the card (``--device cuda``, the
+default; without CUDA it raises) unless ``--device cpu`` is given.
 
 Usage:
   python -m pose3d_tpu_torch.cli.infer --checkpoint_path model.pth \\
       --input_folder imgs/ --output_folder out/ [--visualize] [--device cpu]
+  python -m pose3d_tpu_torch.cli.infer --checkpoint_path model.pth \\
+      --input_folder imgs/ --stage1 jax --kp-weights yolo11x-pose.pt \\
+      --depth-weights depthpro/model.safetensors
 """
 
 from __future__ import annotations
@@ -36,15 +41,8 @@ logger = logging.getLogger("Inference")
 VIZ_THUMBNAIL_SIZE = (500, 500)
 # flag → what it would need; each is refused when given, never ignored
 NOT_PORTED = {
-    "--data-parallel": "multi-device stage 1 (core/mesh.py, parallel/)",
-    "--yolo_model_path": "the stage-1 keypoint network (stage1/yolo11.py)",
-    "--kp-weights": "the stage-1 keypoint network (stage1/yolo11.py)",
-    "--depth-weights": "the stage-1 depth network (stage1/depthpro.py)",
-    "--kp-input-size": "the stage-1 keypoint network (stage1/yolo11.py)",
-    "--depth-input-size": "the stage-1 depth network (stage1/depthpro.py)",
-    "--allow-untrained": "the stage-1 networks (stage1/models.py)",
-    "--yolo_confidence_threshold": "the stage-1 keypoint network "
-                                   "(stage1/yolo11.py)",
+    "--data-parallel": "multi-device stage 1 (ROADMAP.md, Queue 1, item 6: "
+                       "parallelism)",
 }
 
 
@@ -179,7 +177,8 @@ def run(args) -> int:
         model_type=args.model_type, ema=args.ema)
     logger.info("3D Pose Model loaded successfully (%s).",
                 model_cfg.model_type)
-    provider = get_stage1_provider(args.stage1, num_joints=args.num_joints)
+    provider = get_stage1_provider(args.stage1, num_joints=args.num_joints,
+                                   **stage1_kwargs(args, device))
 
     in_dir = Path(args.input_folder)
     image_files = sorted(
@@ -205,9 +204,13 @@ def run(args) -> int:
             paths.append(f)
         if not paths:
             continue
+        # stage 1 for the whole batch, padded back to B as the lift is
+        real, pad = len(paths), B - len(paths)
+        s1_list = provider.predict(
+            paths + [paths[0]] * pad,
+            images=decoded + [decoded[0]] * pad)[:real]
         raws, s1s, kept = [], [], []
-        for f, rgb, s1 in zip(paths, decoded,
-                              provider.predict(paths, images=decoded)):
+        for f, rgb, s1 in zip(paths, decoded, s1_list):
             if s1 is None:
                 logger.warning("Skipping %s: no stage-1 outputs.", f.name)
                 continue
@@ -239,6 +242,40 @@ def run(args) -> int:
     return n_done
 
 
+def stage1_kwargs(args, device) -> dict:
+    """The stage-1 provider's keyword arguments beyond ``num_joints``, as
+    the JAX CLI forms them (``--yolo_model_path`` stands in for a missing
+    ``--kp-weights`` and must exist; the untrained gate), plus the device.
+    Empty for ``--stage1 cached``."""
+    if args.stage1 != "jax":
+        return {}
+    extra = {"confidence_threshold": args.yolo_confidence_threshold}
+    if not args.kp_weights and args.yolo_model_path:
+        if not Path(args.yolo_model_path).exists():
+            raise SystemExit(f"--yolo_model_path {args.yolo_model_path!r} "
+                             "does not exist")
+        args.kp_weights = args.yolo_model_path
+    if args.kp_weights:
+        extra["kp_weights"] = args.kp_weights
+        extra["kp_input_size"] = args.kp_input_size
+    if args.depth_weights:
+        extra["depth_weights"] = args.depth_weights
+        extra["depth_input_size"] = args.depth_input_size
+    if not (args.kp_weights and args.depth_weights) \
+            and not args.allow_untrained:
+        missing = [n for n, v in (("--kp-weights", args.kp_weights),
+                                  ("--depth-weights", args.depth_weights))
+                   if not v]
+        raise SystemExit(
+            f"--stage1 jax without {'/'.join(missing)} would run with "
+            "randomly initialized stage-1 networks and emit noise as "
+            "predictions. Provide pretrained weights, pass "
+            "--allow-untrained to proceed anyway, or use "
+            "--stage1 cached with preprocess artifacts.")
+    extra["device"] = device
+    return extra
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Run 3D human pose inference (PyTorch/CUDA)")
@@ -258,7 +295,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stage1", type=str, default="cached",
                    choices=["cached", "jax"],
                    help="Stage-1 backend: the cached preprocess artifacts "
-                        "('jax', the stage-1 networks, is not ported)")
+                        "or the keypoint and depth networks ('jax')")
     p.add_argument("--batch-size", type=int, default=8,
                    help="Images lifted per device batch")
     p.add_argument("--device", type=str, default="cuda",
@@ -266,19 +303,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data-parallel", action="store_true",
                    help="Not ported (multi-device stage 1)")
     p.add_argument("--yolo_model_path", type=str, default=None,
-                   help="Not ported (--stage1 jax)")
+                   help="Reference-compatible alias of --kp-weights with "
+                        "--stage1 jax (ignored by the cached backend)")
     p.add_argument("--kp-weights", type=str, default=None,
-                   help="Not ported (--stage1 jax)")
+                   help="Keypoint-model weights for --stage1 jax "
+                        "(ultralytics YOLO11-pose .pt/.safetensors)")
     p.add_argument("--depth-weights", type=str, default=None,
-                   help="Not ported (--stage1 jax)")
-    p.add_argument("--kp-input-size", type=int, default=None,
-                   help="Not ported (--stage1 jax)")
-    p.add_argument("--depth-input-size", type=int, default=None,
-                   help="Not ported (--stage1 jax)")
+                   help="Depth-model weights for --stage1 jax (DepthPro "
+                        ".safetensors)")
+    p.add_argument("--kp-input-size", type=int, default=640,
+                   help="Keypoint-model input resolution (upstream 640)")
+    p.add_argument("--depth-input-size", type=int, default=1536,
+                   help="Depth-model input resolution (upstream 1536)")
     p.add_argument("--allow-untrained", action="store_true",
-                   help="Not ported (--stage1 jax)")
-    p.add_argument("--yolo_confidence_threshold", type=float, default=None,
-                   help="Not ported (--stage1 jax)")
+                   help="Permit --stage1 jax with randomly initialized "
+                        "networks (outputs are noise; testing only)")
+    p.add_argument("--yolo_confidence_threshold", type=float, default=0.3,
+                   help="Keypoints below this confidence are zeroed "
+                        "(--stage1 jax)")
     return p
 
 
@@ -292,11 +334,7 @@ def main(argv=None) -> int:
         if getattr(args, flag.lstrip("-").replace("-", "_")) not in (None,
                                                                     False):
             parser.error(f"{flag}: {what} is not ported to pose3d_tpu_torch "
-                         "yet (ROADMAP.md, Queue 1, stage 1)")
-    if args.stage1 == "jax":
-        parser.error("--stage1 jax: the stage-1 networks are not ported to "
-                     "pose3d_tpu_torch yet (ROADMAP.md, Queue 1, stage 1); "
-                     "use --stage1 cached")
+                         "yet")
     return run(args)
 
 

@@ -16,8 +16,11 @@ Usage:
       --train-chunks 0 1 2 --val-chunks 3 --model-type cnn \\
       --checkpoint auto
 
-Flags of features not ported yet (``--vit-weights``, the mesh and
-multi-process flags) are refused with an error that names ROADMAP.md.
+``--vit-weights`` initialises the transformer's ViT backbone from a timm
+ViT state_dict (``stage1/port.py``'s ``port_vit_backbone``: the patch
+embedding inflated to the input's channels, the position grid resized).
+Flags of features not ported yet (the mesh and multi-process flags) are
+refused with an error that names ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -46,7 +49,6 @@ logger = logging.getLogger("Training")
 
 # flag → what it would need; each is refused, never accepted and ignored
 NOT_PORTED = {
-    "vit_weights": "pretrained ViT weights (stage1/port.py)",
     "param_sharding": "parameter sharding (parallel/fsdp.py)",
     "multislice": "hybrid meshes (core/mesh.py)",
     "coordinator": "multi-process training (core/mesh.py)",
@@ -180,9 +182,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compat-pa-metric", action="store_true",
                    help="Report PA-MPJPE with the reference's transposed-"
                         "rotation convention instead of true Procrustes")
-    # not ported yet: refused in main()
     p.add_argument("--vit-weights", type=str, default=None,
-                   help=argparse.SUPPRESS)
+                   help="Pretrained timm-format ViT weights "
+                        "(.pth/.safetensors, vit_base_patch16_384 family) "
+                        "to initialize the transformer backbone")
+    # not ported yet: refused in main()
     p.add_argument("--param-sharding", type=str, default=None,
                    help=argparse.SUPPRESS)
     p.add_argument("--multislice", action="store_true", help=argparse.SUPPRESS)
@@ -203,6 +207,34 @@ def resolve_device(name: str) -> torch.device:
             f"--device {name}: CUDA is not available (pass --device cpu to "
             "run on the CPU)")
     return device
+
+
+def _load_vit_weights(model, model_cfg, path, resuming: bool,
+                      checkpoint) -> None:
+    """``--vit-weights``: the transformer's ``vit_backbone`` from a timm ViT
+    state_dict, as the JAX CLI does (a CNN refuses it; a resumed checkpoint
+    already carries the backbone, so the file is ignored with a
+    warning)."""
+    if model_cfg.model_type != "transformer":
+        raise SystemExit("--vit-weights only applies to the transformer "
+                         "model")
+    if resuming:
+        logger.warning("--vit-weights ignored: checkpoint %s carries the "
+                       "full backbone state", checkpoint)
+        return
+    from pose3d_tpu_torch.stage1.port import (
+        load_torch_state_dict,
+        port_vit_backbone,
+    )
+
+    n_patches = ((model_cfg.image_size[0] // model_cfg.vit_patch_size)
+                 * (model_cfg.image_size[1] // model_cfg.vit_patch_size))
+    ported = port_vit_backbone(
+        load_torch_state_dict(path), depth=model_cfg.vit_depth,
+        in_channels=model_cfg.image_in_channels, num_patches=n_patches)
+    with torch.no_grad():
+        model.vit_backbone.load_state_dict(ported, strict=True)
+    logger.info("Initialized ViT backbone from %s", path)
 
 
 def main(argv=None):
@@ -270,6 +302,9 @@ def main(argv=None):
         model_cfg, device=device, dtype=getattr(torch, cfg.compute_dtype),
         attention_impl=ATTENTION_IMPL[args.attention_backend],
         remat=args.remat, train=True)
+    if args.vit_weights:
+        _load_vit_weights(model, model_cfg, args.vit_weights, resuming,
+                          args.checkpoint)
     freeze_kw = {}
     if args.freeze_backbone and model_type == "transformer":
         freeze_kw = dict(frozen_prefixes=("vit_backbone",),

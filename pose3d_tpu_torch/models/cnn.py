@@ -55,6 +55,12 @@ BN_MOMENTUM = 0.9
 BN_EPS = 1e-5
 
 
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The statistics' dtype: fp32, or x's own when it is wider (a
+    float64 model, the parity tests' exact reference)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def ema_chain(r0: torch.Tensor, increments: torch.Tensor,
               momentum: float) -> torch.Tensor:
     """Closed form of the A-fold sequential chain r_{i+1} = m·r_i + inc_i:
@@ -85,7 +91,7 @@ class _BatchNormTrain(torch.autograd.Function):
         C = x.shape[-1]
         xg = x.view(groups, -1, C)          # a view: never a copy of x
         n = xg.shape[1]
-        f32 = torch.float32
+        f32 = _acc_dtype(x)
         mean = xg.sum(1, dtype=f32) / n
         mean2 = torch.linalg.vector_norm(xg, dim=1, dtype=f32).square() / n
         raw = mean2 - mean * mean
@@ -109,8 +115,9 @@ class _BatchNormTrain(torch.autograd.Function):
         C, n = x.shape[-1], ctx.n
         xg = x.view(ctx.groups, -1, C)
         dyg = dy.reshape(ctx.groups, -1, C)
-        db = dyg.sum(1, dtype=torch.float32)                   # [G, C]
-        dyx = dyg.to(torch.float32, copy=True).mul_(xg).sum(1)  # Σ dy·x
+        f32 = _acc_dtype(x)
+        db = dyg.sum(1, dtype=f32)                             # [G, C]
+        dyx = dyg.to(f32, copy=True).mul_(xg).sum(1)           # Σ dy·x
         ds = (dyx - mean * db) * inv
         k = weight * inv
         # a variance clamped at 0 is a constant: its term drops out
@@ -248,7 +255,7 @@ class _GroupNormFn(torch.autograd.Function):
         N, C = x.shape[0], x.shape[-1]
         xg = x.view(N, -1, groups, C // groups)   # a view: never a copy
         m = xg.shape[1] * xg.shape[3]
-        f32 = torch.float32
+        f32 = _acc_dtype(x)
         mean = xg.sum((1, 3), dtype=f32) / m                     # [N, G]
         mean2 = torch.linalg.vector_norm(
             xg, dim=(1, 3), dtype=f32).square() / m
@@ -272,7 +279,7 @@ class _GroupNormFn(torch.autograd.Function):
         x, weight, mean, inv, positive = ctx.saved_tensors
         G, m = ctx.groups, ctx.m
         N, C = x.shape[0], x.shape[-1]
-        f32 = torch.float32
+        f32 = _acc_dtype(x)
         xg = x.view(N, -1, G, C // G)
         dyg = dy.reshape(N, -1, G, C // G)
         w = weight.view(G, C // G)
@@ -580,7 +587,8 @@ class WASPModule(nn.Module):
         self.fusion = ConvBnAct(features, features, 1, **kw)
 
     def forward(self, x, dtype):
-        w = torch.softmax(self.weights.float(), dim=0).to(dtype)
+        w = torch.softmax(self.weights.to(_acc_dtype(self.weights)),
+                          dim=0).to(dtype)
         out = self.conv1x1(x, dtype) * w[0]
         for i, branch in enumerate(self.atrous_branches):
             out = out + branch(x, dtype) * w[i + 1]

@@ -69,5 +69,5 @@ class PoseRegressionHead(nn.Module):
         *hidden, last = self.linears
         for layer in hidden:
             x = dropout(self.act(linear(x, layer, dtype)), self.rate, gen)
-        x = linear(x, last, torch.float32)
+        x = linear(x, last, torch.promote_types(dtype, torch.float32))
         return x.reshape(-1, self.num_joints, 3)

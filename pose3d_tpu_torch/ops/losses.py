@@ -1,7 +1,8 @@
 """Composite pose loss (counterpart of ``pose3d_tpu/ops/losses.py``).
 
-total = w_mse·MSE + w_l1·L1 + w_ij·inter-joint + w_root·abs-root, in fp32,
-with a components dict for logging. The inter-joint term compares all
+total = w_mse·MSE + w_l1·L1 + w_ij·inter-joint + w_root·abs-root, in fp32
+(or in the prediction's dtype where that is wider), with a components dict
+for logging. The inter-joint term compares all
 J·(J−1)/2 unique pairwise joint distances as a masked mean over the dense
 [B, J, J] distance matrices (strict upper triangle), with 1e-12 inside the
 square root, as the JAX function does.
@@ -43,11 +44,12 @@ def composite_pose_loss_per_sample(
     pred: torch.Tensor, gt: torch.Tensor,
     weights: LossWeights = LossWeights(),
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Every component as a [B] fp32 vector (sample-weighted validation
-    averages over a ragged last batch): batch means of these equal the
-    scalar loss."""
-    pred = pred.float()
-    gt = gt.float()
+    """Every component as a [B] fp32 (or wider) vector (sample-weighted
+    validation averages over a ragged last batch): batch means of these
+    equal the scalar loss."""
+    acc = torch.promote_types(pred.dtype, torch.float32)
+    pred = pred.to(acc)
+    gt = gt.to(acc)
     diff = pred - gt
     mse = (diff * diff).mean((1, 2))
     l1 = diff.abs().mean((1, 2))

@@ -3,8 +3,9 @@
 
 :class:`CachedStage1` reads the artifacts the preprocess stage wrote beside
 each image (``<stem>_depth.png`` and ``<stem>.json``), so inference runs
-with no stage-1 model. The JAX package's own keypoint and depth networks
-(``"jax"``) are not ported yet (ROADMAP.md, Queue 1, stage 1).
+with no stage-1 model; ``"jax"`` (the name the CLIs' ``--stage1`` gives
+it) builds :class:`~pose3d_tpu_torch.stage1.models.TorchStage1`, the
+keypoint and depth networks batched on the card.
 
 Keypoints: ``[J, 3]`` rows of (x/W, y/H, confidence), padded or cut to J
 joints, zeros where nothing was detected. Depth: a metric depth map at the
@@ -90,13 +91,12 @@ class CachedStage1:
 
 
 def get_stage1_provider(kind: str = "cached", **kwargs):
-    """Factory: ``"cached"``. ``"jax"`` (the JAX package's stage-1
-    networks) is refused until stage 1 is ported."""
+    """Factory: ``"cached"`` | ``"jax"`` (the stage-1 networks:
+    :class:`~pose3d_tpu_torch.stage1.models.TorchStage1`)."""
     if kind == "cached":
         return CachedStage1(**kwargs)
     if kind == "jax":
-        raise NotImplementedError(
-            "stage1 provider 'jax' (the keypoint and depth networks) is not "
-            "ported to pose3d_tpu_torch yet (ROADMAP.md, Queue 1, stage 1); "
-            "use 'cached' with the preprocess artifacts")
+        from pose3d_tpu_torch.stage1.models import TorchStage1
+
+        return TorchStage1(**kwargs)
     raise ValueError(f"Unknown stage1 provider: {kind}")

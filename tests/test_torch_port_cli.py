@@ -200,7 +200,18 @@ def test_summary_writer_needs_a_tensorboard_package(tmp_path, monkeypatch):
 ])
 def test_flags_not_ported_are_refused(chunks_dir, flag, capsys, tmp_path,
                                       monkeypatch):
+    """Each flag is refused before anything is trained or logged: the
+    parallelism flags with ROADMAP.md named; ``--vit-weights``, ported,
+    is accepted and meets the JAX CLI's check that it applies to the
+    transformer only (these arguments train the CNN; the transformer's
+    case: ``test_torch_port_stage1_cli.py``)."""
     monkeypatch.chdir(tmp_path)
+    if flag[0] == "--vit-weights":
+        with pytest.raises(SystemExit, match="only applies to the "
+                                             "transformer"):
+            port_main.main(_argv(chunks_dir, *flag))
+        assert list(tmp_path.iterdir()) == []
+        return
     with pytest.raises(SystemExit) as e:
         port_main.main(_argv(chunks_dir, *flag))
     assert e.value.code == 2

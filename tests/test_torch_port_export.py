@@ -406,18 +406,21 @@ def test_serve_artifact_predict_and_meta(tmp_path, batch_size):
 
 def test_serve_artifact_refusals(tmp_path, capsys):
     """``--ema`` with ``--artifact`` is refused as in JAX; ``--artifact``
-    and ``--checkpoint`` exclude each other; the pipeline mode's ``--ema``
-    and ``--allow-untrained`` on ``--checkpoint`` name ROADMAP.md."""
+    and ``--checkpoint`` exclude each other; ``--checkpoint`` is the full
+    pipeline, as in JAX: with ``--ema`` and no stage-1 weights it meets
+    the JAX package's untrained gate, and ``--allow-untrained`` passes the
+    gate and goes on to load the checkpoint (absent here)."""
     with pytest.raises(SystemExit, match="export the averaged weights"):
         serve_main(["--artifact", str(tmp_path), "--ema"])
     with pytest.raises(SystemExit) as e:
         serve_main(["--artifact", str(tmp_path), "--checkpoint", "x.pth"])
     assert e.value.code == 2
-    for flag in ("--ema", "--allow-untrained"):
-        with pytest.raises(SystemExit) as e:
-            serve_main(["--checkpoint", "x.pth", flag])
-        assert e.value.code == 2
-        assert "ROADMAP.md" in capsys.readouterr().err
+    with pytest.raises(SystemExit, match="randomly initialized stage-1"):
+        serve_main(["--checkpoint", "x.pth", "--ema"])
+    with pytest.raises(FileNotFoundError, match="x.pth"):
+        serve_main(["--checkpoint", str(tmp_path / "x.pth"),
+                    "--allow-untrained", "--device", "cpu"])
+    assert "ROADMAP.md" not in capsys.readouterr().err
     with pytest.raises(SystemExit) as e:
         serve_main(["--artifact", str(tmp_path), "--device", "cpu"])
     assert e.value.code == 2

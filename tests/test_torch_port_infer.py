@@ -73,8 +73,8 @@ def folder(tmp_path_factory):
 def test_cached_stage1_matches_jax(folder):
     """Keypoints (normalised, padded to 17, confidence 1 where absent) and
     the metric depth map of each image equal the JAX provider's; an image
-    without artifacts gives None in both; ``"jax"`` is refused with
-    ROADMAP.md named."""
+    without artifacts gives None in both; ``"jax"`` builds the networks'
+    provider."""
     from pose3d_tpu.stage1.api import CachedStage1 as JaxCached
 
     paths = sorted(p for p in folder.iterdir()
@@ -88,8 +88,10 @@ def test_cached_stage1_matches_jax(folder):
             np.testing.assert_array_equal(a.keypoints, b.keypoints)
             np.testing.assert_array_equal(a.depth, b.depth)
             assert (a.depth_min, a.depth_max) == (b.depth_min, b.depth_max)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_stage1_provider("jax")
+    from pose3d_tpu_torch.stage1.models import TorchStage1
+
+    assert isinstance(get_stage1_provider("jax", input_size=64,
+                                          device="cpu"), TorchStage1)
 
 
 @pytest.mark.parametrize("model_type", sorted(MODELS))
@@ -215,15 +217,73 @@ def test_load_pose_model_reads_a_directory_and_its_ema(tmp_path):
     ["--allow-untrained"], ["--kp-input-size", "640"],
     ["--yolo_confidence_threshold", "0.5"],
 ])
-def test_infer_cli_refuses_stage1_flags(folder, tmp_path, argv, capsys):
-    with pytest.raises(SystemExit) as e:
-        port_infer.main(["--checkpoint_path", str(tmp_path / "x.pth"),
-                         "--input_folder", str(folder), "--output_folder",
-                         str(tmp_path / "out"), "--device", "cpu", *argv])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert argv[0] in err and "ROADMAP.md" in err
-    assert not (tmp_path / "out").exists()
+def test_infer_cli_refuses_stage1_flags(folder, tmp_path, argv, capsys,
+                                        monkeypatch):
+    """``--data-parallel`` is refused with ROADMAP.md named, before
+    anything is written. Each other stage-1 flag, with ``--stage1 jax``
+    (and ``--allow-untrained``, or ``--kp-weights`` for the keypoint input
+    size, where the flag alone would not reach the provider), reaches the
+    provider as the same keyword arguments the JAX CLI passes, captured
+    under a stubbed ``get_stage1_provider`` in both (the port adds its
+    device); the lifter's load is stubbed in both. A ``--yolo_model_path``
+    that does not exist is an error in both."""
+    from types import SimpleNamespace
+
+    from pose3d_tpu.cli import infer as jax_infer
+
+    import pose3d_tpu_torch.checkpoint as port_ckpt
+    import pose3d_tpu_torch.stage1 as port_stage1
+
+    base = ["--checkpoint_path", str(tmp_path / "x.pth"), "--input_folder",
+            str(folder), "--output_folder", str(tmp_path / "out")]
+    if argv == ["--data-parallel"]:
+        with pytest.raises(SystemExit) as e:
+            port_infer.main([*base, "--device", "cpu", *argv])
+        assert e.value.code == 2
+        err = capsys.readouterr().err
+        assert argv[0] in err and "ROADMAP.md" in err
+        assert not (tmp_path / "out").exists()
+        return
+    monkeypatch.chdir(tmp_path)
+    extra = ["--allow-untrained", *(["--kp-weights", "k.pt"]
+                                    if argv[0] == "--kp-input-size" else [])]
+    cmd = [*base, "--stage1", "jax",
+           *(argv if argv[0] != "--stage1" else []), *extra]
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def capture(kind, **kw):
+        seen.append((kind, kw))
+        raise Stop
+
+    monkeypatch.setattr(jax_infer, "load_pose_model",
+                        lambda *a, **k: (None, None, None))
+    monkeypatch.setattr(jax_infer, "get_stage1_provider", capture)
+    monkeypatch.setattr(port_ckpt, "load_pose_model", lambda *a, **k: (
+        None, SimpleNamespace(model_type="cnn")))
+    monkeypatch.setattr(port_stage1, "get_stage1_provider", capture)
+    if argv[0] == "--yolo_model_path":        # a missing path is an error
+        for main in (jax_infer.main, lambda a: port_infer.main(
+                [*a, "--device", "cpu"])):
+            with pytest.raises(SystemExit, match="does not exist"):
+                main(cmd)
+    (tmp_path / "y.pt").write_bytes(b"")
+    with pytest.raises(Stop):
+        jax_infer.main(cmd)
+    with pytest.raises(Stop):
+        port_infer.main([*cmd, "--device", "cpu"])
+    (jkind, jkw), (pkind, pkw) = seen
+    assert jkind == pkind == "jax"
+    assert pkw.pop("device") == torch.device("cpu")
+    assert pkw == jkw
+    flag = {"--stage1": None, "--allow-untrained": None,
+            "--yolo_model_path": "kp_weights"}.get(
+        argv[0], argv[0].lstrip("-").replace("-", "_").replace(
+            "yolo_confidence_threshold", "confidence_threshold"))
+    if flag is not None:
+        assert flag in pkw
 
 
 # --- convert -------------------------------------------------------------------

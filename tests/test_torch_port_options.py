@@ -27,6 +27,7 @@ from pose3d_tpu.train import step as jstep
 from pose3d_tpu_torch.compat import state_dict_from_jax
 from pose3d_tpu_torch.core.config import CNNModelConfig, TransformerModelConfig
 from pose3d_tpu_torch.models import build_model
+from pose3d_tpu_torch.models import cnn
 from pose3d_tpu_torch.models.cnn import BatchNorm, GroupNorm, Identity
 from pose3d_tpu_torch.ops import losses
 from pose3d_tpu_torch.train import loop, state as tstate, step as tstep
@@ -47,6 +48,14 @@ TINY_CNN = dict(
 # summation order through some forty normalisations in fp32, as in
 # test_torch_port_cnn.py.
 GRAD_TOL = 3e-4
+# The grouped step's applied gradients, each fp32 side against the same step
+# in float64, per tensor relative to max(1, |exact|): fp32 rounding of the
+# step (no fault: the port's closed-form GroupNorm backward equals plain
+# autograd to 1e-9 in float64). Measured, the port's worst and JAX's are
+# 2.4e-4 and 3.9e-4 with ``group`` (1.6e-5 and 1.2e-5 with ``layer``, 5e-7
+# and 4e-7 with ``identity``); the bound is the worst rounded up to 5e-4 a
+# side, and the two sides are held to each other at the sum.
+STEP_TOL = 5e-4
 
 _np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
 
@@ -262,6 +271,44 @@ def _port_cnn(ref):
     return model
 
 
+def _plain_group_norm(x, weight, bias, groups, out_dtype):
+    """flax ``GroupNorm`` (fast variance) in plain autograd."""
+    N, C = x.shape[0], x.shape[-1]
+    xg = x.reshape(N, -1, groups, C // groups)
+    mean = xg.mean((1, 3), keepdim=True)
+    var = ((xg * xg).mean((1, 3), keepdim=True) - mean * mean).clamp_min(0)
+    y = ((xg - mean) * torch.rsqrt(var + cnn.GN_EPS)
+         * weight.view(groups, -1) + bias.view(groups, -1))
+    return y.to(out_dtype).reshape(x.shape)
+
+
+def _port_step_grads(ref, dtype, plain=False):
+    """The port's grouped step (A 3 × B 4) from the bridged weights in
+    ``dtype`` (float64: model, parameters and statistics; the uint8 inputs
+    decode as in fp32); its applied gradients as float64 numpy.
+    ``plain``: GroupNorm through plain autograd."""
+    model = build_model(ref["cfg"], device="cpu", dtype=dtype,
+                        train=True).to(dtype)
+    model.load_state_dict(state_dict_from_jax(ref["variables"], ref["cfg"]),
+                          strict=True)
+    st = tstate.create_train_state(model, LR, 0.01, ema=True)
+    sb = {k: torch.from_numpy(v.astype(np.float64) if v.dtype == np.float32
+                              and dtype == torch.float64 else v)
+          for k, v in ref["sb"].items()}
+    with pytest.MonkeyPatch.context() as mp:
+        if plain:
+            mp.setattr(cnn._GroupNormFn, "apply", _plain_group_norm)
+        tstep.make_train_step(accum_mode="grouped", ema_decay=0.999)(st, sb)
+    return {n: p.grad.double().numpy() for n, p in model.named_parameters()}
+
+
+@pytest.fixture(scope="module")
+def f64_step(jax_norm_cnn):
+    """The grouped step's applied gradients in float64, GroupNorm in plain
+    autograd: the exact reference both fp32 sides are held to."""
+    return _port_step_grads(jax_norm_cnn, torch.float64, plain=True)
+
+
 def _assert_stats_close(got, want, tol=1e-5):
     assert got and set(got) <= set(want)
     for name, buf in got.items():
@@ -316,13 +363,25 @@ def test_cnn_norm_gradients_match_jax(jax_norm_cnn):
                                    atol=_grad_atol(want), err_msg=name)
 
 
-def test_cnn_norm_grouped_step_matches_jax(jax_norm_cnn):
+def _step_atol(exact) -> float:
+    return STEP_TOL * max(1.0, float(np.abs(exact).max(initial=0)))
+
+
+def test_cnn_norm_grouped_step_matches_jax(jax_norm_cnn, f64_step):
     """One grouped step (A 3 × B 4, EMA 0.999): the JAX grouped step groups
     the coordinate attention's BatchNorms and passes every GroupNorm
-    through; the port's too. Metrics (rtol 1e-5), the applied gradients
-    (``GRAD_TOL``), params and EMA params (``assert_params_close``),
-    running statistics and ``ema_batch_stats`` (1e-5·max(1, |ref|))."""
+    through; the port's too. Metrics (rtol 1e-5); the applied gradients of
+    each side against the float64 step (``STEP_TOL``) and of the two sides
+    against each other (2·``STEP_TOL``), after the port's closed-form
+    GroupNorm backward in float64 against plain autograd (1e-9); params
+    and EMA params (``assert_params_close`` at that pair bound), running
+    statistics and ``ema_batch_stats`` (1e-5·max(1, |ref|))."""
     ref = jax_norm_cnn
+    closed = _port_step_grads(ref, torch.float64)
+    for name, exact in f64_step.items():
+        np.testing.assert_allclose(
+            closed[name], exact, rtol=0,
+            atol=1e-9 * max(1.0, np.abs(exact).max(initial=0)), err_msg=name)
     model = _port_cnn(ref)
     st = tstate.create_train_state(model, LR, 0.01, ema=True)
     m = tstep.make_train_step(accum_mode="grouped", ema_decay=0.999)(
@@ -331,12 +390,21 @@ def test_cnn_norm_grouped_step_matches_jax(jax_norm_cnn):
         np.testing.assert_allclose(m[k].item(), v, rtol=1e-5, err_msg=k)
     params = dict(model.named_parameters())
     for name, p in params.items():
-        want = ref["applied"][name].numpy()
+        exact, want = f64_step[name], ref["applied"][name].numpy()
+        atol = _step_atol(exact)
+        np.testing.assert_allclose(p.grad.numpy(), exact, rtol=0, atol=atol,
+                                   err_msg=f"port: {name}")
+        np.testing.assert_allclose(want, exact, rtol=0, atol=atol,
+                                   err_msg=f"JAX: {name}")
         np.testing.assert_allclose(p.grad.numpy(), want, rtol=0,
-                                   atol=_grad_atol(want), err_msg=name)
-    assert_params_close(params, ref["new"], ref["applied"], LR, _grad_atol)
+                                   atol=2 * atol, err_msg=name)
+
+    def pair_atol(g):
+        return 2 * _step_atol(g)
+
+    assert_params_close(params, ref["new"], ref["applied"], LR, pair_atol)
     assert_params_close(st.ema_params, ref["ema"], ref["applied"], LR,
-                        _grad_atol)
+                        pair_atol)
     _assert_stats_close(tstate.batch_stats(model), ref["new"])
     assert set(st.ema_batch_stats) == set(tstate.batch_stats(model))
     _assert_stats_close(st.ema_batch_stats, ref["ema"])

@@ -178,9 +178,10 @@ def test_loader_rejects_unreadable_checkpoints(tmp_path):
 
 def test_port_imports_no_jax():
     """In a fresh process, importing every module of the port (the package
-    is walked; the inference, export and conversion CLIs, ``serve`` and
-    ``stage1.api`` among them) and running a tiny lifter of each kind
-    loads nothing of JAX, flax or the JAX package."""
+    is walked; the inference, export, conversion and preprocess CLIs,
+    ``serve`` and the stage-1 modules among them) and running a tiny
+    lifter of each kind loads nothing of JAX, flax or the JAX package, nor
+    transformers, safetensors, timm or ultralytics."""
     code = (
         "import importlib, pkgutil, sys, torch\n"
         "import pose3d_tpu_torch\n"
@@ -189,7 +190,13 @@ def test_port_imports_no_jax():
         "assert len(names) > 20, names\n"
         "assert {'pose3d_tpu_torch.cli.infer', 'pose3d_tpu_torch.cli.export',\n"
         "        'pose3d_tpu_torch.cli.convert', 'pose3d_tpu_torch.serve',\n"
-        "        'pose3d_tpu_torch.stage1.api'} <= set(names), names\n"
+        "        'pose3d_tpu_torch.stage1.api', 'pose3d_tpu_torch.stage1.port',\n"
+        "        'pose3d_tpu_torch.stage1.yolo11',\n"
+        "        'pose3d_tpu_torch.stage1.yolo_port',\n"
+        "        'pose3d_tpu_torch.stage1.depthpro',\n"
+        "        'pose3d_tpu_torch.stage1.depthpro_port',\n"
+        "        'pose3d_tpu_torch.stage1.models',\n"
+        "        'pose3d_tpu_torch.cli.preprocess'} <= set(names), names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "from pose3d_tpu_torch.core.config import (CNNModelConfig,\n"
@@ -210,7 +217,8 @@ def test_port_imports_no_jax():
         "    assert out.shape == (2, 17, 3) and torch.isfinite(out).all()\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
-        "                                    'pose3d_tpu'))\n"
+        "                 'pose3d_tpu', 'transformers', 'safetensors',\n"
+        "                 'timm', 'ultralytics'))\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n"
     )
