@@ -140,8 +140,8 @@ Phases, each fatal on failure:
      own process, with the sample counts, the routing by subject and the
      shuffled set checked; ``PoseAugmentor``'s time a sample at 500×500;
      the host feed alone, twice with and twice without the augmentor;
-     the full-width CNN (10 grouped 10×10 steps, no kernel) and the
-     transformer (10 steps and a validation, 20 attention launches a pass
+     the full-width CNN (7 grouped 10×10 steps, no kernel) and the
+     transformer (7 steps and a validation, 20 attention launches a pass
      each way) trained with ``--augment`` from the shuffled archives,
      beside the same runs without it, their step times read after the
      first epoch; a ``batch_pallas:N`` CNN in scan for
@@ -180,12 +180,30 @@ Phases, each fatal on failure:
      --stage1 cached`` and ``--stage1 jax``; (d) ``serve_http
      --checkpoint`` (the full pipeline) at batch 1 and 8 against a direct
      provider + lifter call; (e) times: forwards, the attention kernel at
-     the two stage-1 shapes, the preprocess pieces, ``/predict_image``.
+     the two stage-1 shapes, the preprocess pieces, ``/predict_image``;
+     ``cli.preprocess`` and ``cli.infer --stage1 jax`` again with
+     ``--data-parallel``, against the runs without it;
+ 14. parallel: (a) ``cli.main`` at a world of one over NCCL
+     (``--coordinator``, ``--num-processes 1``, ``--process-id 0``) with
+     ``--param-sharding fsdp``, the CNN stopped by SIGTERM and resumed, the
+     transformer for 2 steps, against the same command lines without the
+     flags; (b) two ranks sharing the card (``chip_smoke.py
+     --parallel-rank``) over gloo, every collective through host memory
+     (NCCL refuses two ranks on one device): one step each of DP (the CNN
+     grouped 10×10 with rotation, and scan ``batch_pallas`` 2×10, both
+     fp32), FSDP (the transformer 10×10) and TP, TP+SP and PP (the
+     transformer 1×10, cut from 10×10 to hold two ranks on 80 GB), against
+     the same step in one process (loss, gradient, running statistics,
+     parameters), the launches of each kernel on each rank against the
+     counts the code implies, then a warm step timed with its collectives'
+     host time, each rank's peak and parameter + moment bytes; (c) the
+     untrained stage-1 provider over two replicas on the card against one.
 
 Standard output ends with a JSON line of the kernels (``launches`` on
 the path that first drives each kernel, ``cli_launches`` on phase 10's
 runs, ``data_launches`` on phase 11's, ``export_launches`` on phase 12's,
-``stage1_launches`` on phase 13's main path)
+``stage1_launches`` on phase 13's main path, ``parallel_launches`` on each
+of phase 14's two ranks)
 and, last, one JSON line ``{"ok": true, "device": {...}}``. Without CUDA,
 or without the repository beside it, the script exits non-zero and prints
 no result.
@@ -3255,12 +3273,13 @@ DATA_FRAMES = {1: 60, 5: 60, 6: 60, 7: 60, 8: 60, 9: 10, 11: 10}
 DATA_TRAIN, DATA_TEST = (1, 5, 6, 7, 8), (9, 11)
 DATA_HW = (1000, 1000)  # Human3.6M's frame size (height, width)
 DATA_CHUNK = 100        # samples an archive: chunker, splitter, shuffler
-# Steps of each training run from the shuffled archives: 10 steps are 3+
-# epochs of the 300 train samples. The step times read are those after
-# the first epoch (steps 4-10): by then the read-ahead of up to two
-# archives, filled while step 1 builds, is spent, and the feed runs at its
-# own rate.
-DATA_STEPS, DATA_WARM = 10, 3
+# Steps of each training run from the shuffled archives: 7 steps are 2+
+# epochs of the 300 train samples, enough steps after the first epoch to
+# read while the script keeps within its time limit. The step times read
+# are those after the first epoch (steps 4-7):
+# by then the read-ahead of up to two archives, filled while step 1
+# builds, is spent, and the feed runs at its own rate.
+DATA_STEPS, DATA_WARM = 7, 3
 # batch_pallas:N: at 500 x 500 the stem and stage 1 have 250² and 125²
 # pixels a sample, stage 2 63², stage 3 32²: N = 4000 leaves the stem and
 # stage 1 on the kernel and puts stage 2 and after under the gate.
@@ -4761,7 +4780,9 @@ def _s1_preprocess(torch, tmp: Path, paths: dict, files, want,
     """(c): ``python -m pose3d_tpu_torch.cli.preprocess`` on the frames,
     the artifacts against the provider; a second run skips every folder
     (``finished.txt``); ``cli.infer --stage1 cached`` over the artifacts
-    and ``cli.infer --stage1 jax`` with the weights, finite joints."""
+    and ``cli.infer --stage1 jax`` with the weights, finite joints; both
+    stage-1 CLIs again with ``--data-parallel`` (one replica a card: here
+    one), their outputs against the runs without it."""
     src, out = files[0].parent.parent, tmp / "s1_artifacts"
     argv = [str(src), str(out), "--kp-weights", str(paths["yolo"]),
             "--depth-weights", str(paths["depth"]),
@@ -4793,14 +4814,21 @@ def _s1_preprocess(torch, tmp: Path, paths: dict, files, want,
                              "--input_folder", {str(one)!r},
                              "--output_folder", {str(tmp / 's1_cached')!r},
                              "--batch-size", "{S1_BATCH}"])
-        jax = infer.main(["--checkpoint_path", {str(paths['lifter'])!r},
-                          "--input_folder", {str(src / files[0].parent.name)!r},
-                          "--output_folder", {str(tmp / 's1_jax')!r},
-                          "--stage1", "jax",
-                          "--kp-weights", {str(paths['yolo'])!r},
-                          "--depth-weights", {str(paths['depth'])!r},
-                          "--batch-size", "{S1_BATCH}"])
-        print(json.dumps({{"rerun": rerun, "cached": cached, "jax": jax}}))
+        def jax_infer(out, *extra):
+            return infer.main(["--checkpoint_path", {str(paths['lifter'])!r},
+                               "--input_folder",
+                               {str(src / files[0].parent.name)!r},
+                               "--output_folder", out, "--stage1", "jax",
+                               "--kp-weights", {str(paths['yolo'])!r},
+                               "--depth-weights", {str(paths['depth'])!r},
+                               "--batch-size", "{S1_BATCH}", *extra])
+
+        jax = jax_infer({str(tmp / 's1_jax')!r})
+        dp_pre = preprocess.main({argv!r}[:1] + [{str(tmp / 's1_artifacts_dp')!r}]
+                                 + {argv!r}[2:] + ["--data-parallel"])
+        dp_jax = jax_infer({str(tmp / 's1_jax_dp')!r}, "--data-parallel")
+        print(json.dumps({{"rerun": rerun, "cached": cached, "jax": jax,
+                          "dp_pre": dp_pre, "dp_jax": dp_jax}}))
     """)
     t0 = time.perf_counter()
     res, err = _subprocess_json(code, tmp)
@@ -4808,16 +4836,29 @@ def _s1_preprocess(torch, tmp: Path, paths: dict, files, want,
     n_one = S1_FRAMES[files[0].parent.name]
     joints = [np.load(p) for d in ("s1_cached", "s1_jax")
               for p in sorted((tmp / d).glob("*_pred_joints3d.npy"))]
-    ok = (res == {"rerun": 0, "cached": n_one, "jax": n_one}
+    ok = (res == {"rerun": 0, "cached": n_one, "jax": n_one,
+                  "dp_pre": len(files), "dp_jax": n_one}
           and len(joints) == 2 * n_one
           and all(j.shape == (17, 3) and np.isfinite(j).all()
                   for j in joints))
+    dp_agree = _s1_artifacts_agree(tmp / "s1_artifacts_dp", files, want)
+    dp_joints = [np.load(p) for p in sorted(
+        (tmp / "s1_jax_dp").glob("*_pred_joints3d.npy"))]
+    dp_diff = max(float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+                  for a, b in zip(dp_joints, joints[n_one:]))
+    dp_ok = len(dp_joints) == n_one and dp_diff <= 1e-3
     log(f"[stage1] (c) second process ({wall:.1f} s): preprocess again "
         f"into the same tree: {res['rerun']} images (finished.txt in each "
         f"folder); cli.infer --stage1 cached "
         f"{res['cached']} and --stage1 jax {res['jax']} joint files (want "
         f"{n_one} each), finite  {'ok' if ok else 'FAIL'}")
-    if not ok:
+    log(f"[stage1] (c) --data-parallel (a replica on each of the "
+        f"{torch.cuda.device_count()} card(s)): cli.preprocess "
+        f"{res['dp_pre']} images, artifacts against the provider: {dp_agree}"
+        f"; cli.infer --stage1 jax {len(dp_joints)} joint files, max |Δ| "
+        f"{dp_diff:.2e} of the run without the flag (bound 1e-3)  "
+        f"{'ok' if dp_ok else 'FAIL'}")
+    if not (ok and dp_ok):
         raise SystemExit("the stage-1 CLIs failed a check")
 
 
@@ -4996,6 +5037,509 @@ def phase_stage1(torch, tmp: Path, card: str) -> dict:
     return launches
 
 
+# --- phase 14: parallelism ----------------------------------------------------
+
+# Two ranks share the one card over gloo (NCCL refuses two ranks on one
+# device): every collective copies through host memory there
+# (pose3d_tpu_torch/core/comm.py). Each job: one optimizer step from the
+# same seeded weights and superbatch as a one-process step run first (the
+# step compared), then a second, warm step (the step timed), the dropout
+# rates 0 (ranks draw their own masks), TF32 off. The CNN computes in fp32
+# here (the grouped step with remat, to hold the flat batch of 100 in fp32):
+# in bf16 the convolutions round differently at batch 50 than at 100, and
+# 62 BatchNorms in sequence carry that to 12% of the gradient (measured on
+# the H100), which would hide a fault of the cross-rank statistics. The
+# transformer computes in bf16. (name, model, normalization, accumulation,
+# A, B, strategy, mesh shape, axes, augment)
+PAR_JOBS = (
+    ("dp_cnn", "cnn", "batch", "grouped", 10, 10, "dp", (2,), ("data",),
+     True),
+    # scan at 2 x 10: two microbatches show the per-microbatch launches and
+    # all-reduces; ten would add 9 s of host round trips on the shared card
+    ("dp_cnn_scan", "cnn", "batch_pallas", "scan", 2, 10, "dp", (2,),
+     ("data",), False),
+    ("fsdp_transformer", "transformer", None, "grouped", 10, 10, "fsdp",
+     (2,), ("data",), False),
+    # TP, TP+SP and PP: both ranks run the whole batch (one data rank), so
+    # the batch is cut from 10 x 10 to 1 x 10 to hold two ranks on 80 GB
+    ("tp", "transformer", None, "grouped", 1, 10, "tp", (1, 2),
+     ("data", "model"), False),
+    ("tp_sp", "transformer", None, "grouped", 1, 10, "sp", (1, 2),
+     ("data", "model"), False),
+    ("pp", "transformer", None, "grouped", 1, 10, "pp", (1, 2),
+     ("data", "stage"), False),
+)
+PAR_MICROBATCHES = 2
+PAR_TIMEOUT = 240
+# A rank's step against the one-process step, relative: the loss, the
+# averaged gradient (L2 of the difference over L2 of the reference) and the
+# BatchNorm running statistics. The two run on partitions of the batch that
+# differ (cuDNN and cuBLAS pick kernels by shape, the sums run in another
+# order), so they agree to the dtype's rounding, not bitwise. fp32 (the
+# CNN): the statistics' sums in another order, passed through 62
+# BatchNorms; the card gave loss ≤ 6.0e-7, gradient ≤ 2.5e-5, statistics
+# ≤ 6.6e-8. bf16 (the transformer): loss ≤ 5.8e-4 and gradient ≤ 2.3e-2
+# (TP+SP, whose all-gathers and reduce-scatters change the most sums).
+TOL_PAR = {"float32": {"loss": 1e-5, "grad": 1e-3, "stats": 1e-6},
+           "bfloat16": {"loss": 2e-3, "grad": 5e-2, "stats": 1e-6}}
+# ... and every parameter within 2.1·lr of the reference's: AdamW's first
+# step moves an element by at most lr (plus decay), so a misplaced shard
+# or a wrong gather shows far beyond it
+LR_PAR = 1e-3
+# cli.main at a world of one over NCCL against the same command line
+# without the flags: the per-step losses, relative. One rank's FSDP gather
+# is a copy, so only the attention backward's atomic dQ sums and cuDNN's
+# move the second step's loss: the card gave ≤ 8.2e-6 in four runs.
+TOL_PAR_CLI = 1e-4
+
+
+def _par_config(model: str, norm):
+    """The published configuration with dropout 0."""
+    from pose3d_tpu_torch.core.config import make_model_config
+
+    if model == "cnn":
+        return make_model_config("cnn", normalization=norm,
+                                 regression_dropout=0.0)
+    return make_model_config("transformer", transformer_dropout_rate=0.0,
+                             regression_dropout=0.0)
+
+
+def _par_dtype(torch, job):
+    return torch.float32 if job[1] == "cnn" else torch.bfloat16
+
+
+def _par_superbatch(cfg, A: int, B: int, seed: int) -> dict:
+    from pose3d_tpu_torch.train.loop import _superbatches
+
+    return next(_superbatches(_train_batches(
+        seed, A, B, tuple(cfg.image_size), cfg.num_joints), A))
+
+
+def _par_state(torch, job, mesh=None):
+    """The job's model and state, seeded alike in every process, with the
+    strategy's hooks and sharding."""
+    from pose3d_tpu_torch import parallel
+    from pose3d_tpu_torch.models import build_model
+    from pose3d_tpu_torch.parallel.sp import make_sp_constraint
+    from pose3d_tpu_torch.train.state import create_train_state
+
+    name, model, norm, mode, A, B, strategy, shape, axes, aug = job
+    cfg = _par_config(model, norm)
+    kw = dict(dtype=_par_dtype(torch, job), remat=mode == "grouped"
+              and model == "cnn")
+    if mesh is not None and strategy == "pp":
+        kw.update(vit_stacked=True, vit_block_runner=parallel.
+                  make_pipeline_runner(mesh, PAR_MICROBATCHES))
+    if mesh is not None and strategy == "sp":
+        kw.update(sp_constraint=make_sp_constraint(mesh))
+    m = build_model(cfg, device="cuda", train=True,
+                    generator=torch.Generator("cuda").manual_seed(11), **kw)
+    state = create_train_state(m, ema=True)
+    init = float(sum(p.detach().double().sum() for p in m.parameters()))
+    if mesh is not None and strategy != "dp":
+        {"fsdp": parallel.shard_state_for_fsdp,
+         "tp": parallel.shard_state_for_tp,
+         "sp": parallel.shard_state_for_tp,
+         "pp": parallel.shard_state_for_pp}[strategy](state, mesh)
+    return cfg, state, init
+
+
+class _CommTimer:
+    """Host seconds inside the port's collectives: each function of
+    ``pose3d_tpu_torch.core.comm`` wrapped wherever a module of the port
+    holds it, the outermost call counted (the staging copies through host
+    memory, and the wait for the other rank, included). gloo works in
+    threads of its own, so ``torch.profiler``'s rows show only the calls'
+    launch; this counts the time the step's thread spends in them."""
+
+    NAMES = ("all_reduce_", "all_gather", "all_gather_cat",
+             "reduce_scatter_dim", "broadcast_", "exchange")
+
+    def __init__(self):
+        from pose3d_tpu_torch.core import comm
+
+        self.seconds, self.calls, depth = 0.0, 0, [0]
+
+        def wrap(f):
+            def timed(*a, **k):
+                depth[0] += 1
+                t0 = time.perf_counter()
+                try:
+                    return f(*a, **k)
+                finally:
+                    depth[0] -= 1
+                    if depth[0] == 0:
+                        self.seconds += time.perf_counter() - t0
+                        self.calls += 1
+            return timed
+
+        orig = {n: getattr(comm, n) for n in self.NAMES}
+        new = {n: wrap(f) for n, f in orig.items()}
+        for mod in list(sys.modules.values()):
+            if getattr(mod, "__name__", "").startswith("pose3d_tpu_torch"):
+                for n in self.NAMES:
+                    if getattr(mod, n, None) is orig[n]:
+                        setattr(mod, n, new[n])
+
+
+def _par_step(torch, job, state, cfg, mesh=None):
+    """One step of the job (this rank's rows with a mesh); returns
+    (metrics, host seconds, launches, peak GiB)."""
+    from pose3d_tpu_torch.core.mesh import shard_batch
+    from pose3d_tpu_torch.ops.augment_device import (
+        DeviceAugmentConfig,
+        make_device_augment,
+    )
+    from pose3d_tpu_torch.train.loop import to_device
+    from pose3d_tpu_torch.train.step import make_train_step
+
+    name, model, norm, mode, A, B, strategy, shape, axes, aug = job
+    sb = _par_superbatch(cfg, A, B, seed=len(name))
+    if mesh is not None:
+        sb = shard_batch(mesh, sb, batch_axis=1)
+    augment = make_device_augment(DeviceAugmentConfig()) if aug else None
+    step = make_train_step(accum_mode=mode, ema_decay=0.999,
+                           augment=augment, mesh=mesh,
+                           state_sharding="replicated"
+                           if mesh is None or strategy == "dp" else "auto")
+    batch = to_device(sb, "cuda")
+    gen = torch.Generator("cuda").manual_seed(3)
+    agen = torch.Generator("cuda").manual_seed(4) if aug else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    metrics = step(state, batch, gen, agen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return ({k: float(v) for k, v in metrics.items()}, seconds,
+            launch_counts(), torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _par_vectors(torch, state) -> dict:
+    """The whole gradient, parameters and running statistics as flat fp32
+    vectors (sharded tensors gathered: a collective on a mesh)."""
+    from pose3d_tpu_torch.parallel.shard import full_state
+    from pose3d_tpu_torch.train.state import batch_stats
+
+    plan = getattr(state.model, "shard_plan", None)
+    names = [n for n, _ in state.model.named_parameters()]
+    grads = []
+    for n, p in state.model.named_parameters():
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        grads.append((plan.gather(n, g) if plan is not None else g)
+                     .float().reshape(-1))
+    sd = full_state(state)[0]
+    stats = list(batch_stats(state.model).values())
+    return {"grad": torch.cat(grads),
+            "params": torch.cat([sd[n].float().reshape(-1) for n in names]),
+            "stats": (torch.cat([s.float().reshape(-1) for s in stats])
+                      if stats else torch.zeros(1, device="cuda"))}
+
+
+def _par_reference(torch, job, tmp: Path, card: str) -> dict:
+    """The one-process step of a job, its vectors saved for the ranks."""
+    with _tf32(torch, False, False):
+        cfg, state, init = _par_state(torch, job)
+        metrics, first, launches, peak = _par_step(torch, job, state, cfg)
+        vec = _par_vectors(torch, state)
+        torch.save({k: v.cpu() for k, v in vec.items()}, tmp / f"{job[0]}.pt")
+        del vec
+        seconds = _par_step(torch, job, state, cfg)[1]
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(init=init, metrics=metrics, seconds=seconds, first=first,
+                launches=launches, peak=peak)
+
+
+def _par_expected(job, ref: dict) -> dict:
+    """The launches of each kernel a rank's step implies: the transformer
+    one of each attention kernel per attention and pass (a pipeline stage
+    runs its half of the ViT's blocks at each of M + 1 ticks), the scan
+    CNN one ``bn_stats`` per BatchNorm per microbatch (as many as the
+    one-process step launched: a rank runs every microbatch on its
+    rows), and with rotation four ``lane_resample`` a step (image and
+    depth rows of the two-pass warp)."""
+    name, model, norm, mode, A, B, strategy, shape, axes, aug = job
+    want = dict.fromkeys(KERNELS, 0)
+    cfg = _par_config(model, norm)
+    if model == "transformer":
+        rest = 2 * cfg.num_cross_modal_layers + cfg.final_encoder_depth
+        vit = cfg.vit_depth
+        if strategy == "pp":
+            vit = vit // 2 * (PAR_MICROBATCHES + 1)
+        want["flash_attention_fwd"] = want["flash_attention_bwd"] = vit + rest
+    elif norm == "batch_pallas":
+        want["bn_stats"] = ref["launches"]["bn_stats"]
+    if aug:
+        want["lane_resample"] = 4
+    return want
+
+
+def _parallel_rank(argv) -> int:
+    """One rank of phase 14 (``chip_smoke.py --parallel-rank R PORT DIR``):
+    every job of ``PAR_JOBS`` on the card over gloo, each against the
+    one-process reference in DIR; writes ``rank<R>.json`` there."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from pose3d_tpu_torch.core.mesh import initialize_distributed, make_mesh
+
+    rank, port, out = int(argv[0]), int(argv[1]), Path(argv[2])
+    initialize_distributed(f"127.0.0.1:{port}", 2, rank, device="cuda",
+                           backend="gloo")
+    import pose3d_tpu_torch.parallel  # noqa: F401  (then wrap every holder)
+    import pose3d_tpu_torch.train.loop  # noqa: F401
+    timer = _CommTimer()
+    results = {}
+    for job in PAR_JOBS:
+        name, *_, strategy, shape, axes, aug = job
+        mesh = make_mesh(shape, axes)
+        with _tf32(torch, False, False):
+            cfg, state, init = _par_state(torch, job, mesh)
+            local = [p for p in state.trainable()]
+            metrics, first, launches, peak = _par_step(
+                torch, job, state, cfg, mesh)
+            vec = _par_vectors(torch, state)
+            ref = torch.load(out / f"{name}.pt", map_location="cuda")
+            moments = sum(t.numel() * t.element_size()
+                          for p in local
+                          for t in state.optimizer.state[p].values()
+                          if torch.is_tensor(t) and t.dim() > 0)
+            rel = {
+                "grad": float((vec["grad"] - ref["grad"]).norm()
+                              / ref["grad"].norm()),
+                "stats": float((vec["stats"] - ref["stats"]).norm()
+                               / ref["stats"].norm().clamp_min(1e-30)),
+                "params_max": float((vec["params"] - ref["params"]).abs()
+                                    .max()),
+                "checksum": float(vec["params"].double().sum()),
+            }
+            del vec, ref
+            # the warm step, timed, with the collectives' host time
+            timer.seconds, timer.calls = 0.0, 0
+            seconds = _par_step(torch, job, state, cfg, mesh)[1]
+        results[name] = dict(
+            init=init, metrics=metrics, seconds=seconds, first=first,
+            launches=launches, peak=peak, rel=rel,
+            collectives_ms=timer.seconds * 1e3, collectives=timer.calls,
+            param_bytes=sum(p.numel() * p.element_size() for p in local),
+            moment_bytes=moments)
+        del state, local
+        gc.collect()
+        torch.cuda.empty_cache()
+    (out / f"rank{rank}.json").write_text(json.dumps(results))
+    dist.destroy_process_group()
+    return 0
+
+
+def _par_ranks(torch, tmp: Path, card: str) -> dict:
+    """(b): the references, then the two ranks, each killed at
+    ``PAR_TIMEOUT``; every check; returns each rank's launches."""
+    import socket
+
+    out = tmp / "parallel"
+    out.mkdir()
+    refs = {job[0]: _par_reference(torch, job, out, card) for job in PAR_JOBS}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "4"}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--parallel-rank",
+         str(r), str(port), str(out)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=PAR_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for r, (p, lg) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise SystemExit(f"parallel rank {r} exited {p.returncode}:\n"
+                             f"{lg[-6000:]}")
+    ranks = [json.loads((out / f"rank{r}.json").read_text())
+             for r in range(2)]
+    log(f"[parallel] (b) two ranks on one card over gloo (every collective "
+        f"through host memory: NCCL refuses two ranks on one device), "
+        f"{wall:.1f} s for both processes with start-up  [{card}]")
+    ok = True
+    per_rank = [dict.fromkeys(KERNELS, 0) for _ in range(2)]
+    for job in PAR_JOBS:
+        name = job[0]
+        ref = refs[name]
+        want = _par_expected(job, ref)
+        tol = TOL_PAR[str(_par_dtype(torch, job)).split(".")[1]]
+        loss = ref["metrics"]["total_loss"]
+        for r, res in enumerate(ranks):
+            got = res[name]
+            rel = dict(got["rel"], loss=abs(got["metrics"]["total_loss"]
+                                            - loss) / abs(loss))
+            checks = {
+                "same seeded weights": got["init"] == ref["init"],
+                "launches": got["launches"] == want,
+                **{f"{k} {rel[k]:.2e} <= {tol[k]:g}": rel[k] <= tol[k]
+                   for k in tol},
+                f"parameters max |Δ| {rel['params_max']:.2e} <= 2.1·lr":
+                    rel["params_max"] <= 2.1 * LR_PAR,
+            }
+            for k, v in got["launches"].items():
+                per_rank[r][k] += v
+            log(f"[parallel] (b) {name} rank {r} "
+                f"({str(_par_dtype(torch, job)).split('.')[1]}): loss "
+                f"{got['metrics']['total_loss']:.6f} (one process {loss:.6f}); "
+                f"warm step {got['seconds'] * 1e3:.1f} ms (one process "
+                f"{ref['seconds'] * 1e3:.1f} ms; first steps "
+                f"{got['first'] * 1e3:.1f} and {ref['first'] * 1e3:.1f}; the "
+                f"card shared by two ranks), of it "
+                f"{got['collectives_ms']:.1f} ms in {got['collectives']} "
+                f"collectives (host time, staging included); peak "
+                f"{got['peak']:.2f} GiB (one process {ref['peak']:.2f}); "
+                f"parameters {got['param_bytes'] / 2**20:.1f} MiB + AdamW "
+                f"moments {got['moment_bytes'] / 2**20:.1f} MiB on this rank; "
+                f"launches {_nonzero(got['launches'])} (want "
+                f"{_nonzero(want)})")
+            for what, good in checks.items():
+                log(f"[parallel] (b) {name} rank {r} {what}: "
+                    f"{'ok' if good else 'FAIL'}")
+                ok &= good
+        same = ranks[0][name]["rel"]["checksum"] == \
+            ranks[1][name]["rel"]["checksum"]
+        log(f"[parallel] (b) {name}: both ranks hold the same parameters "
+            f"after the step: {'ok' if same else 'FAIL'}")
+        ok &= same
+    if not ok:
+        raise SystemExit("a parallel step failed a check")
+    return {"per_rank": per_rank}
+
+
+def _nonzero(d: dict) -> dict:
+    return {k: v for k, v in d.items() if v}
+
+
+def _par_cli(torch, tmp: Path, card: str) -> dict:
+    """(a): ``cli.main`` at a world of one over NCCL (``--coordinator``,
+    ``--num-processes 1``, ``--process-id 0``) with ``--param-sharding
+    fsdp``, against the same command line without those flags: the CNN
+    (grouped, rotation on) stopped by SIGTERM after step 1 and resumed to
+    step 2 under the flags, the transformer for 2 steps."""
+    import socket
+
+    import torch.distributed as dist
+
+    from pose3d_tpu_torch.cli import main as cli_main
+
+    def flags():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        return ["--coordinator", f"127.0.0.1:{port}", "--num-processes",
+                "1", "--process-id", "0", "--param-sharding", "fsdp"]
+
+    def run(argv, cwd, stop_after=None):
+        try:
+            return _run_cli(torch, cli_main, argv, cwd, stop_after)
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+
+    base = ["--chunks-dir", str(FIXTURE), "--device", "cuda",
+            "--pixel-dtype", "uint8", "--no-tensorboard", "--num-steps", "2",
+            "--log-interval", "1", "--checkpoint", "auto", "--eval-interval",
+            "1", "--keep-checkpoints", "1", "--cache-dir",
+            str(tmp / "par_cache")]
+    cnn = base + ["--model-type", "cnn", "--augment-device",
+                  "--augment-device-rotation"]
+    # the transformer at batch 2 x 2 (its published dropout on), one
+    # validation and checkpoint at step 2
+    tf = base + ["--model-type", "transformer", "--batch-size", "2",
+                 "--grad-accum", "2", "--eval-interval", "2"]
+    plain = run(cnn, tmp / "par_cli_cnn")
+    first = run(cnn + flags(), tmp / "par_cli_cnn_fsdp", stop_after=1)
+    second = run(cnn + flags(), tmp / "par_cli_cnn_fsdp")
+    tplain = run(tf, tmp / "par_cli_tf")
+    tflag = run(tf + flags(), tmp / "par_cli_tf_fsdp")
+    sharded = first["losses"] + second["losses"]
+
+    def close(a, b):
+        return len(a) == len(b) == 2 and all(
+            abs(x - y) <= TOL_PAR_CLI * abs(y) for x, y in zip(a, b))
+
+    checks = {
+        "CNN stopped at step 1 under the flags": first["last_step"] == 1,
+        "CNN resumed at step 1 to step 2": (second["start_step"] == 1
+                                             and second["last_step"] == 2),
+        f"CNN losses within {TOL_PAR_CLI:g} of the run without flags":
+            close(sharded, plain["losses"]),
+        f"transformer losses within {TOL_PAR_CLI:g} of the run without "
+        "flags": close(tflag["losses"], tplain["losses"]),
+        "the same launches with and without the flags": (
+            tflag["launches"] == tplain["launches"]),
+    }
+    log(f"[parallel] (a) cli.main, a world of one over NCCL with "
+        f"--param-sharding fsdp: CNN losses {sharded} (stopped at "
+        f"{first['last_step']}, resumed at {second['start_step']}) against "
+        f"{plain['losses']} without the flags; transformer {tflag['losses']} "
+        f"against {tplain['losses']}; launches {_nonzero(tflag['launches'])}"
+        f"; steps {first['wall'] + second['wall']:.1f} s + "
+        f"{tflag['wall']:.1f} s with the flags, {plain['wall']:.1f} s + "
+        f"{tplain['wall']:.1f} s without  [{card}]")
+    for what, good in checks.items():
+        log(f"[parallel] (a) {what}: {'ok' if good else 'FAIL'}")
+    if not all(checks.values()):
+        raise SystemExit("the world-of-one CLI runs failed a check")
+    return {k: first["launches"][k] + second["launches"][k]
+            + tflag["launches"][k] for k in KERNELS}
+
+
+def _par_stage1(torch, card: str) -> None:
+    """(c'): the untrained stage-1 provider with two replicas on the one
+    card (``mesh=["cuda:0", "cuda:0"]``: the batch padded to a multiple of
+    two, split and gathered in order) against one device."""
+    from pose3d_tpu_torch.stage1.models import TorchStage1
+
+    rng = np.random.default_rng(0)
+    imgs = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            for h, w in ((480, 640), (512, 512), (720, 400))]
+    kw = dict(input_size=512, generator=None)
+    one = TorchStage1(**kw, device="cuda").predict_batch(imgs)
+    two = TorchStage1(**kw, mesh=["cuda:0", "cuda:0"]).predict_batch(imgs)
+    kp = max(float(np.abs(a.keypoints - b.keypoints).max())
+             for a, b in zip(one, two))
+    dep = max(float(np.abs(1 / a.depth - 1 / b.depth).max()
+                    / np.abs(1 / b.depth).max()) for a, b in zip(one, two))
+    ok = kp <= 1e-2 and dep <= 1e-2
+    log(f"[parallel] (c) stage 1, untrained nets (bf16) at 512, three "
+        f"frames over two replicas on the card against one: keypoints max "
+        f"|Δ| {kp:.2e}, inverse depth {dep:.2e} of its max (bound 1e-2 "
+        f"each: bf16, batch 2 and 4 pick other kernels)  "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("data-parallel stage 1 failed a check")
+
+
+def phase_parallel(torch, tmp: Path, card: str) -> dict:
+    """Phase 14: (a) the CLI at a world of one over NCCL, (b) two ranks
+    sharing the card over gloo for every strategy, (c') data-parallel stage
+    1 with two replicas. Returns the launches of (b) per rank."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli = _par_cli(torch, tmp, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = _par_ranks(torch, tmp, card)
+    _par_stage1(torch, card)
+    log(f"[parallel] phase seconds: {time.perf_counter() - t0:.1f}")
+    return {"cli": cli, **ranks}
+
+
 def phase_imports() -> None:
     """The port, every module of it imported (the stage-1 modules and the
     preprocess CLI among them), has loaded nothing of JAX, flax or the JAX
@@ -5012,6 +5556,11 @@ def phase_imports() -> None:
         "models")} | {"pose3d_tpu_torch.cli.preprocess"}
     if not stage1 <= set(names):
         raise SystemExit(f"stage-1 modules missing: {stage1 - set(names)}")
+    par = {f"pose3d_tpu_torch.{m}" for m in (
+        "core.mesh", "core.comm", "parallel.shard", "parallel.fsdp",
+        "parallel.tp", "parallel.sp", "parallel.pp", "parallel.dryrun")}
+    if not par <= set(names):
+        raise SystemExit(f"parallel modules missing: {par - set(names)}")
     for name in names:
         importlib.import_module(name)
     banned = ("jax", "jaxlib", "flax", "pose3d_tpu", "transformers",
@@ -5030,6 +5579,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        return _parallel_rank(sys.argv[2:])
     sys.path.insert(0, str(ROOT))
     try:
         import pose3d_tpu_torch
@@ -5042,21 +5593,31 @@ def main() -> int:
               "checkout", file=sys.stderr)
         return 2
 
-    card = phase_environment(torch)
-    phase_build()
-    worst = phase_kernels(torch)
+    t_start = time.perf_counter()
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s "
+            f"(script {time.perf_counter() - t_start:.1f} s)")
+        return out
+
+    card = timed("environment", phase_environment, torch)
+    timed("build", phase_build)
+    worst = timed("kernels", phase_kernels, torch)
     with tempfile.TemporaryDirectory(prefix="pose3d_chip_smoke_") as tmp:
-        sl = phase_slice(torch, Path(tmp))
-        times = phase_times(torch, card, sl)
+        sl = timed("slice", phase_slice, torch, Path(tmp))
+        times = timed("times", phase_times, torch, card, sl)
         del sl
-        phase_augment(torch, card)
-        rows = phase_rowops(torch, card)
-        tr = phase_train(torch, Path(tmp), card)
-        cnn = phase_cnn(torch, Path(tmp), card)
-        cli = phase_cli(torch, Path(tmp), card)
-        data = phase_data(torch, Path(tmp), card)
-        export = phase_export(torch, Path(tmp), card)
-        stage1 = phase_stage1(torch, Path(tmp), card)
+        timed("augment", phase_augment, torch, card)
+        rows = timed("rowops", phase_rowops, torch, card)
+        tr = timed("train", phase_train, torch, Path(tmp), card)
+        cnn = timed("cnn", phase_cnn, torch, Path(tmp), card)
+        cli = timed("cli", phase_cli, torch, Path(tmp), card)
+        data = timed("data", phase_data, torch, Path(tmp), card)
+        export = timed("export", phase_export, torch, Path(tmp), card)
+        stage1 = timed("stage1", phase_stage1, torch, Path(tmp), card)
+        par = timed("parallel", phase_parallel, torch, Path(tmp), card)
     phase_imports()
     # (file:line of the TPU kernel, launches on its main path, key of the
     # shape its times are given at)
@@ -5096,6 +5657,7 @@ def main() -> int:
         "data_launches": data[name],
         "export_launches": export[name],
         "stage1_launches": stage1[name],
+        "parallel_launches": [r[name] for r in par["per_rank"]],
         **worst[name],
         **times[key],
     } for name, (replaces, launches, key) in kernels.items()]}))

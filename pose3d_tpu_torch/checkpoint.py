@@ -124,17 +124,19 @@ def checkpoint_step(path) -> int:
     return int(ckpt.get("step", 0)) if "model_state_dict" in ckpt else 0
 
 
-def save_pose_model(model: nn.Module, path, step: int = 0, cfg=None) -> str:
+def save_pose_model(model: nn.Module, path, step: int = 0, cfg=None,
+                    state_dict=None) -> str:
     """Write ``model`` (either lifter) in the reference schema (CPU
-    tensors); ``cfg`` defaults to the model's own config."""
+    tensors); ``cfg`` defaults to the model's own config, ``state_dict``
+    to the model's (a sharded state passes its gathered one)."""
     cfg = cfg or model.config
     model_args = cfg.to_dict()
     model_type = model_args.pop("model_type")
+    sd = model.state_dict() if state_dict is None else state_dict
     torch.save({
         "step": step,
         "global_step": step,
-        "model_state_dict": {k: v.detach().cpu()
-                             for k, v in model.state_dict().items()},
+        "model_state_dict": {k: v.detach().cpu() for k, v in sd.items()},
         "model_args": model_args,
         "model_type": model_type,
     }, path)

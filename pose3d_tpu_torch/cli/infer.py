@@ -10,9 +10,11 @@ keypoints | depth | 3D pose).
 artifacts beside each image) or ``--stage1 jax``: the keypoint and depth
 networks (``--kp-weights`` or its reference alias ``--yolo_model_path``,
 ``--depth-weights``; without both, the untrained networks, which only
-``--allow-untrained`` permits). ``--data-parallel`` is refused with an
-error that names ROADMAP.md. Runs on the card (``--device cuda``, the
-default; without CUDA it raises) unless ``--device cpu`` is given.
+``--allow-untrained`` permits). ``--data-parallel`` runs the stage-1
+networks with one replica per visible card (``stage1.models``'s
+``mesh=``); it applies to ``--stage1 jax`` only and is refused beside
+``--stage1 cached``. Runs on the card (``--device cuda``, the default;
+without CUDA it raises) unless ``--device cpu`` is given.
 
 Usage:
   python -m pose3d_tpu_torch.cli.infer --checkpoint_path model.pth \\
@@ -39,11 +41,15 @@ from pose3d_tpu_torch.core.config import CONNECTIONS_COCO, GlobalConfig
 logger = logging.getLogger("Inference")
 
 VIZ_THUMBNAIL_SIZE = (500, 500)
-# flag → what it would need; each is refused when given, never ignored
-NOT_PORTED = {
-    "--data-parallel": "multi-device stage 1 (ROADMAP.md, Queue 1, item 6: "
-                       "parallelism)",
-}
+
+
+def stage1_mesh(device) -> list:
+    """``--data-parallel``: every visible card of ``device``'s type (the
+    CPU is one device), as the JAX CLIs take every device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return [device]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def _resize_batch(images: List[np.ndarray], size_hw) -> np.ndarray:
@@ -273,6 +279,9 @@ def stage1_kwargs(args, device) -> dict:
             "--allow-untrained to proceed anyway, or use "
             "--stage1 cached with preprocess artifacts.")
     extra["device"] = device
+    if args.data_parallel:
+        extra["mesh"] = stage1_mesh(device)
+        logger.info("Data-parallel stage-1 over %s", extra["mesh"])
     return extra
 
 
@@ -301,7 +310,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="Device (default: cuda; raises without a card)")
     p.add_argument("--data-parallel", action="store_true",
-                   help="Not ported (multi-device stage 1)")
+                   help="Stage-1 batches split over every visible card, "
+                        "one replica of each network on each (--stage1 "
+                        "jax)")
     p.add_argument("--yolo_model_path", type=str, default=None,
                    help="Reference-compatible alias of --kp-weights with "
                         "--stage1 jax (ignored by the cached backend)")
@@ -330,11 +341,9 @@ def main(argv=None) -> int:
         format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
     parser = build_parser()
     args = parser.parse_args(argv)
-    for flag, what in NOT_PORTED.items():
-        if getattr(args, flag.lstrip("-").replace("-", "_")) not in (None,
-                                                                    False):
-            parser.error(f"{flag}: {what} is not ported to pose3d_tpu_torch "
-                         "yet")
+    if args.data_parallel and args.stage1 != "jax":
+        parser.error("--data-parallel splits the stage-1 networks' batches: "
+                     "it applies to --stage1 jax only")
     return run(args)
 
 

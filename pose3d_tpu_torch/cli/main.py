@@ -19,8 +19,16 @@ Usage:
 ``--vit-weights`` initialises the transformer's ViT backbone from a timm
 ViT state_dict (``stage1/port.py``'s ``port_vit_backbone``: the patch
 embedding inflated to the input's channels, the position grid resized).
-Flags of features not ported yet (the mesh and multi-process flags) are
-refused with an error that names ROADMAP.md.
+
+Multi-process training: start one process per card with the same command
+line plus ``--coordinator host:port --num-processes N --process-id i``
+(rank i drives ``cuda:<local rank>``; NCCL on the card, gloo with
+``--device cpu``). ``--batch-size`` is per process: the global batch is
+N times it. Each process reads the training chunks
+``chunk_files[i::N]``; every process reads the whole validation set.
+``--param-sharding fsdp`` shards the parameters and AdamW moments over the
+processes; ``--multislice`` groups the processes by node into a hybrid
+(replica × data) mesh.
 """
 
 from __future__ import annotations
@@ -38,6 +46,14 @@ import numpy as np
 import torch
 
 from pose3d_tpu_torch.core.config import GlobalConfig, make_model_config
+from pose3d_tpu_torch.core.mesh import (
+    host_shard_info,
+    initialize_distributed,
+    local_device,
+    make_hybrid_mesh,
+    make_mesh,
+    warmup_collectives,
+)
 from pose3d_tpu_torch.data.pipeline import BatchLoader, StreamingChunkedDataset
 from pose3d_tpu_torch.models import build_model
 from pose3d_tpu_torch.ops.losses import LossWeights
@@ -47,14 +63,6 @@ from pose3d_tpu_torch.train.state import create_train_state, make_lr_schedule
 
 logger = logging.getLogger("Training")
 
-# flag → what it would need; each is refused, never accepted and ignored
-NOT_PORTED = {
-    "param_sharding": "parameter sharding (parallel/fsdp.py)",
-    "multislice": "hybrid meshes (core/mesh.py)",
-    "coordinator": "multi-process training (core/mesh.py)",
-    "num_processes": "multi-process training (core/mesh.py)",
-    "process_id": "multi-process training (core/mesh.py)",
-}
 # --attention-backend → the transformer's attention_impl
 ATTENTION_IMPL = {"pallas": "auto", "xla": "reference"}
 
@@ -186,16 +194,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Pretrained timm-format ViT weights "
                         "(.pth/.safetensors, vit_base_patch16_384 family) "
                         "to initialize the transformer backbone")
-    # not ported yet: refused in main()
-    p.add_argument("--param-sharding", type=str, default=None,
-                   help=argparse.SUPPRESS)
-    p.add_argument("--multislice", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--param-sharding", type=str, default="replicated",
+                   choices=["replicated", "fsdp"],
+                   help="Training state placement over the processes: "
+                        "'replicated' (pure data parallelism) or 'fsdp' "
+                        "(ZeRO-3: parameters and AdamW moments sharded "
+                        "over the data axis; parallel/fsdp.py)")
+    p.add_argument("--multislice", action="store_true",
+                   help="Hybrid (replica × data) mesh grouping the "
+                        "processes by node: the batch shards over both "
+                        "axes, FSDP collectives stay on a node, only the "
+                        "gradient all-reduce crosses nodes "
+                        "(core/mesh.make_hybrid_mesh)")
     p.add_argument("--coordinator", type=str, default=None,
-                   help=argparse.SUPPRESS)
+                   help="host:port of rank 0's process-group rendezvous "
+                        "(multi-process training)")
     p.add_argument("--num-processes", type=int, default=None,
-                   help=argparse.SUPPRESS)
+                   help="Number of processes (one per card)")
     p.add_argument("--process-id", type=int, default=None,
-                   help=argparse.SUPPRESS)
+                   help="This process's rank, 0 .. num-processes-1")
     return p
 
 
@@ -243,16 +260,24 @@ def main(argv=None):
         format="%(asctime)s - %(name)s - %(levelname)s - %(message)s")
     parser = build_parser()
     args = parser.parse_args(argv)
-    for flag, what in NOT_PORTED.items():
-        if getattr(args, flag) is not None and getattr(args, flag) is not False:
-            parser.error(f"--{flag.replace('_', '-')}: {what} is not ported "
-                         "to pose3d_tpu_torch yet (ROADMAP.md Queue 1)")
     if args.augment_device_rotation and not args.augment_device:
         parser.error("--augment-device-rotation requires --augment-device")
     if args.augment and args.augment_device:
         parser.error("--augment (host) and --augment-device are mutually "
                      "exclusive — pick one augmentation path")
     device = resolve_device(args.device)
+    shard_id, num_shards = 0, 1
+    if initialize_distributed(args.coordinator, args.num_processes,
+                              args.process_id, device=device):
+        device = local_device(device)
+        shard_id, num_shards = host_shard_info()
+        # bring every peer connection up now, while the processes are in
+        # step from the rendezvous, and fail fast on a wrong cluster
+        total = warmup_collectives(device)
+        logger.info("Collectives warm: %d devices across %d hosts",
+                    int(total), num_shards)
+    mesh = (make_hybrid_mesh() if args.multislice
+            else make_mesh((-1,), ("data",)))
     cfg = GlobalConfig()
     np.random.seed(cfg.random_seed)
     random.seed(cfg.random_seed)
@@ -337,7 +362,7 @@ def main(argv=None):
         start_step = args.start_step
 
     log_dir = None
-    if args.no_tensorboard:
+    if args.no_tensorboard or shard_id != 0:
         from pose3d_tpu_torch.train.tb import NullWriter
 
         writer = NullWriter()
@@ -352,7 +377,8 @@ def main(argv=None):
                 if device.type == "cuda" else "")
     logger.info("Model type: %s (%.1fM params)", model_type, n_params / 1e6)
     writer.add_text("Model/summary", f"```\n{model}\n```")
-    logger.info("Effective batch size: %d", batch_size * accum)
+    logger.info("Mesh: %s", mesh)
+    logger.info("Effective batch size: %d", batch_size * accum * num_shards)
     logger.info("Resume from step: %d", start_step)
 
     image_size = tuple(model_cfg.image_size)
@@ -362,6 +388,7 @@ def main(argv=None):
         image_size=image_size, cache_dir=cache_dir,
         use_augmentation=args.augment,
         shuffle=True, shuffle_chunks=True, root_relative=root_relative,
+        shard_id=shard_id, num_shards=num_shards,
         chunk_io=args.chunk_io, pixel_dtype=args.pixel_dtype)
     train_ds.training = True
     if data_state:
@@ -428,7 +455,8 @@ def main(argv=None):
             checkpoint_prefix=cfg.checkpoint_prefix, model_type=model_type,
             model_args=model_cfg.to_dict(), data_state=data_state,
             stop_event=stop_event, keep_checkpoints=args.keep_checkpoints,
-            profile=profile, memory_report=args.memory_report)
+            profile=profile, memory_report=args.memory_report, mesh=mesh,
+            param_sharding=args.param_sharding)
     finally:
         if previous is not None:
             signal.signal(signal.SIGTERM, previous)

@@ -20,8 +20,8 @@ device sees one batch size.
 Without ``--kp-weights`` and ``--depth-weights`` the untrained networks
 would write noise: that is refused unless ``--allow-untrained`` is given.
 Runs on the card (``--device cuda``, the default; without CUDA it raises)
-unless ``--device cpu`` is given. ``--data-parallel`` (stage 1 over
-several devices) is refused (ROADMAP.md, Queue 1, item 6).
+unless ``--device cpu`` is given. ``--data-parallel`` splits stage 1's
+batches over every visible card (one replica of each network on each).
 
 Usage:
   python -m pose3d_tpu_torch.cli.preprocess <input_base> <output_base> \\
@@ -152,7 +152,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="Device (default: cuda; raises without a card)")
     p.add_argument("--data-parallel", action="store_true",
-                   help="Not ported (stage 1 over several devices)")
+                   help="Stage-1 batches split over every visible card, "
+                        "one replica of each network on each")
     return p
 
 
@@ -160,10 +161,6 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, force=True)
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.data_parallel:
-        parser.error("--data-parallel: multi-device stage 1 is not ported "
-                     "to pose3d_tpu_torch yet (ROADMAP.md, Queue 1, item 6: "
-                     "parallelism)")
     if not (args.kp_weights and args.depth_weights) \
             and not args.allow_untrained:
         missing = [n for n, v in (("--kp-weights", args.kp_weights),
@@ -173,13 +170,18 @@ def main(argv=None) -> int:
             f"preprocess without {'/'.join(missing)} would write noise "
             "artifacts from randomly initialized stage-1 networks. Provide "
             "pretrained weights or pass --allow-untrained.")
+    from pose3d_tpu_torch.cli.infer import stage1_mesh
     from pose3d_tpu_torch.cli.main import resolve_device
     from pose3d_tpu_torch.stage1.models import TorchStage1
 
+    device = resolve_device(args.device)
+    mesh = None
+    if args.data_parallel:
+        mesh = stage1_mesh(device)
+        logger.info("Data-parallel stage-1 over %s", mesh)
     provider = TorchStage1(
         input_size=args.input_size, kp_weights=args.kp_weights,
-        depth_weights=args.depth_weights,
-        device=resolve_device(args.device))
+        depth_weights=args.depth_weights, device=device, mesh=mesh)
     input_base = Path(args.input_base)
     output_base = Path(args.output_base)
     folders = sorted(d for d in input_base.iterdir() if d.is_dir())

@@ -364,14 +364,6 @@ def _x_fusion_block(w, p, prefix):
     _x_lin(w, p["mlp_hm"]["Dense_1"], prefix + "mlp_hm.3.")
 
 
-def _index_tree(tree, i: int):
-    """Leaf-wise ``x[i]`` of a nested dict (one layer of a stacked
-    backbone)."""
-    if isinstance(tree, dict):
-        return {k: _index_tree(v, i) for k, v in tree.items()}
-    return np.asarray(tree)[i]
-
-
 def _x_vit_backbone(w, p, prefix, depth: int):
     """The JAX ViTBackbone → timm VisionTransformer keys. timm's own
     parameters (cls_token, pos_embed) precede its children (patch_embed, blocks, norm) in
@@ -381,10 +373,9 @@ def _x_vit_backbone(w, p, prefix, depth: int):
     ``vit_stacked=True``) is converted to the looped porting layout first.
     """
     if "blocks" in p:
-        stacked = p["blocks"]
-        p = {k: v for k, v in p.items() if k != "blocks"}
-        for i in range(depth):
-            p[f"block_{i}"] = _index_tree(stacked, i)
+        from pose3d_tpu_torch.parallel.pp import unstack_vit_blocks
+
+        p = unstack_vit_blocks(p)
     w.p(prefix + "cls_token", p["cls_token"])
     w.p(prefix + "pos_embed", p["pos_embed"])
     w.p(prefix + "patch_embed.proj.weight",

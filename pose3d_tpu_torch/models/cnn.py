@@ -25,7 +25,11 @@ normalises in fp32 and casts at the end; :class:`DotStatsBatchNorm`
 and Σx² from the hand-written ``bn_stats`` kernel or as plain fp32 sums
 and normalises in the compute dtype. Both use the biased variance
 ``max(E[x²] − E[x]², 0)`` for the batch and for the running statistics,
-and ``running = 0.9·running + 0.1·batch``.
+and ``running = 0.9·running + 0.1·batch``. In a data-parallel step both
+take their sums over every rank's rows (``sync_group``, set by
+``train.ghost_bn.cross_rank_batchnorm``): all-reduced in the forward, and
+in the backward Σdy and Σdy·x (``_BatchNormTrain``) or the upstream
+gradient of the sums (``DotStatsBatchNorm``) too.
 
 The per-sample normalisations (``normalization`` "instance", "layer" and
 "group") are :class:`GroupNorm` with flax ``nn.GroupNorm``'s numerics, and
@@ -44,6 +48,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from pose3d_tpu_torch.compat_export import iter_cnn_stage_blocks
+from pose3d_tpu_torch.core.comm import AllReduceSum, all_reduce_, group_size
 from pose3d_tpu_torch.core.config import CNNModelConfig
 from pose3d_tpu_torch.models.common import PoseRegressionHead
 from pose3d_tpu_torch.models.transformer import HeatmapGrid
@@ -87,13 +92,24 @@ class _BatchNormTrain(torch.autograd.Function):
     no gradient (they feed the running averages)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, groups: int, out_dtype):
+    def forward(ctx, x, weight, bias, groups: int, out_dtype, sync=None):
         C = x.shape[-1]
         xg = x.view(groups, -1, C)          # a view: never a copy of x
         n = xg.shape[1]
         f32 = _acc_dtype(x)
-        mean = xg.sum(1, dtype=f32) / n
-        mean2 = torch.linalg.vector_norm(xg, dim=1, dtype=f32).square() / n
+        if sync is None:
+            mean = xg.sum(1, dtype=f32) / n
+            mean2 = torch.linalg.vector_norm(
+                xg, dim=1, dtype=f32).square() / n
+        else:
+            # each group's Σx and Σx² over every rank's rows: one [2, G, C]
+            # all-reduce
+            sums = all_reduce_(torch.stack([
+                xg.sum(1, dtype=f32),
+                torch.linalg.vector_norm(xg, dim=1, dtype=f32).square()]),
+                sync)
+            n *= group_size(sync)
+            mean, mean2 = sums[0] / n, sums[1] / n
         raw = mean2 - mean * mean
         var = raw.clamp_min(0.0)
         inv = torch.rsqrt(var + BN_EPS)
@@ -101,7 +117,7 @@ class _BatchNormTrain(torch.autograd.Function):
         y = torch.addcmul(bias, xg - mean[:, None, :],
                           (inv * weight)[:, None, :])
         ctx.save_for_backward(x, weight, mean, inv, raw > 0)
-        ctx.groups, ctx.n = groups, n
+        ctx.groups, ctx.n, ctx.sync = groups, n, sync
         ctx.mark_non_differentiable(mean, var)
         return y.to(out_dtype).view(x.shape), mean, var
 
@@ -119,14 +135,21 @@ class _BatchNormTrain(torch.autograd.Function):
         db = dyg.sum(1, dtype=f32)                             # [G, C]
         dyx = dyg.to(f32, copy=True).mul_(xg).sum(1)           # Σ dy·x
         ds = (dyx - mean * db) * inv
+        # dx reads the sums over every rank's rows (each rank's loss moved
+        # the shared statistics); weight and bias keep this rank's part,
+        # which the gradient all-reduce adds up
+        gdb, gds = db, ds
+        if ctx.sync is not None:
+            sums = all_reduce_(torch.stack([db, dyx]), ctx.sync)
+            gdb, gds = sums[0], (sums[1] - mean * sums[0]) * inv
         k = weight * inv
         # a variance clamped at 0 is a constant: its term drops out
-        c1 = -(k * inv * ds * positive) / n
-        c0 = -(k * db) / n - c1 * mean
+        c1 = -(k * inv * gds * positive) / n
+        c0 = -(k * gdb) / n - c1 * mean
         dx = torch.addcmul(c0[:, None, :], dyg, k[:, None, :])
         dx.addcmul_(xg, c1[:, None, :])
         return (dx.to(x.dtype).view(x.shape), ds.sum(0), db.sum(0), None,
-                None)
+                None, None)
 
 
 class _BatchNormBase(nn.Module):
@@ -138,6 +161,9 @@ class _BatchNormBase(nn.Module):
     # False while a rematerialised block is recomputed in the backward
     # pass: the block's first run already moved the running statistics.
     track_running_stats = True
+    # the process group whose ranks share the batch statistics (set for a
+    # data-parallel train step by ``train.ghost_bn.cross_rank_batchnorm``)
+    sync_group = None
 
     def __init__(self, features: int, *, device=None):
         super().__init__()
@@ -186,7 +212,7 @@ class BatchNorm(_BatchNormBase):
             raise ValueError(f"grouped BatchNorm: batch {x.shape[0]} not "
                              f"divisible by {self.groups} groups")
         y, means, vars_ = _BatchNormTrain.apply(
-            x, self.weight, self.bias, self.groups, dtype)
+            x, self.weight, self.bias, self.groups, dtype, self.sync_group)
         self._update_running(means, vars_)
         return y
 
@@ -227,6 +253,12 @@ class DotStatsBatchNorm(_BatchNormBase):
                       and self.stats_impl == "auto")
             # a view, never a copy of x
             s1, s2 = BnStats.apply(x.view(n, C), launch)
+            if self.sync_group is not None:
+                # this rank's [2, C] sums over every rank's rows; the
+                # backward all-reduces the upstream ds1, ds2 the same way
+                s1, s2 = AllReduceSum.apply(torch.stack([s1, s2]),
+                                            self.sync_group)
+                n *= group_size(self.sync_group)
             mean = s1 / n
             var = (s2 / n - mean * mean).clamp_min(0.0)
             self._update_running(mean.detach()[None], var.detach()[None])

@@ -103,7 +103,8 @@ def _init_cnn_weights(model: nn.Module, gen: torch.Generator) -> None:
 def build_model(config, *, device="cuda", dtype=torch.bfloat16,
                 generator: Optional[torch.Generator] = None,
                 attention_impl: str = "auto", stats_impl: str = "auto",
-                remat: bool = False, train: bool = False) -> nn.Module:
+                remat: bool = False, train: bool = False,
+                **model_kwargs) -> nn.Module:
     """Instantiate the lifter for a config (or model_type string) on
     ``device`` with fp32 parameters randomly initialised from
     ``generator`` (default: a generator on ``device`` seeded 0). The
@@ -113,6 +114,9 @@ def build_model(config, *, device="cuda", dtype=torch.bfloat16,
     for ``attention_impl`` and :class:`CNNPoseEstimation` for
     ``stats_impl`` (each is read by its own model only); ``remat``
     rematerialises either model's blocks in the backward pass.
+    ``model_kwargs`` go to the transformer, as the JAX factory forwards
+    them: ``vit_stacked``, ``vit_block_runner`` and ``sp_constraint``
+    (pipeline and sequence parallelism); the CNN refuses them.
     Load trained weights with ``load_state_dict``.
 
     By default the model is frozen in eval mode (serving). ``train=True``
@@ -129,6 +133,11 @@ def build_model(config, *, device="cuda", dtype=torch.bfloat16,
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     is_cnn = isinstance(config, CNNModelConfig)
+    allowed = () if is_cnn else ("vit_stacked", "vit_block_runner",
+                                 "sp_constraint")
+    if set(model_kwargs) - set(allowed):
+        raise ValueError(f"unsupported {'CNN' if is_cnn else 'transformer'} "
+                         f"model kwargs: {sorted(model_kwargs)}")
     with torch.device("meta"):
         if is_cnn:
             model = CNNPoseEstimation(config, dtype=dtype,
@@ -136,7 +145,7 @@ def build_model(config, *, device="cuda", dtype=torch.bfloat16,
         else:
             model = TransformerPoseEstimation(
                 config, dtype=dtype, attention_impl=attention_impl,
-                remat=remat)
+                remat=remat, **model_kwargs)
     model = model.to_empty(device=generator.device)
     (_init_cnn_weights if is_cnn else _init_weights)(model, generator)
     return model.to(device).train(train).requires_grad_(train)

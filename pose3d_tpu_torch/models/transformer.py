@@ -42,6 +42,7 @@ from torch import nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from pose3d_tpu_torch.core.comm import CopyToGroup, ReduceFromGroup
 from pose3d_tpu_torch.core.config import TransformerModelConfig
 from pose3d_tpu_torch.models.common import (
     PoseRegressionHead,
@@ -55,22 +56,75 @@ from pose3d_tpu_torch.ops.heatmap import gaussian_heatmaps
 LN_EPS = 1e-6
 
 
-def layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dtype) -> torch.Tensor:
+def layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dtype,
+               seq=None) -> torch.Tensor:
     """fp32 statistics and affine, output in ``dtype`` (flax LayerNorm
-    with dtype=bf16, param_dtype=fp32)."""
-    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight,
-                        norm.bias, LN_EPS).to(dtype)
+    with dtype=bf16, param_dtype=fp32). ``seq``: x is this rank's tokens
+    (sequence parallelism), so the scale's and bias's gradients are summed
+    over the ranks."""
+    w, b = norm.weight, norm.bias
+    if seq is not None:
+        w, b = (CopyToGroup.apply(t, seq[0].group) for t in (w, b))
+    return F.layer_norm(x.float(), norm.normalized_shape, w, b,
+                        LN_EPS).to(dtype)
 
 
 def _ln(dim, device):
     return nn.LayerNorm(dim, eps=LN_EPS, device=device)
 
 
+def _dropout_part(x, rate: float, gen, dim: int, full: int, start: int):
+    """:func:`dropout` of the part ``[start, start + x.shape[dim])`` along
+    ``dim`` of a tensor ``full`` long there: the mask is drawn whole and
+    cut, so it is the mask of the whole tensor and every rank's generator
+    moves as one process's does."""
+    if gen is None or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    shape = list(x.shape)
+    shape[dim] = full
+    keep = torch.empty(shape, dtype=x.dtype, device=x.device).bernoulli_(
+        1.0 - rate, generator=gen).narrow(dim, start, x.shape[dim])
+    return x * keep * (1.0 / (1.0 - rate))
+
+
+def _enter(x, tp, seq):
+    """Into a tensor- or sequence-parallel region (``seq``: (the
+    sequence-parallel hook, the stream's full length))."""
+    if seq is not None:
+        sp, length = seq
+        return sp.enter(x, length, tp is not None)
+    return CopyToGroup.apply(x, tp.group)
+
+
+def _leave(y, bias, rate, gen, dtype, tp, seq):
+    """Out of it: the ranks' partial products summed (or this rank's
+    tokens of them), the bias added once, then dropout."""
+    if seq is not None:
+        sp, length = seq
+        # added to this rank's tokens: its gradient is summed over the ranks
+        y = sp.leave(y, tp is not None) + CopyToGroup.apply(
+            bias, sp.group).to(dtype)
+        return _dropout_part(y, rate, gen, 1, length, sp.start(length))
+    y = ReduceFromGroup.apply(y, tp.group) + bias.to(dtype)
+    return dropout(y, rate, gen)
+
+
 def _attend(q_in, kv_in, w_in, b_in, out: nn.Linear, heads: int, dtype,
-            impl: str, rate: float, gen):
+            impl: str, rate: float, gen, tp=None, seq=None):
     """Packed [q; k; v] projection (rows head-major: h·hd + j) → attention
     → output projection. Self-attention projects once and hands the kernel
-    strided q/k/v views of the one [B, T, 3, H, hd] result."""
+    strided q/k/v views of the one [B, T, 3, H, hd] result.
+
+    ``tp`` (:class:`pose3d_tpu_torch.parallel.tp.TensorParallel`): the
+    weights are this rank's heads (``[3, H/n, hd, D]`` and ``[D, H/n,
+    hd]``), the kernel runs on them, and the output projection's partial
+    products are summed over the ranks. ``seq``: the tokens are this
+    rank's part of the stream (sequence parallelism)."""
+    if tp is not None or seq is not None:
+        return _attend_parallel(q_in, w_in, b_in, out, heads, dtype, impl,
+                                rate, gen, tp, seq)
     B, Tq, D = q_in.shape
     hd = D // heads
     if kv_in is q_in:
@@ -83,6 +137,24 @@ def _attend(q_in, kv_in, w_in, b_in, out: nn.Linear, heads: int, dtype,
         k, v = kv.view(B, kv_in.shape[1], 2, heads, hd).unbind(2)
     o = dot_product_attention(q, k, v, impl=impl)
     return dropout(linear(o.reshape(B, Tq, D), out, dtype), rate, gen)
+
+
+def _attend_parallel(x, w_in, b_in, out, heads, dtype, impl, rate, gen, tp,
+                     seq):
+    """Self-attention of an encoder block on this rank's heads or tokens
+    (:func:`_attend`)."""
+    D = w_in.shape[-1]
+    hd = D // heads
+    w_in = w_in.reshape(-1, D)
+    hl = w_in.shape[0] // (3 * hd)                  # this rank's heads
+    x = _enter(x, tp, seq)
+    B, T, _ = x.shape
+    qkv = F.linear(x.to(dtype), w_in.to(dtype), b_in.reshape(-1).to(dtype))
+    q, k, v = qkv.view(B, T, 3, hl, hd).unbind(2)
+    o = dot_product_attention(q, k, v, impl=impl).reshape(B, T, hl * hd)
+    w_out = out.weight.reshape(out.weight.shape[0], -1)
+    return _leave(F.linear(o.to(dtype), w_out.to(dtype)), out.bias, rate,
+                  gen, dtype, tp, seq)
 
 
 def _remat(fn, gen: Optional[torch.Generator], *tensors):
@@ -116,7 +188,10 @@ def _remat(fn, gen: Optional[torch.Generator], *tensors):
 
 class TimmAttention(nn.Module):
     """ViT-block attention with timm's names: ``qkv`` and ``proj``;
-    output dropout at ``dropout``."""
+    output dropout at ``dropout``. ``tp``: set by
+    ``parallel.shard_state_for_tp``."""
+
+    tp = None
 
     def __init__(self, dim: int, heads: int, *, dropout: float = 0.0,
                  device=None):
@@ -126,16 +201,20 @@ class TimmAttention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim, device=device)
         self.proj = nn.Linear(dim, dim, device=device)
 
-    def forward(self, q_in, kv_in, dtype, impl, gen=None):
+    def forward(self, q_in, kv_in, dtype, impl, gen=None, seq=None):
         return _attend(q_in, kv_in, self.qkv.weight, self.qkv.bias,
-                       self.proj, self.heads, dtype, impl, self.rate, gen)
+                       self.proj, self.heads, dtype, impl, self.rate, gen,
+                       self.tp, seq)
 
 
 class MultiHeadAttention(nn.Module):
     """Attention with ``nn.MultiheadAttention``'s parameter names
     (``in_proj_weight``, ``in_proj_bias``, ``out_proj``); computed by
     :func:`dot_product_attention`, not by ``nn.MultiheadAttention``;
-    output dropout at ``dropout``."""
+    output dropout at ``dropout``. ``tp``: set by
+    ``parallel.shard_state_for_tp`` in the final encoder's blocks."""
+
+    tp = None
 
     def __init__(self, dim: int, heads: int, *, dropout: float = 0.0,
                  device=None):
@@ -147,15 +226,21 @@ class MultiHeadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.empty(3 * dim, device=device))
         self.out_proj = nn.Linear(dim, dim, device=device)
 
-    def forward(self, q_in, kv_in, dtype, impl, gen=None):
+    def forward(self, q_in, kv_in, dtype, impl, gen=None, seq=None):
         return _attend(q_in, kv_in, self.in_proj_weight, self.in_proj_bias,
-                       self.out_proj, self.heads, dtype, impl, self.rate, gen)
+                       self.out_proj, self.heads, dtype, impl, self.rate, gen,
+                       self.tp, seq)
 
 
 class Mlp(nn.Module):
     """Linear → activation → dropout → Linear → dropout. ``names`` are the
     two Linears' keys: ("fc1", "fc2") in timm blocks, ("0", "3") in the
-    reference's Sequential[Linear, act, Dropout, Linear, Dropout]."""
+    reference's Sequential[Linear, act, Dropout, Linear, Dropout].
+    ``tp``: set by ``parallel.shard_state_for_tp`` in encoder blocks (the
+    first Linear's output rows and the second's input columns are this
+    rank's)."""
+
+    tp = None
 
     def __init__(self, dim: int, ratio: float, activation: str,
                  names=("0", "3"), *, dropout: float = 0.0, device=None):
@@ -167,10 +252,18 @@ class Mlp(nn.Module):
             self.add_module(name, nn.Linear(i, o, device=device))
         self.act = get_activation(activation)
 
-    def forward(self, x, dtype, gen=None):
+    def forward(self, x, dtype, gen=None, seq=None):
         fc1, fc2 = (getattr(self, n) for n in self.names)
-        h = dropout(self.act(linear(x, fc1, dtype)), self.rate, gen)
-        return dropout(linear(h, fc2, dtype), self.rate, gen)
+        tp = self.tp
+        if tp is None and seq is None:
+            h = dropout(self.act(linear(x, fc1, dtype)), self.rate, gen)
+            return dropout(linear(h, fc2, dtype), self.rate, gen)
+        h = self.act(linear(_enter(x, tp, seq), fc1, dtype))
+        n = h.shape[-1]
+        h = (dropout(h, self.rate, gen) if tp is None else
+             _dropout_part(h, self.rate, gen, -1, n * tp.size, n * tp.index))
+        return _leave(F.linear(h, fc2.weight.to(dtype)), fc2.bias, self.rate,
+                      gen, dtype, tp, seq)
 
 
 class TransformerEncoderBlock(nn.Module):
@@ -190,10 +283,11 @@ class TransformerEncoderBlock(nn.Module):
                        ("fc1", "fc2") if timm else ("0", "3"),
                        dropout=dropout, device=device)
 
-    def forward(self, x, dtype, impl, gen=None):
-        y = layer_norm(x, self.norm1, dtype)
-        x = x + self.attn(y, y, dtype, impl, gen)
-        return x + self.mlp(layer_norm(x, self.norm2, dtype), dtype, gen)
+    def forward(self, x, dtype, impl, gen=None, seq=None):
+        y = layer_norm(x, self.norm1, dtype, seq)
+        x = x + self.attn(y, y, dtype, impl, gen, seq)
+        return x + self.mlp(layer_norm(x, self.norm2, dtype, seq), dtype,
+                            gen, seq)
 
 
 class CrossModalFusionBlock(nn.Module):
@@ -257,14 +351,35 @@ class PatchEmbedding(nn.Module):
 class ViTBackbone(nn.Module):
     """Patch-embed → [CLS] + positions → token dropout → pre-LN blocks →
     LayerNorm, with timm ``VisionTransformer`` names. ``dropout`` is the
-    token and block rate (0 in the lifter, as in the JAX package)."""
+    token and block rate (0 in the lifter, as in the JAX package).
+
+    ``stacked`` is the JAX model's ``stacked_blocks``: there a layout of
+    the parameters, here a flag that admits ``block_runner``
+    (``runner(block_apply, depth, tokens)``, e.g.
+    ``parallel.make_pipeline_runner``), which then runs the blocks; it
+    needs dropout 0. ``sp``: the sequence-parallel hook
+    (``parallel.sp``), refused beside a runner as the JAX module refuses
+    it."""
 
     def __init__(self, in_ch: int, image_size, dim: int, depth: int,
                  heads: int, patch: int, *, dropout: float = 0.0,
-                 remat: bool = False, device=None):
+                 remat: bool = False, stacked: bool = False,
+                 block_runner=None, sp=None, device=None):
         super().__init__()
+        if stacked and dropout != 0.0:
+            raise ValueError("stacked_blocks requires dropout == 0.0")
+        if block_runner is not None and not stacked:
+            raise ValueError("block_runner runs the stacked blocks: build "
+                             "with vit_stacked=True")
+        if block_runner is not None and sp is not None:
+            raise ValueError(
+                "sp_constraint does not compose with a pipeline "
+                "block_runner (the GPipe schedule owns the token layout "
+                "inside its stage loop)")
         self.rate = dropout
         self.remat = remat
+        self.block_runner = block_runner
+        self.sp = sp
         n = (image_size[0] // patch) * (image_size[1] // patch)
         self.cls_token = nn.Parameter(torch.empty(1, 1, dim, device=device))
         self.pos_embed = nn.Parameter(
@@ -283,10 +398,31 @@ class ViTBackbone(nn.Module):
         cls = self.cls_token.to(dtype).expand(B, 1, D)
         tokens = torch.cat([cls, tokens], dim=1) + self.pos_embed.to(dtype)
         tokens = dropout(tokens, self.rate, gen)
+        if self.block_runner is not None:
+            return layer_norm(self.block_runner(
+                lambda i, t: _block(self.blocks[i], self.remat, gen, t,
+                                    dtype=dtype, impl=impl),
+                len(self.blocks), tokens), self.norm, dtype)
+        if self.sp is not None:
+            return _sp_blocks(self.blocks, self.sp, self.remat, gen, tokens,
+                              dtype, impl, self.norm)
         for blk in self.blocks:
             tokens = _block(blk, self.remat, gen, tokens, dtype=dtype,
                             impl=impl)
         return layer_norm(tokens, self.norm, dtype)
+
+
+def _sp_blocks(blocks, sp, remat, gen, tokens, dtype, impl, norm=None):
+    """``blocks`` over this rank's tokens of the stream (sequence
+    parallelism), then ``norm`` on them; returns the whole stream."""
+    length = tokens.shape[1]
+    tokens = sp.scatter(tokens)
+    for blk in blocks:
+        tokens = _block(blk, remat, gen, tokens, dtype=dtype, impl=impl,
+                        seq=(sp, length))
+    if norm is not None:
+        tokens = layer_norm(tokens, norm, dtype, (sp, length))
+    return sp.gather(tokens, length)
 
 
 def _block(blk: nn.Module, remat: bool, gen, *tensors, **kw):
@@ -329,12 +465,20 @@ class TransformerPoseEstimation(nn.Module):
     with a dropout rate above 0, ``generator`` (a ``torch.Generator`` on
     the model's device) is required and draws every dropout mask.
     ``remat`` rematerialises the encoder and fusion blocks (module
-    docstring)."""
+    docstring).
+
+    Parallel hooks, as the JAX module's: ``vit_stacked`` with
+    ``vit_block_runner`` pipelines the ViT's blocks (:class:`ViTBackbone`);
+    ``sp_constraint`` (``parallel.sp.make_sp_constraint``) keeps the ViT's
+    and the final encoder's token streams sharded on T between their
+    blocks' parallel regions."""
 
     def __init__(self, config: TransformerModelConfig, *,
                  dtype=torch.bfloat16, attention_impl: str = "auto",
-                 remat: bool = False, device=None):
+                 remat: bool = False, vit_stacked: bool = False,
+                 vit_block_runner=None, sp_constraint=None, device=None):
         super().__init__()
+        self.sp = sp_constraint
         cfg = config
         D = cfg.transformer_embed_dim
         self.config = cfg
@@ -355,7 +499,8 @@ class TransformerPoseEstimation(nn.Module):
         self.vit_backbone = ViTBackbone(
             cfg.image_in_channels, cfg.image_size, D, cfg.vit_depth,
             cfg.vit_heads, cfg.vit_patch_size, dropout=0.0, remat=remat,
-            device=device)
+            stacked=vit_stacked, block_runner=vit_block_runner,
+            sp=sp_constraint, device=device)
         self.heatmap_generator = HeatmapGrid(cfg.heatmap_size, device=device)
         self.heatmap_patch_embed = PatchEmbedding(
             cfg.heatmap_in_channels, D, hp, device=device)
@@ -403,8 +548,12 @@ class TransformerPoseEstimation(nn.Module):
         tokens = (torch.cat([cls, img_tokens, hm_tokens], dim=1)
                   + self.final_pos_embed.to(dt))
         tokens = dropout(tokens, cfg.transformer_dropout_rate, gen)
-        for blk in self.final_encoder:
-            tokens = _block(blk, self.remat, gen, tokens, dtype=dt,
-                            impl=impl)
+        if self.sp is not None:
+            tokens = _sp_blocks(self.final_encoder, self.sp, self.remat, gen,
+                                tokens, dt, impl)
+        else:
+            for blk in self.final_encoder:
+                tokens = _block(blk, self.remat, gen, tokens, dtype=dt,
+                                impl=impl)
         cls_out = layer_norm(tokens[:, 0], self.norm_out, dt)
         return self.pose_head(cls_out, dt, gen)

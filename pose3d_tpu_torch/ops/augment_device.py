@@ -423,16 +423,26 @@ def make_device_augment(cfg: DeviceAugmentConfig = DeviceAugmentConfig(),
     on any device: :func:`draw_params` from ``generator`` (on the batch's
     device), then :func:`apply_params`. With ``resample="kernel"`` (the
     ``"auto"`` choice when rotation is on) a CUDA batch runs the
-    ``lane_resample`` kernel and a CPU batch its plain version."""
+    ``lane_resample`` kernel and a CPU batch its plain version.
+
+    ``draw_size`` and ``rows`` (a data-parallel step): draw the parameters
+    of a ``draw_size``-sample batch and apply the ``rows`` of them that
+    this rank's samples are, so that ranks together draw what one process
+    draws for the whole batch."""
     _resample_mode(cfg)
     if resample_impl not in IMPLS:
         raise ValueError(f"resample impl {resample_impl!r} not in {IMPLS}")
 
     def augment(batch: Dict[str, torch.Tensor],
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None, *,
+                draw_size: Optional[int] = None,
+                rows: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         img = batch["image"]
-        params = draw_params(cfg, img.shape[0], generator, img.device)
+        params = draw_params(cfg, draw_size or img.shape[0], generator,
+                             img.device)
+        if rows is not None:
+            params = {k: v[rows] for k, v in params.items()}
         return apply_params(cfg, batch, params, resample_impl)
 
     return augment

@@ -25,12 +25,16 @@ package. Host work (cv2 resizing, letterboxing) stays on the host, as
 there.
 
 Every entry point takes ``device`` (default ``"cuda"``; without CUDA it
-raises unless the caller asks for the CPU). ``mesh=`` (data-parallel
-stage 1) is refused: parallelism is ROADMAP.md Queue 1 item 6.
+raises unless the caller asks for the CPU). ``mesh=`` (data-parallel stage
+1, a list of devices) keeps one replica of each network per device: a
+batch is padded to a multiple of their count as the JAX data-parallel
+provider pads it, split in order, and the outputs are gathered in order.
+No process group is involved.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import math
 from typing import List, Optional, Sequence
@@ -327,6 +331,39 @@ def _nchw(batch: np.ndarray, device) -> torch.Tensor:
         device).permute(0, 3, 1, 2)
 
 
+def _pad_rows(batch: np.ndarray, multiple: int) -> np.ndarray:
+    """Pad the batch up to a multiple of ``multiple`` (the replicas) by
+    repeating its last row, as the JAX data-parallel provider does."""
+    if multiple <= 1 or len(batch) % multiple == 0:
+        return batch
+    pad = multiple - len(batch) % multiple
+    return np.concatenate([batch, np.repeat(batch[-1:], pad, axis=0)])
+
+
+class _Replicas:
+    """One copy of ``model`` per device of ``devices`` (the first is
+    ``model`` itself). :meth:`run` splits a batch whose rows are a
+    multiple of their count in order over them, each part through its
+    copy, and concatenates the outputs in order on the host; every part
+    is launched before any is read back."""
+
+    def __init__(self, model: nn.Module, devices):
+        self.devices = list(devices)
+        self.models = [model] + [copy.deepcopy(model).to(d)
+                                 for d in self.devices[1:]]
+
+    def __len__(self):
+        return len(self.models)
+
+    @torch.inference_mode()
+    def run(self, batch: np.ndarray, fn):
+        parts = np.split(batch, len(self.models))
+        outs = [fn(m, _nchw(p, d))
+                for m, d, p in zip(self.models, self.devices, parts)]
+        return tuple(torch.cat([o[k].cpu() for o in outs]).numpy()
+                     for k in range(len(outs[0])))
+
+
 def _native(model: nn.Module, state_dict, generator, device, dtype):
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
@@ -341,18 +378,20 @@ class NativeKeypointBackend:
 
     def __init__(self, num_joints: int, input_size: int, params=None,
                  generator: Optional[torch.Generator] = None,
-                 device="cuda", dtype: torch.dtype = NATIVE_DTYPE):
+                 device="cuda", dtype: torch.dtype = NATIVE_DTYPE,
+                 devices=None):
         self.num_joints = num_joints
         self.input_size = input_size
         self.device = resolve_device(device)
         self.model = _native(KeypointNet(num_joints), params, generator,
                              self.device, dtype)
+        self.replicas = _Replicas(self.model, devices or [self.device])
 
-    @torch.inference_mode()
     def predict(self, images: Sequence[np.ndarray]) -> np.ndarray:
-        batch = _square_resize_batch(images, self.input_size)
-        kpts, _ = self.model(_nchw(batch, self.device))
-        return kpts.cpu().numpy()
+        batch = _pad_rows(_square_resize_batch(images, self.input_size),
+                          len(self.replicas))
+        kpts, = self.replicas.run(batch, lambda m, x: m(x)[:1])
+        return kpts[:len(images)]
 
 
 class YoloKeypointBackend:
@@ -362,7 +401,8 @@ class YoloKeypointBackend:
     checkpoint's keypoints get confidence 1."""
 
     def __init__(self, weights, input_size: int = 640,
-                 box_conf_threshold: float = 0.25, dtype=None, device="cuda"):
+                 box_conf_threshold: float = 0.25, dtype=None, device="cuda",
+                 devices=None):
         from pose3d_tpu_torch.stage1.yolo_port import load_yolo11_pose
 
         self.input_size = input_size
@@ -372,17 +412,19 @@ class YoloKeypointBackend:
             weights, dtype=dtype if dtype is not None else torch.float32,
             device=self.device)
         self.num_joints = self.model.kpt_shape[0]
+        self.replicas = _Replicas(self.model, devices or [self.device])
 
-    @torch.inference_mode()
     def _forward(self, batch: np.ndarray):
         from pose3d_tpu_torch.stage1.yolo11 import best_person_keypoints
 
-        raw = self.model(_nchw(batch, self.device))
-        kp, conf = best_person_keypoints(raw, self.input_size,
-                                         kpt_shape=self.model.kpt_shape)
-        if kp.shape[-1] == 2:
-            kp = torch.cat([kp, torch.ones_like(kp[..., :1])], dim=-1)
-        return kp.cpu().numpy(), conf.cpu().numpy()
+        def fn(model, x):
+            kp, conf = best_person_keypoints(model(x), self.input_size,
+                                             kpt_shape=model.kpt_shape)
+            if kp.shape[-1] == 2:
+                kp = torch.cat([kp, torch.ones_like(kp[..., :1])], dim=-1)
+            return kp, conf
+
+        return self.replicas.run(batch, fn)
 
     def predict(self, images: Sequence[np.ndarray]) -> np.ndarray:
         import cv2
@@ -390,7 +432,9 @@ class YoloKeypointBackend:
         from pose3d_tpu_torch.stage1.yolo11 import letterbox_params
 
         s = self.input_size
-        batch = np.full((len(images), s, s, 3), 114 / 255.0, np.float32)
+        m = len(self.replicas)
+        n_rows = -(-len(images) // m) * m  # letterbox-filled padding rows
+        batch = np.full((n_rows, s, s, 3), 114 / 255.0, np.float32)
         geoms = []
         for i, im in enumerate(images):
             h, w = im.shape[:2]
@@ -418,18 +462,20 @@ class NativeDepthBackend:
 
     def __init__(self, input_size: int, params=None,
                  generator: Optional[torch.Generator] = None,
-                 device="cuda", dtype: torch.dtype = NATIVE_DTYPE):
+                 device="cuda", dtype: torch.dtype = NATIVE_DTYPE,
+                 devices=None):
         self.input_size = input_size
         self.device = resolve_device(device)
         self.model = _native(DepthNet(), params, generator, self.device,
                              dtype)
+        self.replicas = _Replicas(self.model, devices or [self.device])
 
     def predict(self, images: Sequence[np.ndarray]) -> List[np.ndarray]:
         import cv2
 
-        batch = _square_resize_batch(images, self.input_size)
-        with torch.inference_mode():
-            depths = self.model(_nchw(batch, self.device)).cpu().numpy()
+        batch = _pad_rows(_square_resize_batch(images, self.input_size),
+                          len(self.replicas))
+        depths, = self.replicas.run(batch, lambda m, x: (m(x),))
         return [cv2.resize(depths[i], (im.shape[1], im.shape[0]),
                            interpolation=cv2.INTER_LINEAR)
                 for i, im in enumerate(images)]
@@ -442,22 +488,28 @@ class DepthProBackend:
     host and then inverted (HF's order)."""
 
     def __init__(self, weights, input_size: int = 1536, max_batch: int = 2,
-                 dtype=None, device="cuda"):
+                 dtype=None, device="cuda", devices=None):
         from pose3d_tpu_torch.stage1.depthpro_port import load_depth_pro
 
         self.input_size = input_size
+        n_dev = len(devices) if devices else 1
+        if n_dev > 1:
+            # every call pads to max_batch, so align it with the replicas
+            max_batch = max(max_batch, n_dev)
+            max_batch -= max_batch % n_dev
         self.max_batch = max_batch
         self.device = resolve_device(device)
         self.model = load_depth_pro(
             weights, dtype=dtype if dtype is not None else torch.float32,
             image_size=input_size, device=self.device)
+        self.replicas = _Replicas(self.model, devices or [self.device])
 
-    @torch.inference_mode()
     def _forward(self, batch: np.ndarray) -> np.ndarray:
         from pose3d_tpu_torch.stage1.depthpro import fov_scaled_inverse_depth
 
-        depth, fov = self.model(_nchw(batch, self.device))
-        return fov_scaled_inverse_depth(depth, fov).float().cpu().numpy()
+        out, = self.replicas.run(batch, lambda m, x: (
+            fov_scaled_inverse_depth(*m(x)).float(),))
+        return out
 
     def predict(self, images: Sequence[np.ndarray]) -> List[np.ndarray]:
         import cv2
@@ -497,7 +549,9 @@ class TorchStage1:
 
     ``dtype`` is the ported networks' compute dtype (default fp32).
     ``confidence_threshold`` zeroes the keypoints below it (confidence 0
-    marks a keypoint invalid downstream). ``mesh`` is refused."""
+    marks a keypoint invalid downstream). ``mesh``: the devices of a
+    data-parallel provider (one replica of each network on each, the first
+    in place of ``device``; module docstring)."""
 
     def __init__(self, num_joints: int = 17, input_size: int = 512,
                  keypoint_params=None, depth_params=None,
@@ -506,21 +560,22 @@ class TorchStage1:
                  depth_weights=None, kp_input_size: int = 640,
                  depth_input_size: int = 1536, depth_max_batch: int = 2,
                  dtype=None, mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "stage-1 mesh= (data-parallel stage 1) is not ported to "
-                "pose3d_tpu_torch yet (ROADMAP.md, Queue 1, item 6: "
-                "parallelism)")
+        if mesh is not None and (not isinstance(mesh, (list, tuple))
+                                 or not mesh):
+            raise TypeError(f"mesh= is a non-empty list of devices (one "
+                            f"replica of each network on each), not {mesh!r}")
+        devices = ([resolve_device(d) for d in mesh]
+                   if mesh is not None else None)
         self.num_joints = num_joints
         self.input_size = input_size
         self.confidence_threshold = confidence_threshold
-        self.device = resolve_device(device)
+        self.device = devices[0] if devices else resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         if kp_weights:
             self._kp = YoloKeypointBackend(
                 kp_weights, input_size=kp_input_size, dtype=dtype,
-                device=self.device)
+                device=self.device, devices=devices)
             if self._kp.num_joints != num_joints:
                 logger.warning("keypoint weights predict %d joints, the "
                                "pipeline expects %d", self._kp.num_joints,
@@ -528,15 +583,16 @@ class TorchStage1:
         else:
             self._kp = NativeKeypointBackend(
                 num_joints, input_size, params=keypoint_params,
-                generator=generator, device=self.device)
+                generator=generator, device=self.device, devices=devices)
         if depth_weights:
             self._depth = DepthProBackend(
                 depth_weights, input_size=depth_input_size,
-                max_batch=depth_max_batch, dtype=dtype, device=self.device)
+                max_batch=depth_max_batch, dtype=dtype, device=self.device,
+                devices=devices)
         else:
             self._depth = NativeDepthBackend(
                 input_size, params=depth_params, generator=generator,
-                device=self.device)
+                device=self.device, devices=devices)
 
     @property
     def kp_model(self) -> nn.Module:

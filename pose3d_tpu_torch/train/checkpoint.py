@@ -20,6 +20,14 @@ ignore. The JAX package's orbax directories are not read here.
 
 The reference-schema ``.pth`` (:mod:`pose3d_tpu_torch.checkpoint`) stays
 the export format for serving and evaluation.
+
+Multi-process runs: a replicated state is written by process 0 alone (the
+training loop calls :func:`save_checkpoint` there only). A sharded state
+(``parallel.shard_state_for_*``) is gathered collectively, every rank
+calling :func:`save_checkpoint`, and written by process 0 in the same
+format as a one-process run; :func:`restore_train_state` reads the file on
+every rank and cuts each tensor to the rank's shard. So a checkpoint
+written by two ranks resumes in one process, and the reverse.
 """
 
 from __future__ import annotations
@@ -34,7 +42,9 @@ from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from pose3d_tpu_torch.parallel.shard import full_state, shard_full_state
 from pose3d_tpu_torch.train.state import TrainState, batch_stats
 
 logger = logging.getLogger("pose3d_tpu_torch.train")
@@ -66,18 +76,22 @@ def save_checkpoint(path, state: TrainState, model_type: str,
                     model_args: Dict, extra_meta: Optional[Dict] = None
                     ) -> Path:
     """Write ``state`` and its architecture to the directory ``path``;
-    returns its absolute path."""
+    returns its absolute path. A sharded state is gathered first: every
+    rank calls this, and process 0 writes."""
     path = Path(path).absolute()
+    model_sd, opt_sd, ema = full_state(state)
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return path
     path.mkdir(parents=True, exist_ok=True)
     tree = {
         "step": int(state.step),
-        "model": _cpu(state.model.state_dict()),
-        "optimizer": state.optimizer.state_dict(),
+        "model": _cpu(model_sd),
+        "optimizer": opt_sd,
         "scheduler": (state.scheduler.state_dict()
                       if state.scheduler is not None else None),
     }
-    if state.ema_params is not None:
-        tree["ema_params"] = _cpu(state.ema_params)
+    if ema is not None:
+        tree["ema_params"] = _cpu(ema)
     if state.ema_batch_stats is not None:
         tree["ema_batch_stats"] = _cpu(state.ema_batch_stats)
     _write_atomic(path / "state.pt", lambda tmp: torch.save(tree, tmp))
@@ -211,9 +225,12 @@ def restore_train_state(state: TrainState, path) -> Tuple[TrainState, Dict]:
     or, when it has none (a checkpoint of parameters-only EMA), seeded
     from the restored running statistics."""
     tree, meta = load_checkpoint(path)
-    state.model.load_state_dict(tree["model"], strict=True)
+    # a sharded state keeps this rank's part of each tensor
+    model_sd, opt_sd, ema = shard_full_state(
+        state, tree["model"], tree["optimizer"], tree.get("ema_params"))
+    state.model.load_state_dict(model_sd, strict=True)
     try:
-        state.optimizer.load_state_dict(tree["optimizer"])
+        state.optimizer.load_state_dict(opt_sd)
         if state.scheduler is not None and tree.get("scheduler") is not None:
             state.scheduler.load_state_dict(tree["scheduler"])
     except (ValueError, KeyError):
@@ -222,8 +239,8 @@ def restore_train_state(state: TrainState, path) -> Tuple[TrainState, Dict]:
             "STATE IS RE-INITIALIZED (fresh AdamW moments). Cause:", path,
             exc_info=True)
     state.step = int(tree["step"])
-    if state.ema_params is not None and "ema_params" in tree:
-        _copy_into(state.ema_params, tree["ema_params"])
+    if state.ema_params is not None and ema is not None:
+        _copy_into(state.ema_params, ema)
         if state.ema_batch_stats is not None:
             _copy_into(state.ema_batch_stats,
                        tree.get("ema_batch_stats")

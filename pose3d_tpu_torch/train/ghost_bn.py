@@ -14,8 +14,20 @@ Where the JAX package intercepts flax's ``nn.BatchNorm.__call__``, the port
 sets ``groups`` on every :class:`pose3d_tpu_torch.models.cnn.BatchNorm` of
 the model (CoordAttention's included) for the duration of the step; the
 module does the per-group arithmetic as reductions over a ``[G, B·H·W, C]``
-view, without a copy of the activation. Group-major order only (sample
-``g·B + b`` belongs to group ``g``): one device.
+view, without a copy of the activation. The local order is group-major
+(sample ``g·B + b`` belongs to group ``g``).
+
+Across ranks (:func:`cross_rank_batchnorm`): each rank holds its ``[A,
+B/n]`` rows of the superbatch, so its group ``g`` is its part of
+microbatch ``g``. Every BatchNorm all-reduces the groups' fp32 Σx and Σx²
+(``[2, G, C]``) and the count before mean and variance, and in the
+backward Σdy and Σdy·x, so that each group's statistics cover the whole
+microbatch, as the JAX mesh step's group-minor flattening gives them: a
+data-parallel step equals the one-process step on the global batch, up to
+the order of the sums. The running statistics come from those global sums
+and stay equal on every rank. The ``DotStatsBatchNorm`` (scan with
+``batch_pallas``) all-reduces the ``[2, C]`` sums of its ``bn_stats``
+launch the same way.
 
 Dropout is left alone: one mask over the flat batch instead of one per
 group, the same in distribution.
@@ -32,6 +44,7 @@ from torch import nn
 from pose3d_tpu_torch.models.cnn import (  # noqa: F401
     BatchNorm,
     DotStatsBatchNorm,
+    _BatchNormBase,
     ema_chain,
 )
 
@@ -63,3 +76,21 @@ def grouped_batchnorm(model: nn.Module, groups: int):
     finally:
         for mod in norms:
             mod.groups = 1
+
+
+@contextlib.contextmanager
+def cross_rank_batchnorm(model: nn.Module, group):
+    """Inside the block every BatchNorm of ``model`` (both flavours) takes
+    its batch statistics over the rows of every rank of ``group``, a
+    process group of the mesh's batch axes; no-op for ``group=None``."""
+    if group is None:
+        yield
+        return
+    norms = [m for m in model.modules() if isinstance(m, _BatchNormBase)]
+    for mod in norms:
+        mod.sync_group = group
+    try:
+        yield
+    finally:
+        for mod in norms:
+            mod.sync_group = None

@@ -17,8 +17,19 @@ gracefully on ``stop_event``; and on any exit writes a last checkpoint and
 the reference-schema ``.pth`` (:mod:`pose3d_tpu_torch.checkpoint`) of the
 live weights, and of the EMA weights when ``ema_decay`` is set.
 
-Not ported yet (ROADMAP.md): meshes and multi-process runs (the JAX
-loop's ``mesh=``, ``param_sharding=`` and process gating).
+Multi-process runs (``mesh=``, :mod:`pose3d_tpu_torch.core.mesh`): each
+rank feeds its own rows through its own device prefetch and the steps are
+data-parallel (``train.step``); ``param_sharding="fsdp"`` shards the state
+over the mesh's ``data`` axis first (without a mesh it warns and trains
+replicated, as the JAX loop does). Only process 0 writes TensorBoard,
+previews, the best-checkpoint record and the ``.pth``; a replicated
+state's checkpoints too, while a sharded state's are gathered by every
+rank and written by process 0 in the same format. The stop decision is
+collective: with more than one process every step starts with a MAX
+all-reduce of the local stop flag (a signal, or ``max_epochs`` reached on
+this rank's stream), so every rank stops at the same ``global_step``.
+Validation runs on the full validation stream on every rank, each
+computing its rows of each batch.
 """
 
 from __future__ import annotations
@@ -34,13 +45,19 @@ from typing import Dict, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pose3d_tpu_torch.checkpoint import save_pose_model
+from pose3d_tpu_torch.core.comm import all_reduce_
 from pose3d_tpu_torch.data.collate import compact_batch
 from pose3d_tpu_torch.ops.losses import LossWeights
 from pose3d_tpu_torch.train import checkpoint as ckpt
 from pose3d_tpu_torch.train.state import TrainState, with_ema_params
-from pose3d_tpu_torch.train.step import make_eval_step, make_train_step
+from pose3d_tpu_torch.train.step import (
+    make_eval_step,
+    make_train_step,
+    step_seed,
+)
 from pose3d_tpu_torch.train.tb import NullWriter
 from pose3d_tpu_torch.utils import profiling
 
@@ -49,18 +66,6 @@ logger = logging.getLogger("pose3d_tpu_torch.train")
 BATCH_KEYS = ("image", "depth", "keypoints_2d", "joints_3d", "depth_scale")
 # 0x617567 = "aug": the augmentation stream, apart from the dropout's
 AUG_STREAM = 0x617567
-_MASK64 = (1 << 64) - 1
-
-
-def step_seed(seed: int, step: int) -> int:
-    """A generator seed for optimizer step ``step`` of a run seeded
-    ``seed`` (splitmix64 of the pair; the counterpart of JAX's
-    ``fold_in(rng, step)``): each step draws from a stream of its own, and
-    a run resumed at step t draws what an uninterrupted run draws there."""
-    x = (seed * 0x9E3779B97F4A7C15 + step + 1) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return (x ^ (x >> 31)) >> 1
 
 
 def ema_pth_path(path) -> Path:
@@ -226,13 +231,17 @@ def evaluate(eval_step, state: TrainState, val_loader: Iterable[Dict],
     return out
 
 
-def _preview(writer, eval_step, state, eval_view, preview, step) -> None:
+def _preview(writer, eval_step, state, eval_view, preview, step,
+             write: bool = True) -> None:
     """One validation batch through the eval step; its first sample's
-    image | prediction | ground truth as ``Val_Preview/comparison``."""
+    image | prediction | ground truth as ``Val_Preview/comparison``
+    (drawn only where ``write``: every rank of a mesh runs the step)."""
     device = next(state.model.parameters()).device
     db = {k: preview[k] for k in BATCH_KEYS if k in preview}
     with eval_view():
         _, preds = eval_step(state, to_device(db, device))
+    if not write:
+        return
     try:
         from pose3d_tpu_torch.viz.plots import (
             fig_to_image,
@@ -248,6 +257,17 @@ def _preview(writer, eval_step, state, eval_view, preview, step) -> None:
         pyplot().close(fig)
     except Exception:
         logger.exception("Preview visualization failed")
+
+
+def _save_pth(state: TrainState, path, step: int, write: bool) -> None:
+    """The reference ``.pth`` of the model's weights, written where
+    ``write``; a sharded state's weights are gathered by every rank."""
+    from pose3d_tpu_torch.parallel.shard import full_state
+
+    sd = (full_state(state)[0]
+          if getattr(state.model, "shard_plan", None) is not None else None)
+    if write:
+        save_pose_model(state.model, path, step=step, state_dict=sd)
 
 
 def train_model(
@@ -279,6 +299,8 @@ def train_model(
     keep_checkpoints: Optional[int] = None,
     profile: Optional[tuple] = None,
     memory_report: bool = False,
+    mesh=None,
+    param_sharding: str = "replicated",
 ):
     """Train ``state`` in place over ``train_loader`` (numpy batches of
     ``image``, ``depth``, ``keypoints_2d``, ``joints_3d``); returns
@@ -326,10 +348,29 @@ def train_model(
     ``profile`` (start_at_step, num_steps, log_dir) writes a
     ``torch.profiler`` trace of steps start_at+1 .. start_at+num_steps;
     ``memory_report`` logs the card's allocator peak after the first
-    step."""
-    writer = writer or NullWriter()
+    step.
+
+    ``mesh`` and ``param_sharding`` ("replicated" or "fsdp"): the
+    multi-process run of the module docstring."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    is_primary = not dist.is_initialized() or dist.get_rank() == 0
+    writer = writer if writer is not None and is_primary else NullWriter()
     model = state.model
     device = next(model.parameters()).device
+    if param_sharding not in ("replicated", "fsdp"):
+        raise ValueError(f"unknown param_sharding {param_sharding!r}")
+    if param_sharding == "fsdp":
+        if mesh is None:
+            logger.warning("param_sharding='fsdp' requires a mesh; "
+                           "training with replicated parameters instead.")
+        elif getattr(model, "shard_plan", None) is None:
+            from pose3d_tpu_torch.parallel import shard_state_for_fsdp
+
+            shard_state_for_fsdp(state, mesh)
+    plan = getattr(model, "shard_plan", None)
+    sharding = "auto" if plan is not None else "replicated"
+    # a sharded state's checkpoint is gathered by every rank
+    saves = is_primary or plan is not None
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(42)
     if augment is not None and augment_generator is None:
@@ -342,8 +383,21 @@ def train_model(
     model_type = model_type or cfg["model_type"]
     model_args = cfg if model_args is None else model_args
     train_step = make_train_step(loss_weights, accum_mode=accum_mode,
-                                 ema_decay=ema_decay, augment=augment)
-    eval_step = make_eval_step(loss_weights, compat_pa=compat_pa_metric)
+                                 ema_decay=ema_decay, augment=augment,
+                                 mesh=mesh, state_sharding=sharding)
+    eval_step = make_eval_step(loss_weights, compat_pa=compat_pa_metric,
+                               mesh=mesh, state_sharding=sharding)
+
+    def stop_requested(local: bool) -> bool:
+        """Whether any rank wants to stop (every rank asks, every step,
+        when there is more than one)."""
+        if world == 1:
+            return local
+        flag = torch.tensor([float(local)],
+                            device=device if dist.get_backend() == "nccl"
+                            else "cpu")
+        return bool(all_reduce_(flag, dist.group.WORLD,
+                                dist.ReduceOp.MAX).item() > 0)
 
     def eval_view():
         return (with_ema_params(state) if ema_decay is not None
@@ -423,11 +477,14 @@ def train_model(
             for batch in _device_prefetch(
                     _superbatches(train_loader, gradient_accumulation_steps),
                     device):
-                if global_step >= target or stopped:
+                if global_step >= target:
                     break
-                if stop_event is not None and stop_event.is_set():
-                    logger.warning("Graceful stop requested — checkpointing "
-                                   "at step %d and exiting.", global_step)
+                signal = stop_event is not None and stop_event.is_set()
+                if stop_requested(signal or stopped):
+                    if not stopped:
+                        logger.warning("Graceful stop requested — "
+                                       "checkpointing at step %d and "
+                                       "exiting.", global_step)
                     stopped = True
                     break
                 pos = batch.pop("_pos", None)
@@ -485,7 +542,7 @@ def train_model(
                             "Validation loader yielded no batches — check "
                             "--val-chunks / --chunks-dir.")
                     _preview(writer, eval_step, state, eval_view, preview,
-                             global_step)
+                             global_step, write=is_primary)
                 if global_step % eval_interval_steps == 0:
                     val_mpjpe = None
                     if val_loader is not None:
@@ -509,12 +566,15 @@ def train_model(
                                     val["pa_mpjpe"])
                         val_mpjpe = val["mpjpe"]
                     if checkpoint_prefix is not None:
-                        path = save(global_step)
-                        if val_mpjpe is not None:
-                            ckpt.record_best(checkpoint_prefix, model_type,
-                                             global_step, val_mpjpe, path)
-                        ckpt.apply_retention(checkpoint_prefix, model_type,
-                                             keep_checkpoints)
+                        if saves:
+                            path = save(global_step)
+                        if is_primary:
+                            if val_mpjpe is not None:
+                                ckpt.record_best(checkpoint_prefix,
+                                                 model_type, global_step,
+                                                 val_mpjpe, path)
+                            ckpt.apply_retention(checkpoint_prefix,
+                                                 model_type, keep_checkpoints)
                         last_ckpt_step = global_step
                     # validation and checkpoint time stay out of the next
                     # Perf/* window
@@ -533,14 +593,16 @@ def train_model(
             val_preview_iter.close()
         flush_metrics()
         if checkpoint_prefix is not None and global_step > last_ckpt_step:
-            save(global_step)
-            ckpt.apply_retention(checkpoint_prefix, model_type,
-                                 keep_checkpoints)
+            if saves:
+                save(global_step)
+            if is_primary:
+                ckpt.apply_retention(checkpoint_prefix, model_type,
+                                     keep_checkpoints)
         if checkpoint_path is not None and global_step > first_step:
-            save_pose_model(model, checkpoint_path, step=global_step)
+            _save_pth(state, checkpoint_path, global_step, is_primary)
             if ema_decay is not None:
                 with with_ema_params(state):
-                    save_pose_model(model, ema_pth_path(checkpoint_path),
-                                    step=global_step)
+                    _save_pth(state, ema_pth_path(checkpoint_path),
+                              global_step, is_primary)
         writer.flush()
     return state, global_step

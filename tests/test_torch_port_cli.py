@@ -4,7 +4,7 @@ the CPU (``--device cpu``): a run stopped by SIGTERM and resumed with
 ``cli.evaluate`` of a reference-schema ``.pth`` gives the MPJPE and
 PA-MPJPE of ``pose3d_tpu.cli.evaluate`` on the same ``.pth`` and chunks
 (both in fp32); TensorBoard, the profiler window and the memory report
-from the command line; flags of features not ported yet are refused, and
+from the command line; the parallelism flags reach ``train_model``, and
 ``--device cuda`` raises without a card."""
 
 import functools
@@ -200,11 +200,16 @@ def test_summary_writer_needs_a_tensorboard_package(tmp_path, monkeypatch):
 ])
 def test_flags_not_ported_are_refused(chunks_dir, flag, capsys, tmp_path,
                                       monkeypatch):
-    """Each flag is refused before anything is trained or logged: the
-    parallelism flags with ROADMAP.md named; ``--vit-weights``, ported,
-    is accepted and meets the JAX CLI's check that it applies to the
-    transformer only (these arguments train the CNN; the transformer's
-    case: ``test_torch_port_stage1_cli.py``)."""
+    """Each flag of this list was refused until its feature was ported;
+    each now means what it means in the JAX CLI, checked before anything
+    is trained. ``--vit-weights`` meets the JAX CLI's check that it
+    applies to the transformer only (these arguments train the CNN; the
+    transformer's case: ``test_torch_port_stage1_cli.py``).
+    ``--param-sharding fsdp`` and ``--multislice`` reach ``train_model``
+    (stubbed here; ``test_torch_port_distributed_loop.py`` trains with
+    them) as the sharding and a one-process mesh, the ``(replica, data)``
+    one for ``--multislice``. The three process flags go together: one
+    alone is an error, and nothing is trained or logged."""
     monkeypatch.chdir(tmp_path)
     if flag[0] == "--vit-weights":
         with pytest.raises(SystemExit, match="only applies to the "
@@ -212,11 +217,24 @@ def test_flags_not_ported_are_refused(chunks_dir, flag, capsys, tmp_path,
             port_main.main(_argv(chunks_dir, *flag))
         assert list(tmp_path.iterdir()) == []
         return
-    with pytest.raises(SystemExit) as e:
+    if flag[0] in ("--param-sharding", "--multislice"):
+        seen = {}
+
+        def fake_train_model(state, *a, **kw):
+            seen.update(kw)
+            return state, 0
+
+        monkeypatch.setattr(port_main, "train_model", fake_train_model)
+        port_main.main(_argv(chunks_dir, *flag, "--no-tensorboard"))
+        mesh = seen["mesh"]
+        assert seen["param_sharding"] == (
+            "fsdp" if flag[0] == "--param-sharding" else "replicated")
+        assert mesh.axis_names == (("replica", "data") if flag[0] ==
+                                   "--multislice" else ("data",))
+        assert mesh.size == 1
+        return
+    with pytest.raises(ValueError, match="go together"):
         port_main.main(_argv(chunks_dir, *flag))
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert flag[0] in err and "ROADMAP.md" in err
     assert list(tmp_path.iterdir()) == []       # nothing trained or logged
 
 

@@ -219,8 +219,11 @@ def test_load_pose_model_reads_a_directory_and_its_ema(tmp_path):
 ])
 def test_infer_cli_refuses_stage1_flags(folder, tmp_path, argv, capsys,
                                         monkeypatch):
-    """``--data-parallel`` is refused with ROADMAP.md named, before
-    anything is written. Each other stage-1 flag, with ``--stage1 jax``
+    """``--data-parallel`` beside ``--stage1 cached`` is refused before
+    anything is written; with ``--stage1 jax`` it reaches the provider as
+    ``mesh``: the JAX CLI's over every device, the port's over every
+    device of ``--device`` (the CPU: one). Each stage-1 flag, with
+    ``--stage1 jax``
     (and ``--allow-untrained``, or ``--kp-weights`` for the keypoint input
     size, where the flag alone would not reach the provider), reaches the
     provider as the same keyword arguments the JAX CLI passes, captured
@@ -241,9 +244,8 @@ def test_infer_cli_refuses_stage1_flags(folder, tmp_path, argv, capsys,
             port_infer.main([*base, "--device", "cpu", *argv])
         assert e.value.code == 2
         err = capsys.readouterr().err
-        assert argv[0] in err and "ROADMAP.md" in err
+        assert argv[0] in err and "--stage1 jax" in err
         assert not (tmp_path / "out").exists()
-        return
     monkeypatch.chdir(tmp_path)
     extra = ["--allow-untrained", *(["--kp-weights", "k.pt"]
                                     if argv[0] == "--kp-input-size" else [])]
@@ -277,9 +279,12 @@ def test_infer_cli_refuses_stage1_flags(folder, tmp_path, argv, capsys,
     (jkind, jkw), (pkind, pkw) = seen
     assert jkind == pkind == "jax"
     assert pkw.pop("device") == torch.device("cpu")
+    if argv == ["--data-parallel"]:
+        assert jkw.pop("mesh").axis_names == ("data",)
+        assert pkw.pop("mesh") == [torch.device("cpu")]
     assert pkw == jkw
     flag = {"--stage1": None, "--allow-untrained": None,
-            "--yolo_model_path": "kp_weights"}.get(
+            "--data-parallel": None, "--yolo_model_path": "kp_weights"}.get(
         argv[0], argv[0].lstrip("-").replace("-", "_").replace(
             "yolo_confidence_threshold", "confidence_threshold"))
     if flag is not None:

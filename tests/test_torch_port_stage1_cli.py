@@ -3,7 +3,7 @@ the CPU with tiny weight files (YOLO11n-pose and a tiny DepthPro, both at
 64²): ``cli.preprocess`` on the same folder writes the same artifacts
 (keypoints to the pixel, confidences 1e-4, depth within one 8-bit level),
 skips what exists and ``finished.txt`` folders, pads a ragged batch, keeps
-the untrained gate and refuses ``--data-parallel``; ``cli.infer --stage1
+the untrained gate (``--data-parallel`` too); ``cli.infer --stage1
 jax`` gives the JAX CLI's joints (1e-3, lifters in fp32);
 ``make_pipeline_server`` answers ``/predict_image`` as JAX's does and
 ``/predict`` with 404, and its batcher coalesces concurrent images;
@@ -165,13 +165,12 @@ def test_preprocess_resumes_and_pads(folder, weights, tmp_path,
 def test_preprocess_gates(folder, tmp_path):
     """Without both weight files the untrained networks are refused unless
     ``--allow-untrained`` is given (then they write artifacts from a seeded
-    generator); ``--data-parallel`` names ROADMAP.md."""
+    generator); ``--data-parallel`` meets the same gate."""
     out = tmp_path / "out"
     with pytest.raises(SystemExit, match="--kp-weights/--depth-weights"):
         port_pre.main([str(folder), str(out), "--device", "cpu"])
-    with pytest.raises(SystemExit) as e:
+    with pytest.raises(SystemExit, match="--kp-weights/--depth-weights"):
         port_pre.main([str(folder), str(out), "--data-parallel"])
-    assert e.value.code == 2
     assert not out.exists()
     assert port_pre.main([str(folder), str(out), "--allow-untrained",
                           "--input-size", "64", "--device", "cpu"]) == 5

@@ -5,8 +5,9 @@ with the JAX variables carried across (1e-4); each backend's ``predict``
 (square resize, letterbox and back, the box-confidence zeroing, padding
 to the micro-batch, resize-then-invert) and the provider's
 ``predict_batch`` (the keypoint confidence threshold) on the same images
-and weight files (keypoints 1e-4, depth rtol 1e-3); ``mesh=`` refused;
-the untrained provider seeded from a ``torch.Generator``."""
+and weight files (keypoints 1e-4, depth rtol 1e-3); a ``mesh=`` that is
+not a list of devices refused; the untrained provider seeded from a
+``torch.Generator``."""
 
 import jax
 import jax.numpy as jnp
@@ -218,8 +219,11 @@ def test_provider_predict_batch_matches_jax(weight_files):
 
 
 def test_provider_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        models.TorchStage1(mesh=object(), device="cpu")
+    """``mesh=`` is a list of devices (data-parallel stage 1:
+    ``test_torch_port_stage1_dp.py``); anything else is refused."""
+    for mesh in (object(), []):
+        with pytest.raises(TypeError, match="list of devices"):
+            models.TorchStage1(mesh=mesh, device="cpu")
 
 
 def test_untrained_provider_is_seeded():
