@@ -17,8 +17,10 @@ Phases, each fatal on failure:
   3. kernels: each kernel against its plain PyTorch version at every shape
      the paths give it and at ragged ones, in bf16 and fp32, with the
      tolerances below (attention: also at the edges of the ``wgmma``
-     kernels' tiles, on packed q/k/v views read in place and at YOLO11x's
-     PSA pair with a value depth twice the key depth, the path each shape
+     kernels' tiles, on packed q/k/v views read in place, at YOLO11x's
+     PSA pair with a value depth twice the key depth, at head depth 16,
+     and at every shape of the tools phase's two models: the lifecycle's
+     tiny transformer and the overfit's reduced ViT), the path each shape
      takes — ``wgmma`` / ``wmma`` / ``scalar`` — asserted from
      ``launch_config`` and from the built libraries, and the ``wgmma``
      kernels' ptxas report read: a spill or a serialized ``wgmma`` (C7520,
@@ -175,7 +177,7 @@ Phases, each fatal on failure:
      launches); (a) each network's ``"pallas"`` against ``"xla"``, fp32
      and bf16, the path of each attention shape asserted, a zeroed
      attention as a control beyond the bf16 bound; (b) launches a call;
-     (c) ``cli.preprocess`` on 16 1000x1000 frames in two folders, its
+     (c) ``cli.preprocess`` on 8 1000x1000 frames in two folders, its
      artifacts against the provider, a second run that skips, ``cli.infer
      --stage1 cached`` and ``--stage1 jax``; (d) ``serve_http
      --checkpoint`` (the full pipeline) at batch 1 and 8 against a direct
@@ -198,12 +200,31 @@ Phases, each fatal on failure:
      counts the code implies, then a warm step timed with its collectives'
      host time, each rank's peak and parameter + moment bytes; (c) the
      untrained stage-1 provider over two replicas on the card against one.
+ 15. tools: (a) ``python -m pose3d_tpu_torch.cli.doctor --probe --json`` in
+     its own process: the card the environment phase found, with its power
+     limit, and all eight kernel libraries loaded, its probes logged; then,
+     started before phase 14 and run beside it, side by side, each in
+     processes of its own, (b)
+     ``scripts/torch_lifecycle_e2e.py`` for the CNN and the transformer
+     (head depth 16): train, SIGTERM, ``--checkpoint auto`` resume held
+     bitwise to an uninterrupted control (both families: every attention
+     of the tiny transformer fits one key block, so its dQ takes one
+     atomic add an element and repeats),
+     ``cli.evaluate --per-action``, ``cli.export --ema`` against the live
+     model, ``serve_http --artifact`` answering ``/predict``; (c)
+     ``scripts/torch_overfit_demo.py --model-type transformer`` for 600
+     steps on one superbatch, which must learn (the last loss below a
+     quarter of step 1's, the train batch's MPJPE below half the untrained
+     value); (d)
+     ``scripts/torch_quantize_accuracy.py`` on its checkpoint, the int8 −
+     fp32 MPJPE printed, the attention kernel inside the programs.
 
 Standard output ends with a JSON line of the kernels (``launches`` on
 the path that first drives each kernel, ``cli_launches`` on phase 10's
 runs, ``data_launches`` on phase 11's, ``export_launches`` on phase 12's,
 ``stage1_launches`` on phase 13's main path, ``parallel_launches`` on each
-of phase 14's two ranks)
+of phase 14's two ranks, ``tools_launches`` summed over phase 15's
+processes)
 and, last, one JSON line ``{"ok": true, "device": {...}}``. Without CUDA,
 or without the repository beside it, the script exits non-zero and prints
 no result.
@@ -260,6 +281,27 @@ ATTN_EDGES = ([(t, t, 3, d) for t in (1, 16, 63, 64, 65, 127, 128, 129, 1041)
               + [(130, t, 2, 48) for t in (1, 63, 129)])
 PACKED_SHAPES = [(130, 4, 48), (1025, 12, 64)]
 PSA_SHAPE = (400, 400, 6, 32, 64)
+# (T, H, D) of self-attention whose every score is about -110 (q along a
+# direction, k against it), so each row's lse is below -100: the rows a
+# trained lifter gives some tokens. Keys past Tk must add nothing to dQ;
+# T = 130 and 257 leave 2 and 1 keys in the last 128-key block.
+LOW_LSE_SHAPES = [(130, 2, 48), (130, 2, 64), (257, 4, 48)]
+LOW_LSE_SCORE = 110.0
+# (Tq, Tk, H, D) at head depth 16, on the WMMA (bf16) and scalar (fp32)
+# kernels, at B 2 like the cases above: one token, and lengths across a
+# 64-row tile
+D16_SHAPES = [(1, 1, 4, 16), (70, 130, 2, 16), (130, 70, 2, 16)]
+# (B, Tq, Tk, H, D) of every attention call of the tools phase's two models
+# (read off their forwards): the lifecycle's tiny transformer (embed 64 over
+# 4 heads, D 16: the ViT's 1 + 16 tokens, the fusion block's cross
+# attentions between 16 image and 4 heatmap tokens, the final encoder's
+# 1 + 16 + 4) at its batch of 4 and at the grouped pair's 8, and the
+# overfit's reduced ViT (embed 192 over 4 heads, D 48: 1 + 256 image and 16
+# heatmap tokens) at its batch of 8
+TOOLS_ATTN_SHAPES = ([(b, Tq, Tk, 4, 16) for b in (4, 8) for Tq, Tk in
+                      ((17, 17), (16, 4), (4, 16), (21, 21))]
+                     + [(8, Tq, Tk, 4, 48) for Tq, Tk in
+                        ((257, 257), (256, 16), (16, 256), (273, 273))])
 # Max |Δ| against the plain version for unit-normal inputs. bf16: the
 # kernel rounds P to bf16 against a running (not the final) row max, and o
 # itself is bf16 (2^-8 relative), so a couple of ulps of |o| <= ~2; fp32:
@@ -403,8 +445,15 @@ PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    # the script's clock beside the head of each line, on standard error:
+    # where the time went when a run nears its limit
+    print(f"[chip_smoke +{time.perf_counter() - _T0:.1f} s] {msg[:90]}",
+          file=sys.stderr, flush=True)
 
 
 def phase_environment(torch) -> str:
@@ -461,27 +510,9 @@ def phase_build() -> None:
 
 
 def _kernel_fns():
-    from pose3d_tpu_torch.ops.kernels.bn_stats import bn_stats
-    from pose3d_tpu_torch.ops.kernels.flash_attention import (
-        flash_attention_bwd,
-        flash_attention_fwd,
-    )
-    from pose3d_tpu_torch.ops.kernels.lane_resample import lane_resample
-    from pose3d_tpu_torch.ops.kernels.layer_norm import (
-        layer_norm_bwd,
-        layer_norm_fwd,
-    )
-    from pose3d_tpu_torch.ops.kernels.mlp_block import (
-        mlp_block_bwd,
-        mlp_block_fwd,
-    )
+    from pose3d_tpu_torch.ops.kernels import wrappers
 
-    return {"flash_attention_fwd": flash_attention_fwd,
-            "flash_attention_bwd": flash_attention_bwd,
-            "bn_stats": bn_stats, "lane_resample": lane_resample,
-            "layer_norm_fwd": layer_norm_fwd,
-            "layer_norm_bwd": layer_norm_bwd,
-            "mlp_block_fwd": mlp_block_fwd, "mlp_block_bwd": mlp_block_bwd}
+    return {fn.__name__: fn for fn in wrappers()}
 
 
 def zero_launch_counts() -> None:
@@ -502,11 +533,14 @@ def _qkv(torch, B, Tq, Tk, H, D, dtype, seed):
 
 
 def _attention_cases() -> list:
-    """(Tq, Tk, H, D, Dv, packed) of every attention check."""
-    return ([(Tq, Tk, H, D, D, False)
+    """(B, Tq, Tk, H, D, Dv, packed) of every attention check."""
+    return ([(2, Tq, Tk, H, D, D, False)
              for Tq, Tk, H, D in PATH_SHAPES + RAGGED_SHAPES + ATTN_EDGES]
-            + [(T, T, H, D, D, True) for T, H, D in PACKED_SHAPES]
-            + [(*PSA_SHAPE, False)])
+            + [(2, T, T, H, D, D, True) for T, H, D in PACKED_SHAPES]
+            + [(2, *PSA_SHAPE, False)]
+            + [(2, Tq, Tk, H, D, D, False) for Tq, Tk, H, D in D16_SHAPES]
+            + [(B, Tq, Tk, H, D, D, False)
+               for B, Tq, Tk, H, D in TOOLS_ATTN_SHAPES])
 
 
 def _attention_path(dtype_name: str, D: int, Dv: int) -> str:
@@ -541,6 +575,59 @@ def _check_attention_build() -> None:
                   if any(c in line for c in ("C7520", "C7512", "C7513"))]
         if serial:
             raise SystemExit(f"{name}: ptxas serialized wgmma: {serial}")
+
+
+def _check_attention_low_lse(torch, failures: list) -> float:
+    """Both attention kernels against the plain pair where every score is
+    about -``LOW_LSE_SCORE`` (``LOW_LSE_SHAPES``), in bf16 and fp32: finite
+    outputs and gradients within the usual bounds. Before the ``wgmma``
+    backward kept the P of keys past Tk finite, such rows made its dQ NaN
+    (a zero score there gave exp2(-lse·log2 e) = inf, times K's zero row).
+    Returns the worst gradient error."""
+    from pose3d_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_reference,
+        flash_attention_fwd,
+        flash_attention_fwd_reference,
+    )
+
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        for i, (T, H, D) in enumerate(LOW_LSE_SHAPES):
+            g = torch.Generator(device="cuda").manual_seed(2000 + i)
+            rnd = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+            e = rnd(1, 1, H, D)
+            e = e / e.norm(dim=-1, keepdim=True)
+            c = (LOW_LSE_SCORE * D ** 0.5) ** 0.5
+            q = (c * e + 0.05 * rnd(2, T, H, D)).to(dtype)
+            k = (-c * e + 0.05 * rnd(2, T, H, D)).to(dtype)
+            v, do = rnd(2, T, H, D).to(dtype), rnd(2, T, H, D).to(dtype)
+            o, lse = flash_attention_fwd(q, k, v)
+            grads = flash_attention_bwd(q, k, v, o, do, lse)
+            ro, rlse = flash_attention_fwd_reference(q, k, v)
+            refs = flash_attention_bwd_reference(q, k, v, o, do, lse)
+            torch.cuda.synchronize()
+            ok = (torch.isfinite(o).all().item()
+                  and (o.float() - ro.float()).abs().max().item()
+                  <= TOL_O[name]
+                  and (lse - rlse).abs().max().item() <= TOL_LSE)
+            errs = []
+            for x, r in zip(grads, refs):
+                err = (x.float() - r.float()).abs().max().item()
+                errs.append(err)
+                ok &= (torch.isfinite(x).all().item()
+                       and err <= TOL_GRAD[name]
+                       * max(1.0, r.float().abs().max().item()))
+            worst = max([worst] + [x for x in errs if x == x])
+            log(f"[kernel] low lse {name:8s} B=2 T={T} H={H} D={D} "
+                f"{_attention_path(name, D, D)}: lse max {lse.max().item():.1f}"
+                f", max|d(dq,dk,dv)|=" + ",".join(f"{x:.2e}" for x in errs)
+                + f" (tol {TOL_GRAD[name]:.0e}·max(1,|ref|))  "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(("low lse", name, T, H, D))
+    return worst
 
 
 def _row_reduce_ptxas(name: str) -> dict:
@@ -654,20 +741,21 @@ def phase_kernels(torch) -> dict:
     failures = []
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).removeprefix("torch.")
-        for i, (Tq, Tk, H, D, Dv, packed) in enumerate(_attention_cases()):
-            shape = (f"B=2 Tq={Tq:4d} Tk={Tk:4d} H={H:2d} D={D} Dv={Dv}"
+        for i, (B, Tq, Tk, H, D, Dv, packed) in enumerate(
+                _attention_cases()):
+            shape = (f"B={B} Tq={Tq:4d} Tk={Tk:4d} H={H:2d} D={D} Dv={Dv}"
                      + (" packed" if packed else ""))
-            cfg = fa.launch_config(2, Tq, Tk, H, D, Dv, dtype.itemsize)
+            cfg = fa.launch_config(B, Tq, Tk, H, D, Dv, dtype.itemsize)
             path_ok = (cfg["path"] == _attention_path(name, D, Dv)
-                       and fa.library_config(2, Tq, Tk, H, D, Dv,
+                       and fa.library_config(B, Tq, Tk, H, D, Dv,
                                              dtype.itemsize) == cfg)
             g = torch.Generator(device="cuda").manual_seed(i)
             mk = lambda *s: torch.randn(*s, generator=g, device="cuda").to(  # noqa: E731
                 dtype)
             if packed:
-                q, k, v = mk(2, Tq, 3, H, D).unbind(2)
+                q, k, v = mk(B, Tq, 3, H, D).unbind(2)
             else:
-                q, k, v = mk(2, Tq, H, D), mk(2, Tk, H, D), mk(2, Tk, H, Dv)
+                q, k, v = mk(B, Tq, H, D), mk(B, Tk, H, D), mk(B, Tk, H, Dv)
             o, lse = flash_attention_fwd(q, k, v)
             torch.cuda.synchronize()
             ro, rlse = flash_attention_fwd_reference(q, k, v)
@@ -712,6 +800,7 @@ def phase_kernels(torch) -> dict:
                 f"{'equal' if same else 'DIFFER'}  {'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(("bwd", name, Tq, Tk, H, D, Dv, packed))
+    worst_bwd = max(worst_bwd, _check_attention_low_lse(torch, failures))
     worst_bn, worst_bn_rel = _check_bn_stats(torch, failures)
     worst_lr = _check_lane_resample(torch, failures)
     worst_rows = _check_row_ops(torch, failures)
@@ -1563,16 +1652,20 @@ def _is_kernel(e) -> bool:
     return str(getattr(e, "device_type", "")).endswith("CUDA")
 
 
-def _profile_once(torch, fn, tries: int = 3):
+def _profile_once(torch, fn, tries: int = 3, host: bool = True):
     """``torch.profiler``'s averaged rows of one synchronised call. Now and
     then a trace records no kernel at all; the call is then traced again,
-    up to ``tries`` times (the caller's check of an empty trace stays)."""
+    up to ``tries`` times (the caller's check of an empty trace stays).
+    ``host=False`` traces the card's kernels and copies alone, without the
+    host's operators: a step of thousands of launches (the scan CNN's) then
+    takes seconds to trace, not half a minute."""
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CPU] if host else []
     for _ in range(tries):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities
+                     + [ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         rows = prof.key_averages()
@@ -1800,9 +1893,11 @@ def phase_cnn(torch, tmp: Path, card: str) -> dict:
             # what the card itself ran, apart from the host's launch gaps
             r.update(plain_ms=statistics.mean(plain), plain_runs=plain,
                      busy=_device_busy_ms(_profile_once(
-                         torch, lambda: step(st, sb, gen, aug_gen))),
+                         torch, lambda: step(st, sb, gen, aug_gen),
+                         host=False)),
                      plain_busy=_device_busy_ms(_profile_once(
-                         torch, lambda: bare(st, sb, gen, aug_gen))))
+                         torch, lambda: bare(st, sb, gen, aug_gen),
+                         host=False)))
         r.update(step_ms=statistics.mean(ts), runs=ts, st=st, sb=sb,
                  step=step, gen=gen)
         return r
@@ -1830,7 +1925,8 @@ def phase_cnn(torch, tmp: Path, card: str) -> dict:
         raise SystemExit("the scan path did not launch bn_stats once per "
                          "BatchNorm per microbatch")
     busy = _device_busy_ms(_profile_once(
-        torch, lambda: ra["step"](ra["st"], ra["sb"], ra["gen"])))
+        torch, lambda: ra["step"](ra["st"], ra["sb"], ra["gen"]),
+        host=False))
     log(f"[time] CNN train step, {A}x{B} batch_pallas scan: device kernels "
         f"{busy:.1f} ms of the {ra['step_ms']:.1f} ms step (torch.profiler, "
         f"one step; the rest is the card waiting for the host's launches)  "
@@ -3273,13 +3369,13 @@ DATA_FRAMES = {1: 60, 5: 60, 6: 60, 7: 60, 8: 60, 9: 10, 11: 10}
 DATA_TRAIN, DATA_TEST = (1, 5, 6, 7, 8), (9, 11)
 DATA_HW = (1000, 1000)  # Human3.6M's frame size (height, width)
 DATA_CHUNK = 100        # samples an archive: chunker, splitter, shuffler
-# Steps of each training run from the shuffled archives: 7 steps are 2+
-# epochs of the 300 train samples, enough steps after the first epoch to
-# read while the script keeps within its time limit. The step times read
-# are those after the first epoch (steps 4-7):
-# by then the read-ahead of up to two archives, filled while step 1
-# builds, is spent, and the feed runs at its own rate.
-DATA_STEPS, DATA_WARM = 7, 3
+# Steps of each training run from the shuffled archives: 5 steps are the
+# first epoch of the 300 train samples and two steps of the second, as many
+# steps after the first epoch as the script's time limit leaves to read.
+# The step times read are those after the first epoch (steps 4-5): by then
+# the read-ahead of up to two archives, filled while step 1 builds, is
+# spent, and each step waits on the feed.
+DATA_STEPS, DATA_WARM = 5, 3
 # batch_pallas:N: at 500 x 500 the stem and stage 1 have 250² and 125²
 # pixels a sample, stage 2 63², stage 3 32²: N = 4000 leaves the stem and
 # stage 1 on the kernel and puts stage 2 and after under the gate.
@@ -3477,8 +3573,8 @@ def _time_host_augment(flow: Path, card: str) -> None:
 def _time_host_feed(flow: Path, card: str) -> None:
     """The host feed alone, no step: one epoch of the shuffled archives
     through ``StreamingChunkedDataset`` + ``BatchLoader`` at 500 x 500 in
-    batches of 10, without and with the host augmentor, each setting twice
-    in turn: the least time a 10 x 10 step fed from these archives can
+    batches of 10, without and with the host augmentor, one after the
+    other: the least time a 10 x 10 step fed from these archives can
     take."""
     from pose3d_tpu_torch.data.pipeline import (
         BatchLoader,
@@ -3486,7 +3582,7 @@ def _time_host_feed(flow: Path, card: str) -> None:
     )
 
     ms = {False: [], True: []}
-    for augment in (False, True, False, True):
+    for augment in (False, True):
         ds = StreamingChunkedDataset("train", str(flow),
                                      image_size=(500, 500),
                                      pixel_dtype="uint8",
@@ -3500,7 +3596,7 @@ def _time_host_feed(flow: Path, card: str) -> None:
             f"PoseAugmentor: an epoch of {n} samples decoded from "
             f"{DATA_HW[1]}x{DATA_HW[0]} to 500x500 and collated, "
             f"{'/'.join(f'{t:.0f}' for t in ms[augment])} ms per 100 samples "
-            f"(a 10x10 step's) in two epochs  [{card}]")
+            f"(a 10x10 step's) in one epoch  [{card}]")
 
 
 def _data_train(torch, cli_main, flow: Path, cwd: Path, model_type: str,
@@ -3949,38 +4045,57 @@ def _write_infer_folder(root: Path) -> None:
             "depth_max": float(rng.uniform(4.0, 6.0))}))
 
 
+class _Child:
+    """``code`` started now in a fresh interpreter with the repository on
+    its path, its output to files, while the caller goes on; ``result()``
+    waits for it (killed at ``timeout`` seconds from its start): (the JSON
+    object on the last line of its standard output, its standard error).
+    ``seconds`` is then its wall time, start-up included. ``stop()`` kills
+    it if it still runs."""
+
+    def __init__(self, code: str, cwd: Path, timeout: int = 600):
+        self.out, self.err = (tempfile.TemporaryFile("w+") for _ in "oe")
+        self.t0, self.timeout = time.perf_counter(), timeout
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", code], cwd=cwd,
+            env={**os.environ, "PYTHONPATH": str(ROOT)}, stdout=self.out,
+            stderr=self.err, text=True)
+
+    def result(self) -> tuple:
+        try:
+            rc = self.proc.wait(max(1.0, self.t0 + self.timeout
+                                    - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            self.stop()
+            raise SystemExit(f"subprocess not done after {self.timeout} s")
+        self.seconds = time.perf_counter() - self.t0
+        self.out.seek(0)
+        self.err.seek(0)
+        out, err = self.out.read(), self.err.read()
+        if rc != 0:
+            raise SystemExit(f"subprocess failed ({rc}):\n{err[-4000:]}")
+        return json.loads(out.strip().splitlines()[-1]), err
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
 def _subprocess_json(code: str, cwd: Path, timeout: int = 600) -> tuple:
     """Run ``code`` in a fresh interpreter with the repository on its path:
     (the JSON object on the last line of its standard output, its standard
     error)."""
-    env = {**os.environ, "PYTHONPATH": str(ROOT)}
-    out = subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
-                         capture_output=True, text=True, timeout=timeout)
-    if out.returncode != 0:
-        raise SystemExit(f"subprocess failed ({out.returncode}):\n"
-                         f"{out.stderr[-4000:]}")
-    return json.loads(out.stdout.strip().splitlines()[-1]), out.stderr
+    return _Child(code, cwd, timeout).result()
 
 
-def _export_infer(torch, tmp: Path, pths: dict, card: str) -> dict:
+def _export_infer_start(tmp: Path, pths: dict) -> dict:
     """``cli.infer`` on ``INFER_IMAGES`` cached 1000x1000 frames, at batch
-    ``INFER_BATCH``, in its own process for each lifter; the saved joints
-    against a direct forward (plain attention) on the same decompacted
-    inputs."""
-    import cv2
-
-    from pose3d_tpu_torch.checkpoint import load_pose_model
-    from pose3d_tpu_torch.cli.infer import compact_inputs
-    from pose3d_tpu_torch.stage1 import CachedStage1
-    from pose3d_tpu_torch.train.step import decompact_batch
-
+    ``INFER_BATCH``, in its own process for each lifter, both started now:
+    (model type, its process)."""
     folder = tmp / "infer_frames"
     _write_infer_folder(folder)
-    files = sorted(folder.glob("frame_*.jpg"))
-    s1s = CachedStage1().predict(files)
-    raws = [cv2.cvtColor(cv2.imread(str(f)), cv2.COLOR_BGR2RGB)
-            for f in files]
-    launches = dict.fromkeys(KERNELS, 0)
+    children = {}
     for model_type, pth in pths.items():
         out_dir = tmp / f"infer_{model_type}"
         code = textwrap.dedent(f"""
@@ -3997,9 +4112,33 @@ def _export_infer(torch, tmp: Path, pths: dict, card: str) -> dict:
             infer.main(argv)   # again, warm: the steady rate
             print(json.dumps({{"n": n, "fwd": fwd}}))
         """)
-        t0 = time.perf_counter()
-        res, err = _subprocess_json(code, tmp)
-        wall = time.perf_counter() - t0
+        children[model_type] = _Child(code, tmp)
+    return children
+
+
+def _export_infer(torch, tmp: Path, pths: dict, children: dict,
+                  card: str) -> dict:
+    """The ``cli.infer`` processes of ``_export_infer_start`` waited for;
+    the saved joints against a direct forward (plain attention) on the
+    same decompacted inputs."""
+    import cv2
+
+    from pose3d_tpu_torch.checkpoint import load_pose_model
+    from pose3d_tpu_torch.cli.infer import compact_inputs
+    from pose3d_tpu_torch.stage1 import CachedStage1
+    from pose3d_tpu_torch.train.step import decompact_batch
+
+    folder = tmp / "infer_frames"
+    files = sorted(folder.glob("frame_*.jpg"))
+    s1s = CachedStage1().predict(files)
+    raws = [cv2.cvtColor(cv2.imread(str(f)), cv2.COLOR_BGR2RGB)
+            for f in files]
+    launches = dict.fromkeys(KERNELS, 0)
+    for model_type, pth in pths.items():
+        out_dir = tmp / f"infer_{model_type}"
+        child = children[model_type]
+        res, err = child.result()
+        wall = child.seconds
         rate = [ln for ln in err.splitlines()
                 if "Inference processing complete" in ln]
         model, cfg = load_pose_model(pth, "cuda",
@@ -4027,7 +4166,8 @@ def _export_infer(torch, tmp: Path, pths: dict, card: str) -> dict:
               and rel <= TOL_SLICE_REL_L2)
         log(f"[export] (c) cli.infer, {model_type} .pth, {len(files)} cached "
             f"{INFER_HW[1]}x{INFER_HW[0]} JPEG frames at batch {INFER_BATCH},"
-            f" own process ({wall:.1f} s with start-up and load): "
+            f" own process ({wall:.1f} s with start-up and load, the two "
+            f"lifters' processes beside (a) and (b)): "
             f"{res['n']} joint files, forward launches {res['fwd']} (want "
             f"{want_fwd}); against a direct forward (plain attention) on "
             f"the same decompacted inputs rel L2 {rel:.3e} (tol "
@@ -4075,81 +4215,38 @@ def _export_artifacts(torch, tmp: Path, pths: dict, card: str) -> dict:
     1, 3 and 8; the ``pallas`` graph's operator and its launches; the
     ``xla`` artifact loaded where ``pose3d_tpu_torch`` cannot be
     imported."""
-    from pose3d_tpu_torch import serve
-    from pose3d_tpu_torch.cli import export as cli_export
-    from pose3d_tpu_torch.checkpoint import load_pose_model
-
     variants = {"xla": [], "pallas": ["--attention-backend", "pallas"],
                 "static": ["--batch-size", str(EXPORT_STATIC)],
                 "int8": ["--quantize", "int8"]}
     arts = {}
     launches = dict.fromkeys(KERNELS, 0)
-    for model_type, pth in pths.items():
-        live, cfg = load_pose_model(pth, "cuda",
-                                    attention_impl="reference")
-        hw, J = tuple(cfg.image_size), cfg.num_joints
-        want = _live_outputs(torch, live, EXPORT_BATCHES, 70, hw, J)
-        deq = dict(serve.dequantize_variables(serve.quantize_variables(live)))
-        live.load_state_dict(deq)
-        want8 = _live_outputs(torch, live, EXPORT_BATCHES, 70, hw, J)
-        del live, deq
-        for name, extra in variants.items():
-            if name == "pallas" and model_type != "transformer":
-                continue
-            path = tmp / f"art_{model_type}_{name}"
-            t0 = time.perf_counter()
-            cli_export.main(["--checkpoint", str(pth), "--output", str(path),
-                             *extra])
-            secs = time.perf_counter() - t0
-            meta = serve.load_exported_meta(path)
-            program = serve.load_exported(path).module()
-            static = EXPORT_STATIC if name == "static" else None
-            got = _artifact_outputs(torch, program, EXPORT_BATCHES, 70, hw, J,
-                                    static)
-            ref = want8 if name == "int8" else want
-            rels = {b: float(np.linalg.norm(got[b] - ref[b])
-                             / np.linalg.norm(ref[b])) for b in got}
-            extra_ok, note = True, ""
-            if name == "pallas":
-                x = [torch.from_numpy(a).cuda()
-                     for a in _request_inputs(79, 8, hw, J)]
-                zero_launch_counts()
-                with torch.inference_mode():
-                    program(*x)
-                torch.cuda.synchronize()
-                n = launch_counts()["flash_attention_fwd"]
-                attn = sum(PASS_LAUNCHES.values())
-                extra_ok = (meta["custom_ops"]
-                            == ["pose3d_torch::flash_attention_fwd"]
-                            and n == attn)
-                launches["flash_attention_fwd"] += n
-                note = (f"; graph ops {meta['custom_ops']}, one batch-8 call "
-                        f"launched the forward kernel {n} times (want {attn})")
-            elif meta["custom_ops"]:
-                extra_ok, note = False, f"; custom ops {meta['custom_ops']}"
-            mib = meta["payload_bytes"] / 2 ** 20
-            ok = (extra_ok and all(np.isfinite(got[b]).all() for b in got)
-                  and all(v <= TOL_SLICE_REL_L2 for v in rels.values()))
-            on = " on the dequantised weights" if name == "int8" else ""
-            log(f"[export] (d) cli.export {model_type} {name}: {mib:.1f} MiB "
-                f"in {secs:.1f} s, inputs {meta['inputs'][0]}; against the "
-                f"live model{on} rel L2 "
-                f"{ {b: float(f'{v:.3e}') for b, v in rels.items()} } (tol "
-                f"{TOL_SLICE_REL_L2:.0e}){note}  {'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise SystemExit(f"the {model_type} {name} artifact failed a "
-                                 "check")
-            arts[model_type, name] = path
-            del program
-            torch.cuda.empty_cache()
-        mib = {v: serve.load_exported_meta(arts[model_type, v])[
-            "payload_bytes"] / 2 ** 20 for v in ("xla", "int8")}
-        log(f"[time] {model_type} artifact sizes: fp32 {mib['xla']:.1f} MiB, "
-            f"int8 {mib['int8']:.1f} MiB ({mib['int8'] / mib['xla']:.3f} of "
-            f"it)  [{card}]")
-        np.savez(tmp / f"xla_{model_type}.npz",
-                 *_request_inputs(73, 3, hw, J), want=want[3])
-    # the xla artifacts where the port cannot be imported
+    alone = []
+    try:
+        for model_type, pth in pths.items():
+            _export_one(torch, tmp, pths, model_type, pth, variants, arts,
+                        launches, alone, card)
+        res, _ = alone[0].result()
+    finally:
+        for child in alone:
+            child.stop()
+    ok = (not res["loaded"]
+          and all(v <= TOL_SLICE_REL_L2 for v in res["rel"].values()))
+    log(f"[export] (d) the xla artifacts loaded by torch.export.load in a "
+        f"process where pose3d_tpu_torch, pose3d_tpu and JAX cannot be "
+        f"imported (started when both were written, beside the exports "
+        f"after them): batch-3 answers against the live model rel L2 "
+        f"{res['rel']}; of those packages in sys.modules: "
+        f"{res['loaded'] or 'none'}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the xla artifact does not stand alone")
+    return {"arts": arts, "launches": launches}
+
+
+def _export_alone(tmp: Path, pths: dict, arts: dict) -> _Child:
+    """The ``xla`` artifacts of both lifters loaded by
+    ``torch.export.load`` in a process where ``pose3d_tpu_torch``,
+    ``pose3d_tpu`` and JAX cannot be imported, started now: each one's
+    batch-3 answer against the live model's (``xla_<model>.npz``)."""
     code = textwrap.dedent(f"""
         import importlib.abc, json, sys
         import numpy as np, torch
@@ -4175,17 +4272,86 @@ def _export_artifacts(torch, tmp: Path, pths: dict, card: str) -> dict:
         print(json.dumps({{"rel": out, "loaded": sorted(
             m for m in sys.modules if m.split(".")[0] in BLOCKED)}}))
     """)
-    res, _ = _subprocess_json(code, tmp)
-    ok = (not res["loaded"]
-          and all(v <= TOL_SLICE_REL_L2 for v in res["rel"].values()))
-    log(f"[export] (d) the xla artifacts loaded by torch.export.load in a "
-        f"process where pose3d_tpu_torch, pose3d_tpu and JAX cannot be "
-        f"imported: batch-3 answers against the live model rel L2 "
-        f"{res['rel']}; of those packages in sys.modules: "
-        f"{res['loaded'] or 'none'}  {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise SystemExit("the xla artifact does not stand alone")
-    return {"arts": arts, "launches": launches}
+    return _Child(code, tmp)
+
+
+def _export_one(torch, tmp: Path, pths: dict, model_type: str, pth: Path,
+                variants: dict, arts: dict, launches: dict, alone: list,
+                card: str) -> None:
+    """``_export_artifacts`` for one lifter: each variant exported and
+    checked into ``arts``, the ``pallas`` launches added to ``launches``;
+    once both ``xla`` artifacts are written, ``_export_alone`` is started
+    and its process put in ``alone``."""
+    from pose3d_tpu_torch import serve
+    from pose3d_tpu_torch.cli import export as cli_export
+    from pose3d_tpu_torch.checkpoint import load_pose_model
+
+    live, cfg = load_pose_model(pth, "cuda",
+                                attention_impl="reference")
+    hw, J = tuple(cfg.image_size), cfg.num_joints
+    want = _live_outputs(torch, live, EXPORT_BATCHES, 70, hw, J)
+    np.savez(tmp / f"xla_{model_type}.npz",
+             *_request_inputs(73, 3, hw, J), want=want[3])
+    deq = dict(serve.dequantize_variables(serve.quantize_variables(live)))
+    live.load_state_dict(deq)
+    want8 = _live_outputs(torch, live, EXPORT_BATCHES, 70, hw, J)
+    del live, deq
+    for name, extra in variants.items():
+        if name == "pallas" and model_type != "transformer":
+            continue
+        path = tmp / f"art_{model_type}_{name}"
+        t0 = time.perf_counter()
+        cli_export.main(["--checkpoint", str(pth), "--output", str(path),
+                         *extra])
+        secs = time.perf_counter() - t0
+        meta = serve.load_exported_meta(path)
+        program = serve.load_exported(path).module()
+        static = EXPORT_STATIC if name == "static" else None
+        got = _artifact_outputs(torch, program, EXPORT_BATCHES, 70, hw, J,
+                                static)
+        ref = want8 if name == "int8" else want
+        rels = {b: float(np.linalg.norm(got[b] - ref[b])
+                         / np.linalg.norm(ref[b])) for b in got}
+        extra_ok, note = True, ""
+        if name == "pallas":
+            x = [torch.from_numpy(a).cuda()
+                 for a in _request_inputs(79, 8, hw, J)]
+            zero_launch_counts()
+            with torch.inference_mode():
+                program(*x)
+            torch.cuda.synchronize()
+            n = launch_counts()["flash_attention_fwd"]
+            attn = sum(PASS_LAUNCHES.values())
+            extra_ok = (meta["custom_ops"]
+                        == ["pose3d_torch::flash_attention_fwd"]
+                        and n == attn)
+            launches["flash_attention_fwd"] += n
+            note = (f"; graph ops {meta['custom_ops']}, one batch-8 call "
+                    f"launched the forward kernel {n} times (want {attn})")
+        elif meta["custom_ops"]:
+            extra_ok, note = False, f"; custom ops {meta['custom_ops']}"
+        mib = meta["payload_bytes"] / 2 ** 20
+        ok = (extra_ok and all(np.isfinite(got[b]).all() for b in got)
+              and all(v <= TOL_SLICE_REL_L2 for v in rels.values()))
+        on = " on the dequantised weights" if name == "int8" else ""
+        log(f"[export] (d) cli.export {model_type} {name}: {mib:.1f} MiB "
+            f"in {secs:.1f} s, inputs {meta['inputs'][0]}; against the "
+            f"live model{on} rel L2 "
+            f"{ {b: float(f'{v:.3e}') for b, v in rels.items()} } (tol "
+            f"{TOL_SLICE_REL_L2:.0e}){note}  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"the {model_type} {name} artifact failed a "
+                             "check")
+        arts[model_type, name] = path
+        del program
+        torch.cuda.empty_cache()
+        if not alone and all((m, "xla") in arts for m in pths):
+            alone.append(_export_alone(tmp, pths, arts))
+    mib = {v: serve.load_exported_meta(arts[model_type, v])[
+        "payload_bytes"] / 2 ** 20 for v in ("xla", "int8")}
+    log(f"[time] {model_type} artifact sizes: fp32 {mib['xla']:.1f} MiB, "
+        f"int8 {mib['int8']:.1f} MiB ({mib['int8'] / mib['xla']:.3f} of "
+        f"it)  [{card}]")
 
 
 def _export_serve(torch, tmp: Path, arts: dict, card: str) -> dict:
@@ -4269,8 +4435,6 @@ def phase_export(torch, tmp: Path, card: str) -> dict:
 
     gc.collect()
     torch.cuda.empty_cache()
-    launches = _export_remat(torch, cli_main, tmp, card)
-    _export_norms(torch, card)
     pths = {}
     for cfg in (TransformerModelConfig(), CNNModelConfig()):
         model = build_model(cfg, device="cuda", generator=torch.Generator(
@@ -4279,7 +4443,16 @@ def phase_export(torch, tmp: Path, card: str) -> dict:
             model, tmp / f"export_{cfg.model_type}.pth"))
         del model
     torch.cuda.empty_cache()
-    runs = [_export_infer(torch, tmp, pths, card)]
+    # (c)'s two processes run beside (a) and (b): a few forwards of their
+    # own on the card, the rest start-up, decode and files
+    children = _export_infer_start(tmp, pths)
+    try:
+        launches = _export_remat(torch, cli_main, tmp, card)
+        _export_norms(torch, card)
+        runs = [_export_infer(torch, tmp, pths, children, card)]
+    finally:
+        for child in children.values():
+            child.stop()
     ex = _export_artifacts(torch, tmp, pths, card)
     runs.append(ex["launches"])
     runs.append(_export_serve(torch, tmp, {**ex["arts"],
@@ -4291,7 +4464,7 @@ def phase_export(torch, tmp: Path, card: str) -> dict:
 
 S1_YOLO_SCALE, S1_YOLO_SIZE = "x", 640      # YOLO11x-pose at 640
 S1_DEPTH_SIZE = 1536                        # apple/DepthPro-hf at 1536²
-S1_FRAMES = {"cam_a": 8, "cam_b": 8}        # 1000x1000 JPEG frames a folder
+S1_FRAMES = {"cam_a": 4, "cam_b": 4}        # 1000x1000 JPEG frames a folder
 S1_HW = (1000, 1000)
 S1_BATCH = 8                                # preprocess and cli.infer batch
 S1_SERVE_BATCHES = (1, 8)
@@ -4776,13 +4949,15 @@ def _s1_artifacts_agree(out: Path, files, want) -> str:
 
 
 def _s1_preprocess(torch, tmp: Path, paths: dict, files, want,
-                   card: str) -> None:
+                   card: str, beside=None) -> None:
     """(c): ``python -m pose3d_tpu_torch.cli.preprocess`` on the frames,
     the artifacts against the provider; a second run skips every folder
     (``finished.txt``); ``cli.infer --stage1 cached`` over the artifacts
     and ``cli.infer --stage1 jax`` with the weights, finite joints; both
     stage-1 CLIs again with ``--data-parallel`` (one replica a card: here
-    one), their outputs against the runs without it."""
+    one), their outputs against the runs without it. ``beside()``, when
+    given, is called when the first run is done: what it starts runs
+    beside the second process."""
     src, out = files[0].parent.parent, tmp / "s1_artifacts"
     argv = [str(src), str(out), "--kp-weights", str(paths["yolo"]),
             "--depth-weights", str(paths["depth"]),
@@ -4805,6 +4980,8 @@ def _s1_preprocess(torch, tmp: Path, paths: dict, files, want,
     log(f"[time] stage1 cli.preprocess: {done[0] if done else '?'}  [{card}]")
     for f in files:                       # the cached provider reads beside
         shutil.copy(f, out / f.parent.name / f.name)
+    if beside is not None:
+        beside()
     one = out / files[0].parent.name
     code = textwrap.dedent(f"""
         import json
@@ -4847,7 +5024,8 @@ def _s1_preprocess(torch, tmp: Path, paths: dict, files, want,
     dp_diff = max(float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
                   for a, b in zip(dp_joints, joints[n_one:]))
     dp_ok = len(dp_joints) == n_one and dp_diff <= 1e-3
-    log(f"[stage1] (c) second process ({wall:.1f} s): preprocess again "
+    log(f"[stage1] (c) second process ({wall:.1f} s, beside (d)'s server "
+        f"starting): preprocess again "
         f"into the same tree: {res['rerun']} images (finished.txt in each "
         f"folder); cli.infer --stage1 cached "
         f"{res['cached']} and --stage1 jax {res['jax']} joint files (want "
@@ -4870,13 +5048,10 @@ def _post_image(url: str, body: bytes) -> tuple:
                 int(r.headers["X-Batch-Size"]))
 
 
-def _s1_serve(torch, tmp: Path, paths: dict, bodies, want,
-              card: str) -> None:
-    """(d): ``serve_http --checkpoint <lifter .pth> --kp-weights
-    --depth-weights`` in its own process; ``/predict_image`` at batch 1 (one
-    request) and 8 (eight concurrent requests, coalesced), against a
-    direct provider + lifter call on the same decoded frames; ``/predict``
-    answers 404; the process is stopped."""
+def _s1_serve_start(tmp: Path, paths: dict) -> dict:
+    """(d)'s ``serve_http --checkpoint <lifter .pth> --kp-weights
+    --depth-weights`` started now in its own process: its process, URL,
+    log and start time."""
     import socket
 
     with socket.socket() as s:
@@ -4892,9 +5067,30 @@ def _s1_serve(torch, tmp: Path, paths: dict, bodies, want,
              "--host", "127.0.0.1", "--port", str(port),
              "--max-wait-ms", "500"], cwd=tmp, env=env, stdout=logf,
             stderr=subprocess.STDOUT)
-    base = f"http://127.0.0.1:{port}"
+    return {"proc": proc, "base": f"http://127.0.0.1:{port}",
+            "log": log_path, "t0": time.monotonic()}
+
+
+def _s1_serve_stop(server: dict) -> None:
+    proc = server["proc"]
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def _s1_serve(torch, server: dict, bodies, want, card: str) -> None:
+    """(d): the server of ``_s1_serve_start`` once healthy;
+    ``/predict_image`` at batch 1 (one request) and 8 (eight concurrent
+    requests, coalesced), against a direct provider + lifter call on the
+    same decoded frames; ``/predict`` answers 404; the process is
+    stopped."""
+    proc, base, log_path = server["proc"], server["base"], server["log"]
     try:
-        t0 = time.monotonic()
+        t0 = server["t0"]
         while True:
             if proc.poll() is not None:
                 raise SystemExit("serve_http exited:\n"
@@ -4926,16 +5122,13 @@ def _s1_serve(torch, tmp: Path, paths: dict, bodies, want,
             sizes[b] = max(g[2] for g in got)
             rels += [_rel(g[0], w) for g, w in zip(got, want[:b])]
     finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=30)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
+        _s1_serve_stop(server)
     top = max(S1_SERVE_BATCHES)
     ok = code == 404 and max(rels) <= TOL_S1_SERVE and sizes[top] == top
-    log(f"[stage1] (d) serve_http --checkpoint (pipeline) healthy after "
-        f"{up:.1f} s; /predict_image at batch 1 and 8 concurrent: device "
+    log(f"[stage1] (d) serve_http --checkpoint (pipeline) polled healthy "
+        f"{up:.1f} s after its start (it started beside (c)'s second "
+        f"process and was polled after it); "
+        f"/predict_image at batch 1 and 8 concurrent: device "
         f"batches {sizes}; joints against a direct provider + lifter call "
         f"rel L2 max {max(rels):.3e} (tol {TOL_S1_SERVE:.0e}); /predict "
         f"{code}  {'ok' if ok else 'FAIL'}")
@@ -4985,7 +5178,7 @@ def phase_stage1(torch, tmp: Path, card: str) -> dict:
     frames; (a) each network's "pallas" against "xla" on the same weights
     and inputs, fp32 and bf16, the path of each attention shape asserted,
     and a zeroed attention as a control; (b) launches: 72 a DepthPro
-    call, 2 a YOLO11x call, 0 with "xla"; (c) ``cli.preprocess`` on 16
+    call, 2 a YOLO11x call, 0 with "xla"; (c) ``cli.preprocess`` on 8
     1000x1000 frames in two folders, its artifacts against the provider,
     a second run that skips, ``cli.infer`` with ``--stage1 cached`` and
     ``--stage1 jax``; (d) pipeline serving; (e) times. Returns the
@@ -5031,8 +5224,17 @@ def phase_stage1(torch, tmp: Path, card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     _s1_attention_times(torch, card)
-    _s1_preprocess(torch, tmp, paths, files, want_s1, card)
-    _s1_serve(torch, tmp, paths, bodies, want_joints, card)
+    # (d)'s server starts as (c)'s second process does: its start-up, the
+    # weights read and a batch-1 warmup, overlaps that process; it is timed
+    # once that process is done
+    server = []
+    try:
+        _s1_preprocess(torch, tmp, paths, files, want_s1, card,
+                       lambda: server.append(_s1_serve_start(tmp, paths)))
+        _s1_serve(torch, server[0], bodies, want_joints, card)
+    finally:
+        for srv in server:
+            _s1_serve_stop(srv)
     log(f"[stage1] phase seconds: {time.perf_counter() - t_phase:.1f}")
     return launches
 
@@ -5540,9 +5742,199 @@ def phase_parallel(torch, tmp: Path, card: str) -> dict:
     return {"cli": cli, **ranks}
 
 
+# --- phase 15: the tooling and the on-card acceptance scripts ---------------
+
+# the three chains of the phase run side by side on the card, beside phase
+# 14, each within this many seconds (the doctor runs alone before them: its
+# probes time the card)
+TOOLS_TIMEOUT = 240
+# the transformer overfit (scripts/torch_overfit_demo.py): steps and how
+# far it must learn in them, the last loss below a quarter of step 1's and
+# the train batch's MPJPE below half the untrained value. It trains on one
+# superbatch of 8 samples and memorises them: on the JAX script's four, one
+# of six seeded runs met both thresholds by step 3,000, while on one all
+# four met them by step 400 (PERF.md).
+OVERFIT_STEPS = 600
+OVERFIT_SUPERBATCHES = 1
+OVERFIT_EVAL_EVERY = 100
+OVERFIT_LOSS_FALL = 4.0
+OVERFIT_MPJPE_FALL = 2.0
+# the kernels the phase's runs must launch: the attention pair (the
+# lifecycle's transformer at head depth 16, the overfit's at 48, the pallas
+# program of the int8 check) and lane_resample (the lifecycle's rotation)
+TOOLS_PATH = ("flash_attention_fwd", "flash_attention_bwd", "lane_resample")
+
+
+def _tool(argv, cwd: Path, timeout: int) -> tuple:
+    """``python argv`` (a script of ``scripts/`` or ``-m`` a module) in a
+    process of its own with this checkout on its path: (seconds, standard
+    output); a non-zero exit fails the phase."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, *argv], cwd=cwd,
+                         env={**os.environ, "PYTHONPATH": str(ROOT)},
+                         capture_output=True, text=True, timeout=timeout)
+    dt = time.perf_counter() - t0
+    if out.returncode:
+        log(out.stdout[-3000:] + out.stderr[-3000:])
+        raise SystemExit(f"{' '.join(argv[:3])} exited {out.returncode}")
+    return dt, out.stdout
+
+
+def _last_json(stdout: str, prefix: str = "") -> dict:
+    """The last line of ``stdout`` that is ``prefix`` and a JSON object."""
+    for line in reversed(stdout.splitlines()):
+        if line.startswith(prefix + "{"):
+            return json.loads(line[len(prefix):])
+    raise SystemExit(f"no {prefix or 'JSON'} line in the output")
+
+
+def _tools_doctor(torch, tmp: Path, card: str) -> None:
+    """(a) ``cli.doctor --probe --json`` in its own process: the card the
+    environment phase found, all eight kernel libraries loaded."""
+    report = tmp / "doctor.json"
+    dt, _ = _tool(["-m", "pose3d_tpu_torch.cli.doctor", "--probe", "--json",
+                   str(report)], tmp, 120)
+    rep = json.loads(report.read_text())
+    name = torch.cuda.get_device_name(0)
+    probe = rep.get("probe", {})
+    smi = rep["devices"].get("nvidia_smi", [])
+    ok = (rep["devices"].get("cuda:0", "").startswith(name)
+          and card in smi and probe.get("probed_device") == name
+          and probe.get("kernels_loaded") == f"{len(KERNELS)} of "
+          f"{len(KERNELS)}"
+          and all(str(probe.get(f"kernel_{k}", "")).startswith("loaded")
+                  for k in KERNELS))
+    log(f"[tools] doctor --probe ({dt:.1f} s): {rep['devices'].get('cuda:0')}"
+        f"; nvidia-smi {smi}; kernels {probe.get('kernels_loaded')}; "
+        f"toolchain {rep['toolchain'].get('nvcc_version')}, decode route "
+        f"{rep['toolchain'].get('decode_route')}; warnings "
+        f"{rep.get('warnings')}  {'ok' if ok else 'FAIL'}")
+    log(f"[time] doctor probe: bf16 matmul {probe.get('matmul_tflops_bf16', 0):.1f}"
+        f" TFLOP/s at n {probe.get('matmul_n')}; host to device "
+        f"{probe.get('host_to_device_MBps_pinned', 0):.0f} MB/s pinned, "
+        f"{probe.get('host_to_device_MBps_pageable', 0):.0f} pageable; host "
+        f"decode {probe.get('host_decode_imgs_per_sec', 0):.1f} images/s "
+        f"({probe.get('host_decode_route')})  [{card}]")
+    if not ok:
+        raise SystemExit(f"the doctor's report does not hold: {rep}")
+
+
+def _tools_lifecycle(tmp: Path, model_type: str) -> dict:
+    """(b) ``scripts/torch_lifecycle_e2e.py`` on the card: its own checks
+    (the resume bitwise, the artifact within the export bound,
+    ``/predict`` answered)
+    end in a non-zero exit when they fail."""
+    dt, out = _tool([str(ROOT / "scripts" / "torch_lifecycle_e2e.py"),
+                     "--model-type", model_type, "--workdir",
+                     str(tmp / f"lifecycle_{model_type}")], tmp,
+                    TOOLS_TIMEOUT)
+    return {"seconds": dt, **_last_json(out, "LIFECYCLE ")}
+
+
+def _tools_overfit(tmp: Path) -> dict:
+    """(c) the reduced ViT of ``scripts/torch_overfit_demo.py`` for
+    ``OVERFIT_STEPS`` steps, saved; then (d)
+    ``scripts/torch_quantize_accuracy.py`` on its checkpoint."""
+    ckpt = tmp / "overfit_transformer"
+    dt, out = _tool([str(ROOT / "scripts" / "torch_overfit_demo.py"),
+                     "--model-type", "transformer", "--steps",
+                     str(OVERFIT_STEPS), "--superbatches",
+                     str(OVERFIT_SUPERBATCHES), "--eval-every",
+                     str(OVERFIT_EVAL_EVERY), "--save-checkpoint", str(ckpt)],
+                    tmp, TOOLS_TIMEOUT)
+    overfit = {"seconds": dt, **_last_json(out)}
+    dt, out = _tool([str(ROOT / "scripts" / "torch_quantize_accuracy.py"),
+                     str(ckpt), "--out", str(tmp / "quantized")], tmp,
+                    TOOLS_TIMEOUT)
+    return {"overfit": overfit, "quantize": {"seconds": dt,
+                                             **_last_json(out)}}
+
+
+def tools_start(torch, tmp: Path, card: str) -> dict:
+    """Phase 15, begun before phase 14: (a) the doctor alone, then (b) the
+    lifecycle of both families and (c) the transformer overfit followed by
+    (d) its int8 accuracy started side by side, each chain in processes of
+    its own, to run beside phase 14 (whose two ranks share the card too
+    and time nothing that is compared). ``phase_tools`` waits for them."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    _tools_doctor(torch, tmp, card)
+    ex = ThreadPoolExecutor(3)
+    jobs = {"cnn": ex.submit(_tools_lifecycle, tmp, "cnn"),
+            "transformer": ex.submit(_tools_lifecycle, tmp, "transformer"),
+            "overfit": ex.submit(_tools_overfit, tmp)}
+    return {"t0": t0, "ex": ex, "jobs": jobs}
+
+
+def phase_tools(torch, tmp: Path, card: str, started: dict) -> dict:
+    """Phase 15 finished: the chains of ``tools_start`` waited for and
+    checked. Returns the launches the scripts' processes report, summed."""
+    t0 = started["t0"]
+    with started["ex"]:
+        res = {k: f.result() for k, f in started["jobs"].items()}
+    for mt in ("cnn", "transformer"):
+        lc = res[mt]
+        log(f"[tools] lifecycle {mt} ({lc['seconds']:.1f} s): SIGTERM "
+            f"checkpoint at step {lc['sigterm_checkpoint_step']}; resume "
+            f"bitwise {lc['resume_bit_exact']} over {lc['compared_arrays']} "
+            f"arrays; "
+            f"update after the stop {lc['update_l2_after_sigterm']:.3e}; eval "
+            f"MPJPE {lc['eval_mpjpe_mm']:.2f} mm; export rel L2 "
+            f"{lc['export_rel_l2']:.3e} (tol {TOL_SLICE_REL_L2:.0e}); /predict "
+            f"{'bitwise' if lc['serve_bit_identical'] else 'within 1e-6'} the "
+            f"artifact's; launches {_nonzero(lc['launches'])}")
+        if not lc["resume_bit_exact"]:
+            raise SystemExit(f"lifecycle {mt}: the resumed run is not "
+                             f"bitwise")
+        if lc["export_rel_l2"] > TOL_SLICE_REL_L2:
+            raise SystemExit(f"lifecycle {mt}: artifact beyond the bound")
+    ov, q = res["overfit"]["overfit"], res["overfit"]["quantize"]
+    curve = ov["curve"]
+    loss_fall = curve[0]["loss"] / max(curve[-1]["loss"], 1e-12)
+    mpjpe_fall = ov["untrained_mpjpe_mm"] / max(ov["final_train_mpjpe_mm"],
+                                                 1e-12)
+    learned = (loss_fall > OVERFIT_LOSS_FALL
+               and mpjpe_fall > OVERFIT_MPJPE_FALL)
+    log(f"[tools] overfit transformer ({ov['seconds']:.1f} s, "
+        f"{ov['steps']} steps at 1 x 8 on {OVERFIT_SUPERBATCHES} superbatch, "
+        f"256 px): loss {curve[0]['loss']:.1f} "
+        f"-> {curve[-1]['loss']:.1f} ({loss_fall:.1f}x, must exceed "
+        f"{OVERFIT_LOSS_FALL:.0f}x); MPJPE untrained "
+        f"{ov['untrained_mpjpe_mm']:.1f} mm, train batch "
+        f"{ov['final_train_mpjpe_mm']:.1f} ({mpjpe_fall:.1f}x, must exceed "
+        f"{OVERFIT_MPJPE_FALL:.0f}x), held-out "
+        f"{ov['final_held_out_mpjpe_mm']:.1f}; curve "
+        + ", ".join(f"{c['step']}: {c['loss']:.0f}/{c['train_mpjpe_mm']:.0f}"
+                    for c in curve)
+        + f"; launches {_nonzero(ov['launches'])}  "
+        f"{'ok' if learned else 'FAIL'}")
+    log(f"[time] overfit transformer: {ov['steady_state_images_per_sec']:.1f}"
+        f" images/s over the second half (the phase's chains and phase 14 "
+        f"share the card)  [{card}]")
+    log(f"[tools] int8 PTQ on the overfit's weights ({q['seconds']:.1f} s, "
+        f"attention {q['attention_backend']} inside the programs): MPJPE fp32 "
+        f"{q['mpjpe_mm_f32']:.3f} mm, int8 {q['mpjpe_mm_int8']:.3f}, int8 - "
+        f"fp32 {q['delta_mm_int8']:+.3f}; artifacts "
+        f"{q['artifact_mb_f32']:.1f} / {q['artifact_mb_int8']:.1f} MB; "
+        f"launches {_nonzero(q['launches'])}")
+    if not learned:
+        raise SystemExit("the transformer overfit did not learn to the "
+                         "thresholds")
+    launches = {k: sum(r["launches"].get(k, 0) for r in (
+        res["cnn"], res["transformer"], ov, q)) for k in KERNELS}
+    idle = [k for k in TOOLS_PATH if not launches[k]]
+    if idle:
+        raise SystemExit(f"tools phase: {idle} never launched")
+    log(f"[tools] phase seconds: {time.perf_counter() - t0:.1f} (phase 14 "
+        f"beside its chains); launches {_nonzero(launches)}")
+    return launches
+
+
 def phase_imports() -> None:
-    """The port, every module of it imported (the stage-1 modules and the
-    preprocess CLI among them), has loaded nothing of JAX, flax or the JAX
+    """The port, every module of it imported (the stage-1 modules, the
+    preprocess CLI and the doctor among them), has loaded nothing of JAX,
+    flax or the JAX
     package, nor transformers, safetensors, timm or ultralytics."""
     import importlib
     import pkgutil
@@ -5561,6 +5953,8 @@ def phase_imports() -> None:
         "parallel.tp", "parallel.sp", "parallel.pp", "parallel.dryrun")}
     if not par <= set(names):
         raise SystemExit(f"parallel modules missing: {par - set(names)}")
+    if "pose3d_tpu_torch.cli.doctor" not in names:
+        raise SystemExit("pose3d_tpu_torch.cli.doctor is missing")
     for name in names:
         importlib.import_module(name)
     banned = ("jax", "jaxlib", "flax", "pose3d_tpu", "transformers",
@@ -5617,7 +6011,16 @@ def main() -> int:
         data = timed("data", phase_data, torch, Path(tmp), card)
         export = timed("export", phase_export, torch, Path(tmp), card)
         stage1 = timed("stage1", phase_stage1, torch, Path(tmp), card)
-        par = timed("parallel", phase_parallel, torch, Path(tmp), card)
+        bg = timed("tools (the doctor; the chains started)", tools_start,
+                   torch, Path(tmp), card)
+        try:
+            par = timed("parallel (beside the tools chains)",
+                        phase_parallel, torch, Path(tmp), card)
+        except BaseException:
+            bg["ex"].shutdown(wait=True)
+            raise
+        tools = timed("tools (the chains waited for)", phase_tools, torch,
+                      Path(tmp), card, bg)
     phase_imports()
     # (file:line of the TPU kernel, launches on its main path, key of the
     # shape its times are given at)
@@ -5658,6 +6061,7 @@ def main() -> int:
         "export_launches": export[name],
         "stage1_launches": stage1[name],
         "parallel_launches": [r[name] for r in par["per_rank"]],
+        "tools_launches": tools[name],
         **worst[name],
         **times[key],
     } for name, (replaces, launches, key) in kernels.items()]}))

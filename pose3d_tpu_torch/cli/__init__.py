@@ -2,5 +2,7 @@
 ``python -m pose3d_tpu_torch.cli.main`` trains, ``python -m
 pose3d_tpu_torch.cli.evaluate`` evaluates, ``cli.infer`` lifts images,
 ``cli.export`` writes a serving artifact, ``cli.convert`` converts
-checkpoints, and ``cli.chunker``, ``cli.split`` and ``cli.rechunker``
-write, split and shuffle the chunk archives."""
+checkpoints, ``cli.chunker``, ``cli.split`` and ``cli.rechunker``
+write, split and shuffle the chunk archives, ``cli.preprocess`` runs stage 1
+and ``cli.doctor`` reports the environment. Each is also a
+``pose3d-torch-*`` console script."""

@@ -60,5 +60,10 @@ def main(argv=None):
     chunker.process()
 
 
+def cli(argv=None) -> int:
+    """Console-script entry: returns 0 once the chunker has run."""
+    main(argv)
+    return 0
+
 if __name__ == "__main__":
     main()

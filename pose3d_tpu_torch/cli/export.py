@@ -134,5 +134,11 @@ def main(argv: Optional[List[str]] = None) -> str:
     return str(path)
 
 
+def cli(argv=None) -> int:
+    """Console-script entry: returns 0 (``main`` returns the artifact's
+    path)."""
+    main(argv)
+    return 0
+
 if __name__ == "__main__":
     sys.exit(0 if main() else 1)

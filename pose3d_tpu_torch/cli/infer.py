@@ -347,5 +347,11 @@ def main(argv=None) -> int:
     return run(args)
 
 
+def cli(argv=None) -> int:
+    """Console-script entry: returns 0 (``main`` returns the images
+    done)."""
+    main(argv)
+    return 0
+
 if __name__ == "__main__":
     main()

@@ -47,5 +47,11 @@ def main(argv=None):
     return n
 
 
+def cli(argv=None) -> int:
+    """Console-script entry: returns 0 (``main`` returns the sample
+    count)."""
+    main(argv)
+    return 0
+
 if __name__ == "__main__":
     main()

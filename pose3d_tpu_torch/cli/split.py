@@ -57,5 +57,10 @@ def main(argv=None):
     return counters
 
 
+def cli(argv=None) -> int:
+    """Console-script entry: returns 0 (``main`` returns the counters)."""
+    main(argv)
+    return 0
+
 if __name__ == "__main__":
     main()

@@ -47,8 +47,9 @@
 //    memory, in place of a float2 atomicAdd a pair from registers; see
 //    PERF.md for what each costs). D 48 runs at 64 columns with
 //    TMA's zero fill (D has its own map dimension) and three k-steps where
-//    D is the reduction. A key row past Tk has zero K and V: its dS adds
-//    nothing to dQ, and its dK, dV are never stored. Two dS^T buffers in
+//    D is the reduction. A key row past Tk has zero K and V: its P is kept
+//    at most 1 (P = exp2(-|x|), below), so its dS is finite and adds nothing
+//    to dQ, and its dK, dV are never stored. Two dS^T buffers in
 //    turn let one barrier a tile suffice;
 //  * attn_bwd_bf16 (bf16, other pairs): 64 keys and 128 threads a block,
 //    WMMA m16n16k16 with fp32 accumulation, Q/dO tiles loaded synchronously,
@@ -704,17 +705,24 @@ attn_bwd_wgmma(const __grid_constant__ CUtensorMap map_q,
       // P^T = exp2(S^T * scale * log2 e - lse * log2 e), dS^T = P^T (dP^T -
       // delta), on the accumulator's layout (rows keys, columns queries);
       // bf16 pairs of both are the A fragments of dV and dK, and dS^T goes
-      // to shared memory (128-byte rows, 128-byte swizzle) for dQ.
+      // to shared memory (128-byte rows, 128-byte swizzle) for dQ. The
+      // exponent x is <= 0 for every key below Tk (lse is the row's
+      // log-sum-exp), so P = exp2(-|x|) changes nothing there; a key past Tk
+      // (a zero row of K and V, zero score) would have x = -lse * log2 e,
+      // which overflows exp2 in a row whose scores are all very negative
+      // (lse below about -88, as rows of a trained model reach), and inf
+      // times K's zero row would be NaN in dQ. With -|x| its P is at most 1
+      // and its dS finite, and K's zero row adds nothing to dQ.
       const float* rws = reinterpret_cast<const float*>(
           smem + (qt - base) + 2 * QT_BYTES);
       unsigned char* dsb = smem + DS_OFF + (j & 1) * DS_BYTES;
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
         const float4 rw = *reinterpret_cast<const float4*>(rws + 2 * (8 * jj + cq));
-        const float p0 = exp2_approx(fmaf(st[4 * jj], sl2, -rw.x));
-        const float p1 = exp2_approx(fmaf(st[4 * jj + 1], sl2, -rw.z));
-        const float p2 = exp2_approx(fmaf(st[4 * jj + 2], sl2, -rw.x));
-        const float p3 = exp2_approx(fmaf(st[4 * jj + 3], sl2, -rw.z));
+        const float p0 = exp2_approx(-fabsf(fmaf(st[4 * jj], sl2, -rw.x)));
+        const float p1 = exp2_approx(-fabsf(fmaf(st[4 * jj + 1], sl2, -rw.z)));
+        const float p2 = exp2_approx(-fabsf(fmaf(st[4 * jj + 2], sl2, -rw.x)));
+        const float p3 = exp2_approx(-fabsf(fmaf(st[4 * jj + 3], sl2, -rw.z)));
         const uint32_t s01 = pack_bf16x2(p0 * (dpt[4 * jj] - rw.y),
                                          p1 * (dpt[4 * jj + 1] - rw.w));
         const uint32_t s23 = pack_bf16x2(p2 * (dpt[4 * jj + 2] - rw.y),
@@ -950,6 +958,7 @@ int pose3d_flash_attention_bwd(
     case 2: return dispatch<64, 64>(bf, a, st);
     case 3: return dispatch<128, 128>(bf, a, st);
     case 4: return dispatch<32, 64>(bf, a, st);
+    case 5: return dispatch<16, 16>(bf, a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -964,14 +973,14 @@ int pose3d_flash_attention_bwd_config(int is_bf16, int B, int Tq, int Tk,
                                       int H, int D, int Dv, long long* cfg) {
   const int pair = attn::pair_index(D, Dv);
   if (pair < 0) return (int)cudaErrorInvalidValue;
-  const size_t wmma_smem[5] = {
+  const size_t wmma_smem[attn::kPairs] = {
       Bf16Layout<32, 32>::bytes, Bf16Layout<48, 48>::bytes,
       Bf16Layout<64, 64>::bytes, Bf16Layout<128, 128>::bytes,
-      Bf16Layout<32, 64>::bytes};
-  const size_t f32_smem[5] = {
+      Bf16Layout<32, 64>::bytes, Bf16Layout<16, 16>::bytes};
+  const size_t f32_smem[attn::kPairs] = {
       F32Layout<32, 32>::bytes, F32Layout<48, 48>::bytes,
       F32Layout<64, 64>::bytes, F32Layout<128, 128>::bytes,
-      F32Layout<32, 64>::bytes};
+      F32Layout<32, 64>::bytes, F32Layout<16, 16>::bytes};
   if (is_bf16 && attn::wgmma_depth(D, Dv)) {
     cfg[0] = kPathWgmma, cfg[1] = wg::BKEYS, cfg[5] = (long long)wg::SMEM;
     cfg[6] = wg::kThreads;

@@ -619,6 +619,7 @@ int pose3d_flash_attention_fwd(
     case 2: return dispatch<64, 64>(bf, a, B, st);
     case 3: return dispatch<128, 128>(bf, a, B, st);
     case 4: return dispatch<32, 64>(bf, a, B, st);
+    case 5: return dispatch<16, 16>(bf, a, B, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -633,12 +634,12 @@ int pose3d_flash_attention_fwd_config(int is_bf16, int B, int Tq, int Tk,
   (void)Tk;
   const int pair = attn::pair_index(D, Dv);
   if (pair < 0) return (int)cudaErrorInvalidValue;
-  const size_t wmma_smem[5] = {smem_bf16<32, 32>(), smem_bf16<48, 48>(),
-                               smem_bf16<64, 64>(), smem_bf16<128, 128>(),
-                               smem_bf16<32, 64>()};
-  const size_t f32_smem[5] = {smem_f32<32, 32>(), smem_f32<48, 48>(),
-                              smem_f32<64, 64>(), smem_f32<128, 128>(),
-                              smem_f32<32, 64>()};
+  const size_t wmma_smem[attn::kPairs] = {
+      smem_bf16<32, 32>(), smem_bf16<48, 48>(), smem_bf16<64, 64>(),
+      smem_bf16<128, 128>(), smem_bf16<32, 64>(), smem_bf16<16, 16>()};
+  const size_t f32_smem[attn::kPairs] = {
+      smem_f32<32, 32>(), smem_f32<48, 48>(), smem_f32<64, 64>(),
+      smem_f32<128, 128>(), smem_f32<32, 64>(), smem_f32<16, 16>()};
   if (is_bf16 && attn::wgmma_depth(D, Dv)) {
     cfg[0] = kPathWgmma, cfg[1] = wg::BM, cfg[5] = (int)wg::SMEM;
     cfg[6] = wg::kThreads;

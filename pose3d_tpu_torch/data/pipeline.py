@@ -20,6 +20,7 @@ import random
 import shutil
 import tempfile
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Sequence
 
@@ -384,6 +385,10 @@ class StreamingChunkedDataset:
             prefetcher.close()
 
 
+# how long closing a BatchLoader iterator waits for its feeder thread
+FEEDER_JOIN_S = 30.0
+
+
 class _FeederError:
     """Queue marker carrying a feeder-thread exception to the consumer."""
 
@@ -500,3 +505,15 @@ class BatchLoader:
                 yield b
         finally:
             stop.set()
+            # Wait for the feeder: on its way out it closes the dataset's
+            # iterator, whose chunk prefetcher stops its decode thread. A
+            # process that exits while that daemon thread is inside cv2's
+            # decode aborts ("terminate called without an active
+            # exception", exit -6), which is how a finished cli.main ended
+            # on a host that decodes through cv2.
+            deadline = time.monotonic() + FEEDER_JOIN_S
+            while t.is_alive() and time.monotonic() < deadline:
+                try:
+                    q.get(timeout=0.1)
+                except queue.Empty:
+                    pass

@@ -38,9 +38,10 @@ import torch
 from pose3d_tpu_torch.ops.kernels import _build
 
 # the (D, Dv) pairs the kernels are built for: D = Dv at the lifter's and
-# the stage-1 models' depths, and YOLO11's PSA pair (key depth half the
-# value depth)
-PAIRS = ((32, 32), (48, 48), (64, 64), (128, 128), (32, 64))
+# the stage-1 models' depths, YOLO11's PSA pair (key depth half the value
+# depth), and D = Dv = 16 (a lifter of embed 64 over 4 heads, as the JAX
+# package's lifecycle run trains); in the order of the C dispatch
+PAIRS = ((32, 32), (48, 48), (64, 64), (128, 128), (32, 64), (16, 16))
 _DTYPES = (torch.bfloat16, torch.float32)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # the kernels' paths, as the C entry points number them

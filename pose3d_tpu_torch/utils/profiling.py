@@ -9,13 +9,17 @@
 * :func:`memory_report` / :func:`format_memory_report` — the card's
   allocator counters (``torch.cuda.memory_stats``,
   ``max_memory_allocated``).
+* :func:`card_label` / :func:`time_calls` — what the measurement scripts
+  write beside every number: the card's name and power limit, and ms a
+  call between CUDA events (the host's clock on the CPU).
 """
 
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -99,3 +103,44 @@ def format_memory_report(report: Dict[str, float]) -> str:
 
     return ", ".join(f"{k.replace('_bytes', '')}={fmt(v)}"
                      for k, v in report.items())
+
+
+def card_label(device) -> str:
+    """``nvidia-smi``'s ``name, power.limit`` of the card ``device`` is
+    on (its name alone where ``nvidia-smi`` cannot say), or "cpu"."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader", f"--id={index}"],
+            capture_output=True, text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.TimeoutExpired):
+        out = ""
+    return out or torch.cuda.get_device_name(index)
+
+
+def time_calls(fn: Callable[[], object], device, iters: int,
+               warmup: int = 2) -> float:
+    """ms a call of ``fn`` over ``iters`` calls after ``warmup``: between
+    two CUDA events on a card (the calls queue on the stream; the events
+    read the device's time), on the host's clock otherwise."""
+    device = torch.device(device)
+    for _ in range(warmup):
+        fn()
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / iters
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize(device)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters

@@ -16,13 +16,19 @@ from pose3d_tpu_torch.ops.attention import dot_product_attention
 from pose3d_tpu_torch.ops.kernels import flash_attention as fa
 
 # (B, Tq, Tk, H, D, Dv): the PSA pair, self and cross, ragged across the
-# kernels' 64-row tiles, and one the kernels are not built for (the plain
-# versions take any pair)
+# kernels' 64-row tiles, one the kernels are not built for (the plain
+# versions take any pair), then head depth 16 at the shapes of a lifter of
+# embed 64 over 4 heads at 64 px (17 image tokens, 4 heatmap tokens: self
+# and both cross attentions) and across a 64-row tile
 DV_SHAPES = [
     (1, 20, 20, 2, 32, 64),
     (2, 9, 70, 1, 32, 64),
     (1, 66, 5, 2, 32, 64),
     (1, 12, 12, 2, 64, 32),
+    (2, 17, 17, 4, 16, 16),
+    (2, 17, 4, 4, 16, 16),
+    (2, 4, 17, 4, 16, 16),
+    (1, 70, 130, 2, 16, 16),
 ]
 
 
@@ -177,7 +183,7 @@ def test_launch_config_path_blocks_and_shared_memory(shape, itemsize):
 
 @pytest.mark.parametrize("itemsize", [2, 4])
 @pytest.mark.parametrize("D,Dv", [(32, 32), (48, 48), (64, 64), (128, 128),
-                                  (32, 64)])
+                                  (32, 64), (16, 16)])
 def test_launch_config_pairs(D, Dv, itemsize):
     """Each built pair in each dtype: the path by shape alone (the wgmma
     kernels only for bf16 with D = Dv in {48, 64}; the PSA pair on the
@@ -193,10 +199,45 @@ def test_launch_config_pairs(D, Dv, itemsize):
         assert 0 < part["smem"] <= fa.MAX_SMEM
 
 
-@pytest.mark.parametrize("D,Dv", [(64, 32), (40, 40), (48, 64), (16, 16)])
+@pytest.mark.parametrize("D,Dv", [(64, 32), (40, 40), (48, 64)])
 def test_launch_config_refuses_pairs_not_built(D, Dv):
     with pytest.raises(ValueError, match="not built"):
         fa.launch_config(1, 8, 8, 1, D, Dv, 2)
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("Tq,Tk", [(17, 17), (17, 4), (4, 17), (70, 130)])
+def test_launch_config_head_depth_16(Tq, Tk, itemsize):
+    """D = Dv = 16, the pair the TPU kernel takes for a lifter of embed 64
+    over 4 heads: bf16 on the WMMA kernels, fp32 on the scalar ones, 64
+    query rows or keys and 128 threads a block, the backward's scratch one
+    δ a query row, and the smallest shared memory of any pair."""
+    B, H = 2, 4
+    cfg = fa.launch_config(B, Tq, Tk, H, 16, 16, itemsize)
+    assert cfg["path"] == ("wmma" if itemsize == 2 else "scalar")
+    assert cfg["scratch_floats"] == B * H * Tq
+    for key, T in (("fwd", Tq), ("bwd", Tk)):
+        part = cfg[key]
+        assert (part["rows"], part["threads"]) == (64, 128)
+        assert part["grid"] == (-(-T // 64), H, B)
+        others = [fa.launch_config(B, Tq, Tk, H, D, Dv, itemsize)[key]["smem"]
+                  for D, Dv in fa.PAIRS if (D, Dv) != (16, 16)
+                  and fa.launch_config(B, Tq, Tk, H, D, Dv, itemsize)["path"]
+                  == cfg["path"]]
+        assert 0 < part["smem"] < min(others)
+
+
+def test_wrappers_take_head_depth_16():
+    """(16, 16) passes every check of both launchers but the device one
+    (these are CPU tensors), before any launch."""
+    q, k, v = _t(2, 17, 4, 16), _t(2, 4, 4, 16), _t(2, 4, 4, 16)
+    before = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_fwd(q, k, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_bwd(q, k, v, q, q, _t(2, 4, 17))
+    assert (fa.flash_attention_fwd.launches,
+            fa.flash_attention_bwd.launches) == before
 
 
 def test_launch_config_lifter_vit_shape():

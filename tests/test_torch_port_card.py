@@ -76,6 +76,38 @@ def test_flash_attention_matches_plain_version(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("T,H,D", [(130, 2, 48), (130, 2, 64), (257, 4, 48),
+                                   (17, 4, 16)])
+def test_backward_rows_of_very_negative_scores(T, H, D, dtype):
+    """Every score about -110, so each row's lse is below -100 (rows a
+    trained lifter gives some tokens): the backward's dq, dk, dv stay finite
+    and match the plain version. Keys past Tk, zero rows in the last block,
+    once gave the wgmma backward P = exp2(-lse·log2 e) = inf and NaN in
+    dQ."""
+    _cuda()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(T + D)
+    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    e = rnd(1, 1, H, D)
+    e = e / e.norm(dim=-1, keepdim=True)
+    c = (110.0 * D ** 0.5) ** 0.5
+    q = (c * e + 0.05 * rnd(2, T, H, D)).to(dt)
+    k = (-c * e + 0.05 * rnd(2, T, H, D)).to(dt)
+    v, do = rnd(2, T, H, D).to(dt), rnd(2, T, H, D).to(dt)
+    o, lse = flash_attention_fwd(q, k, v)
+    assert lse.max().item() < -100
+    got = flash_attention_bwd(q, k, v, o, do, lse)
+    want = flash_attention_bwd_reference(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    for x, r in zip(got, want):
+        assert torch.isfinite(x).all()
+        tol = (3e-2 if dtype == "bfloat16" else 1e-4) * max(
+            1.0, r.float().abs().max().item())
+        assert (x.float() - r.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
 def test_flash_attention_reads_strided_views():
     """q/k/v as the model hands them over: views of one [B,T,3,H,hd]
     projection, read in place; and an unaligned view, which is copied."""
