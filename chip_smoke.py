@@ -38,6 +38,27 @@ Phases, each fatal on failure:
      takes (``wgmma`` / ``wmma`` / ``scalar``) asserted from
      ``launch_config`` and from the built libraries; repeats bitwise
      for every kernel that uses no atomics);
+  3b. contracts: the shapes the TPU kernels take beyond the built ones,
+     each held against its plain version: both attention kernels at head
+     depths 8, 24, 80, 96, 200 and 256 and the pairs (48, 96) and (24, 40),
+     in bf16 and fp32, ragged, and at transformer_heads=8's B 8 x (1025,
+     1025, 8, 96), each run on the smallest built pair that holds it
+     (``padded_pair``; the (256, 256) pair's backward on 32-key blocks),
+     its path and plan asserted from ``launch_config`` and the built
+     libraries, o, lse, dk and dv bitwise on a repeat; a depth of 264
+     refused on the card; ``lane_resample`` in bf16, equal to its plain
+     version in both orders; ``mlp_block`` past D 1,280 refused (ViT-L's
+     and ViT-H's widths and the odd widths 40 and 776 run in phase 3's
+     row-op check, with D's column slices asserted); one full-width
+     training step with ``transformer_heads=8`` (B 2 x A 1, dropout off)
+     through the kernels against the plain pair, fp32 and bf16, its first
+     layer's gradient finite and nonzero; and the times of the new shapes:
+     attention at (8, 1025, 1025, 8, 96) and (8, 1025, 1025, 3, 256)
+     beside cuDNN's time at each (phase 6 times the lifter's (8, 1025,
+     1025, 12, 64)),
+     ``mlp_block`` at ViT-L's and ViT-H's widths beside ``F.linear →
+     F.gelu → F.linear``, bf16 ``lane_resample`` on the CNN's first warp
+     pass;
   4. slice (serving): the full published transformer config (random
      weights from a seeded generator) saved as a reference-schema ``.pth``,
      served by the port's HTTP server, answering concurrent ``/predict``
@@ -142,8 +163,8 @@ Phases, each fatal on failure:
      own process, with the sample counts, the routing by subject and the
      shuffled set checked; ``PoseAugmentor``'s time a sample at 500×500;
      the host feed alone, twice with and twice without the augmentor;
-     the full-width CNN (7 grouped 10×10 steps, no kernel) and the
-     transformer (7 steps and a validation, 20 attention launches a pass
+     the full-width CNN (4 grouped 10×10 steps, no kernel) and the
+     transformer (4 steps and a validation, 20 attention launches a pass
      each way) trained with ``--augment`` from the shuffled archives,
      beside the same runs without it, their step times read after the
      first epoch; a ``batch_pallas:N`` CNN in scan for
@@ -197,8 +218,9 @@ Phases, each fatal on failure:
      transformer 1×10, cut from 10×10 to hold two ranks on 80 GB), against
      the same step in one process (loss, gradient, running statistics,
      parameters), the launches of each kernel on each rank against the
-     counts the code implies, then a warm step timed with its collectives'
-     host time, each rank's peak and parameter + moment bytes; (c) the
+     counts the code implies, then (the DP CNN alone, ``PAR_TIMED``) a warm
+     step timed with its collectives' host time, each rank's peak and
+     parameter + moment bytes; (c) the
      untrained stage-1 provider over two replicas on the card against one.
  15. tools: (a) ``python -m pose3d_tpu_torch.cli.doctor --probe --json`` in
      its own process: the card the environment phase found, with its power
@@ -224,7 +246,8 @@ the path that first drives each kernel, ``cli_launches`` on phase 10's
 runs, ``data_launches`` on phase 11's, ``export_launches`` on phase 12's,
 ``stage1_launches`` on phase 13's main path, ``parallel_launches`` on each
 of phase 14's two ranks, ``tools_launches`` summed over phase 15's
-processes)
+processes, ``contract_launches`` on phase 3b's ``transformer_heads=8``
+step, ``contract_times`` the times of phase 3b's shapes)
 and, last, one JSON line ``{"ok": true, "device": {...}}``. Without CUDA,
 or without the repository beside it, the script exits non-zero and prints
 no result.
@@ -302,6 +325,28 @@ TOOLS_ATTN_SHAPES = ([(b, Tq, Tk, 4, 16) for b in (4, 8) for Tq, Tk in
                       ((17, 17), (16, 4), (4, 16), (21, 21))]
                      + [(8, Tq, Tk, 4, 48) for Tq, Tk in
                         ((257, 257), (256, 16), (16, 256), (273, 273))])
+# The kernels' full contracts: attention at head depths off the built pairs
+# (B, Tq, Tk, H, D, Dv), each run on the smallest built pair that holds it
+# (padded_pair), in bf16 and fp32: D 96 (transformer_heads=8 at embed
+# 768), 80 (ViT-H's), 200 and 256 (the widest, on the (256, 256) instance:
+# 32 keys a backward block), 8 and 24, (48, 96) and (24, 40), at ragged
+# lengths, and transformer_heads=8's B 8 x (1025, 1025, 8, 96); a depth
+# past 256 must be refused. Then the times of the padded route at
+# (B, Tq, Tk, H, D) in bf16.
+PADDED_ATTN = [(2, 130, 67, 4, 96, 96), (2, 67, 130, 3, 200, 200),
+               (2, 65, 33, 2, 256, 256), (2, 100, 100, 4, 80, 80),
+               (2, 33, 70, 4, 8, 8), (2, 70, 33, 4, 24, 24),
+               (2, 129, 65, 4, 48, 96), (2, 65, 129, 4, 24, 40),
+               (8, 1025, 1025, 8, 96, 96)]
+PADDED_ATTN_TIMES = [(8, 1025, 1025, 8, 96), (8, 1025, 1025, 3, 256)]
+# the kernel each key of phase 3b's times belongs to
+CONTRACT_KERNEL = {"fwd": "flash_attention_fwd", "bwd": "flash_attention_bwd",
+                   "mlp_fwd": "mlp_block_fwd", "mlp_bwd": "mlp_block_bwd",
+                   "lr": "lane_resample"}
+# lane_resample in bf16 (the TPU kernel takes any float type): the
+# positions stay fp32, the rest is bf16 rounded after each operation in both
+# versions, so they agree bit for bit; (N, W) as in fp32
+LR_BF16 = [(150000, 500), (153600, 512)] + [(13, w) for w in (1, 50, 129)]
 # Max |Δ| against the plain version for unit-normal inputs. bf16: the
 # kernel rounds P to bf16 against a running (not the final) row max, and o
 # itself is bf16 (2^-8 relative), so a couple of ulps of |o| <= ~2; fp32:
@@ -359,6 +404,14 @@ ROW_WIDTH, ROW_HIDDEN = 768, 3072
 LN_RAGGED = [(r, c) for r in (1, 7, 513) for c in (3, 100, 640)] \
     + [(130, 2056)]
 MLP_RAGGED = [(r, 128, 512) for r in (1, 7, 513)]
+# mlp_block at the widths the TPU kernel takes beyond the lifter's: ViT-L's
+# (1,024 x 4,096) and ViT-H's (1,280 x 5,120) at the lifter's 8,200 rows,
+# with D's output columns split across blocks (two slices of 512 and 640,
+# on the WMMA kernels), and widths that are no multiple of 16 (zero-padded
+# by the launcher: D 40 with H 100, D 776 with H 3,104, whose padded 784
+# also splits); a D past 1,280 must be refused.
+MLP_WIDE = [(8200, 1024, 4096, "wmma"), (8200, 1280, 5120, "wmma"),
+            (257, 40, 100, "wmma"), (257, 776, 3104, "wmma")]
 # The edges of mlp_block's wgmma tiling at D 768: one row either side of a
 # 64-row block (63, 64, 65), the last row of the 129th block missing
 # (129·64 − 1), one row either side of a 128-row tile of the dW kernel
@@ -372,7 +425,8 @@ MLP_EDGES = [(63, 768, 3072, "wgmma"), (64, 768, 3072, "wgmma"),
              (511, 768, 3072, "wgmma"), (513, 768, 3072, "wgmma"),
              (2177, 768, 3072, "wgmma"), (65, 768, 96, "wgmma"),
              (130, 768, 3056, "wgmma"), (70, 192, 80, "wgmma"),
-             (7, 48, 80, "wmma"), (33, 720, 160, "wmma")]
+             (7, 48, 80, "wmma"), (33, 720, 160, "wmma")] + MLP_WIDE
+
 TOL_LN = {"bfloat16": 1.6e-2, "float32": 1e-5}
 TOL_LN_STATS = 1e-5
 # dx = rstd·(gs − mean(gs) − x̂·mean(gs·x̂)) cancels: at C = 3 two of a row's
@@ -816,6 +870,354 @@ def phase_kernels(torch) -> dict:
             **{name: {"max_abs_err": err} for name, err in worst_rows.items()}}
 
 
+def _check_padded_attention(torch, failures: list) -> tuple:
+    """Both attention kernels at ``PADDED_ATTN``, bf16 and fp32, against
+    the plain pair at the true depths: the pair each shape runs on read
+    from ``padded_pair``, its path and plan from ``launch_config`` held
+    equal to the built libraries', outputs of the true depths within the
+    bounds above, one launch counted a call, o, lse, dk and dv bitwise on
+    a repeat. Then a depth past 256 is refused before any launch. Returns
+    (worst forward, worst backward) max |Δ|."""
+    from pose3d_tpu_torch.ops.kernels import flash_attention as fa
+
+    worst = worst_bwd = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        for i, (B, Tq, Tk, H, D, Dv) in enumerate(PADDED_ATTN):
+            Dp, Dvp = fa.padded_pair(D, Dv)
+            cfg = fa.launch_config(B, Tq, Tk, H, Dp, Dvp, dtype.itemsize)
+            path_ok = (cfg["path"] == _attention_path(name, Dp, Dvp)
+                       and fa.library_config(B, Tq, Tk, H, Dp, Dvp,
+                                             dtype.itemsize) == cfg)
+            g = torch.Generator(device="cuda").manual_seed(7000 + i)
+            mk = lambda *s: torch.randn(*s, generator=g, device="cuda").to(  # noqa: E731
+                dtype)
+            q, k, v = mk(B, Tq, H, D), mk(B, Tk, H, D), mk(B, Tk, H, Dv)
+            before = fa.flash_attention_fwd.launches
+            o, lse = fa.flash_attention_fwd(q, k, v)
+            torch.cuda.synchronize()
+            o2, lse2 = fa.flash_attention_fwd(q, k, v)
+            ro, rlse = fa.flash_attention_fwd_reference(q, k, v)
+            torch.cuda.synchronize()
+            do = (o.float() - ro.float()).abs().max().item()
+            dl = (lse - rlse).abs().max().item()
+            ok = (o.shape == (B, Tq, H, Dv) and o.dtype == dtype
+                  and torch.isfinite(o).all().item() and do <= TOL_O[name]
+                  and dl <= TOL_LSE and torch.equal(o, o2)
+                  and torch.equal(lse, lse2) and path_ok
+                  and fa.flash_attention_fwd.launches == before + 2)
+            worst = max(worst, do)
+            dy = mk(B, Tq, H, Dv)
+            grads = fa.flash_attention_bwd(q, k, v, o, dy, lse)
+            torch.cuda.synchronize()
+            again = fa.flash_attention_bwd(q, k, v, o, dy, lse)
+            refs = fa.flash_attention_bwd_reference(q, k, v, o, dy, lse)
+            torch.cuda.synchronize()
+            ok &= torch.equal(grads[1], again[1]) and torch.equal(grads[2],
+                                                                  again[2])
+            errs = []
+            for x, r in zip(grads, refs):
+                err = (x.float() - r.float()).abs().max().item()
+                errs.append(err)
+                worst_bwd = max(worst_bwd, err)
+                ok &= (x.shape == r.shape and x.dtype == dtype
+                       and torch.isfinite(x).all().item()
+                       and err <= TOL_GRAD[name]
+                       * max(1.0, r.float().abs().max().item()))
+            log(f"[kernel] padded attention {name:8s} B={B} Tq={Tq} Tk={Tk} "
+                f"H={H} D={D} Dv={Dv} on the ({Dp}, {Dvp}) pair, "
+                f"{cfg['path']} ({cfg['bwd']['rows']} keys a backward block, "
+                f"{cfg['fwd']['smem']} / {cfg['bwd']['smem']} B), the "
+                f"library's plan {'the same' if path_ok else 'DIFFERS'}: "
+                f"max|do|={do:.2e} (tol {TOL_O[name]:.0e}) max|dlse|="
+                f"{dl:.2e}; max|d(dq,dk,dv)|="
+                + ",".join(f"{e:.2e}" for e in errs)
+                + f" (tol {TOL_GRAD[name]:.0e}·max(1,|ref|)); o, lse, dk, dv "
+                f"repeat bitwise  {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(("padded attention", name, B, Tq, Tk, H, D,
+                                 Dv))
+            del q, k, v, o, o2, ro, grads, again, refs
+    q = torch.zeros(1, 4, 1, 264, device="cuda", dtype=torch.bfloat16)
+    counts = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
+    refused = []
+    for call in (lambda: fa.flash_attention_fwd(q, q, q),
+                 lambda: fa.flash_attention_bwd(
+                     q, q, q, q, q, torch.zeros(1, 1, 4, device="cuda"))):
+        try:
+            call()
+            refused.append(False)
+        except ValueError as e:
+            refused.append("256" in str(e))
+    ok = all(refused) and counts == (fa.flash_attention_fwd.launches,
+                                     fa.flash_attention_bwd.launches)
+    log(f"[kernel] attention at D = Dv = 264 on the card: both launchers "
+        f"refuse it naming the limit 256, no launch  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(("attention", "D 264 not refused"))
+    return worst, worst_bwd
+
+
+def _check_lane_resample_bf16(torch, failures: list) -> float:
+    """lane_resample in bf16 against its plain version (``LR_BF16``), both
+    orders: equal, and bitwise on a repeat. Returns the worst max |Δ|."""
+    from pose3d_tpu_torch.ops.kernels.lane_resample import (
+        lane_resample,
+        lane_resample_reference,
+    )
+
+    worst = 0.0
+    for i, (n, w) in enumerate(LR_BF16):
+        x, a, o = _lane_resample_inputs(torch, n, w, 3500 + i)
+        x = x.to(torch.bfloat16)
+        for order in (0, 1):
+            got = lane_resample(x, a, o, order)
+            torch.cuda.synchronize()
+            again = lane_resample(x, a, o, order)
+            ref = lane_resample_reference(x, a, o, order)
+            err = (got.float() - ref.float()).abs().max().item()
+            worst = max(worst, err)
+            ok = (got.shape == (n, w) and got.dtype == torch.bfloat16
+                  and torch.equal(got, again) and torch.equal(got, ref))
+            log(f"[kernel] lane_resample bf16 order {order} N={n:6d} W={w:3d}"
+                f": max|d|={err:.2e} (must be equal); repeats bitwise  "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(("lane_resample bf16", order, n, w))
+            del got, again, ref
+        del x, a, o
+    return worst
+
+
+def _check_mlp_refusal(torch, failures: list) -> None:
+    """A D past 1,280 is refused on the card, naming the limit, before any
+    launch."""
+    from pose3d_tpu_torch.ops.kernels import mlp_block as mb
+
+    t = _row_inputs(torch, 4, 1296, 64, torch.bfloat16, 6500)
+    args = (t["x"], t["w1"], t["b1"], t["w2"], t["b2"])
+    counts = (mb.mlp_block_fwd.launches, mb.mlp_block_bwd.launches)
+    refused = []
+    for call in (lambda: mb.mlp_block_fwd(*args),
+                 lambda: mb.mlp_block_bwd(*args, t["dy"])):
+        try:
+            call()
+            refused.append(False)
+        except ValueError as e:
+            refused.append("1280" in str(e))
+    ok = all(refused) and counts == (mb.mlp_block_fwd.launches,
+                                     mb.mlp_block_bwd.launches)
+    log(f"[kernel] mlp_block at D 1,296 on the card: both launchers refuse it "
+        f"naming the limit 1280, no launch  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(("mlp_block", "D 1296 not refused"))
+
+
+def _heads8_step(torch) -> dict:
+    """One training step of the full-width lifter with
+    ``transformer_heads=8`` (head depth 96 in the fusion and final blocks:
+    the padded route), batch 2 x accumulation 1, dropout off, through the
+    kernels against the plain pair from the same seeded init, in fp32 and
+    bf16: the loss within the step bounds of phase 5, and the first
+    layer's gradient finite and nonzero. Returns the kernels' launches of
+    the bf16 step."""
+    from pose3d_tpu_torch.core.config import TransformerModelConfig
+    from pose3d_tpu_torch.models import build_model
+    from pose3d_tpu_torch.train import loop, state as tstate, step as tstep
+
+    cfg = TransformerModelConfig(transformer_heads=8,
+                                 transformer_dropout_rate=0.0,
+                                 regression_dropout=0.0)
+    sb = loop.to_device(next(loop._superbatches(_train_batches(
+        8, 1, 2, tuple(cfg.image_size), cfg.num_joints), 1)), "cuda")
+    launches = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        out = {}
+        for impl in ("reference", "auto"):
+            model = build_model(
+                cfg, device="cuda", dtype=dtype, train=True,
+                attention_impl=impl,
+                generator=torch.Generator("cuda").manual_seed(0))
+            st = tstate.create_train_state(model)
+            before = launch_counts()
+            m = tstep.make_train_step()(st, sb)
+            torch.cuda.synchronize()
+            after = launch_counts()
+            pname, first = next(iter(model.named_parameters()))
+            out[impl] = (m["total_loss"].item(), pname, first.grad)
+            if impl == "auto":
+                launches = {k: after[k] - before[k] for k in after}
+            del model, st
+        (l_ref, _, _), (l_k, pname, grad) = out["reference"], out["auto"]
+        dl = abs(l_k - l_ref) / abs(l_ref)
+        gmax = grad.float().abs().max().item() if grad is not None else 0.0
+        ok = (np.isfinite(l_k) and dl <= TOL_STEP_LOSS[name]
+              and grad is not None and torch.isfinite(grad).all().item()
+              and gmax > 0.0)
+        attn = {k: v for k, v in launches.items() if "attention" in k}
+        log(f"[kernel] transformer_heads=8 full-width step {name} B=2 x A=1 "
+            f"(fusion and final attention at head depth 96 on the (128, "
+            f"128) pair): loss {l_k:.6f} vs plain pair {l_ref:.6f} (rel "
+            f"{dl:.2e}, tol {TOL_STEP_LOSS[name]:.0e}); first layer "
+            f"{pname}'s gradient finite, max |g| {gmax:.3e}; launches "
+            f"{attn if dtype == torch.bfloat16 else '(fp32)'}  "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("the transformer_heads=8 step through the "
+                             "kernels disagrees with the plain pair")
+        del out, grad
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _time_padded_attention(torch, card: str) -> dict:
+    """The padded route's times at ``PADDED_ATTN_TIMES`` (bf16), both
+    directions: kernel (padding and slicing included), plain pair,
+    ``scaled_dot_product_attention``'s device time at the true depth (a
+    yardstick only) and the bound of the true depth's work (phase 6 times
+    the lifter's (1025, 1025, 12, 64) on its own wgmma pair beside them)."""
+    import torch.nn.functional as F
+
+    from pose3d_tpu_torch.ops.kernels import flash_attention as fa
+
+    times = {}
+    for i, (B, T, _, H, D) in enumerate(PADDED_ATTN_TIMES):
+        Dp, Dvp = fa.padded_pair(D, D)
+        cfg = fa.launch_config(B, T, T, H, Dp, Dvp, 2)
+        q, k, v = _qkv(torch, B, T, T, H, D, torch.bfloat16, seed=90 + i)
+        ql, kl, vl = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        with torch.no_grad():
+            lib = lambda: F.scaled_dot_product_attention(ql, kl, vl)  # noqa: E731
+            lt = _device_busy_ms(_profile_once(
+                torch, lambda: [lib() for _ in range(3)])) / 3
+            backend = _sdpa_backend(torch, lib)
+        kt, pt = _interleaved(
+            torch, lambda: fa.flash_attention_fwd_reference(q, k, v),
+            lambda: fa.flash_attention_fwd(q, k, v), 10, queue_behind=True)
+        bound, by = _attention_bound(B, T, T, H, D, 2, False)
+        times[("fwd", B, T, H, D)] = dict(ms=kt, plain_ms=pt, library_ms=lt,
+                                          bound_ms=bound, bound_by=by)
+        route = ("its own pair" if (Dp, Dvp) == (D, D)
+                 else f"padded to the ({Dp}, {Dvp}) pair")
+        log(f"[time] attention bf16 B={B} T={T} H={H} D={D}, {route} "
+            f"({cfg['path']}): kernel {kt:.4f} ms ({bound / kt:.1%} of the "
+            f"bound), plain {pt:.4f} ms, scaled_dot_product_attention "
+            f"({backend}) {lt:.4f} ms of device kernels, bound {bound:.4f} "
+            f"ms ({by}, the true depth's work)  [{card}]")
+        o, lse = fa.flash_attention_fwd(q, k, v)
+        dy = torch.randn_like(o)
+        kt, pt = _interleaved(
+            torch, lambda: fa.flash_attention_bwd_reference(q, k, v, o, dy,
+                                                            lse),
+            lambda: fa.flash_attention_bwd(q, k, v, o, dy, lse), 5,
+            queue_behind=True)
+        ol = F.scaled_dot_product_attention(ql, kl, vl)
+        lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            ol, (ql, kl, vl), dy.transpose(1, 2), retain_graph=True)
+        lt = _device_busy_ms(_profile_once(
+            torch, lambda: [lib_bwd() for _ in range(3)])) / 3
+        bound, by = _attention_bound(B, T, T, H, D, 2, True)
+        times[("bwd", B, T, H, D)] = dict(ms=kt, plain_ms=pt, library_ms=lt,
+                                          bound_ms=bound, bound_by=by)
+        log(f"[time] attention backward bf16 B={B} T={T} H={H} D={D}, "
+            f"{route} ({cfg['path']}, {cfg['bwd']['rows']} keys a block): "
+            f"kernel {kt:.4f} ms ({bound / kt:.1%} of the bound), plain "
+            f"{pt:.4f} ms, scaled_dot_product_attention's autograd backward "
+            f"{lt:.4f} ms of device kernels, bound {bound:.4f} ms ({by})  "
+            f"[{card}]")
+        del q, k, v, ql, kl, vl, o, lse, dy, ol
+        torch.cuda.empty_cache()
+    return times
+
+
+def _time_mlp_wide(torch, card: str) -> dict:
+    """mlp_block in bf16 at ViT-L's and ViT-H's widths over the lifter's
+    8,200 rows, both directions: kernel, plain pair, the library's three
+    calls ``F.linear → F.gelu → F.linear`` and their autograd backward (a
+    yardstick: they write the hidden activation to device memory), and the
+    bound of the counted operations (4·N·D·H forward, 10·N·D·H backward)."""
+    import torch.nn.functional as F
+
+    from pose3d_tpu_torch.ops.kernels import mlp_block as mb
+
+    times = {}
+    bf16 = torch.bfloat16
+    for i, (N, D, H, _) in enumerate(MLP_WIDE[:2]):
+        cfg = mb.launch_config(N, D, H, 2)
+        t = _row_inputs(torch, N, D, H, bf16, 7100 + i)
+        args = (t["x"], t["w1"], t["b1"], t["w2"], t["b2"])
+        kt, pt = _interleaved(torch, lambda: mb.mlp_block_fwd_reference(
+            *args), lambda: mb.mlp_block_fwd(*args), 5)
+        xl = t["x"].clone().requires_grad_()
+        lw1 = t["w1"].t().contiguous().requires_grad_()
+        lw2 = t["w2"].t().contiguous().requires_grad_()
+        lb1 = t["b1"].to(bf16).requires_grad_()
+        lb2 = t["b2"].to(bf16).requires_grad_()
+        with torch.no_grad():
+            lt = _time_ms(torch, lambda: F.linear(F.gelu(F.linear(
+                xl, lw1, lb1)), lw2, lb2), 5)
+        nbytes = (2 * N * D + 2 * D * H) * 2 + (H + D) * 4
+        bound, by = _bound(nbytes, 4 * N * D * H, PEAK_BF16)
+        times[("mlp_fwd", N, D, H)] = dict(ms=kt, plain_ms=pt, library_ms=lt,
+                                           bound_ms=bound, bound_by=by)
+        log(f"[time] mlp_block forward bf16 N={N} D={D} H={H} ({cfg['path']}"
+            f", {cfg['slices']} column slices of {cfg['cols']}, each "
+            f"recomputing x·w1: {2 * (1 + cfg['slices'])}·N·D·H executed for "
+            f"4·N·D·H counted): kernel {kt:.4f} ms ({bound / kt:.1%} of the "
+            f"bound), plain {pt:.4f} ms, F.linear -> F.gelu -> F.linear "
+            f"{lt:.4f} ms, bound {bound:.4f} ms ({by})  [{card}]")
+        kt, pt = _interleaved(
+            torch, lambda: mb.mlp_block_bwd_reference(*args, t["dy"]),
+            lambda: mb.mlp_block_bwd(*args, t["dy"]), 3)
+        out = F.linear(F.gelu(F.linear(xl, lw1, lb1)), lw2, lb2)
+        lib_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            out, (xl, lw1, lb1, lw2, lb2), t["dy"], retain_graph=True)
+        lt = _device_busy_ms(_profile_once(
+            torch, lambda: [lib_bwd() for _ in range(3)])) / 3
+        nbytes = (3 * N * D + 2 * D * H) * 2 + H * 4 + (2 * D * H + H + D) * 4
+        bound, by = _bound(nbytes, 10 * N * D * H, PEAK_BF16)
+        times[("mlp_bwd", N, D, H)] = dict(ms=kt, plain_ms=pt, library_ms=lt,
+                                           bound_ms=bound, bound_by=by)
+        log(f"[time] mlp_block backward bf16 N={N} D={D} H={H} "
+            f"({cfg['path']}, dx over {cfg['dx']['blocks']} blocks, dW over "
+            f"{cfg['dw']['blocks']}): kernel {kt:.4f} ms ({bound / kt:.1%} of "
+            f"the bound), plain {pt:.4f} ms, the three calls' autograd "
+            f"backward {lt:.4f} ms of device kernels, bound {bound:.4f} ms "
+            f"({by})  [{card}]")
+        del t, args, xl, lw1, lw2, lb1, lb2, out
+        torch.cuda.empty_cache()
+    return times
+
+
+def phase_contracts(torch, card: str) -> dict:
+    """The kernels at the shapes their TPU kernels take beyond the built
+    ones (phase 3b of the module docstring): attention at every head depth
+    up to 256 through the padded route, ``mlp_block`` up to ViT-H's width
+    (``MLP_WIDE`` runs in phase 3's row-op check), bf16 ``lane_resample``,
+    the refusals past the limits, one full-width ``transformer_heads=8``
+    training step, and the times of the new shapes."""
+    failures = []
+    worst = _check_padded_attention(torch, failures)
+    worst_lr = _check_lane_resample_bf16(torch, failures)
+    _check_mlp_refusal(torch, failures)
+    if failures:
+        raise SystemExit(f"kernel disagrees with its plain version: "
+                         f"{failures}")
+    launches = _heads8_step(torch)
+    times = {**_time_padded_attention(torch, card),
+             **_time_mlp_wide(torch, card)}
+    calls = _path_lane_calls(torch, 100, 500, 500, 4000)
+    x, a, o, order = calls[0]
+    times.update(_time_lane_call(torch, x.to(torch.bfloat16), a, o, order, 1,
+                                 card))
+    del calls, x, a, o
+    torch.cuda.empty_cache()
+    return {"worst": worst, "worst_lr_bf16": worst_lr,
+            "heads8_launches": launches, "times": times}
+
+
 def _cnn_config(**kw):
     from pose3d_tpu_torch.core.config import CNNModelConfig
 
@@ -1088,7 +1490,11 @@ def _check_row_ops(torch, failures: list) -> dict:
             again = mb.mlp_block_fwd(*args)
             ref = mb.mlp_block_fwd_reference(*args)
             label = (f"{name:8s} rows={rows:5d} D={D:3d} H={H:4d} "
-                     f"{cfg['path']:6s} G={cfg['groups']}")
+                     f"{cfg['path']:6s} G={cfg['groups']}"
+                     + (f" padded to {cfg['padded']}"
+                        if cfg["padded"] != (D, H) else "")
+                     + (f" {cfg['slices']} column slices of {cfg['cols']}"
+                        if cfg["slices"] > 1 else ""))
             held("mlp_block_fwd", label, ("out",), (out,), (again,), (ref,),
                  (TOL_MLP[name],), (dtype,))
             grads = mb.mlp_block_bwd(*args, t["dy"])
@@ -2253,7 +2659,8 @@ def _path_lane_calls(torch, b: int, h: int, w: int, seed: int) -> list:
     return calls
 
 
-def _lane_resample_bytes(torch, a, o, w: int, order: int) -> int:
+def _lane_resample_bytes(torch, a, o, w: int, order: int,
+                         itemsize: int = 4) -> int:
     """Bytes one call must move for these lines: every output written once,
     a and o read once, and of each row only the source pixels between its
     first and last position that lie inside the row (both taps in order
@@ -2267,7 +2674,7 @@ def _lane_resample_bytes(torch, a, o, w: int, order: int) -> int:
         first, last = torch.floor(lo + 0.5), torch.floor(hi + 0.5)
     touched = (last.clamp(max=w - 1) - first.clamp(min=0) + 1).clamp(min=0)
     n = a.numel()
-    return int(4 * (touched.sum().item() + n * w) + 8 * n)
+    return int(itemsize * (touched.sum().item() + n * w) + 8 * n)
 
 
 def _time_lane_resample(torch, card: str) -> dict:
@@ -2307,7 +2714,8 @@ def _time_lane_call(torch, x, a, o, order: int, which: int,
     )
 
     n, w = x.shape
-    copies = max(1, min(64, -(-(256 << 20) // (n * w * 4))))
+    size = x.element_size()
+    copies = max(1, min(64, -(-(256 << 20) // (n * w * size))))
     xs = [x.clone() for _ in range(copies)]
     turn = [0]
 
@@ -2318,7 +2726,7 @@ def _time_lane_call(torch, x, a, o, order: int, which: int,
         torch, lambda: lane_resample_reference(nxt(), a, o, order),
         lambda: lane_resample(nxt(), a, o, order), 20, queue_behind=True)
     lt, lib = None, "no library call of the same function"
-    if order == 1:
+    if order == 1 and x.dtype == torch.float32:
         j = torch.arange(w, dtype=torch.float32, device="cuda")
         p = a[:, None] * j[None, :] + o[:, None]
         grid = torch.stack([2.0 * p / (w - 1) - 1.0,
@@ -2336,21 +2744,22 @@ def _time_lane_call(torch, x, a, o, order: int, which: int,
                f"|Δ| to the kernel "
                f"{dl.item():.1e}: its own position arithmetic)")
         del grid
-    nbytes = _lane_resample_bytes(torch, a, o, w, order)
+    nbytes = _lane_resample_bytes(torch, a, o, w, order, size)
     flop = (16 if order == 1 else 7) * n * w
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flop / PEAK_FP32 * 1e3
     bound = max(t_bytes, t_ops)
-    log(f"[time] lane_resample order {order} N={n} W={w}, pass {which} of "
-        f"the two-pass warp (|a| {a.abs().min().item():.2f} to "
+    dtype = str(x.dtype).removeprefix("torch.")
+    log(f"[time] lane_resample {dtype} order {order} N={n} W={w}, pass "
+        f"{which} of the two-pass warp (|a| {a.abs().min().item():.2f} to "
         f"{a.abs().max().item():.2f}; {nbytes / 1e6:.0f} MB needed of "
-        f"{(2 * n * w * 4 + 8 * n) / 1e6:.0f} if every row were read "
+        f"{(2 * n * w * size + 8 * n) / 1e6:.0f} if every row were read "
         f"whole): kernel {kt:.4f} ms ({nbytes / kt / 1e6:.0f} GB/s, "
         f"{bound / kt:.0%} of the bound), plain {pt:.4f} ms, {lib}, bound "
         f"{bound:.4f} ms "
         f"({'bytes' if t_bytes >= t_ops else 'operations'})  [{card}]")
-    return {("lr", n, w, order, which): dict(
-        ms=kt, plain_ms=pt, library_ms=lt, bound_ms=bound,
-        bound_by="bytes" if t_bytes >= t_ops else "operations")}
+    key = ("lr", n, w, order, which) + ((dtype,) if size != 4 else ())
+    return {key: dict(ms=kt, plain_ms=pt, library_ms=lt, bound_ms=bound,
+                      bound_by="bytes" if t_bytes >= t_ops else "operations")}
 
 
 def _smooth_batch(torch, b: int, h: int, w: int, seed: int) -> dict:
@@ -3369,13 +3778,13 @@ DATA_FRAMES = {1: 60, 5: 60, 6: 60, 7: 60, 8: 60, 9: 10, 11: 10}
 DATA_TRAIN, DATA_TEST = (1, 5, 6, 7, 8), (9, 11)
 DATA_HW = (1000, 1000)  # Human3.6M's frame size (height, width)
 DATA_CHUNK = 100        # samples an archive: chunker, splitter, shuffler
-# Steps of each training run from the shuffled archives: 5 steps are the
-# first epoch of the 300 train samples and two steps of the second, as many
+# Steps of each training run from the shuffled archives: 4 steps are the
+# first epoch of the 300 train samples and one step of the second, as many
 # steps after the first epoch as the script's time limit leaves to read.
-# The step times read are those after the first epoch (steps 4-5): by then
+# The step time read is the one after the first epoch (step 4): by then
 # the read-ahead of up to two archives, filled while step 1 builds, is
 # spent, and each step waits on the feed.
-DATA_STEPS, DATA_WARM = 5, 3
+DATA_STEPS, DATA_WARM = 4, 3
 # batch_pallas:N: at 500 x 500 the stem and stage 1 have 250² and 125²
 # pixels a sample, stage 2 63², stage 3 32²: N = 4000 leaves the stem and
 # stage 1 on the kernel and puts stage 2 and after under the gate.
@@ -5271,6 +5680,11 @@ PAR_JOBS = (
     ("pp", "transformer", None, "grouped", 1, 10, "pp", (1, 2),
      ("data", "stage"), False),
 )
+# The job whose warm step is timed, with its collectives' host time, on
+# each rank and in one process; the others' warm steps (1.2–6.8 s a rank
+# on an H100 shared by the two ranks) are left out to keep the script
+# within its time
+PAR_TIMED = ("dp_cnn",)
 PAR_MICROBATCHES = 2
 PAR_TIMEOUT = 240
 # A rank's step against the one-process step, relative: the loss, the
@@ -5447,7 +5861,8 @@ def _par_reference(torch, job, tmp: Path, card: str) -> dict:
         vec = _par_vectors(torch, state)
         torch.save({k: v.cpu() for k, v in vec.items()}, tmp / f"{job[0]}.pt")
         del vec
-        seconds = _par_step(torch, job, state, cfg)[1]
+        seconds = (_par_step(torch, job, state, cfg)[1]
+                   if job[0] in PAR_TIMED else None)
     del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -5522,7 +5937,8 @@ def _parallel_rank(argv) -> int:
             del vec, ref
             # the warm step, timed, with the collectives' host time
             timer.seconds, timer.calls = 0.0, 0
-            seconds = _par_step(torch, job, state, cfg, mesh)[1]
+            seconds = (_par_step(torch, job, state, cfg, mesh)[1]
+                       if name in PAR_TIMED else None)
         results[name] = dict(
             init=init, metrics=metrics, seconds=seconds, first=first,
             launches=launches, peak=peak, rel=rel,
@@ -5593,15 +6009,18 @@ def _par_ranks(torch, tmp: Path, card: str) -> dict:
             }
             for k, v in got["launches"].items():
                 per_rank[r][k] += v
+            warm = ("warm step not timed (PAR_TIMED)"
+                    if got["seconds"] is None else
+                    f"warm step {got['seconds'] * 1e3:.1f} ms (one process "
+                    f"{ref['seconds'] * 1e3:.1f} ms), of it "
+                    f"{got['collectives_ms']:.1f} ms in {got['collectives']} "
+                    f"collectives (host time, staging included)")
             log(f"[parallel] (b) {name} rank {r} "
                 f"({str(_par_dtype(torch, job)).split('.')[1]}): loss "
                 f"{got['metrics']['total_loss']:.6f} (one process {loss:.6f}); "
-                f"warm step {got['seconds'] * 1e3:.1f} ms (one process "
-                f"{ref['seconds'] * 1e3:.1f} ms; first steps "
-                f"{got['first'] * 1e3:.1f} and {ref['first'] * 1e3:.1f}; the "
-                f"card shared by two ranks), of it "
-                f"{got['collectives_ms']:.1f} ms in {got['collectives']} "
-                f"collectives (host time, staging included); peak "
+                f"{warm}; first steps {got['first'] * 1e3:.1f} and "
+                f"{ref['first'] * 1e3:.1f} (the card shared by two ranks); "
+                f"peak "
                 f"{got['peak']:.2f} GiB (one process {ref['peak']:.2f}); "
                 f"parameters {got['param_bytes'] / 2**20:.1f} MiB + AdamW "
                 f"moments {got['moment_bytes'] / 2**20:.1f} MiB on this rank; "
@@ -5999,6 +6418,7 @@ def main() -> int:
     card = timed("environment", phase_environment, torch)
     timed("build", phase_build)
     worst = timed("kernels", phase_kernels, torch)
+    contracts = timed("contracts", phase_contracts, torch, card)
     with tempfile.TemporaryDirectory(prefix="pose3d_chip_smoke_") as tmp:
         sl = timed("slice", phase_slice, torch, Path(tmp))
         times = timed("times", phase_times, torch, card, sl)
@@ -6064,6 +6484,13 @@ def main() -> int:
         "tools_launches": tools[name],
         **worst[name],
         **times[key],
+        # the shapes beyond the built ones (phase 3b): head depths padded to
+        # a built pair, ViT-L's and ViT-H's MLP widths, bf16 lane_resample
+        "contract_times": [
+            {"shape": list(k[1:]), **v}
+            for k, v in contracts["times"].items()
+            if CONTRACT_KERNEL[k[0]] == name],
+        "contract_launches": contracts["heads8_launches"].get(name, 0),
     } for name, (replaces, launches, key) in kernels.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

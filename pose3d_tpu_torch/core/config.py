@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Any, Dict, Tuple
 
 # Bones of the Human3.6M 17-joint skeleton: 0 pelvis, 1-3 right leg, 4-6
@@ -47,7 +48,8 @@ class GlobalConfig:
     names and defaults (batch 10 × accumulation 10, a validation and
     checkpoint every 5,000 steps, a preview every 50, AdamW lr 1e-3 and
     weight decay 0.01, loss weights mse 1, l1 1, inter-joint 100,
-    abs-root 1, TensorBoard under ``./logs``, checkpoints named
+    abs-root 1, TensorBoard under ``./logs``, the chunk cache under
+    ``./dataset_cache``, checkpoints named
     ``model_epoch__<type>_step_<N>``, bf16 compute over fp32 parameters).
     Host augmentation is ``--augment`` alone, with ``PoseAugmentor``'s
     default ranges; device augmentation has its own
@@ -70,6 +72,7 @@ class GlobalConfig:
     weight_decay: float = 0.01
 
     log_dir: str = "./logs"
+    cache_dir: str = "./dataset_cache"
     checkpoint_prefix: str = "model_epoch_"
 
     compute_dtype: str = "bfloat16"
@@ -257,3 +260,9 @@ def make_model_config(model_type: str = None, /, **kwargs):
     if model_type == "cnn":
         return CNNModelConfig.from_dict({**kwargs, "model_type": "cnn"})
     raise ValueError(f"Unsupported model type: {model_type}")
+
+
+def ensure_dirs(cfg: GlobalConfig) -> None:
+    """Make the config's log and cache directories (and their parents)."""
+    Path(cfg.log_dir).mkdir(parents=True, exist_ok=True)
+    Path(cfg.cache_dir).mkdir(parents=True, exist_ok=True)

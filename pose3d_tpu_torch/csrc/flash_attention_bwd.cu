@@ -58,6 +58,14 @@
 //  * attn_bwd_f32 (fp32): scalar FMA (WMMA would drop fp32 inputs to TF32);
 //    each thread pair owns one query row for S/dP/dQ and one key row for
 //    dK/dV.
+// D or Dv in (128, 256] take the (256, 256) instance of the two simple
+// paths with 32 keys a block (keys_per_block): at 64 keys the tiles would
+// need 287,232 (WMMA) or 299,520 (fp32) bytes of the 232,448 a block has,
+// and a warp's dK and dV sums 256 registers a lane. At 32 keys the four
+// warps (WMMA) or threads of a key row (fp32: four, not two) split the
+// sums' columns: 128 registers a lane; S stays [64, D] wide as the dQ and
+// dK/dV staging, and dP narrows to the key tile (187,904 bytes for WMMA,
+// 217,088 for fp32).
 // A prologue computes delta in fp32 and the dQ scratch is zeroed (in the
 // prologue, or by a memset on the wgmma path); ragged query
 // and key edges are zero-filled and P and dS forced to 0 outside [Tq, Tk].
@@ -70,8 +78,12 @@
 namespace {
 
 constexpr int BQ = 64;   // query rows per inner tile
-constexpr int BK = 64;   // key/value rows per block
 constexpr int NT = 128;  // threads per block
+
+// key/value rows a block of the WMMA and fp32 kernels
+constexpr int keys_per_block(int D, int DV) {
+  return D > 128 || DV > 128 ? 32 : 64;
+}
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Path codes that pose3d_flash_attention_bwd_config reports.
@@ -158,14 +170,14 @@ __global__ void cast_to_bf16(const float* src, __nv_bfloat16* dst,
   }
 }
 
-// Copy rows [row0, row0 + 64) of a [T, D] slice (token stride st) into a
+// Copy rows [row0, row0 + ROWS) of a [T, D] slice (token stride st) into a
 // shared tile with row pitch LD, 16 bytes at a time; rows >= T become 0.
-template <typename T, int D, int LD>
+template <typename T, int D, int LD, int ROWS = 64>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, long long st,
                                           int row0, int nrows) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int VPR = D / VEC;
-  for (int i = threadIdx.x; i < 64 * VPR; i += NT) {
+  for (int i = threadIdx.x; i < ROWS * VPR; i += NT) {
     const int r = i / VPR;
     const int c = (i % VPR) * VEC;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
@@ -190,31 +202,40 @@ __device__ __forceinline__ void load_rows(float* lse_s, float* delta_s,
 
 constexpr int imax(int x, int y) { return x > y ? x : y; }
 
-template <int D, int DV>
+template <int D, int DV, int BK = keys_per_block(D, DV)>
 struct Bf16Layout {
   static constexpr int LDH = D + 8;                  // bf16 K, Q pitch
   static constexpr int LDV = DV + 8;                 // bf16 V, dO pitch
-  static constexpr int LDS = imax(imax(D, DV), BK) + 4;  // fp32 S / dP / staging
+  static constexpr int LDS = imax(imax(D, DV), BK) + 4;  // fp32 S / staging
+  static constexpr int LDD = BK + 4;                 // fp32 dP pitch
   static constexpr int LDP = BK + 8;                 // bf16 P / dS pitch
   static constexpr size_t bytes =
-      (size_t)2 * 64 * LDH * 2      // K, Q tiles
-      + (size_t)2 * 64 * LDV * 2    // V, dO tiles
-      + (size_t)2 * BQ * LDS * 4    // S (also dQ/dK/dV staging), dP
+      (size_t)(BK + BQ) * LDH * 2   // K, Q tiles
+      + (size_t)(BK + BQ) * LDV * 2 // V, dO tiles
+      + (size_t)BQ * LDS * 4        // S (also dQ/dK/dV staging)
+      + (size_t)BQ * LDD * 4        // dP
       + (size_t)2 * BQ * LDP * 2    // P, dS
       + (size_t)2 * BQ * 4;         // lse, delta
 };
 
-template <int D, int DV>
+template <int D, int DV, int BK>
 __global__ void __launch_bounds__(NT) attn_bwd_bf16(Args a) {
   using namespace nvcuda;
   typedef __nv_bfloat16 bf16;
-  typedef Bf16Layout<D, DV> L;
+  typedef Bf16Layout<D, DV, BK> L;
   constexpr int LDH = L::LDH;
   constexpr int LDV = L::LDV;
   constexpr int LDS = L::LDS;
+  constexpr int LDD = L::LDD;
   constexpr int LDP = L::LDP;
   constexpr int KD = D / 16;
   constexpr int KV = DV / 16;
+  // dK, dV: a warp owns 16 key rows (row group wr of WR) and the columns of
+  // part wc of WC
+  constexpr int WR = BK / 16;
+  constexpr int WC = 4 / WR;
+  static_assert(KD % WC == 0 && KV % WC == 0, "attn_bwd_bf16: column parts");
+  constexpr int KDW = KD / WC, KVW = KV / WC;
 
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
@@ -223,7 +244,7 @@ __global__ void __launch_bounds__(NT) attn_bwd_bf16(Args a) {
   bf16* Gs = Qs + BQ * LDH;
   float* Ss = reinterpret_cast<float*>(Gs + BQ * LDV);
   float* dPs = Ss + BQ * LDS;
-  bf16* Ps = reinterpret_cast<bf16*>(dPs + BQ * LDS);
+  bf16* Ps = reinterpret_cast<bf16*>(dPs + BQ * LDD);
   bf16* dSs = Ps + BQ * LDP;
   float* lse_s = reinterpret_cast<float*>(dSs + BQ * LDP);
   float* delta_s = lse_s + BQ;
@@ -246,21 +267,22 @@ __global__ void __launch_bounds__(NT) attn_bwd_bf16(Args a) {
   const long long row_stride_v = (long long)a.H * DV;  // dv token stride
   float* dqb = a.dq_acc + (long long)b * a.Tq * row_stride + h * D;
 
-  load_tile<bf16, D, LDH>(Ks, kb, a.kst, k0, a.Tk);
-  load_tile<bf16, DV, LDV>(Vs, vb, a.vst, k0, a.Tk);
+  load_tile<bf16, D, LDH, BK>(Ks, kb, a.kst, k0, a.Tk);
+  load_tile<bf16, DV, LDV, BK>(Vs, vb, a.vst, k0, a.Tk);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk_f[KD], dv_f[KV];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk_f[KDW], dv_f[KVW];
 #pragma unroll
-  for (int n = 0; n < KD; ++n) wmma::fill_fragment(dk_f[n], 0.f);
+  for (int n = 0; n < KDW; ++n) wmma::fill_fragment(dk_f[n], 0.f);
 #pragma unroll
-  for (int n = 0; n < KV; ++n) wmma::fill_fragment(dv_f[n], 0.f);
+  for (int n = 0; n < KVW; ++n) wmma::fill_fragment(dv_f[n], 0.f);
 
   float* Sw = Ss + warp * 16 * LDS;
-  float* dPw = dPs + warp * 16 * LDS;
+  float* dPw = dPs + warp * 16 * LDD;
   bf16* Pw = Ps + warp * 16 * LDP;
   bf16* dSw = dSs + warp * 16 * LDP;
   const int r = lane >> 1;     // row of this warp's 16 owned by the lane pair
-  const int half = lane & 1;   // which 32 of the 64 columns this lane owns
+  const int half = lane & 1;   // which half of the BK columns this lane owns
+  const int wr = warp % WR, wc = warp / WR;   // its key rows and columns
 
   for (int q0 = 0; q0 < a.Tq; q0 += BQ) {
     __syncthreads();  // every warp is done with the previous Q tile
@@ -292,7 +314,7 @@ __global__ void __launch_bounds__(NT) attn_bwd_bf16(Args a) {
         wmma::mma_sync(pf, gf, vf, pf);
       }
       wmma::store_matrix_sync(Sw + n * 16, sf, LDS, wmma::mem_row_major);
-      wmma::store_matrix_sync(dPw + n * 16, pf, LDS, wmma::mem_row_major);
+      wmma::store_matrix_sync(dPw + n * 16, pf, LDD, wmma::mem_row_major);
     }
     __syncwarp();
 
@@ -304,13 +326,13 @@ __global__ void __launch_bounds__(NT) attn_bwd_bf16(Args a) {
       const float l = lse_s[row];
       const float dl = delta_s[row];
 #pragma unroll 8
-      for (int c = 0; c < 32; ++c) {
-        const int col = half * 32 + c;
+      for (int c = 0; c < BK / 2; ++c) {
+        const int col = half * (BK / 2) + c;
         float p = 0.f;
         float ds = 0.f;
         if (row_ok && k0 + col < a.Tk) {
           p = expf(Sw[r * LDS + col] * a.scale - l);
-          ds = p * (dPw[r * LDS + col] - dl);
+          ds = p * (dPw[r * LDD + col] - dl);
         }
         Pw[r * LDP + col] = __float2bfloat16(p);
         dSw[r * LDP + col] = __float2bfloat16(ds);
@@ -345,68 +367,74 @@ __global__ void __launch_bounds__(NT) attn_bwd_bf16(Args a) {
     }
     __syncthreads();  // every warp's rows of P and dS are written
 
-    // dV += P^T dO and dK += dS^T Q for this warp's 16 key rows; P^T and
-    // dS^T are the row-major P and dS tiles read column-major.
+    // dV += P^T dO and dK += dS^T Q for this warp's 16 key rows and its
+    // columns; P^T and dS^T are the row-major P and dS tiles read
+    // column-major.
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> pt, st;
-      wmma::load_matrix_sync(pt, Ps + kk * 16 * LDP + warp * 16, LDP);
-      wmma::load_matrix_sync(st, dSs + kk * 16 * LDP + warp * 16, LDP);
+      wmma::load_matrix_sync(pt, Ps + kk * 16 * LDP + wr * 16, LDP);
+      wmma::load_matrix_sync(st, dSs + kk * 16 * LDP + wr * 16, LDP);
 #pragma unroll
-      for (int n = 0; n < KV; ++n) {
+      for (int n = 0; n < KVW; ++n) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> gf;
-        wmma::load_matrix_sync(gf, Gs + kk * 16 * LDV + n * 16, LDV);
+        wmma::load_matrix_sync(gf, Gs + kk * 16 * LDV + (wc * KVW + n) * 16,
+                               LDV);
         wmma::mma_sync(dv_f[n], pt, gf, dv_f[n]);
       }
 #pragma unroll
-      for (int n = 0; n < KD; ++n) {
+      for (int n = 0; n < KDW; ++n) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> qf;
-        wmma::load_matrix_sync(qf, Qs + kk * 16 * LDH + n * 16, LDH);
+        wmma::load_matrix_sync(qf, Qs + kk * 16 * LDH + (wc * KDW + n) * 16,
+                               LDH);
         wmma::mma_sync(dk_f[n], st, qf, dk_f[n]);
       }
     }
   }
 
-  // Write dV, then dK * scale, for the valid key rows of this warp, staged
-  // through the warp's own rows of S.
-  bf16* dvb = static_cast<bf16*>(a.dv) + (long long)b * a.Tk * row_stride_v + h * DV;
-  bf16* dkb = static_cast<bf16*>(a.dk) + (long long)b * a.Tk * row_stride + h * D;
+  // Write dV, then dK * scale, for the valid key rows and the columns of
+  // this warp, staged through the warp's own rows of S.
+  constexpr int DVW = DV / WC, DW = D / WC;
+  bf16* dvb = static_cast<bf16*>(a.dv) + (long long)b * a.Tk * row_stride_v +
+              h * DV + wc * DVW;
+  bf16* dkb = static_cast<bf16*>(a.dk) + (long long)b * a.Tk * row_stride +
+              h * D + wc * DW;
   __syncwarp();
 #pragma unroll
-  for (int n = 0; n < KV; ++n) {
+  for (int n = 0; n < KVW; ++n) {
     wmma::store_matrix_sync(Sw + n * 16, dv_f[n], LDS, wmma::mem_row_major);
   }
   __syncwarp();
-  for (int i = lane; i < 16 * DV; i += 32) {
-    const int rr = i / DV;
-    const int c = i % DV;
-    const int t = k0 + warp * 16 + rr;
+  for (int i = lane; i < 16 * DVW; i += 32) {
+    const int rr = i / DVW;
+    const int c = i % DVW;
+    const int t = k0 + wr * 16 + rr;
     if (t < a.Tk) dvb[t * row_stride_v + c] = __float2bfloat16(Sw[rr * LDS + c]);
   }
   __syncwarp();
 #pragma unroll
-  for (int n = 0; n < KD; ++n) {
+  for (int n = 0; n < KDW; ++n) {
     wmma::store_matrix_sync(Sw + n * 16, dk_f[n], LDS, wmma::mem_row_major);
   }
   __syncwarp();
-  for (int i = lane; i < 16 * D; i += 32) {
-    const int rr = i / D;
-    const int c = i % D;
-    const int t = k0 + warp * 16 + rr;
+  for (int i = lane; i < 16 * DW; i += 32) {
+    const int rr = i / DW;
+    const int c = i % DW;
+    const int t = k0 + wr * 16 + rr;
     if (t < a.Tk) {
       dkb[t * row_stride + c] = __float2bfloat16(Sw[rr * LDS + c] * a.scale);
     }
   }
 }
 
-template <int D, int DV>
+template <int D, int DV, int BK = keys_per_block(D, DV)>
 struct F32Layout {
   static constexpr int LDH = D + 4;    // K, Q pitch (rows 16-byte aligned)
   static constexpr int LDV = DV + 4;   // V, dO pitch
   static constexpr int LDP = BK + 1;
   static constexpr size_t bytes =
-      (size_t)2 * 64 * LDH * 4      // K, Q tiles
-      + (size_t)2 * 64 * LDV * 4    // V, dO tiles
+      (size_t)(BK + BQ) * LDH * 4   // K, Q tiles
+      + (size_t)(BK + BQ) * LDV * 4 // V, dO tiles
       + (size_t)2 * BQ * LDP * 4    // P, dS
       + (size_t)2 * BQ * 4;         // lse, delta
 };
@@ -426,14 +454,19 @@ __device__ __forceinline__ float dot_row(const float* x, const float* y) {
   return acc;
 }
 
-template <int D, int DV>
+template <int D, int DV, int BK>
 __global__ void __launch_bounds__(NT) attn_bwd_f32(Args a) {
-  typedef F32Layout<D, DV> L;
+  typedef F32Layout<D, DV, BK> L;
   constexpr int LDH = L::LDH;
   constexpr int LDV = L::LDV;
   constexpr int LDP = L::LDP;
   constexpr int DH = D / 2;
-  constexpr int DVH = DV / 2;
+  // dQ's columns go by in chunks of DQC registers
+  constexpr int DQC = DH > 64 ? 32 : DH;
+  // a key row's dK and dV are split over KP threads, DKP and DVP columns each
+  constexpr int KP = NT / BK;
+  constexpr int DKP = D / KP;
+  constexpr int DVP = DV / KP;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Ks = reinterpret_cast<float*>(smem);
   float* Vs = Ks + BK * LDH;
@@ -445,8 +478,10 @@ __global__ void __launch_bounds__(NT) attn_bwd_f32(Args a) {
   float* delta_s = lse_s + BQ;
 
   const int tid = threadIdx.x;
-  const int r = tid >> 1;      // query row (S, dP, dQ) and key row (dK, dV)
-  const int half = tid & 1;    // which half of the columns this thread owns
+  const int r = tid >> 1;      // query row (S, dP, dQ)
+  const int half = tid & 1;    // which half of its columns this thread owns
+  const int kr = tid / KP;     // key row (dK, dV)
+  const int part = tid % KP;   // and which of its KP column parts
   const int k0 = blockIdx.x * BK;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -461,14 +496,14 @@ __global__ void __launch_bounds__(NT) attn_bwd_f32(Args a) {
   const long long row_stride = (long long)a.H * D;
   float* dqb = a.dq_acc + (long long)b * a.Tq * row_stride + h * D + half * DH;
 
-  load_tile<float, D, LDH>(Ks, kb, a.kst, k0, a.Tk);
-  load_tile<float, DV, LDV>(Vs, vb, a.vst, k0, a.Tk);
+  load_tile<float, D, LDH, BK>(Ks, kb, a.kst, k0, a.Tk);
+  load_tile<float, DV, LDV, BK>(Vs, vb, a.vst, k0, a.Tk);
 
-  float dk[DH], dv[DVH];
+  float dk[DKP], dv[DVP];
 #pragma unroll
-  for (int i = 0; i < DH; ++i) dk[i] = 0.f;
+  for (int i = 0; i < DKP; ++i) dk[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < DVH; ++i) dv[i] = 0.f;
+  for (int i = 0; i < DVP; ++i) dv[i] = 0.f;
 
   for (int q0 = 0; q0 < a.Tq; q0 += BQ) {
     __syncthreads();
@@ -500,43 +535,45 @@ __global__ void __launch_bounds__(NT) attn_bwd_f32(Args a) {
 
     // dQ row r (this thread's half of the columns) = dS K * scale.
     if (q0 + r < a.Tq) {
-      float dq[DH];
-#pragma unroll
-      for (int i = 0; i < DH; ++i) dq[i] = 0.f;
-      for (int j = 0; j < BK; ++j) {
-        const float ds = dSs[r * LDP + j];
-        const float* kr = Ks + j * LDH + half * DH;
-#pragma unroll
-        for (int i = 0; i < DH; ++i) dq[i] = fmaf(ds, kr[i], dq[i]);
-      }
       float* out = dqb + (long long)(q0 + r) * row_stride;
+      for (int c0 = 0; c0 < DH; c0 += DQC) {
+        float dq[DQC];
 #pragma unroll
-      for (int i = 0; i < DH; ++i) atomicAdd(out + i, dq[i] * a.scale);
+        for (int i = 0; i < DQC; ++i) dq[i] = 0.f;
+        for (int j = 0; j < BK; ++j) {
+          const float ds = dSs[r * LDP + j];
+          const float* krow = Ks + j * LDH + half * DH + c0;
+#pragma unroll
+          for (int i = 0; i < DQC; ++i) dq[i] = fmaf(ds, krow[i], dq[i]);
+        }
+#pragma unroll
+        for (int i = 0; i < DQC; ++i) atomicAdd(out + c0 + i, dq[i] * a.scale);
+      }
     }
 
-    // dV and dK for key row r: sums over the tile's query rows.
+    // dV and dK for key row kr: sums over the tile's query rows.
     for (int i = 0; i < BQ; ++i) {
-      const float p = Ps[i * LDP + r];
-      const float ds = dSs[i * LDP + r];
-      const float* gr = Gs + i * LDV + half * DVH;
-      const float* qr = Qs + i * LDH + half * DH;
+      const float p = Ps[i * LDP + kr];
+      const float ds = dSs[i * LDP + kr];
+      const float* gr = Gs + i * LDV + part * DVP;
+      const float* qr = Qs + i * LDH + part * DKP;
 #pragma unroll
-      for (int d = 0; d < DVH; ++d) dv[d] = fmaf(p, gr[d], dv[d]);
+      for (int d = 0; d < DVP; ++d) dv[d] = fmaf(p, gr[d], dv[d]);
 #pragma unroll
-      for (int d = 0; d < DH; ++d) dk[d] = fmaf(ds, qr[d], dk[d]);
+      for (int d = 0; d < DKP; ++d) dk[d] = fmaf(ds, qr[d], dk[d]);
     }
   }
 
-  const int t = k0 + r;
+  const int t = k0 + kr;
   if (t < a.Tk) {
     float* dvo = static_cast<float*>(a.dv) +
-                 ((long long)b * a.Tk + t) * a.H * DV + h * DV + half * DVH;
+                 ((long long)b * a.Tk + t) * a.H * DV + h * DV + part * DVP;
     float* dko = static_cast<float*>(a.dk) +
-                 ((long long)b * a.Tk + t) * row_stride + h * D + half * DH;
+                 ((long long)b * a.Tk + t) * row_stride + h * D + part * DKP;
 #pragma unroll
-    for (int i = 0; i < DVH; ++i) dvo[i] = dv[i];
+    for (int i = 0; i < DVP; ++i) dvo[i] = dv[i];
 #pragma unroll
-    for (int i = 0; i < DH; ++i) dko[i] = dk[i] * a.scale;
+    for (int i = 0; i < DKP; ++i) dko[i] = dk[i] * a.scale;
   }
 }
 
@@ -880,13 +917,14 @@ int launch(const Args& a, cudaStream_t st) {
 }  // namespace wg
 
 template <typename Kernel>
-int launch_main(Kernel kernel, size_t smem, const Args& a, cudaStream_t st) {
+int launch_main(Kernel kernel, size_t smem, int keys, const Args& a,
+                cudaStream_t st) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((a.Tk + BK - 1) / BK, a.H, a.B);
+  const dim3 grid((a.Tk + keys - 1) / keys, a.H, a.B);
   kernel<<<grid, NT, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
@@ -907,9 +945,11 @@ int dispatch(bool is_bf16, const Args& a, cudaStream_t st) {
     }
     rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
-    rc = is_bf16
-             ? launch_main(attn_bwd_bf16<D, DV>, Bf16Layout<D, DV>::bytes, a, st)
-             : launch_main(attn_bwd_f32<D, DV>, F32Layout<D, DV>::bytes, a, st);
+    constexpr int BK = keys_per_block(D, DV);
+    rc = is_bf16 ? launch_main(attn_bwd_bf16<D, DV, BK>,
+                               Bf16Layout<D, DV>::bytes, BK, a, st)
+                 : launch_main(attn_bwd_f32<D, DV, BK>,
+                               F32Layout<D, DV>::bytes, BK, a, st);
   }
   if (rc != 0 || !is_bf16) return rc;
   const long long n = rows * D;
@@ -959,6 +999,7 @@ int pose3d_flash_attention_bwd(
     case 3: return dispatch<128, 128>(bf, a, st);
     case 4: return dispatch<32, 64>(bf, a, st);
     case 5: return dispatch<16, 16>(bf, a, st);
+    case 6: return dispatch<256, 256>(bf, a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -976,17 +1017,20 @@ int pose3d_flash_attention_bwd_config(int is_bf16, int B, int Tq, int Tk,
   const size_t wmma_smem[attn::kPairs] = {
       Bf16Layout<32, 32>::bytes, Bf16Layout<48, 48>::bytes,
       Bf16Layout<64, 64>::bytes, Bf16Layout<128, 128>::bytes,
-      Bf16Layout<32, 64>::bytes, Bf16Layout<16, 16>::bytes};
+      Bf16Layout<32, 64>::bytes, Bf16Layout<16, 16>::bytes,
+      Bf16Layout<256, 256>::bytes};
   const size_t f32_smem[attn::kPairs] = {
       F32Layout<32, 32>::bytes, F32Layout<48, 48>::bytes,
       F32Layout<64, 64>::bytes, F32Layout<128, 128>::bytes,
-      F32Layout<32, 64>::bytes, F32Layout<16, 16>::bytes};
+      F32Layout<32, 64>::bytes, F32Layout<16, 16>::bytes,
+      F32Layout<256, 256>::bytes};
   if (is_bf16 && attn::wgmma_depth(D, Dv)) {
     cfg[0] = kPathWgmma, cfg[1] = wg::BKEYS, cfg[5] = (long long)wg::SMEM;
     cfg[6] = wg::kThreads;
     cfg[7] = 2LL * B * H * wg::padded_rows(Tq);
   } else {
-    cfg[0] = is_bf16 ? kPathWmma : kPathScalar, cfg[1] = BK, cfg[6] = NT;
+    cfg[0] = is_bf16 ? kPathWmma : kPathScalar;
+    cfg[1] = keys_per_block(D, Dv), cfg[6] = NT;
     cfg[5] = (long long)(is_bf16 ? wmma_smem[pair] : f32_smem[pair]);
     cfg[7] = (long long)B * H * Tq;
   }

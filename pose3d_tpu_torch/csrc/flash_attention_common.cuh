@@ -9,12 +9,13 @@ namespace attn {
 
 // The (D, Dv) pairs built: D = Dv at the depths of the lifter and of the
 // stage-1 models, YOLO11's PSA attention (key depth half the value depth),
-// and D = Dv = 16 (a lifter of embed 64 over 4 heads). Returns the pair's
-// index, or -1.
-constexpr int kPairs = 6;
+// D = Dv = 16 (a lifter of embed 64 over 4 heads) and D = Dv = 256, the
+// widest; the wrappers zero-pad any other pair up to the smallest built pair
+// that holds it. Returns the pair's index, or -1.
+constexpr int kPairs = 7;
 inline int pair_index(int D, int Dv) {
   const int pairs[kPairs][2] = {{32, 32}, {48, 48}, {64, 64}, {128, 128},
-                                {32, 64}, {16, 16}};
+                                {32, 64}, {16, 16}, {256, 256}};
   for (int i = 0; i < kPairs; ++i)
     if (pairs[i][0] == D && pairs[i][1] == Dv) return i;
   return -1;

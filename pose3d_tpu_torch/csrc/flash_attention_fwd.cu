@@ -54,7 +54,13 @@
 //    block, WMMA m16n16k16 with fp32 accumulation, K/V tiles of 64 loaded
 //    synchronously, S and O through shared memory (simple first);
 //  * attn_fwd_f32 (fp32): scalar FMA (WMMA would drop fp32 inputs to TF32),
-//    two threads per query row, the row's q in registers.
+//    two threads per query row, the row's q in registers; above depth 128,
+//    four threads a row and 32 rows a block, the rows' q in shared memory
+//    (256 floats of q and 128 of o a thread spilled: 3,252 bytes, and
+//    doubled the source's build time).
+// D or Dv in (128, 256] take the (256, 256) instance of the two simple
+// paths: 194,560 bytes of shared memory for WMMA (64 rows), 174,720 for
+// fp32 (32 rows).
 
 #include <math.h>
 #include <mma.h>
@@ -85,12 +91,12 @@ struct Args {
 
 // Copy rows [row0, row0 + 64) of a [T, D] slice (token stride st) into a
 // shared tile with row pitch LD, 16 bytes at a time; rows >= T become 0.
-template <typename T, int D, int LD>
+template <typename T, int D, int LD, int ROWS = BK>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, long long st,
                                           int row0, int nrows) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int VPR = D / VEC;
-  for (int i = threadIdx.x; i < BK * VPR; i += NT) {
+  for (int i = threadIdx.x; i < ROWS * VPR; i += NT) {
     const int r = i / VPR;
     const int c = (i % VPR) * VEC;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
@@ -242,15 +248,28 @@ __global__ void __launch_bounds__(NT) attn_fwd_bf16(Args a) {
   }
 }
 
+// fp32 query rows a block: 64, two threads a row, the row's q in
+// registers; above depth 128, 32, four threads a row and the rows' q in
+// shared memory, so that a thread's share of the output row (Dv / 4
+// accumulators) and of the key tile's scores fit its registers
+__host__ __device__ constexpr int f32_rows(int D) { return D > 128 ? 32 : 64; }
+
 template <int D, int DV>
 constexpr size_t smem_f32() {
+  constexpr int ROWS = f32_rows(D);
   return (size_t)BK * (D + 4) * 4        // K tile
          + (size_t)BK * (DV + 4) * 4     // V tile
-         + (size_t)BQ * (BK + 1) * 4;    // probabilities
+         + (size_t)ROWS * (BK + 1) * 4   // probabilities
+         + (ROWS < BQ ? (size_t)ROWS * (D + 4) * 4 : 0);   // Q tile
 }
 
 template <int D, int DV>
 __global__ void __launch_bounds__(NT) attn_fwd_f32(Args a) {
+  constexpr int ROWS = f32_rows(D);
+  constexpr int TPR = NT / ROWS;  // threads a query row
+  constexpr bool QS = TPR > 2;    // the rows' q in shared memory
+  constexpr int CPT = BK / TPR;   // key columns a thread
+  constexpr int OPT = DV / TPR;   // output columns a thread
   constexpr int LDK = D + 4;   // keeps rows 16-byte aligned for float4
   constexpr int LDV = DV + 4;
   constexpr int LDP = BK + 1;
@@ -258,11 +277,12 @@ __global__ void __launch_bounds__(NT) attn_fwd_f32(Args a) {
   float* Ks = reinterpret_cast<float*>(smem);
   float* Vs = Ks + BK * LDK;
   float* Ps = Vs + BK * LDV;
+  float* Qs = Ps + ROWS * LDP;   // QS: the block's query rows, pitch LDK
 
   const int tid = threadIdx.x;
-  const int r = tid >> 1;      // query row of the block owned by the pair
-  const int half = tid & 1;
-  const int q0 = blockIdx.x * BQ;
+  const int r = tid / TPR;     // query row of the block owned by the group
+  const int part = tid % TPR;  // this thread's share of the row
+  const int q0 = blockIdx.x * ROWS;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int t = q0 + r;
@@ -271,16 +291,21 @@ __global__ void __launch_bounds__(NT) attn_fwd_f32(Args a) {
   const float* kb = static_cast<const float*>(a.k) + b * a.ksb + h * a.ksh;
   const float* vb = static_cast<const float*>(a.v) + b * a.vsb + h * a.vsh;
 
-  float q[D];
+  float q[QS ? 4 : D];
+  if constexpr (QS) {
+    // read after the key loop's first barrier
+    load_tile<float, D, LDK, ROWS>(Qs, qb, a.qst, q0, a.Tq);
+  } else {
 #pragma unroll
-  for (int d = 0; d < D; d += 4) {
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (t < a.Tq) x = *reinterpret_cast<const float4*>(qb + (long long)t * a.qst + d);
-    q[d] = x.x; q[d + 1] = x.y; q[d + 2] = x.z; q[d + 3] = x.w;
+    for (int d = 0; d < D; d += 4) {
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (t < a.Tq) x = *reinterpret_cast<const float4*>(qb + (long long)t * a.qst + d);
+      q[d] = x.x; q[d + 1] = x.y; q[d + 2] = x.z; q[d + 3] = x.w;
+    }
   }
-  float o[DV / 2];
+  float o[OPT];
 #pragma unroll
-  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < OPT; ++i) o[i] = 0.f;
   const float sl2 = a.scale * LOG2E;
   float m_run = -INFINITY;
   float l_run = 0.f;
@@ -291,59 +316,76 @@ __global__ void __launch_bounds__(NT) attn_fwd_f32(Args a) {
     load_tile<float, DV, LDV>(Vs, vb, a.vst, k0, a.Tk);
     __syncthreads();
 
-    // The pair interleaves columns (j = 2c + half) so that its two lanes
+    // The group interleaves columns (j = TPR * c + part) so that its lanes
     // read neighbouring K rows, which sit in different banks.
-    float s[32];
+    float s[CPT];
     float mx = -INFINITY;
 #pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int j = 2 * c + half;
+    for (int c = 0; c < CPT; ++c) {
+      const int j = TPR * c + part;
       const float* kr = Ks + j * LDK;
       float acc = 0.f;
+      if constexpr (QS) {
+        const float* qr = Qs + r * LDK;
+#pragma unroll 4
+        for (int d = 0; d < D; d += 4) {
+          const float4 kv = *reinterpret_cast<const float4*>(kr + d);
+          const float4 qv = *reinterpret_cast<const float4*>(qr + d);
+          acc = fmaf(qv.x, kv.x, acc);
+          acc = fmaf(qv.y, kv.y, acc);
+          acc = fmaf(qv.z, kv.z, acc);
+          acc = fmaf(qv.w, kv.w, acc);
+        }
+      } else {
 #pragma unroll
-      for (int d = 0; d < D; d += 4) {
-        const float4 kv = *reinterpret_cast<const float4*>(kr + d);
-        acc = fmaf(q[d], kv.x, acc);
-        acc = fmaf(q[d + 1], kv.y, acc);
-        acc = fmaf(q[d + 2], kv.z, acc);
-        acc = fmaf(q[d + 3], kv.w, acc);
+        for (int d = 0; d < D; d += 4) {
+          const float4 kv = *reinterpret_cast<const float4*>(kr + d);
+          acc = fmaf(q[d], kv.x, acc);
+          acc = fmaf(q[d + 1], kv.y, acc);
+          acc = fmaf(q[d + 2], kv.z, acc);
+          acc = fmaf(q[d + 3], kv.w, acc);
+        }
       }
       if (k0 + j >= a.Tk) acc = -INFINITY;
       s[c] = acc;
       mx = fmaxf(mx, acc);
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+#pragma unroll
+    for (int w = 1; w < TPR; w *= 2)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
     const float m_new = fmaxf(m_run, mx);
     const float alpha = exp2f((m_run - m_new) * sl2);
     float sum = 0.f;
 #pragma unroll
-    for (int c = 0; c < 32; ++c) {
+    for (int c = 0; c < CPT; ++c) {
       const float p = exp2f((s[c] - m_new) * sl2);
-      Ps[r * LDP + 2 * c + half] = p;
+      Ps[r * LDP + TPR * c + part] = p;
       sum += p;
     }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+#pragma unroll
+    for (int w = 1; w < TPR; w *= 2)
+      sum += __shfl_xor_sync(0xffffffffu, sum, w);
     l_run = l_run * alpha + sum;
     m_run = m_new;
     __syncwarp();
 
 #pragma unroll
-    for (int i = 0; i < DV / 2; ++i) o[i] *= alpha;
+    for (int i = 0; i < OPT; ++i) o[i] *= alpha;
     for (int j = 0; j < BK; ++j) {
       const float p = Ps[r * LDP + j];
-      const float* vr = Vs + j * LDV + half * (DV / 2);
+      const float* vr = Vs + j * LDV + part * OPT;
 #pragma unroll
-      for (int i = 0; i < DV / 2; ++i) o[i] = fmaf(p, vr[i], o[i]);
+      for (int i = 0; i < OPT; ++i) o[i] = fmaf(p, vr[i], o[i]);
     }
   }
 
   if (t < a.Tq) {
     const float inv = 1.f / l_run;
     float* ob = static_cast<float*>(a.o) + (((long long)b * a.Tq + t) * a.H + h) * DV
-                + half * (DV / 2);
+                + part * OPT;
 #pragma unroll
-    for (int i = 0; i < DV / 2; ++i) ob[i] = o[i] * inv;
-    if (half == 0) {
+    for (int i = 0; i < OPT; ++i) ob[i] = o[i] * inv;
+    if (part == 0) {
       a.lse[((long long)b * a.H + h) * a.Tq + t] = m_run * a.scale + logf(l_run);
     }
   }
@@ -570,13 +612,14 @@ int launch(const Args& a, int B, cudaStream_t st) {
 }  // namespace wg
 
 template <typename Kernel>
-int launch(Kernel kernel, size_t smem, const Args& a, int B, cudaStream_t stream) {
+int launch(Kernel kernel, size_t smem, int rows, const Args& a, int B,
+           cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((a.Tq + BQ - 1) / BQ, a.H, B);
+  const dim3 grid((a.Tq + rows - 1) / rows, a.H, B);
   kernel<<<grid, NT, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -587,8 +630,9 @@ int dispatch(bool is_bf16, const Args& a, int B, cudaStream_t stream) {
     if (is_bf16) return wg::launch<D>(a, B, stream);
   }
   if (is_bf16)
-    return launch(attn_fwd_bf16<D, DV>, smem_bf16<D, DV>(), a, B, stream);
-  return launch(attn_fwd_f32<D, DV>, smem_f32<D, DV>(), a, B, stream);
+    return launch(attn_fwd_bf16<D, DV>, smem_bf16<D, DV>(), BQ, a, B, stream);
+  return launch(attn_fwd_f32<D, DV>, smem_f32<D, DV>(), f32_rows(D), a, B,
+                stream);
 }
 
 }  // namespace
@@ -620,6 +664,7 @@ int pose3d_flash_attention_fwd(
     case 3: return dispatch<128, 128>(bf, a, B, st);
     case 4: return dispatch<32, 64>(bf, a, B, st);
     case 5: return dispatch<16, 16>(bf, a, B, st);
+    case 6: return dispatch<256, 256>(bf, a, B, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -636,15 +681,18 @@ int pose3d_flash_attention_fwd_config(int is_bf16, int B, int Tq, int Tk,
   if (pair < 0) return (int)cudaErrorInvalidValue;
   const size_t wmma_smem[attn::kPairs] = {
       smem_bf16<32, 32>(), smem_bf16<48, 48>(), smem_bf16<64, 64>(),
-      smem_bf16<128, 128>(), smem_bf16<32, 64>(), smem_bf16<16, 16>()};
+      smem_bf16<128, 128>(), smem_bf16<32, 64>(), smem_bf16<16, 16>(),
+      smem_bf16<256, 256>()};
   const size_t f32_smem[attn::kPairs] = {
       smem_f32<32, 32>(), smem_f32<48, 48>(), smem_f32<64, 64>(),
-      smem_f32<128, 128>(), smem_f32<32, 64>(), smem_f32<16, 16>()};
+      smem_f32<128, 128>(), smem_f32<32, 64>(), smem_f32<16, 16>(),
+      smem_f32<256, 256>()};
   if (is_bf16 && attn::wgmma_depth(D, Dv)) {
     cfg[0] = kPathWgmma, cfg[1] = wg::BM, cfg[5] = (int)wg::SMEM;
     cfg[6] = wg::kThreads;
   } else {
-    cfg[0] = is_bf16 ? kPathWmma : kPathScalar, cfg[1] = BQ, cfg[6] = NT;
+    cfg[0] = is_bf16 ? kPathWmma : kPathScalar, cfg[6] = NT;
+    cfg[1] = is_bf16 ? BQ : f32_rows(D);
     cfg[5] = (int)(is_bf16 ? wmma_smem[pair] : f32_smem[pair]);
   }
   cfg[2] = (Tq + cfg[1] - 1) / cfg[1], cfg[3] = H, cfg[4] = B;

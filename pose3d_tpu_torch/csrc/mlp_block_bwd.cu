@@ -61,9 +61,14 @@
 //    at H = 3,072: 384 blocks; the partials are then 75 MB written and read);
 //  * mlp_bwd_db2_partial sums g's columns over up to 256 row blocks, and
 //    mlp_bwd_reduce adds the G partials and those row blocks in fixed order.
-// bf16 with another D keeps the earlier pair (WMMA m16n16k16, below); fp32 is
-// a scalar-FMA version of that pair, slow and right (fp32 inputs would drop
-// to TF32 on the tensor cores).
+// bf16 with another D (not a multiple of 64, or above 768) keeps the
+// earlier pair (WMMA m16n16k16, below); fp32 is a scalar-FMA version of
+// that pair, slow and right (fp32 inputs would drop to TF32 on the tensor
+// cores). D and H are multiples of 16 (the wrapper pads other widths with
+// zeros), D at most 1,280: above 768 both kernels of the pair split D into
+// column_slices(D) on gridDim.y (dx's columns; dW1's rows, dW2's columns,
+// db2), and each slice recomputes a and dga over all of D, so da is formed
+// from whole sums and rounded once, as the TPU kernel does.
 //  * ragged rows are zero in shared memory (TMA fills them): x = 0 and g = 0
 //    give da = 0 and add nothing anywhere; dx rows >= N are not stored.
 //
@@ -116,7 +121,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 mlp_bwd_dx_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                 const float* __restrict__ b1, const bf16* __restrict__ w2,
                 const bf16* __restrict__ g, bf16* __restrict__ dx,
-                long long N, int D, int H) {
+                long long N, int D, int H, int cols) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int LDX = D + 8;
   bf16* Xs = reinterpret_cast<bf16*>(smem);
@@ -129,6 +134,9 @@ mlp_bwd_dx_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   const int warp = tid >> 5, lane = tid & 31;
   const long long row0 = (long long)blockIdx.x * BR;
   const int nfrag = D / 16;
+  // this block's dx columns [c0, c0 + nout * 16)
+  const int c0 = blockIdx.y * cols;
+  const int nout = min(cols, D - c0) / 16;
 
   load_rows<bf16, BR>(Xs, LDX, x, row0, N, D);
   load_rows<bf16, BR>(Gt, LDX, g, row0, N, D);
@@ -175,16 +183,16 @@ mlp_bwd_dx_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
       DAs[r * LDD + c] = __float2bfloat16(DGs[r * LDA + c] * gelu_grad(a));
     }
     __syncthreads();
-    // dx += da W1[:, h0 : h0 + hc]^T
+    // dx += da W1[c0 : c0 + 16 * nout, h0 : h0 + hc]^T
     for (int kk = 0; kk < hc / 16; ++kk) {
       ARow d0, d1;
       wmma::load_matrix_sync(d0, DAs + kk * 16, LDD);
       wmma::load_matrix_sync(d1, DAs + 16 * LDD + kk * 16, LDD);
-      const bf16* wcol = w1 + h0 + kk * 16;
+      const bf16* wcol = w1 + (long long)c0 * H + h0 + kk * 16;
 #pragma unroll
       for (int i = 0; i < kMaxFrags; ++i) {
         const int nf = warp + kWarps * i;
-        if (nf < nfrag) {
+        if (nf < nout) {
           BCol wf;
           wmma::load_matrix_sync(wf, wcol + (long long)nf * 16 * H, H);
           wmma::mma_sync(acc[0][i], d0, wf, acc[0][i]);
@@ -200,7 +208,7 @@ mlp_bwd_dx_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 #pragma unroll
   for (int i = 0; i < kMaxFrags; ++i) {
     const int nf = warp + kWarps * i;
-    if (nf < nfrag) {
+    if (nf < nout) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         wmma::store_matrix_sync(patch, acc[h][i], 16, wmma::mem_row_major);
@@ -214,7 +222,7 @@ mlp_bwd_dx_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
             p2[j] = __floats2bfloat162_rn(patch[pr * 16 + pc + 2 * j],
                                           patch[pr * 16 + pc + 2 * j + 1]);
           }
-          *reinterpret_cast<uint4*>(dx + r * D + nf * 16 + pc) = packed;
+          *reinterpret_cast<uint4*>(dx + r * D + c0 + nf * 16 + pc) = packed;
         }
         __syncwarp();
       }
@@ -227,16 +235,18 @@ size_t smem_dw_bf16(int D) {
          (size_t)2 * BR * LDH * 2;
 }
 
-// Columns of db2 that block b of `grid` owns: b + q * grid for q = thread,
-// thread + 256, thread + 512 (D <= 768 leaves no column without an owner).
-constexpr int kDb2PerThread = kMaxD / kThreads;
+// Columns of db2 that block (b, s) of the grid owns: c0 + b + q * gridDim.x
+// for q = thread, thread + 256, thread + 512, c0 = s * cols (a slice of at
+// most 768 columns leaves no column without an owner).
+constexpr int kDb2PerThread = kMaxCols / kThreads;
 
 __global__ void __launch_bounds__(kThreads, 1)
 mlp_bwd_dw_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                 const float* __restrict__ b1, const bf16* __restrict__ w2,
                 const bf16* __restrict__ g, float* __restrict__ dw1,
                 float* __restrict__ db1, float* __restrict__ dw2,
-                float* __restrict__ db2, long long N, int D, int H) {
+                float* __restrict__ db2, long long N, int D, int H,
+                int cols) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int LDX = D + 8;
   bf16* Xs = reinterpret_cast<bf16*>(smem);
@@ -249,6 +259,10 @@ mlp_bwd_dw_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   const int warp = tid >> 5;
   const int h0 = blockIdx.x * HW;
   const int nfrag = D / 16;
+  // this block's rows of dW1, columns of dW2 and db2: [c0, c0 + dc)
+  const int c0 = blockIdx.y * cols;
+  const int dc = min(cols, D - c0);
+  const int nout = dc / 16;
 
   AccFrag acc1[kMaxFrags], acc2[kMaxFrags];
 #pragma unroll
@@ -316,14 +330,16 @@ mlp_bwd_dw_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
     for (int j = 0; j < kDb2PerThread; ++j) {
       const long long c =
           blockIdx.x + (long long)(tid + kThreads * j) * gridDim.x;
-      if (c < D) {
+      if (c < dc) {
         float s = 0.f;
 #pragma unroll 8
-        for (int r = 0; r < BR; ++r) s += __bfloat162float(Gt[r * LDX + c]);
+        for (int r = 0; r < BR; ++r)
+          s += __bfloat162float(Gt[r * LDX + c0 + c]);
         s_b2[j] += s;
       }
     }
-    // dW1[:, chunk] += x^T da;  dW2[chunk, :] += ga^T g   (depth: 32 rows)
+    // dW1[slice, chunk] += x^T da;  dW2[chunk, slice] += ga^T g   (depth:
+    // 32 rows)
 #pragma unroll
     for (int kk = 0; kk < BR / 16; ++kk) {
       BRow daf;
@@ -333,12 +349,12 @@ mlp_bwd_dw_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 #pragma unroll
       for (int i = 0; i < kMaxFrags; ++i) {
         const int f = warp + kWarps * i;
-        if (f < nfrag) {
+        if (f < nout) {
           ACol xt;
           BRow gt;
-          wmma::load_matrix_sync(xt, Xs + kk * 16 * LDX + f * 16, LDX);
+          wmma::load_matrix_sync(xt, Xs + kk * 16 * LDX + c0 + f * 16, LDX);
           wmma::mma_sync(acc1[i], xt, daf, acc1[i]);
-          wmma::load_matrix_sync(gt, Gt + kk * 16 * LDX + f * 16, LDX);
+          wmma::load_matrix_sync(gt, Gt + kk * 16 * LDX + c0 + f * 16, LDX);
           wmma::mma_sync(acc2[i], gaf, gt, acc2[i]);
         }
       }
@@ -348,19 +364,19 @@ mlp_bwd_dw_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 #pragma unroll
   for (int i = 0; i < kMaxFrags; ++i) {
     const int f = warp + kWarps * i;
-    if (f < nfrag) {
-      wmma::store_matrix_sync(dw1 + (long long)f * 16 * H + h0, acc1[i], H,
-                              wmma::mem_row_major);
-      wmma::store_matrix_sync(dw2 + (long long)h0 * D + f * 16, acc2[i], D,
-                              wmma::mem_row_major);
+    if (f < nout) {
+      wmma::store_matrix_sync(dw1 + (long long)(c0 + f * 16) * H + h0,
+                              acc1[i], H, wmma::mem_row_major);
+      wmma::store_matrix_sync(dw2 + (long long)h0 * D + c0 + f * 16, acc2[i],
+                              D, wmma::mem_row_major);
     }
   }
-  if (tid < HW) db1[h0 + tid] = s_b1;
+  if (tid < HW && blockIdx.y == 0) db1[h0 + tid] = s_b1;
 #pragma unroll
   for (int j = 0; j < kDb2PerThread; ++j) {
     const long long c =
         blockIdx.x + (long long)(tid + kThreads * j) * gridDim.x;
-    if (c < D) db2[c] = s_b2[j];
+    if (c < dc) db2[c0 + c] = s_b2[j];
   }
 }
 
@@ -1037,24 +1053,29 @@ int launch(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
 constexpr int FR = 16;   // rows per tile in mlp_bwd_dx_f32
 constexpr int FC = 64;   // hidden columns per chunk there
 
-size_t smem_dx_f32(int D) { return (size_t)(3 * FR * D + 2 * FR * FC) * 4; }
+// Xs, Gt [FR][D], Os [FR][cols] (the block's dx columns), DAs [FR][FC]
+size_t smem_dx_f32(int D) {
+  return (size_t)(2 * FR * D + FR * column_slices(D).cols + 2 * FR * FC) * 4;
+}
 
 __global__ void __launch_bounds__(kThreads)
 mlp_bwd_dx_f32(const float* __restrict__ x, const float* __restrict__ w1,
                const float* __restrict__ b1, const float* __restrict__ w2,
                const float* __restrict__ g, float* __restrict__ dx,
-               long long N, int D, int H) {
+               long long N, int D, int H, int cols) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* Xs = reinterpret_cast<float*>(smem);
   float* Gt = Xs + FR * D;
   float* Os = Gt + FR * D;
-  float* DAs = Os + FR * D;       // [FR][FC]
+  float* DAs = Os + FR * cols;    // [FR][FC]
   const int tid = threadIdx.x;
   const long long row0 = (long long)blockIdx.x * FR;
+  const int c0 = blockIdx.y * cols;       // this block's dx columns
+  const int dc = min(cols, D - c0);
 
   load_rows<float, FR>(Xs, D, x, row0, N, D);
   load_rows<float, FR>(Gt, D, g, row0, N, D);
-  for (int i = tid; i < FR * D; i += kThreads) Os[i] = 0.f;
+  for (int i = tid; i < FR * dc; i += kThreads) Os[i] = 0.f;
   __syncthreads();
 
   const int h = tid % FC, rg = tid / FC;
@@ -1080,45 +1101,59 @@ mlp_bwd_dx_f32(const float* __restrict__ x, const float* __restrict__ w1,
       }
     }
     __syncthreads();
-    for (int d = tid; d < D; d += kThreads) {
+    for (int d = tid; d < dc; d += kThreads) {
       float o[FR];
 #pragma unroll
-      for (int r = 0; r < FR; ++r) o[r] = Os[r * D + d];
-      const float* wp = w1 + (long long)d * H + h0;
+      for (int r = 0; r < FR; ++r) o[r] = Os[r * dc + d];
+      const float* wp = w1 + (long long)(c0 + d) * H + h0;
       for (int j = 0; j < hc; ++j) {
         const float w = wp[j];
 #pragma unroll
         for (int r = 0; r < FR; ++r) o[r] = fmaf(DAs[r * FC + j], w, o[r]);
       }
 #pragma unroll
-      for (int r = 0; r < FR; ++r) Os[r * D + d] = o[r];
+      for (int r = 0; r < FR; ++r) Os[r * dc + d] = o[r];
     }
     __syncthreads();
   }
-  for (int i = tid; i < FR * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    if (row0 + r < N) dx[(row0 + r) * D + d] = Os[i];
+  for (int i = tid; i < FR * dc; i += kThreads) {
+    const int r = i / dc, d = i % dc;
+    if (row0 + r < N) dx[(row0 + r) * D + c0 + d] = Os[i];
   }
 }
 
-size_t smem_dw_f32(int D) { return (size_t)(2 * BR * D + 2 * BR * HW) * 4; }
+// rows a tile of mlp_bwd_dw_f32: 32, or 16 where two 32-row fp32 tiles of
+// x and g would not fit a block's shared memory (D above 880)
+inline int dw_f32_rows(int D) {
+  return (size_t)(2 * BR * D + 2 * BR * HW) * 4 <= kMaxSmem ? BR : 16;
+}
+size_t smem_dw_f32(int D) {
+  const int rows = dw_f32_rows(D);
+  return (size_t)(2 * rows * D + 2 * rows * HW) * 4;
+}
 
+// RT rows a tile: a thread computes a and dga for RT / 16 of them
+template <int RT>
 __global__ void __launch_bounds__(kThreads, 1)
 mlp_bwd_dw_f32(const float* __restrict__ x, const float* __restrict__ w1,
                const float* __restrict__ b1, const float* __restrict__ w2,
                const float* __restrict__ g, float* __restrict__ dw1,
                float* __restrict__ db1, float* __restrict__ dw2,
-               float* __restrict__ db2, long long N, int D, int H) {
+               float* __restrict__ db2, long long N, int D, int H,
+               int cols) {
+  constexpr int RPT = RT / 16;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Xs = reinterpret_cast<float*>(smem);
-  float* Gt = Xs + BR * D;
-  float* GAs = Gt + BR * D;       // [BR][HW]
-  float* DAs = GAs + BR * HW;
+  float* Gt = Xs + RT * D;
+  float* GAs = Gt + RT * D;       // [RT][HW]
+  float* DAs = GAs + RT * HW;
   const int tid = threadIdx.x;
   const int h0 = blockIdx.x * HW;
+  const int c0 = blockIdx.y * cols;       // this block's slice of D
+  const int dc = min(cols, D - c0);
 
-  // this thread's columns d = tid, tid + 256, tid + 512 of dW1[:, chunk]
-  // and dW2[chunk, :]
+  // this thread's columns d = c0 + tid, + 256, + 512 of dW1[:, chunk] and
+  // dW2[chunk, :]
   float acc1[kDb2PerThread][HW], acc2[kDb2PerThread][HW];
 #pragma unroll
   for (int j = 0; j < kDb2PerThread; ++j) {
@@ -1130,56 +1165,59 @@ mlp_bwd_dw_f32(const float* __restrict__ x, const float* __restrict__ w1,
 #pragma unroll
   for (int j = 0; j < kDb2PerThread; ++j) s_b2[j] = 0.f;
 
-  const int h = tid % HW, ra = tid / HW;   // rows ra and ra + 16 of a tile
+  const int h = tid % HW, ra = tid / HW;   // rows ra (and ra + 16) of a tile
   const float* w1p = w1 + h0 + h;
   const float* w2p = w2 + (long long)(h0 + h) * D;
   const float bias = b1[h0 + h];
 
-  for (long long row0 = 0; row0 < N; row0 += BR) {
+  for (long long row0 = 0; row0 < N; row0 += RT) {
     __syncthreads();
-    load_rows<float, BR>(Xs, D, x, row0, N, D);
-    load_rows<float, BR>(Gt, D, g, row0, N, D);
+    load_rows<float, RT>(Xs, D, x, row0, N, D);
+    load_rows<float, RT>(Gt, D, g, row0, N, D);
     __syncthreads();
     {
-      float a0 = 0.f, a1 = 0.f, d0 = 0.f, d1 = 0.f;
+      float av[RPT], dv[RPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) av[i] = dv[i] = 0.f;
       for (int k = 0; k < D; ++k) {
         const float u = w1p[(long long)k * H];
         const float v = w2p[k];
-        a0 = fmaf(Xs[ra * D + k], u, a0);
-        a1 = fmaf(Xs[(ra + 16) * D + k], u, a1);
-        d0 = fmaf(Gt[ra * D + k], v, d0);
-        d1 = fmaf(Gt[(ra + 16) * D + k], v, d1);
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          av[i] = fmaf(Xs[(ra + 16 * i) * D + k], u, av[i]);
+          dv[i] = fmaf(Gt[(ra + 16 * i) * D + k], v, dv[i]);
+        }
       }
-      a0 += bias;
-      a1 += bias;
-      GAs[ra * HW + h] = gelu(a0);
-      GAs[(ra + 16) * HW + h] = gelu(a1);
-      DAs[ra * HW + h] = d0 * gelu_grad(a0);
-      DAs[(ra + 16) * HW + h] = d1 * gelu_grad(a1);
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const float a = av[i] + bias;
+        GAs[(ra + 16 * i) * HW + h] = gelu(a);
+        DAs[(ra + 16 * i) * HW + h] = dv[i] * gelu_grad(a);
+      }
     }
     __syncthreads();
     if (tid < HW) {
       float s = 0.f;
 #pragma unroll 8
-      for (int r = 0; r < BR; ++r) s += DAs[r * HW + tid];
+      for (int r = 0; r < RT; ++r) s += DAs[r * HW + tid];
       s_b1 += s;
     }
 #pragma unroll
     for (int j = 0; j < kDb2PerThread; ++j) {
       const long long c =
           blockIdx.x + (long long)(tid + kThreads * j) * gridDim.x;
-      if (c < D) {
+      if (c < dc) {
         float s = 0.f;
 #pragma unroll 8
-        for (int r = 0; r < BR; ++r) s += Gt[r * D + c];
+        for (int r = 0; r < RT; ++r) s += Gt[r * D + c0 + c];
         s_b2[j] += s;
       }
     }
 #pragma unroll
     for (int j = 0; j < kDb2PerThread; ++j) {
-      const int d = tid + kThreads * j;
-      if (d < D) {
-        for (int r = 0; r < BR; ++r) {
+      const int d = c0 + tid + kThreads * j;
+      if (d < c0 + dc) {
+        for (int r = 0; r < RT; ++r) {
           const float xv = Xs[r * D + d], gv = Gt[r * D + d];
 #pragma unroll
           for (int c = 0; c < HW; ++c) {
@@ -1193,8 +1231,8 @@ mlp_bwd_dw_f32(const float* __restrict__ x, const float* __restrict__ w1,
 
 #pragma unroll
   for (int j = 0; j < kDb2PerThread; ++j) {
-    const int d = tid + kThreads * j;
-    if (d < D) {
+    const int d = c0 + tid + kThreads * j;
+    if (d < c0 + dc) {
 #pragma unroll
       for (int c = 0; c < HW; ++c) {
         dw1[(long long)d * H + h0 + c] = acc1[j][c];
@@ -1202,12 +1240,12 @@ mlp_bwd_dw_f32(const float* __restrict__ x, const float* __restrict__ w1,
       }
     }
   }
-  if (tid < HW) db1[h0 + tid] = s_b1;
+  if (tid < HW && blockIdx.y == 0) db1[h0 + tid] = s_b1;
 #pragma unroll
   for (int j = 0; j < kDb2PerThread; ++j) {
     const long long c =
         blockIdx.x + (long long)(tid + kThreads * j) * gridDim.x;
-    if (c < D) db2[c] = s_b2[j];
+    if (c < dc) db2[c0 + c] = s_b2[j];
   }
 }
 
@@ -1229,16 +1267,17 @@ int launch(KDx kdx, size_t smem_dx, int rows_dx, KDw kdw, size_t smem_dw,
   if (rc != 0) return rc;
   rc = set_smem(kdw, smem_dw);
   if (rc != 0) return rc;
+  const Slices sl = column_slices(D);
   const T* xp = static_cast<const T*>(x);
   const T* w1p = static_cast<const T*>(w1);
   const T* w2p = static_cast<const T*>(w2);
   const T* gp = static_cast<const T*>(g);
-  kdx<<<(unsigned)blocks, kThreads, smem_dx, st>>>(
-      xp, w1p, b1, w2p, gp, static_cast<T*>(dx), N, D, H);
+  kdx<<<dim3((unsigned)blocks, sl.n), kThreads, smem_dx, st>>>(
+      xp, w1p, b1, w2p, gp, static_cast<T*>(dx), N, D, H, sl.cols);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  kdw<<<H / HW, kThreads, smem_dw, st>>>(xp, w1p, b1, w2p, gp, dw1, db1, dw2,
-                                         db2, N, D, H);
+  kdw<<<dim3(H / HW, sl.n), kThreads, smem_dw, st>>>(
+      xp, w1p, b1, w2p, gp, dw1, db1, dw2, db2, N, D, H, sl.cols);
   return (int)cudaGetLastError();
 }
 
@@ -1250,7 +1289,7 @@ extern "C" {
 // success). x, g, dx: [N, D]; w1: [D, H]; w2: [H, D], all contiguous, one
 // type (is_bf16: 1 bfloat16, 0 float32) and 32-byte aligned; b1 fp32 [H];
 // dw1 [D, H], db1 [H], dw2 [H, D], db2 [D] fp32, each written once. D and H
-// multiples of 16, D <= 768; otherwise cudaErrorInvalidValue. `scratch` is
+// multiples of 16, D <= 1280; otherwise cudaErrorInvalidValue. `scratch` is
 // fp32 device memory of `scratch_len` floats, at least what
 // pose3d_mlp_block_bwd_config reports in cfg[8] (0: may be null).
 int pose3d_mlp_block_bwd(const void* x, const void* w1, const void* b1,
@@ -1278,7 +1317,12 @@ int pose3d_mlp_block_bwd(const void* x, const void* w1, const void* b1,
                         smem_dw_bf16(D), x, w1, fb1, w2, g, dx, f1, f2, f3,
                         f4, N, D, H, st);
   }
-  return launch<float>(mlp_bwd_dx_f32, smem_dx_f32(D), FR, mlp_bwd_dw_f32,
+  if (dw_f32_rows(D) == BR) {
+    return launch<float>(mlp_bwd_dx_f32, smem_dx_f32(D), FR,
+                         mlp_bwd_dw_f32<BR>, smem_dw_f32(D), x, w1, fb1, w2,
+                         g, dx, f1, f2, f3, f4, N, D, H, st);
+  }
+  return launch<float>(mlp_bwd_dx_f32, smem_dx_f32(D), FR, mlp_bwd_dw_f32<16>,
                        smem_dw_f32(D), x, w1, fb1, w2, g, dx, f1, f2, f3, f4,
                        N, D, H, st);
 }
@@ -1287,9 +1331,11 @@ int pose3d_mlp_block_bwd(const void* x, const void* w1, const void* b1,
 // path (0 scalar fp32, 1 WMMA, 2 wgmma); for the dx kernel cfg[1] rows a
 // block, cfg[2] blocks, cfg[3] dynamic shared memory; for the dW kernel
 // cfg[4] rows a tile, cfg[5] blocks, cfg[6] row groups G, cfg[7] dynamic
-// shared memory; cfg[8] floats of scratch. Returns 0.
+// shared memory; cfg[8] floats of scratch; cfg[9] column slices of D (the
+// blocks of both kernels count them). Returns 0.
 int pose3d_mlp_block_bwd_config(int is_bf16, long long N, int D, int H,
                                 long long* cfg) {
+  const Slices sl = column_slices(D);   // one slice when D <= 768
   if (takes_wgmma(is_bf16, D)) {
     const wg::Split sp = wg::split_rows(N, H);
     cfg[0] = kPathWgmma, cfg[1] = wg::BM, cfg[3] = (long long)wg::SMEM_DX;
@@ -1300,11 +1346,13 @@ int pose3d_mlp_block_bwd_config(int is_bf16, long long N, int D, int H,
     cfg[0] = is_bf16 ? kPathWmma : kPathScalar;
     cfg[1] = is_bf16 ? BR : FR;
     cfg[3] = (long long)(is_bf16 ? smem_dx_bf16(D) : smem_dx_f32(D));
-    cfg[4] = BR, cfg[5] = H / HW, cfg[6] = 1;
+    cfg[4] = is_bf16 ? BR : dw_f32_rows(D);
+    cfg[5] = (long long)(H / HW) * sl.n, cfg[6] = 1;
     cfg[7] = (long long)(is_bf16 ? smem_dw_bf16(D) : smem_dw_f32(D));
     cfg[8] = 0;
   }
-  cfg[2] = (N + cfg[1] - 1) / cfg[1];
+  cfg[2] = (N + cfg[1] - 1) / cfg[1] * sl.n;
+  cfg[9] = sl.n;
   return 0;
 }
 

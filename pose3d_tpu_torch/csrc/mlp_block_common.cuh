@@ -17,9 +17,25 @@ namespace mlp {
 constexpr int kThreads = 256;
 constexpr int kWarps = 8;
 // 16-column output fragments a warp may hold for each 16-row fragment: the
-// eight warps of a block cover D <= 8 * 6 * 16 = 768
+// eight warps of a block cover 8 * 6 * 16 = 768 output columns
 constexpr int kMaxFrags = 6;
-constexpr int kMaxD = kWarps * kMaxFrags * 16;
+constexpr int kMaxCols = kWarps * kMaxFrags * 16;
+// The widest D the kernels take (ViT-H's 1,280). Above kMaxCols the WMMA
+// and scalar kernels split the output columns of out and dx (and the rows
+// of dW1, columns of dW2) across blocks on gridDim.y, each block still
+// summing x W1 and g W2^T over all of D before the GELU: the first products
+// are computed once for each slice.
+constexpr int kMaxD = 1280;
+
+// The column split of a width D: n slices of `cols` columns (a multiple of
+// 16, at most kMaxCols; the last slice may be narrower).
+struct Slices {
+  int n, cols;
+};
+__host__ __device__ inline Slices column_slices(int D) {
+  const int n = (D + kMaxCols - 1) / kMaxCols;
+  return {n, 16 * ((D + 16 * n - 1) / (16 * n))};
+}
 
 constexpr float kSqrtHalf = 0.70710678118654752440f;
 constexpr float kInvSqrt2Pi = 0.39894228040143267794f;
@@ -89,7 +105,7 @@ constexpr unsigned kMaxSmem = 232448;    // a block's limit on this card
 constexpr int kPathScalar = 0, kPathWmma = 1, kPathWgmma = 2;
 
 __host__ __device__ inline bool takes_wgmma(int is_bf16, int D) {
-  return is_bf16 && D % 64 == 0;
+  return is_bf16 && D % 64 == 0 && D <= kMaxCols;
 }
 
 // Two adjacent accumulator values (row, col), (row, col + 1) of an m64n32

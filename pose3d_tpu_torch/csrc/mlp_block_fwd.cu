@@ -68,10 +68,18 @@
 //    next cost (a quarter of the time): it could run under the second
 //    product of the chunk before; the epilogue's 4-byte stores could go
 //    through shared memory;
-//  * bf16 with D not a multiple of 64 keeps the earlier kernel (mlp_fwd_bf16:
-//    WMMA m16n16k16, 32-row tiles, B fragments straight from L2); D and H
-//    must be multiples of 16. fp32 inputs would drop to TF32 on the tensor
+//  * bf16 with D not a multiple of 64, or above 768, keeps the earlier
+//    kernel (mlp_fwd_bf16: WMMA m16n16k16, 32-row tiles, B fragments
+//    straight from L2); D and H must be multiples of 16 (the wrapper pads
+//    other widths with zeros). fp32 inputs would drop to TF32 on the tensor
 //    cores, so the fp32 path is a scalar-FMA tile of 16 rows: slow and right;
+//  * D above 768 (ViT-L's 1,024, ViT-H's 1,280; at most 1,280): the WMMA and
+//    fp32 kernels split the output columns into column_slices(D) on
+//    gridDim.y, at most 768 a block, and every slice computes a = x W1 + b1
+//    over all of D itself (2*N*D*H a slice for x W1, 2*N*D*H in all for
+//    the second product). The wgmma kernel keeps
+//    D <= 768: its x tile would be 160 KB of the 227 at D 1,280, beside a
+//    96 KB ring;
 //  * ragged rows: the x tile's rows >= N are zero and never stored.
 
 #include <mma.h>
@@ -99,7 +107,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 mlp_fwd_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
              const float* __restrict__ b1, const bf16* __restrict__ w2,
              const float* __restrict__ b2, bf16* __restrict__ out,
-             long long N, int D, int H) {
+             long long N, int D, int H, int cols) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int LDX = D + 8;
   bf16* Xs = reinterpret_cast<bf16*>(smem);
@@ -110,6 +118,9 @@ mlp_fwd_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   const int warp = tid >> 5, lane = tid & 31;
   const long long row0 = (long long)blockIdx.x * BR;
   const int nfrag = D / 16;
+  // this block's output columns [c0, c0 + nout * 16) (all of D when D <= 768)
+  const int c0 = blockIdx.y * cols;
+  const int nout = min(cols, D - c0) / 16;
 
   load_rows<bf16, BR>(Xs, LDX, x, row0, N, D);
 
@@ -164,16 +175,16 @@ mlp_fwd_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
       Gs[r * LDG + c] = __float2bfloat16(gelu(a));
     }
     __syncthreads();
-    // out += ga W2[h0 : h0 + hc, :]
+    // out += ga W2[h0 : h0 + hc, c0 : c0 + 16 * nout]
     for (int kk = 0; kk < hc / 16; ++kk) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> g0, g1;
       wmma::load_matrix_sync(g0, Gs + kk * 16, LDG);
       wmma::load_matrix_sync(g1, Gs + 16 * LDG + kk * 16, LDG);
-      const bf16* wrow = w2 + (long long)(h0 + kk * 16) * D;
+      const bf16* wrow = w2 + (long long)(h0 + kk * 16) * D + c0;
 #pragma unroll
       for (int i = 0; i < kMaxFrags; ++i) {
         const int cf = warp + kWarps * i;
-        if (cf < nfrag) {
+        if (cf < nout) {
           wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> wf;
           wmma::load_matrix_sync(wf, wrow + cf * 16, D);
           wmma::mma_sync(acc[0][i], g0, wf, acc[0][i]);
@@ -191,14 +202,14 @@ mlp_fwd_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 #pragma unroll
   for (int i = 0; i < kMaxFrags; ++i) {
     const int cf = warp + kWarps * i;
-    if (cf < nfrag) {
+    if (cf < nout) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         wmma::store_matrix_sync(patch, acc[h][i], 16, wmma::mem_row_major);
         __syncwarp();
         const long long r = row0 + h * 16 + pr;
         if (r < N) {
-          const int col = cf * 16 + pc;
+          const int col = c0 + cf * 16 + pc;
           uint4 packed;
           __nv_bfloat162* p2 = reinterpret_cast<__nv_bfloat162*>(&packed);
 #pragma unroll
@@ -441,26 +452,31 @@ int launch(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
 
 }  // namespace wg
 
-// fp32: 16 rows to a block, scalar FMA. Xs and Os are [16][D], As [16][64].
+// fp32: 16 rows to a block, scalar FMA. Xs is [16][D], Os [16][cols] (the
+// block's output columns), As [16][64].
 constexpr int FR = 16;
 constexpr int FC = 64;
 
-size_t smem_f32(int D) { return (size_t)(2 * FR * D + FR * FC) * 4; }
+size_t smem_f32(int D) {
+  return (size_t)(FR * D + FR * column_slices(D).cols + FR * FC) * 4;
+}
 
 __global__ void __launch_bounds__(kThreads)
 mlp_fwd_f32(const float* __restrict__ x, const float* __restrict__ w1,
             const float* __restrict__ b1, const float* __restrict__ w2,
             const float* __restrict__ b2, float* __restrict__ out,
-            long long N, int D, int H) {
+            long long N, int D, int H, int cols) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* Xs = reinterpret_cast<float*>(smem);
   float* Os = Xs + FR * D;
-  float* As = Os + FR * D;
+  float* As = Os + FR * cols;
   const int tid = threadIdx.x;
   const long long row0 = (long long)blockIdx.x * FR;
+  const int c0 = blockIdx.y * cols;       // this block's output columns
+  const int dc = min(cols, D - c0);
 
   load_rows<float, FR>(Xs, D, x, row0, N, D);
-  for (int i = tid; i < FR * D; i += kThreads) Os[i] = 0.f;
+  for (int i = tid; i < FR * dc; i += kThreads) Os[i] = 0.f;
   __syncthreads();
 
   const int h = tid % FC;       // this thread's hidden column of a chunk
@@ -482,24 +498,24 @@ mlp_fwd_f32(const float* __restrict__ x, const float* __restrict__ w1,
       for (int i = 0; i < 4; ++i) As[(rg * 4 + i) * FC + h] = gelu(a[i] + b);
     }
     __syncthreads();
-    for (int d = tid; d < D; d += kThreads) {
+    for (int d = tid; d < dc; d += kThreads) {
       float o[FR];
 #pragma unroll
-      for (int r = 0; r < FR; ++r) o[r] = Os[r * D + d];
-      const float* wp = w2 + (long long)h0 * D + d;
+      for (int r = 0; r < FR; ++r) o[r] = Os[r * dc + d];
+      const float* wp = w2 + (long long)h0 * D + c0 + d;
       for (int j = 0; j < hc; ++j) {
         const float w = wp[(long long)j * D];
 #pragma unroll
         for (int r = 0; r < FR; ++r) o[r] = fmaf(As[r * FC + j], w, o[r]);
       }
 #pragma unroll
-      for (int r = 0; r < FR; ++r) Os[r * D + d] = o[r];
+      for (int r = 0; r < FR; ++r) Os[r * dc + d] = o[r];
     }
     __syncthreads();
   }
-  for (int i = tid; i < FR * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    if (row0 + r < N) out[(row0 + r) * D + d] = Os[i] + b2[d];
+  for (int i = tid; i < FR * dc; i += kThreads) {
+    const int r = i / dc, d = i % dc;
+    if (row0 + r < N) out[(row0 + r) * D + c0 + d] = Os[i] + b2[c0 + d];
   }
 }
 
@@ -517,7 +533,7 @@ extern "C" {
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // x, out: [N, D]; w1: [D, H]; w2: [H, D], all contiguous, one type (is_bf16:
 // 1 bfloat16, 0 float32) and 32-byte aligned; b1 [H], b2 [D] fp32. D and H
-// multiples of 16, D <= 768; otherwise cudaErrorInvalidValue.
+// multiples of 16, D <= 1280; otherwise cudaErrorInvalidValue.
 int pose3d_mlp_block_fwd(const void* x, const void* w1, const void* b1,
                          const void* w2, const void* b2, void* out,
                          int is_bf16, long long N, int D, int H,
@@ -532,35 +548,39 @@ int pose3d_mlp_block_fwd(const void* x, const void* w1, const void* b1,
                       fb1, static_cast<const bf16*>(w2), fb2,
                       static_cast<bf16*>(out), N, D, H, st);
   }
+  const Slices sl = column_slices(D);
   if (is_bf16) {
     const long long blocks = (N + BR - 1) / BR;
     if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
     const size_t smem = smem_bf16(D);
     const int rc = set_smem(mlp_fwd_bf16, smem);
     if (rc != 0) return rc;
-    mlp_fwd_bf16<<<(unsigned)blocks, kThreads, smem, st>>>(
+    mlp_fwd_bf16<<<dim3((unsigned)blocks, sl.n), kThreads, smem, st>>>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(w1), fb1,
-        static_cast<const bf16*>(w2), fb2, static_cast<bf16*>(out), N, D, H);
+        static_cast<const bf16*>(w2), fb2, static_cast<bf16*>(out), N, D, H,
+        sl.cols);
   } else {
     const long long blocks = (N + FR - 1) / FR;
     if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
     const size_t smem = smem_f32(D);
     const int rc = set_smem(mlp_fwd_f32, smem);
     if (rc != 0) return rc;
-    mlp_fwd_f32<<<(unsigned)blocks, kThreads, smem, st>>>(
+    mlp_fwd_f32<<<dim3((unsigned)blocks, sl.n), kThreads, smem, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(w1), fb1,
         static_cast<const float*>(w2), fb2, static_cast<float*>(out), N, D,
-        H);
+        H, sl.cols);
   }
   return (int)cudaGetLastError();
 }
 
 // What pose3d_mlp_block_fwd does for a shape, without launching: cfg[0] the
-// path (0 scalar fp32, 1 WMMA, 2 wgmma), cfg[1] rows a block, cfg[2] blocks,
-// cfg[3] dynamic shared memory in bytes. Returns 0.
+// path (0 scalar fp32, 1 WMMA, 2 wgmma), cfg[1] rows a block, cfg[2] blocks
+// (row blocks times column slices), cfg[3] dynamic shared memory in bytes,
+// cfg[4] column slices, cfg[5] columns a slice. Returns 0.
 int pose3d_mlp_block_fwd_config(int is_bf16, long long N, int D, int H,
                                 int* cfg) {
   (void)H;
+  const Slices sl = column_slices(D);   // one slice when D <= 768
   if (takes_wgmma(is_bf16, D)) {
     cfg[0] = kPathWgmma, cfg[1] = wg::BM, cfg[3] = (int)wg::SMEM;
   } else if (is_bf16) {
@@ -568,7 +588,8 @@ int pose3d_mlp_block_fwd_config(int is_bf16, long long N, int D, int H,
   } else {
     cfg[0] = kPathScalar, cfg[1] = FR, cfg[3] = (int)smem_f32(D);
   }
-  cfg[2] = (int)((N + cfg[1] - 1) / cfg[1]);
+  cfg[2] = (int)((N + cfg[1] - 1) / cfg[1]) * sl.n;
+  cfg[4] = sl.n, cfg[5] = sl.cols;
   return 0;
 }
 

@@ -36,3 +36,11 @@ def gaussian_heatmaps(keypoints_2d: torch.Tensor, heatmap_size: int,
     valid = (kpts > 0).all(dim=-1)                               # [B, J]
     gx = gx * valid[..., None]
     return torch.einsum("bjh,bjw->bhwj", gy, gx).to(dtype)
+
+
+def gaussian_heatmaps_nchw(keypoints_2d: torch.Tensor, heatmap_size: int,
+                           sigma: float, dtype=torch.float32) -> torch.Tensor:
+    """:func:`gaussian_heatmaps` as [B, J, S, S] (NCHW, the reference's
+    layout)."""
+    return gaussian_heatmaps(keypoints_2d, heatmap_size, sigma,
+                             dtype).permute(0, 3, 1, 2)

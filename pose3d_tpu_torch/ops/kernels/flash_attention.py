@@ -26,12 +26,20 @@ mirrors the choice in plain Python, :func:`library_config` reads it back
 from the built libraries): ``wgmma`` (bf16, D = Dv in {48, 64}: the
 lifter's depths, TMA-fed tiles of 128 query rows or keys a block),
 ``wmma`` (bf16, the other pairs) and ``scalar`` (fp32).
+
+The kernels are built for the (D, Dv) pairs in :data:`PAIRS`; like the TPU
+kernel, the launchers take any D and Dv up to :data:`MAX_DEPTH` (256):
+another pair is zero-padded to the smallest built pair that holds it
+(:func:`padded_pair`), q and k to its D, v, o and dO to its Dv, and the
+outputs are sliced back. Zero columns add nothing to QKᵀ, give zero output
+columns and leave δ = rowsum(dO∘O) as it was; the scale stays 1/√D of the
+true D. Deeper heads raise.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -39,9 +47,13 @@ from pose3d_tpu_torch.ops.kernels import _build
 
 # the (D, Dv) pairs the kernels are built for: D = Dv at the lifter's and
 # the stage-1 models' depths, YOLO11's PSA pair (key depth half the value
-# depth), and D = Dv = 16 (a lifter of embed 64 over 4 heads, as the JAX
-# package's lifecycle run trains); in the order of the C dispatch
-PAIRS = ((32, 32), (48, 48), (64, 64), (128, 128), (32, 64), (16, 16))
+# depth), D = Dv = 16 (a lifter of embed 64 over 4 heads, as the JAX
+# package's lifecycle run trains) and the widest, 256; in the order of the
+# C dispatch
+PAIRS = ((32, 32), (48, 48), (64, 64), (128, 128), (32, 64), (16, 16),
+         (256, 256))
+# the deepest D and Dv the launchers take (padded to the (256, 256) pair)
+MAX_DEPTH = 256
 _DTYPES = (torch.bfloat16, torch.float32)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # the kernels' paths, as the C entry points number them
@@ -64,6 +76,27 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def padded_pair(D: int, Dv: int) -> Tuple[int, int]:
+    """The built pair (Dp, Dvp) that the launchers run q, k of depth D and
+    v of depth Dv on: (D, Dv) itself when it is built, else the smallest
+    built pair with Dp >= D and Dvp >= Dv (least Dp + Dvp, then least Dp),
+    the inputs zero-padded to it. Raises ValueError past
+    :data:`MAX_DEPTH`."""
+    if not (1 <= D <= MAX_DEPTH and 1 <= Dv <= MAX_DEPTH):
+        raise ValueError(
+            f"head dim D={D} with value depth Dv={Dv}: the kernels take D "
+            f"and Dv from 1 to {MAX_DEPTH} (the widest pair built is "
+            f"{PAIRS[-1]})")
+    return min((p for p in PAIRS if p[0] >= D and p[1] >= Dv),
+               key=lambda p: (p[0] + p[1], p[0]))
+
+
+def _bwd_keys(D: int, Dv: int) -> int:
+    """Keys a block of the backward's WMMA and fp32 kernels (the C
+    ``keys_per_block``): 32 above depth 128, where 64 do not fit."""
+    return 32 if max(D, Dv) > 128 else 64
+
+
 def launch_config(B: int, Tq: int, Tk: int, H: int, D: int, Dv: int,
                   itemsize: int) -> dict:
     """What the two entry points do for q ``[B, Tq, H, D]``, k ``[B, Tk,
@@ -74,12 +107,14 @@ def launch_config(B: int, Tq: int, Tk: int, H: int, D: int, Dv: int,
 
     ``path``: ``"wgmma"`` (bf16, D = Dv in {48, 64}), ``"wmma"`` (bf16,
     any other pair) or ``"scalar"`` (fp32). ``fwd``: query ``rows`` a
-    block; ``bwd``: keys (``rows``) a block; each with its ``grid`` (x, y,
+    block (32 for the (256, 256) pair in fp32); ``bwd``: keys (``rows``) a
+    block, 64, or 32 for the (256, 256) pair; each with its ``grid`` (x, y,
     z) = (row blocks, H, B), dynamic shared memory ``smem`` in bytes and
     ``threads`` a block; ``scratch_floats``: the fp32 scratch the backward
     needs beside the dQ accumulator (δ, or on the wgmma path the
     interleaved (lse·log2 e, δ) rows padded to whole 64-row query tiles).
-    Raises ValueError for a pair that is not built."""
+    Raises ValueError for a pair that is not built (the launchers pad
+    other pairs first: :func:`padded_pair`)."""
     if (D, Dv) not in PAIRS:
         raise ValueError(f"(D, Dv) = ({D}, {Dv}) is not built; pairs: "
                          f"{PAIRS}")
@@ -87,25 +122,35 @@ def launch_config(B: int, Tq: int, Tk: int, H: int, D: int, Dv: int,
         path, rows, threads = "wgmma", _WG_BLOCK, _WG_THREADS
         fwd, bwd = _WG_SMEM_FWD, _WG_SMEM_BWD
         scratch = 2 * B * H * _ceil(Tq, _WG_QTILE) * _WG_QTILE
+        keys = rows
     else:
         rows, threads, scratch = _BLOCK, _THREADS, B * H * Tq
+        keys = _bwd_keys(D, Dv)
         if itemsize == 2:
             path = "wmma"
             fwd = (2 * 64 * (D + 8) * 2 + 64 * (Dv + 8) * 2 + 64 * 68 * 4
                    + 64 * 72 * 2 + 64 * (Dv + 4) * 4)
-            lds = max(D, Dv, 64) + 4
-            bwd = (2 * 64 * (D + 8) * 2 + 2 * 64 * (Dv + 8) * 2
-                   + 2 * 64 * lds * 4 + 2 * 64 * 72 * 2 + 2 * 64 * 4)
+            # K and V tiles of `keys` rows, Q and dO of 64; S as wide as the
+            # widest staging, dP as the key tile; P, dS; lse, δ
+            lds = max(D, Dv, keys) + 4
+            bwd = ((keys + 64) * (D + 8) * 2 + (keys + 64) * (Dv + 8) * 2
+                   + 64 * lds * 4 + 64 * (keys + 4) * 4
+                   + 2 * 64 * (keys + 8) * 2 + 2 * 64 * 4)
         else:
             path = "scalar"
-            fwd = (64 * (D + 4) + 64 * (Dv + 4) + 64 * 65) * 4
-            bwd = (2 * 64 * (D + 4) + 2 * 64 * (Dv + 4) + 2 * 64 * 65
-                   + 2 * 64) * 4
+            # above depth 128: 32 query rows a block, four threads a row,
+            # the rows' q in shared memory (the C f32_rows)
+            if D > 128:
+                rows = 32
+            fwd = (64 * (D + 4) + 64 * (Dv + 4) + rows * 65
+                   + (rows * (D + 4) if D > 128 else 0)) * 4
+            bwd = ((keys + 64) * (D + 4) + (keys + 64) * (Dv + 4)
+                   + 2 * 64 * (keys + 1) + 2 * 64) * 4
     return {
         "path": path, "scratch_floats": scratch,
         "fwd": {"rows": rows, "grid": (_ceil(Tq, rows), H, B), "smem": fwd,
                 "threads": threads},
-        "bwd": {"rows": rows, "grid": (_ceil(Tk, rows), H, B), "smem": bwd,
+        "bwd": {"rows": keys, "grid": (_ceil(Tk, keys), H, B), "smem": bwd,
                 "threads": threads},
     }
 
@@ -149,13 +194,13 @@ def _bwd_config(lib: ctypes.CDLL, is_bf16: int, B: int, Tq: int, Tk: int,
 
 
 def flash_attention_fwd_reference(q: torch.Tensor, k: torch.Tensor,
-                                  v: torch.Tensor
+                                  v: torch.Tensor, scale: Optional[float] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch attention with the TPU kernel's arithmetic: fp32
-    scores, max-subtracted exp with the 1/√D scale folded in, e cast to
-    v's dtype for PV, division deferred to the output."""
-    D = q.shape[-1]
-    scale = 1.0 / D ** 0.5
+    scores, max-subtracted exp with the scale (default 1/√D) folded in, e
+    cast to v's dtype for PV, division deferred to the output."""
+    if scale is None:
+        scale = 1.0 / q.shape[-1] ** 0.5
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp((s - m) * scale)
@@ -168,15 +213,17 @@ def flash_attention_fwd_reference(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, o: torch.Tensor,
-                                  do: torch.Tensor, lse: torch.Tensor
+                                  do: torch.Tensor, lse: torch.Tensor,
+                                  scale: Optional[float] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor,
                                              torch.Tensor]:
     """Plain PyTorch backward with the TPU kernel's arithmetic: fp32
-    scores, P recomputed from lse in one exp, δ = rowsum(dO∘O) in fp32,
-    P cast to dO's dtype before dV and dS to q's dtype before dQ and dK,
-    fp32 accumulation. Returns (dq, dk, dv) in q's dtype."""
-    D = q.shape[-1]
-    scale = 1.0 / D ** 0.5
+    scores, P recomputed from lse in one exp (scale default 1/√D),
+    δ = rowsum(dO∘O) in fp32, P cast to dO's dtype before dV and dS to q's
+    dtype before dQ and dK, fp32 accumulation. Returns (dq, dk, dv) in q's
+    dtype."""
+    if scale is None:
+        scale = 1.0 / q.shape[-1] ** 0.5
     f = torch.float32
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(f), k.to(f))
     p = torch.exp(s * scale - lse[..., None])                 # [B,H,Tq,Tk]
@@ -233,10 +280,10 @@ def _check(fn: str, q, k, v, **more) -> None:
         if x.shape != (B, Tq, H, Dv):
             raise ValueError(f"{fn}: {name} must have q's shape with v's "
                              f"depth {(B, Tq, H, Dv)}, got {tuple(x.shape)}")
-    if (D, Dv) not in PAIRS:
-        raise ValueError(
-            f"{fn}: head dim D={D} with value depth Dv={Dv} is not built; "
-            f"the kernels take (D, Dv) in {PAIRS}")
+    try:
+        padded_pair(D, Dv)
+    except ValueError as e:
+        raise ValueError(f"{fn}: {e}") from None
     if Tq == 0 or k.shape[1] == 0:
         raise ValueError(f"{fn}: empty query or key sequence")
     if B > 65535 or H > 65535:
@@ -265,13 +312,53 @@ def load_library(name: str) -> ctypes.CDLL:
     return _build.load_library(name, _ARGTYPES[name])
 
 
+def _pad_depth(x: torch.Tensor, depth: int) -> torch.Tensor:
+    """x with its last dim zero-padded to ``depth`` (x itself if it is)."""
+    if x.shape[-1] == depth:
+        return x
+    return torch.nn.functional.pad(x, (0, depth - x.shape[-1]))
+
+
+def run_padded_fwd(launch, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``launch(q, k, v, scale) -> (o, lse)`` on the built pair
+    :func:`padded_pair` names, at the scale of the true D (fixed here,
+    before any padding), with o sliced back to Dv. The launchers run the
+    kernel through it; the tests run the plain forward through it."""
+    D, Dv = q.shape[3], v.shape[3]
+    scale = 1.0 / D ** 0.5
+    Dp, Dvp = padded_pair(D, Dv)
+    o, lse = launch(_pad_depth(q, Dp), _pad_depth(k, Dp), _pad_depth(v, Dvp),
+                    scale)
+    return (o if Dvp == Dv else o[..., :Dv].contiguous()), lse
+
+
+def run_padded_bwd(launch, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, o: torch.Tensor, do: torch.Tensor,
+                   lse: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``launch(q, k, v, o, do, lse, scale) -> (dq, dk, dv)`` on the built
+    pair, as :func:`run_padded_fwd`: v, o and dO padded to its Dv (δ =
+    rowsum(dO∘O) does not change), the gradients sliced back."""
+    D, Dv = q.shape[3], v.shape[3]
+    scale = 1.0 / D ** 0.5
+    Dp, Dvp = padded_pair(D, Dv)
+    dq, dk, dv = launch(_pad_depth(q, Dp), _pad_depth(k, Dp),
+                        *(_pad_depth(x, Dvp) for x in (v, o, do)), lse, scale)
+    if Dp != D:
+        dq, dk = dq[..., :D].contiguous(), dk[..., :D].contiguous()
+    if Dvp != Dv:
+        dv = dv[..., :Dv].contiguous()
+    return dq, dk, dv
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the Hopper kernel on PyTorch's current stream (the path
-    :func:`launch_config` names for the shape). Raises on anything it does
-    not take (non-CUDA tensors, other dtypes, a (D, Dv) pair that is not
-    built, an empty key sequence) and when the launch is refused; it never
-    falls back to the plain version.
+    """Launch the Hopper kernel on PyTorch's current stream (on the pair
+    :func:`padded_pair` names, the path :func:`launch_config` names for
+    it). Raises on anything it does not take (non-CUDA tensors, other
+    dtypes, D or Dv above 256, an empty key sequence) and when the launch
+    is refused; it never falls back to the plain version.
 
     The output carries no autograd graph, so with grad mode on it raises
     for inputs that require grad: differentiate through
@@ -291,6 +378,12 @@ def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     operator's CUDA implementation; counts ``flash_attention_fwd.launches``.
     Contiguous outputs, whatever the strides of q, k and v."""
     _check("flash_attention_fwd", q, k, v)
+    return run_padded_fwd(_launch_fwd_built, q, k, v)
+
+
+def _launch_fwd_built(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the forward on a built pair at ``scale``."""
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     B, Tq, H, D = q.shape
     Tk, Dv = k.shape[1], v.shape[3]
@@ -302,7 +395,7 @@ def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         rc = lib.pose3d_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), int(q.dtype == torch.bfloat16), B, Tq, Tk, H, D,
-            Dv, 1.0 / D ** 0.5,
+            Dv, scale,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
@@ -348,19 +441,27 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the Hopper backward (prologue, main kernel and, for bf16,
-    the dQ cast; the path :func:`launch_config` names) on PyTorch's
-    current stream; returns contiguous ``(dq, dk, dv)`` in q's dtype, dv
-    of v's depth. ``do`` may be any strided view (it is
-    copied when the kernel cannot read it in place). Raises like
-    :func:`flash_attention_fwd`; never falls back to the plain version."""
+    the dQ cast; on the pair :func:`padded_pair` names, the path
+    :func:`launch_config` names for it) on PyTorch's current stream;
+    returns contiguous ``(dq, dk, dv)`` in q's dtype, dv of v's depth.
+    ``do`` may be any strided view (it is copied when the kernel cannot
+    read it in place). Raises like :func:`flash_attention_fwd`; never
+    falls back to the plain version."""
     _check("flash_attention_bwd", q, k, v, o=o, do=do)
-    B, Tq, H, D = q.shape
-    Tk, Dv = k.shape[1], v.shape[3]
+    B, Tq, H, _ = q.shape
     if (lse.shape != (B, H, Tq) or lse.dtype != torch.float32
             or lse.device != q.device):
         raise ValueError(
             f"flash_attention_bwd: lse must be float32 {(B, H, Tq)} on "
             f"{q.device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    return run_padded_bwd(_launch_bwd_built, q, k, v, o, do, lse)
+
+
+def _launch_bwd_built(q, k, v, o, do, lse, scale: float):
+    """One backward on a built pair at ``scale``; counts
+    ``flash_attention_bwd.launches``."""
+    B, Tq, H, D = q.shape
+    Tk, Dv = k.shape[1], v.shape[3]
     q, k, v, o, do = (_aligned(x) for x in (q, k, v, o, do))
     lse = lse.contiguous()
     lib = load_library("flash_attention_bwd")
@@ -380,7 +481,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            int(is_bf16), B, Tq, Tk, H, D, Dv, 1.0 / D ** 0.5,
+            int(is_bf16), B, Tq, Tk, H, D, Dv, scale,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3], *do.stride()[:3],
             stream,

@@ -1,13 +1,18 @@
 """Per-row affine 1-D resample: the Hopper kernel and its plain version
 (counterpart of ``pose3d_tpu/ops/pallas/lane_resample.py``).
 
-``x`` ``[N, W]`` fp32, ``a`` and ``o`` ``[N]`` fp32 give ``out`` ``[N, W]``
-fp32 with ``out[n, j]`` = row n sampled at ``p = a[n]·j + o[n]``: order 1
+``x`` ``[N, W]`` fp32 or bf16, ``a`` and ``o`` ``[N]`` fp32 give ``out``
+``[N, W]`` in x's dtype with ``out[n, j]`` = row n sampled at ``p = a[n]·j + o[n]``: order 1
 is two-tap linear with partial edge weights (positions in (−1, 0) and
 (W−1, W) blend toward the constant 0), order 0 is the pixel
 ``floor(p + 0.5)``; anything outside ``[0, W−1]`` contributes 0. These are
 the semantics of ``map_coordinates(order, mode="constant", cval=0)`` along
 one axis. No gradient flows through it: the augmentor warps data.
+As in the TPU kernel, the positions stay fp32 and everything after them is
+in x's dtype: the weight ``p − floor(p)`` is cast to it, and the masks,
+products and the sum are rounded to it one by one (in bf16 the kernel
+rounds each fp32 result, the plain version lets PyTorch's bf16 operators
+do the same). The augmentor calls it in fp32.
 
 :func:`lane_resample` launches ``csrc/lane_resample.cu`` and accepts only
 CUDA tensors; :func:`lane_resample_reference` is the plain PyTorch version
@@ -33,14 +38,15 @@ _THREADS = 256
 _MIN_TX = 32
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P] * 4 + [_LL, _I, _I, _I, _P]
+_ARGTYPES = [_P] * 4 + [_LL, _I, _I, _I, _I, _P]
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def lane_resample_reference(x: torch.Tensor, a: torch.Tensor,
                             o: torch.Tensor, order: int = 1) -> torch.Tensor:
-    """Plain PyTorch version: positions, clipped indices, ``gather``, masks
-    and weights, each product and sum rounded on its own (no fused
-    multiply-add), in the kernel's order."""
+    """Plain PyTorch version: fp32 positions, clipped indices, ``gather``,
+    masks and weights in x's dtype, each product and sum rounded on its own
+    (no fused multiply-add), in the kernel's order."""
     if order not in (0, 1):
         raise ValueError(f"lane_resample: order must be 0 or 1, got {order}")
     w = x.shape[1]
@@ -56,7 +62,7 @@ def lane_resample_reference(x: torch.Tensor, a: torch.Tensor,
         v, valid = take(torch.floor(p + 0.5))
         return v * valid
     f = torch.floor(p)
-    wt = p - f
+    wt = (p - f).to(x.dtype)
     v0, m0 = take(f)
     v1, m1 = take(f + 1)
     return v0 * m0 * (1.0 - wt) + v1 * m1 * wt
@@ -93,10 +99,14 @@ def _check(x: torch.Tensor, a: torch.Tensor, o: torch.Tensor,
     if a.shape != (n,) or o.shape != (n,):
         raise ValueError(f"lane_resample: a and o must be [{n}], got "
                          f"{tuple(a.shape)} and {tuple(o.shape)}")
-    for name, t in (("x", x), ("a", a), ("o", o)):
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"lane_resample: x is {x.dtype}; the kernel takes "
+                         "float32 or bfloat16")
+    for name, t in (("a", a), ("o", o)):
         if t.dtype != torch.float32:
             raise ValueError(f"lane_resample: {name} is {t.dtype}; the "
-                             "kernel is float32 only")
+                             "positions are float32")
+    for name, t in (("x", x), ("a", a), ("o", o)):
         if not t.is_contiguous():
             raise ValueError(
                 f"lane_resample: {name} is not contiguous (strides "
@@ -111,8 +121,8 @@ def _check(x: torch.Tensor, a: torch.Tensor, o: torch.Tensor,
 def lane_resample(x: torch.Tensor, a: torch.Tensor, o: torch.Tensor,
                   order: int = 1) -> torch.Tensor:
     """Launch the Hopper kernel on PyTorch's current stream. Raises on
-    anything it does not take (non-CUDA tensors, other dtypes, tensors that
-    are not contiguous) and when the launch is refused; it never copies an
+    anything it does not take (non-CUDA tensors, x neither fp32 nor bf16,
+    positions other than fp32, tensors that are not contiguous) and when the launch is refused; it never copies an
     input and never falls back to the plain version.
 
     The output carries no autograd graph, so with grad mode on it raises
@@ -134,7 +144,8 @@ def lane_resample(x: torch.Tensor, a: torch.Tensor, o: torch.Tensor,
     with on_device:
         rc = lib.pose3d_lane_resample(
             x.data_ptr(), a.data_ptr(), o.data_ptr(), out.data_ptr(), n, w,
-            order, tx, torch.cuda.current_stream().cuda_stream)
+            order, tx, int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
     _build.raise_if_failed(lib, "lane_resample", rc)
     lane_resample.launches += 1
     return out

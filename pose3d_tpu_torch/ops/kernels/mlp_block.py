@@ -28,6 +28,15 @@ CPU tensor or when asked for by ``impl="reference"``. No model calls it
 (as in the JAX package, where the op stands alone); :func:`mlp_params`
 carries a module's parameters across.
 
+Widths: like the TPU kernel, the launchers take any D up to :data:`MAX_D`
+(1,280, ViT-H's) and any H. The kernels take multiples of 16; other
+widths are zero-padded to them (:func:`run_padded_fwd`): padded hidden
+units have zero weights and bias, GELU(0) = 0, so they add nothing, and
+padded columns of D are sliced off every output. Above 768 the WMMA and
+fp32 kernels split D's output columns across blocks (``slices`` in
+:func:`launch_config`), each block still summing x·w1 and g·w2ᵀ over all
+of D before the GELU.
+
 The plain versions round only where the kernels round: a bf16
 ``torch.matmul`` would return bf16 and so round ``a`` before the GELU and
 ``dga`` before its product, hence every product here is taken in fp32 of
@@ -52,10 +61,13 @@ from pose3d_tpu_torch.ops.kernels._launch import (
 
 IMPLS = ("auto", "reference")
 _DTYPES = (torch.bfloat16, torch.float32)
-# a block keeps its [rows, D] output tile in registers (two warpgroups
+# the widest D the kernels take (ViT-H's)
+MAX_D = 1280
+# a block keeps its [rows, cols] output tile in registers (two warpgroups
 # with a 384-column slab each; six 16-column fragments to each of eight
-# warps on the WMMA path): D <= 768
-MAX_D = 768
+# warps on the WMMA path): at most 768 columns, so wider D is split into
+# column slices (the wgmma kernels keep D <= 768)
+MAX_COLS = 768
 
 # the kernels' paths, as the C entry points number them
 PATHS = ("scalar", "wmma", "wgmma")
@@ -87,6 +99,20 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def padded_widths(D: int, H: int) -> Tuple[int, int]:
+    """(Dp, Hp): D and H rounded up to the multiples of 16 the kernels
+    run on (the inputs zero-padded to them)."""
+    return 16 * _ceil(D, 16), 16 * _ceil(H, 16)
+
+
+def column_slices(D: int) -> Tuple[int, int]:
+    """(slices, cols): the kernels' split of D's output columns, at most
+    :data:`MAX_COLS` a block, ``cols`` a multiple of 16 (the last slice
+    may be narrower); (1, D) up to 768. Mirrors the C ``column_slices``."""
+    n = _ceil(D, MAX_COLS)
+    return n, 16 * _ceil(D, 16 * n)
+
+
 def launch_config(N: int, D: int, H: int, itemsize: int) -> dict:
     """What the two entry points do for ``x`` ``[N, D]`` of ``itemsize``
     bytes (2: bfloat16, 4: float32) and hidden width ``H``; plain Python
@@ -94,23 +120,30 @@ def launch_config(N: int, D: int, H: int, itemsize: int) -> dict:
     ``_bwd_config`` report the same from the built library,
     :func:`library_config`).
 
-    ``path``: ``"wgmma"`` (bf16, D a multiple of 64: TMA-fed ``wgmma``
-    kernels), ``"wmma"`` (bf16, any other D: the WMMA kernels) or
-    ``"scalar"`` (fp32). ``fwd`` / ``dx`` / ``dw``: ``rows`` a block (a
-    tile for ``dw``), ``blocks``, ``smem`` bytes of dynamic shared memory;
+    ``padded``: (Dp, Hp), the widths the kernels run on
+    (:func:`padded_widths`); everything below is for them. ``slices``,
+    ``cols``: D's output columns split across blocks (:func:`column_slices`;
+    one slice up to 768). ``path``: ``"wgmma"`` (bf16, Dp a multiple of 64
+    up to 768: TMA-fed ``wgmma`` kernels), ``"wmma"`` (bf16, any other Dp:
+    the WMMA kernels) or ``"scalar"`` (fp32). ``fwd`` / ``dx`` / ``dw``:
+    ``rows`` a block (a tile for ``dw``), ``blocks`` (times the slices),
+    ``smem`` bytes of dynamic shared memory;
     ``groups``: the dW kernel's row groups G (its grid is
     ``ceil(H / 32) × G``, about three waves of the card's 132 SMs, no
     group empty; 1 off the wgmma path); ``scratch_bytes``: fp32 scratch
     the backward needs (G partials ``[dW1 | dW2 | db1]`` and db2's
     per-row-block column sums; :func:`mlp_block_bwd` allocates what the
     library itself reports, which ``chip_smoke.py`` holds equal to this)."""
-    if itemsize == 2 and D % 64 == 0:
+    D, H = padded_widths(D, H)
+    widths = {"padded": (D, H)}
+    if itemsize == 2 and D % 64 == 0 and D <= MAX_COLS:
         cblocks, tiles = _ceil(H, _WG_COLS), _ceil(N, _WG_TILE)
         g = max(1, min(tiles, (3 * _SMS) // cblocks))
         groups = _ceil(tiles, _ceil(tiles, g))
         rows2 = max(64, _ceil(N, 256))
         scratch = groups * (2 * D * H + H) + _ceil(N, rows2) * D
         return {
+            **widths, "slices": 1, "cols": D,
             "path": "wgmma", "groups": groups, "scratch_bytes": 4 * scratch,
             "fwd": {"rows": _WG_ROWS, "blocks": _ceil(N, _WG_ROWS),
                     "smem": _WG_SMEM_FWD},
@@ -119,28 +152,36 @@ def launch_config(N: int, D: int, H: int, itemsize: int) -> dict:
             "dw": {"rows": _WG_TILE, "blocks": cblocks * groups,
                    "smem": _WG_SMEM_DW},
         }
+    n, cols = column_slices(D)
+    dw_rows = 32
     if itemsize == 2:
         fwd = 32 * (D + 8) * 2 + 32 * 132 * 4 + 32 * 136 * 2
         dx = 2 * 32 * (D + 8) * 2 + 2 * 32 * 68 * 4 + 32 * 72 * 2
         dw = 2 * 32 * (D + 8) * 2 + 4 * 32 * 20 * 4 + 2 * 32 * 24 * 2
         rows, path = 32, "wmma"
     else:
-        fwd = (2 * 16 * D + 16 * 64) * 4
-        dx = (3 * 16 * D + 2 * 16 * 64) * 4
-        dw = (2 * 32 * D + 2 * 32 * 16) * 4
+        # x (and g) [16, D], the block's output columns [16, cols], chunks
+        fwd = (16 * D + 16 * cols + 16 * 64) * 4
+        dx = (2 * 16 * D + 16 * cols + 2 * 16 * 64) * 4
+        # x and g tiles of 32 rows, or of 16 where those do not fit
+        if (2 * 32 * D + 2 * 32 * 16) * 4 > MAX_SMEM:
+            dw_rows = 16
+        dw = (2 * dw_rows * D + 2 * dw_rows * 16) * 4
         rows, path = 16, "scalar"
     return {
+        **widths, "slices": n, "cols": cols,
         "path": path, "groups": 1, "scratch_bytes": 0,
-        "fwd": {"rows": rows, "blocks": _ceil(N, rows), "smem": fwd},
-        "dx": {"rows": rows, "blocks": _ceil(N, rows), "smem": dx},
-        "dw": {"rows": 32, "blocks": H // 16, "smem": dw},
+        "fwd": {"rows": rows, "blocks": _ceil(N, rows) * n, "smem": fwd},
+        "dx": {"rows": rows, "blocks": _ceil(N, rows) * n, "smem": dx},
+        "dw": {"rows": dw_rows, "blocks": H // 16 * n, "smem": dw},
     }
 
 
 def _bwd_config(lib: ctypes.CDLL, is_bf16: int, N: int, D: int, H: int):
     """The backward's dispatch as its library reports it: path, dx rows,
-    blocks, smem, dW rows, blocks, groups, smem, scratch floats."""
-    out = (ctypes.c_longlong * 9)()
+    blocks, smem, dW rows, blocks, groups, smem, scratch floats, column
+    slices (for the padded widths)."""
+    out = (ctypes.c_longlong * 10)()
     lib.pose3d_mlp_block_bwd_config.argtypes = [_I, _LL, _I, _I, _P]
     lib.pose3d_mlp_block_bwd_config(is_bf16, N, D, H, out)
     return out
@@ -149,15 +190,18 @@ def _bwd_config(lib: ctypes.CDLL, is_bf16: int, N: int, D: int, H: int):
 def library_config(N: int, D: int, H: int, itemsize: int) -> dict:
     """:func:`launch_config` as the built libraries report it (builds
     them at first use; needs the card's toolkit)."""
-    fwd = (ctypes.c_int * 4)()
+    fwd = (ctypes.c_int * 6)()
     is_bf16 = int(itemsize == 2)
+    D, H = padded_widths(D, H)
     lib = load_library("mlp_block_fwd")
     lib.pose3d_mlp_block_fwd_config.argtypes = [_I, _LL, _I, _I, _P]
     lib.pose3d_mlp_block_fwd_config(is_bf16, N, D, H, fwd)
     bwd = _bwd_config(load_library("mlp_block_bwd"), is_bf16, N, D, H)
-    if fwd[0] != bwd[0]:
-        raise RuntimeError(f"forward takes path {fwd[0]}, backward {bwd[0]}")
+    if fwd[0] != bwd[0] or fwd[4] != bwd[9]:
+        raise RuntimeError(f"forward takes path {fwd[0]} over {fwd[4]} "
+                           f"slices, backward {bwd[0]} over {bwd[9]}")
     return {
+        "padded": (D, H), "slices": fwd[4], "cols": fwd[5],
         "path": PATHS[fwd[0]], "groups": bwd[6], "scratch_bytes": 4 * bwd[8],
         "fwd": {"rows": fwd[1], "blocks": fwd[2], "smem": fwd[3]},
         "dx": {"rows": bwd[1], "blocks": bwd[2], "smem": bwd[3]},
@@ -249,11 +293,11 @@ def _check(fn: str, x2, w1, b1, w2, b2, g=None) -> Tuple[int, int, int]:
         if tuple(t.shape) != shape:
             raise ValueError(f"{fn}: {name} must be {shape}, got "
                              f"{tuple(t.shape)}")
-    if D % 16 or H % 16 or D > MAX_D:
+    if D > MAX_D or D < 1 or H < 1:
         raise ValueError(
-            f"{fn}: D={D}, H={H}: the kernels take D and H that are "
-            f"multiples of 16 (tensor-core tiles) and D <= {MAX_D} (a "
-            "block keeps its output tile of width D in registers)")
+            f"{fn}: D={D}, H={H}: the kernels take 1 <= D <= {MAX_D} (the "
+            f"widest, ViT-H's; above {MAX_COLS} the output columns are "
+            "split across blocks, each summing over all of D) and H >= 1")
     named = {"x": x2, "w1": w1, "b1": b1, "w2": w2, "b2": b2}
     if g is not None:
         named["g"] = g
@@ -280,33 +324,85 @@ def _check(fn: str, x2, w1, b1, w2, b2, g=None) -> Tuple[int, int, int]:
     return N, D, H
 
 
+def _pad_to(t: torch.Tensor, *shape: int) -> torch.Tensor:
+    """t zero-padded at the end of each dim to ``shape`` (t itself if it
+    has that shape)."""
+    if tuple(t.shape) == shape:
+        return t
+    pad = []
+    for have, want in zip(reversed(t.shape), reversed(shape)):
+        pad += [0, want - have]
+    return torch.nn.functional.pad(t, pad)
+
+
+def run_padded_fwd(launch, x2, w1, b1, w2, b2) -> torch.Tensor:
+    """``launch(x2, w1, b1, w2, b2) -> out`` at the widths of
+    :func:`padded_widths`: x's columns, w1 and w2 in both dims, b1 and b2
+    zero-padded, the output's padded columns sliced off. The launchers run
+    the kernel through it; the tests run the plain forward through it."""
+    N, D = x2.shape
+    H = w1.shape[1]
+    Dp, Hp = padded_widths(D, H)
+    if (Dp, Hp) == (D, H):
+        return launch(x2, w1, b1, w2, b2)
+    out = launch(_pad_to(x2, N, Dp), _pad_to(w1, Dp, Hp), _pad_to(b1, Hp),
+                 _pad_to(w2, Hp, Dp), _pad_to(b2, Dp))
+    return out[:, :D].contiguous()
+
+
+def run_padded_bwd(launch, x2, w1, b1, w2, b2, g2) -> Tuple[torch.Tensor,
+                                                             ...]:
+    """``launch(x2, w1, b1, w2, b2, g2) -> (dx, dw1, db1, dw2, db2)`` at
+    the padded widths, as :func:`run_padded_fwd` (g's columns padded like
+    x's); the padded rows and columns of every gradient sliced off."""
+    N, D = x2.shape
+    H = w1.shape[1]
+    Dp, Hp = padded_widths(D, H)
+    if (Dp, Hp) == (D, H):
+        return launch(x2, w1, b1, w2, b2, g2)
+    dx, dw1, db1, dw2, db2 = launch(
+        _pad_to(x2, N, Dp), _pad_to(w1, Dp, Hp), _pad_to(b1, Hp),
+        _pad_to(w2, Hp, Dp), _pad_to(b2, Dp), _pad_to(g2, N, Dp))
+    return (dx[:, :D].contiguous(), dw1[:D, :H].contiguous(),
+            db1[:H].contiguous(), dw2[:H, :D].contiguous(),
+            db2[:D].contiguous())
+
+
 def mlp_block_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                   w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """Launch the Hopper forward kernel on PyTorch's current stream: for
-    bf16 with D a multiple of 64 the ``wgmma`` kernel; for bf16 with any
-    other D (a multiple of 16) the WMMA kernel, by the shape alone and never
-    because the other failed; for fp32 the scalar kernel
-    (:func:`launch_config` says which, and the tile and grid).
+    """Launch the Hopper forward kernel on PyTorch's current stream, at
+    D and H padded to multiples of 16 (:func:`run_padded_fwd`): for bf16
+    with D a multiple of 64 up to 768 the ``wgmma`` kernel; for bf16 with
+    any other D the WMMA kernel, by the shape alone and never because the
+    other failed; for fp32 the scalar kernel (:func:`launch_config` says
+    which, and the tile, grid and column slices).
     ``w1`` and ``w2`` must already be in x's dtype and ``b1``, ``b2`` in
     fp32 (:func:`fused_mlp` casts them). Raises on anything the kernel does
     not take (non-CUDA tensors, other dtypes, tensors that are not
-    contiguous, D or H not a multiple of 16, D > 768) and when the launch
-    is refused; it never copies and never falls back to the plain version.
+    contiguous, D > 1280) and when the launch is refused; it copies only
+    to pad a width and never falls back to the plain version.
     With grad mode on it raises for an input that requires grad:
     differentiate through :func:`fused_mlp`."""
     refuse_grad_inputs("mlp_block_fwd", "fused_mlp()", x, w1, b1, w2, b2)
     x2 = rows_view("mlp_block_fwd", x)
-    N, D, H = _check("mlp_block_fwd", x2, w1, b1, w2, b2)
-    out = torch.empty((N, D), dtype=x.dtype, device=x.device)
+    _check("mlp_block_fwd", x2, w1, b1, w2, b2)
+    return run_padded_fwd(_launch_fwd, x2, w1, b1, w2, b2).view(x.shape)
+
+
+def _launch_fwd(x2, w1, b1, w2, b2) -> torch.Tensor:
+    """One launch of the forward at widths that are multiples of 16."""
+    N, D = x2.shape
+    H = w1.shape[1]
+    out = torch.empty((N, D), dtype=x2.dtype, device=x2.device)
     lib = load_library("mlp_block_fwd")
-    with on_device(x.device):
+    with on_device(x2.device):
         rc = lib.pose3d_mlp_block_fwd(
             x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
+            b2.data_ptr(), out.data_ptr(), int(x2.dtype == torch.bfloat16),
             N, D, H, torch.cuda.current_stream().cuda_stream)
     _build.raise_if_failed(lib, "mlp_block_fwd", rc)
     mlp_block_fwd.launches += 1
-    return out.view(x.shape)
+    return out
 
 
 mlp_block_fwd.launches = 0
@@ -333,28 +429,38 @@ def mlp_block_bwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if not g.is_contiguous():
         raise ValueError(f"mlp_block_bwd: g is not contiguous (strides "
                          f"{g.stride()}); the kernel never copies")
-    N, D, H = _check("mlp_block_bwd", x2, w1, b1, w2, b2, g.view(x2.shape))
+    _check("mlp_block_bwd", x2, w1, b1, w2, b2, g.view(x2.shape))
+    dx, dw1, db1, dw2, db2 = run_padded_bwd(_launch_bwd, x2, w1, b1, w2, b2,
+                                            g.view(x2.shape))
+    return dx.view(x.shape), dw1, db1, dw2, db2
+
+
+def _launch_bwd(x2, w1, b1, w2, b2, g2) -> Tuple[torch.Tensor, ...]:
+    """One backward (one launch counted) at widths that are multiples of
+    16."""
+    N, D = x2.shape
+    H = w1.shape[1]
     f32 = torch.float32
-    dx = torch.empty((N, D), dtype=x.dtype, device=x.device)
-    dw1 = torch.empty((D, H), dtype=f32, device=x.device)
-    dw2 = torch.empty((H, D), dtype=f32, device=x.device)
-    db1 = torch.empty((H,), dtype=f32, device=x.device)
-    db2 = torch.empty((D,), dtype=f32, device=x.device)
+    dx = torch.empty((N, D), dtype=x2.dtype, device=x2.device)
+    dw1 = torch.empty((D, H), dtype=f32, device=x2.device)
+    dw2 = torch.empty((H, D), dtype=f32, device=x2.device)
+    db1 = torch.empty((H,), dtype=f32, device=x2.device)
+    db2 = torch.empty((D,), dtype=f32, device=x2.device)
     lib = load_library("mlp_block_bwd")
-    is_bf16 = int(x.dtype == torch.bfloat16)
+    is_bf16 = int(x2.dtype == torch.bfloat16)
     # the scratch's size from the library that will check it
     n_scratch = _bwd_config(lib, is_bf16, N, D, H)[8]
-    scratch = torch.empty((n_scratch,), dtype=f32, device=x.device)
-    with on_device(x.device):
+    scratch = torch.empty((n_scratch,), dtype=f32, device=x2.device)
+    with on_device(x2.device):
         rc = lib.pose3d_mlp_block_bwd(
             x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            g.data_ptr(), dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+            g2.data_ptr(), dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
             dw2.data_ptr(), db2.data_ptr(), scratch.data_ptr(), n_scratch,
             is_bf16, N, D, H,
             torch.cuda.current_stream().cuda_stream)
     _build.raise_if_failed(lib, "mlp_block_bwd", rc)
     mlp_block_bwd.launches += 1
-    return dx.view(x.shape), dw1, db1, dw2, db2
+    return dx, dw1, db1, dw2, db2
 
 
 mlp_block_bwd.launches = 0

@@ -40,6 +40,19 @@ def inter_joint_distance_per_sample(pred: torch.Tensor,
     return (err * mask).sum((1, 2)) / mask.sum()
 
 
+def inter_joint_distance_loss(pred: torch.Tensor,
+                              gt: torch.Tensor) -> torch.Tensor:
+    """Mean |pairwise-dist(pred) − pairwise-dist(gt)| over the unique joint
+    pairs and the batch."""
+    return inter_joint_distance_per_sample(pred, gt).mean()
+
+
+def abs_root_distance_loss(pred: torch.Tensor, gt: torch.Tensor,
+                           root_index: int = 0) -> torch.Tensor:
+    """Mean absolute offset of the root joint."""
+    return (pred[:, root_index, :] - gt[:, root_index, :]).abs().mean()
+
+
 def composite_pose_loss_per_sample(
     pred: torch.Tensor, gt: torch.Tensor,
     weights: LossWeights = LossWeights(),

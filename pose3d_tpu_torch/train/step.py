@@ -403,3 +403,42 @@ def make_eval_step(weights: LossWeights = LossWeights(), *,
         return metrics, out
 
     return step
+
+
+def make_predict_fn(model, mesh=None, device=None):
+    """Return ``predict(image, depth, keypoints_2d) -> joints``: the
+    model's eval-mode forward without gradient (the JAX
+    ``make_predict_fn``; the port's model holds its own parameters, so no
+    variables are passed). Inputs, numpy arrays or tensors, go to
+    ``device`` (default: the device of the model's parameters); float
+    images and metric depths as the model takes them.
+
+    ``mesh``: every rank passes the whole batch, computes its rows (as
+    :func:`make_eval_step`) and returns the whole batch's joints, gathered
+    in order."""
+    bt = _Batch(mesh)
+    dev = (torch.device(device) if device is not None
+           else next(model.parameters()).device)
+
+    @torch.no_grad()
+    def predict(image, depth, keypoints_2d):
+        args = [torch.as_tensor(x).to(dev)
+                for x in (image, depth, keypoints_2d)]
+        n = args[0].shape[0]
+        if bt.n > 1:
+            rows = batch_rows(n, mesh)
+            args = [x[rows] for x in args]
+        was_training = model.training
+        model.eval()
+        try:
+            if args[0].shape[0] == 0:   # a ragged batch left none here
+                out = args[2].new_zeros(0, args[2].shape[1], 3)
+            else:
+                out = model(*args)
+        finally:
+            model.train(was_training)
+        if bt.n > 1:
+            out = all_gather_cat(out, bt.group, 0, chunk_sizes(n, bt.n))
+        return out
+
+    return predict

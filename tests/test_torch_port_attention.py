@@ -100,8 +100,10 @@ def _t(*shape, dtype=torch.float32):
 
 def test_wrappers_take_the_psa_pair_and_name_the_pairs_built():
     """(D 32, Dv 64) passes every check but the device one (these are CPU
-    tensors); a pair that is not built is refused with the list of those
-    that are, by both launchers, before any launch."""
+    tensors); so does (32, 48), a pair that is not built, which the
+    launchers run on the built (32, 64) (:func:`padded_pair`); a value
+    depth past 256 is refused with the limit and the widest pair built, by
+    both launchers, before any launch."""
     q, k, v = _t(1, 4, 2, 32), _t(1, 5, 2, 32), _t(1, 5, 2, 64)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_fwd(q, k, v)
@@ -109,12 +111,20 @@ def test_wrappers_take_the_psa_pair_and_name_the_pairs_built():
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_bwd(q, k, v, o, o, lse)
     before = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
-    bad_v = _t(1, 5, 2, 48)
-    with pytest.raises(ValueError, match=r"\(32, 64\)"):
-        fa.flash_attention_fwd(q, k, bad_v)
-    with pytest.raises(ValueError, match="value depth Dv=48"):
-        fa.flash_attention_bwd(q, k, bad_v, _t(1, 4, 2, 48), _t(1, 4, 2, 48),
+    assert fa.padded_pair(32, 48) == (32, 64)
+    v48 = _t(1, 5, 2, 48)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_fwd(q, k, v48)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_bwd(q, k, v48, _t(1, 4, 2, 48), _t(1, 4, 2, 48),
                                lse)
+    bad_v = _t(1, 5, 2, 264)
+    with pytest.raises(ValueError, match=r"256 \(the widest pair built is "
+                       r"\(256, 256\)\)"):
+        fa.flash_attention_fwd(q, k, bad_v)
+    with pytest.raises(ValueError, match="value depth Dv=264"):
+        fa.flash_attention_bwd(q, k, bad_v, _t(1, 4, 2, 264),
+                               _t(1, 4, 2, 264), lse)
     with pytest.raises(ValueError, match="q's shape with v's depth"):
         fa.flash_attention_bwd(q, k, v, o, _t(1, 4, 2, 32), lse)
     assert (fa.flash_attention_fwd.launches,

@@ -196,6 +196,133 @@ def test_cuda_backward_reaches_the_patch_embedding():
                           atol=1e-5)
 
 
+# (B, Tq, Tk, H, D, Dv) off the built pairs: run on the smallest built pair
+# that holds them (padded_pair), the widest (256, 256) among them
+PADDED_SHAPES = [(2, 70, 33, 4, 96, 96), (1, 33, 70, 2, 200, 200),
+                 (2, 65, 129, 2, 48, 96), (2, 17, 17, 4, 8, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_takes_every_depth_up_to_256(dtype):
+    """Depths off the built pairs, against the plain pair at the true
+    depths: one launch of each kernel a call, o, lse, dk, dv bitwise on a
+    repeat; past 256 both launchers refuse before any launch."""
+    _cuda()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(16)
+    for B, Tq, Tk, H, D, Dv in PADDED_SHAPES:
+        q = torch.randn(B, Tq, H, D, generator=g, device="cuda").to(dt)
+        k = torch.randn(B, Tk, H, D, generator=g, device="cuda").to(dt)
+        v = torch.randn(B, Tk, H, Dv, generator=g, device="cuda").to(dt)
+        dy = torch.randn(B, Tq, H, Dv, generator=g, device="cuda").to(dt)
+        before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+        o, lse = flash_attention_fwd(q, k, v)
+        grads = flash_attention_bwd(q, k, v, o, dy, lse)
+        torch.cuda.synchronize()
+        assert (flash_attention_fwd.launches, flash_attention_bwd.launches) \
+            == (before[0] + 1, before[1] + 1)
+        ro, rlse = flash_attention_fwd_reference(q, k, v)
+        assert o.shape == (B, Tq, H, Dv) and o.dtype == dt
+        assert (o.float() - ro.float()).abs().max().item() <= TOL[dtype]
+        assert (lse - rlse).abs().max().item() <= 1e-3
+        assert torch.equal(o, flash_attention_fwd(q, k, v)[0])
+        again = flash_attention_bwd(q, k, v, o, dy, lse)
+        refs = flash_attention_bwd_reference(q, k, v, o, dy, lse)
+        for x, y, r in zip(grads, again, refs):
+            assert x.shape == r.shape
+            tol = 1.5 * TOL[dtype] * max(1.0, r.float().abs().max().item())
+            assert (x.float() - r.float()).abs().max().item() <= tol
+        assert torch.equal(grads[1], again[1]) and torch.equal(grads[2],
+                                                               again[2])
+    deep = torch.zeros(1, 4, 1, 264, device="cuda", dtype=dt)
+    before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+    with pytest.raises(ValueError, match="256"):
+        flash_attention_fwd(deep, deep, deep)
+    assert (flash_attention_fwd.launches,
+            flash_attention_bwd.launches) == before
+
+
+@pytest.mark.cuda
+def test_transformer_heads_8_backward_reaches_the_patch_embedding():
+    """A lifter whose fusion and final blocks run head depth 8 (embed 64
+    over 8 heads: off the built pairs, padded to (16, 16)) trains through
+    the kernels on the card: 3 backward launches (2 fusion, 1 final), the
+    patch embedding's gradient as the plain pair's."""
+    _cuda()
+    cfg = TransformerModelConfig(
+        image_size=(64, 64), heatmap_size=32, transformer_embed_dim=64,
+        transformer_heads=8, vit_depth=1, vit_heads=4, final_encoder_depth=1,
+        num_cross_modal_layers=1, regression_hidden_dims=(32, 16),
+        transformer_dropout_rate=0.0, regression_dropout=0.0)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    args = (torch.rand(2, 64, 64, 3, generator=g, device="cuda"),
+            torch.rand(2, 64, 64, 1, generator=g, device="cuda"),
+            torch.rand(2, 17, 2, generator=g, device="cuda"))
+    grads = {}
+    for impl in ("auto", "reference"):
+        model = build_model(cfg, device="cuda", dtype=torch.float32,
+                            attention_impl=impl, train=True,
+                            generator=torch.Generator("cuda").manual_seed(0))
+        before = flash_attention_bwd.launches
+        model(*args).square().sum().backward()
+        launched = flash_attention_bwd.launches - before
+        assert launched == (4 if impl == "auto" else 0)  # + 1 ViT block
+        grads[impl] = model.vit_backbone.patch_embed.proj.weight.grad
+    assert grads["auto"] is not None and grads["auto"].abs().sum() > 0
+    assert torch.allclose(grads["auto"], grads["reference"], rtol=1e-3,
+                          atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [0, 1])
+def test_lane_resample_bf16_matches_plain_version(order):
+    """bf16 rows, fp32 positions: kernel and plain version round each
+    operation alike, so they agree bit for bit in both orders."""
+    _cuda()
+    g = torch.Generator(device="cuda").manual_seed(18 + order)
+    for n, w in LR_SHAPES:
+        x, a, o = lane_resample_inputs(n, w, g)
+        x = x.bfloat16()
+        got = lane_resample(x, a, o, order)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and got.shape == (n, w)
+        assert torch.equal(got, lane_resample_reference(x, a, o, order))
+        assert torch.equal(got, lane_resample(x, a, o, order))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_mlp_block_takes_every_width_up_to_1280(dtype):
+    """ViT-H's D 1,280 (two column slices) and odd widths (zero-padded)
+    against the plain version, one launch a call, repeats bitwise; past
+    1,280 refused."""
+    _cuda()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    for lead, D, H in (((70,), 1280, 5120), ((33,), 40, 100),
+                       ((9,), 776, 3104)):
+        x, w1, b1, w2, b2, dy = _mlp_inputs(lead, D, H, dt, g)
+        before = (mb.mlp_block_fwd.launches, mb.mlp_block_bwd.launches)
+        out = mb.mlp_block_fwd(x, w1, b1, w2, b2)
+        grads = mb.mlp_block_bwd(x, w1, b1, w2, b2, dy)
+        torch.cuda.synchronize()
+        assert (mb.mlp_block_fwd.launches, mb.mlp_block_bwd.launches) \
+            == (before[0] + 1, before[1] + 1)
+        assert out.shape == x.shape
+        assert _rel_err(out, mb.mlp_block_fwd_reference(x, w1, b1, w2, b2)) \
+            <= TOL_MLP[dtype]
+        assert torch.equal(out, mb.mlp_block_fwd(x, w1, b1, w2, b2))
+        refs = mb.mlp_block_bwd_reference(x, w1.float(), b1, w2.float(), b2,
+                                          dy)
+        for a, r in zip(grads, refs):
+            assert a.shape == r.shape
+            assert _rel_err(a, r) <= TOL_MLP[dtype]
+    x, w1, b1, w2, b2, _ = _mlp_inputs((4,), 1296, 64, dt, g)
+    with pytest.raises(ValueError, match="1280"):
+        mb.mlp_block_fwd(x, w1, b1, w2, b2)
+
+
 # (Tq, Tk, H, D): the edges of the wgmma kernels' tiles (64 query rows a
 # warpgroup, 128 a forward block, 128 keys a tile and a backward block, 64
 # query rows a backward tile) at the lifter's depths, and query against key
@@ -489,8 +616,8 @@ def test_lane_resample_matches_plain_version(order):
     before = lane_resample.launches
     with pytest.raises(ValueError, match="not contiguous"):
         lane_resample(x[:, ::2], a, o, order)
-    with pytest.raises(ValueError, match="float32 only"):
-        lane_resample(x.bfloat16(), a, o, order)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        lane_resample(x.half(), a, o, order)
     with pytest.raises(ValueError, match="CUDA"):
         lane_resample(x, a.cpu(), o, order)
     assert lane_resample.launches == before
@@ -791,10 +918,20 @@ def test_mlp_block_kernels_match_plain_version(dtype):
             assert a.dtype == (dt if name == "dx" else torch.float32), name
             assert torch.equal(a, b), (lead, D, H, name)     # no atomics
             assert _rel_err(a, r) <= TOL_MLP[dtype], (lead, D, H, name)
+    # a width that is no multiple of 16 runs zero-padded to one (one
+    # launch), against the plain version at the true width; past 1,280 it
+    # is refused, naming the limit
+    narrow = (x[..., :8].contiguous(), w1[:8].contiguous(), b1,
+              w2[:, :8].contiguous(), b2[:8].contiguous())
     before = mb.mlp_block_fwd.launches
-    with pytest.raises(ValueError, match="multiples of 16"):
-        mb.mlp_block_fwd(x[..., :8].contiguous(), w1[:8].contiguous(), b1,
-                         w2[:, :8].contiguous(), b2[:8].contiguous())
+    out = mb.mlp_block_fwd(*narrow)
+    assert mb.mlp_block_fwd.launches == before + 1 and out.shape[-1] == 8
+    assert _rel_err(out, mb.mlp_block_fwd_reference(*narrow)) \
+        <= TOL_MLP[dtype]
+    wide = _mlp_inputs((4,), 1296, 64, dt, g)
+    before = mb.mlp_block_fwd.launches
+    with pytest.raises(ValueError, match="1280"):
+        mb.mlp_block_fwd(*wide[:5])
     with pytest.raises(ValueError, match="not contiguous"):
         mb.mlp_block_fwd(x, w2.t(), b1, w2, b2)
     with pytest.raises(ValueError, match="CUDA"):

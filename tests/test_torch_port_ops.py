@@ -144,8 +144,9 @@ def _t(*shape, dtype=torch.float32):
 @pytest.mark.parametrize("args,match", [
     ((_t(1, 4, 2, 64),) * 3, "CUDA"),
     ((_t(1, 4, 2, 64, dtype=torch.float16),) * 3, "float16"),
-    ((_t(1, 4, 2, 40),) * 3, "head dim"),
-    ((_t(1, 4, 2, 64), _t(1, 5, 2, 64), _t(1, 5, 2, 32)), "value depth"),
+    # depths off the built pairs run padded; past 256 they are refused
+    ((_t(1, 4, 2, 264),) * 3, "head dim"),
+    ((_t(1, 4, 2, 64), _t(1, 5, 2, 64), _t(1, 5, 2, 300)), "value depth"),
     ((_t(1, 4, 2, 64), _t(1, 0, 2, 64), _t(1, 0, 2, 64)), "empty"),
     ((_t(4, 2, 64),) * 3, r"\[B, T, H, D\]"),
 ])
