@@ -43,22 +43,32 @@ Phases, each fatal on failure:
      depths 8, 24, 80, 96, 200 and 256 and the pairs (48, 96) and (24, 40),
      in bf16 and fp32, ragged, and at transformer_heads=8's B 8 x (1025,
      1025, 8, 96), each run on the smallest built pair that holds it
-     (``padded_pair``; the (256, 256) pair's backward on 32-key blocks),
-     its path and plan asserted from ``launch_config`` and the built
-     libraries, o, lse, dk and dv bitwise on a repeat; a depth of 264
-     refused on the card; ``lane_resample`` in bf16, equal to its plain
-     version in both orders; ``mlp_block`` past D 1,280 refused (ViT-L's
-     and ViT-H's widths and the odd widths 40 and 776 run in phase 3's
-     row-op check, with D's column slices asserted); one full-width
-     training step with ``transformer_heads=8`` (B 2 x A 1, dropout off)
-     through the kernels against the plain pair, fp32 and bf16, its first
-     layer's gradient finite and nonzero; and the times of the new shapes:
-     attention at (8, 1025, 1025, 8, 96) and (8, 1025, 1025, 3, 256)
-     beside cuDNN's time at each (phase 6 times the lifter's (8, 1025,
-     1025, 12, 64)),
-     ``mlp_block`` at ViT-L's and ViT-H's widths beside ``F.linear →
-     F.gelu → F.linear``, bf16 ``lane_resample`` on the CNN's first warp
-     pass;
+     (``padded_pair``; the (256, 256) pair's backward on 32-key blocks);
+     past 256 on the deep instance (D and Dv padded to multiples of 64,
+     the scores summed in 64-column chunks, output columns in slices of
+     128): (384, 384), (768, 768), (384, 768), (300, 40), (1024, 1024)
+     and D = Dv = 264 (once refused); each with its path and plan
+     asserted from ``launch_config`` and the built libraries, o, lse, dk
+     and dv bitwise on a repeat (the deep kernels' ptxas report read in
+     phase 3: a spill fails, and their backward is held on rows of very
+     negative scores there); ``lane_resample`` in bf16, equal to its plain
+     version in both orders; ``mlp_block`` at D 1,296 (once refused),
+     streamed in two chunks (ViT-L's and ViT-H's widths, the streamed
+     (1,344, 5,376), (2,048, 2,048) and (4,096, 512) and the odd widths 40
+     and 776 run in phase 3's row-op check, with D's column slices and
+     chunks asserted); one full-width training step each with
+     ``transformer_heads=8`` and ``=2`` (B 2 x A 1, dropout off) through
+     the kernels against the plain pair, fp32 and bf16, within phase 5's
+     step bounds: the loss, the whole gradient and each fusion and final
+     attention block's gradient; its first layer's gradient finite and
+     nonzero; a full-width ``transformer_heads=1``
+     batch-8 forward served through ``serve.make_serving_fn`` against a
+     direct forward; and the times of the new shapes: attention at (8,
+     1025, 1025, 8, 96), (8, 1025, 1025, 3, 256), (8, 1025, 1025, 2, 384)
+     and (8, 1025, 1025, 1, 768) beside cuDNN's time at each (phase 6
+     times the lifter's (8, 1025, 1025, 12, 64)),
+     ``mlp_block`` at the wide widths beside ``F.linear → F.gelu →
+     F.linear``, bf16 ``lane_resample`` on the CNN's first warp pass;
   4. slice (serving): the full published transformer config (random
      weights from a seeded generator) saved as a reference-schema ``.pth``,
      served by the port's HTTP server, answering concurrent ``/predict``
@@ -113,10 +123,10 @@ Phases, each fatal on failure:
      printed), and a ``torch.profiler`` split of that step; (d)
      ``evaluate`` over a full and a ragged batch, and (a)'s ``.pth`` served
      and answering one ``/predict``; (e) the same CNN trained by
-     ``train_model(augment=make_device_augment(cfg))``: 3 grouped steps
+     ``train_model(augment=make_device_augment(cfg))``: 2 grouped steps
      with rotation on (the two-pass warp, 4 ``lane_resample`` launches per
-     step), 3 grouped steps with rotation off (the separable warp, no
-     launch), 2 scan steps with rotation on (40 launches per step), each
+     step), 2 grouped steps with rotation off (the separable warp, no
+     launch), 1 scan step with rotation on (40 launches), each
      timed beside the un-augmented step (host clock, and the device
      kernels' own time of one step each from ``torch.profiler``), and
      evaluated after;
@@ -163,8 +173,8 @@ Phases, each fatal on failure:
      own process, with the sample counts, the routing by subject and the
      shuffled set checked; ``PoseAugmentor``'s time a sample at 500×500;
      the host feed alone, twice with and twice without the augmentor;
-     the full-width CNN (4 grouped 10×10 steps, no kernel) and the
-     transformer (4 steps and a validation, 20 attention launches a pass
+     the full-width CNN (3 grouped 10×10 steps, no kernel) and the
+     transformer (3 steps and a validation, 20 attention launches a pass
      each way) trained with ``--augment`` from the shuffled archives,
      beside the same runs without it, their step times read after the
      first epoch; a ``batch_pallas:N`` CNN in scan for
@@ -185,7 +195,8 @@ Phases, each fatal on failure:
      against a direct forward on the same decompacted inputs; (d)
      ``cli.export`` of both lifters (dynamic ``xla``, the transformer's
      ``pallas`` with the custom operator in its graph and 20 launches a
-     call, ``--batch-size 8``, ``--quantize int8``), each artifact against
+     call, the transformer's ``--batch-size 8``, ``--quantize int8``),
+     each artifact against
      the live model at batches 1, 3 and 8 (int8: the dequantised weights'),
      the ``xla`` ones in a process that cannot import the port; (e)
      ``serve_http --artifact`` of the ``pallas`` and the static artifacts,
@@ -223,10 +234,11 @@ Phases, each fatal on failure:
      parameter + moment bytes; (c) the
      untrained stage-1 provider over two replicas on the card against one.
  15. tools: (a) ``python -m pose3d_tpu_torch.cli.doctor --probe --json`` in
-     its own process: the card the environment phase found, with its power
-     limit, and all eight kernel libraries loaded, its probes logged; then,
-     started before phase 14 and run beside it, side by side, each in
-     processes of its own, (b)
+     its own process, after phase 14 and beside the end of (b)–(d): the
+     card the environment phase found, with its power limit, and all eight
+     kernel libraries loaded, its probes logged (taken beside that other
+     work: informational); (b)–(d) started before phase 14 and run beside
+     it, side by side, each in processes of its own, (b)
      ``scripts/torch_lifecycle_e2e.py`` for the CNN and the transformer
      (head depth 16): train, SIGTERM, ``--checkpoint auto`` resume held
      bitwise to an uninterrupted control (both families: every attention
@@ -247,7 +259,8 @@ runs, ``data_launches`` on phase 11's, ``export_launches`` on phase 12's,
 ``stage1_launches`` on phase 13's main path, ``parallel_launches`` on each
 of phase 14's two ranks, ``tools_launches`` summed over phase 15's
 processes, ``contract_launches`` on phase 3b's ``transformer_heads=8``
-step, ``contract_times`` the times of phase 3b's shapes)
+and ``=2`` steps and ``=1`` served forward, ``contract_times`` the times of
+phase 3b's shapes)
 and, last, one JSON line ``{"ok": true, "device": {...}}``. Without CUDA,
 or without the repository beside it, the script exits non-zero and prints
 no result.
@@ -307,8 +320,11 @@ PSA_SHAPE = (400, 400, 6, 32, 64)
 # (T, H, D) of self-attention whose every score is about -110 (q along a
 # direction, k against it), so each row's lse is below -100: the rows a
 # trained lifter gives some tokens. Keys past Tk must add nothing to dQ;
-# T = 130 and 257 leave 2 and 1 keys in the last 128-key block.
-LOW_LSE_SHAPES = [(130, 2, 48), (130, 2, 64), (257, 4, 48)]
+# T = 130 and 257 leave 2 and 1 keys in the last 128-key block. The deep
+# instance's backward at transformer_heads 2 and 1's depths (384, 768)
+# masks its last key block's rows the same way (F15).
+LOW_LSE_SHAPES = [(130, 2, 48), (130, 2, 64), (257, 4, 48), (130, 2, 384),
+                  (257, 1, 768)]
 LOW_LSE_SCORE = 110.0
 # (Tq, Tk, H, D) at head depth 16, on the WMMA (bf16) and scalar (fp32)
 # kernels, at B 2 like the cases above: one token, and lengths across a
@@ -330,15 +346,26 @@ TOOLS_ATTN_SHAPES = ([(b, Tq, Tk, 4, 16) for b in (4, 8) for Tq, Tk in
 # (padded_pair), in bf16 and fp32: D 96 (transformer_heads=8 at embed
 # 768), 80 (ViT-H's), 200 and 256 (the widest, on the (256, 256) instance:
 # 32 keys a backward block), 8 and 24, (48, 96) and (24, 40), at ragged
-# lengths, and transformer_heads=8's B 8 x (1025, 1025, 8, 96); a depth
-# past 256 must be refused. Then the times of the padded route at
-# (B, Tq, Tk, H, D) in bf16.
+# lengths, and transformer_heads=8's B 8 x (1025, 1025, 8, 96); past 256
+# the deep instance (D and Dv padded to multiples of 64, the scores summed
+# in 64-column chunks, output columns in slices of 128): transformer_heads
+# 2 and 1 at embed 768 (384, 768), a value depth twice the key depth, one
+# side past 256 beside a narrow other, 1,024, and the lifter's own B 2 x
+# (1025, 1025) at 384 and 768 (the full-width steps' shapes); and D = Dv =
+# 264, which was refused before the deep instance (DEEP_ONCE_REFUSED). Then
+# the times of the padded and deep routes at (B, Tq, Tk, H, D) in bf16.
 PADDED_ATTN = [(2, 130, 67, 4, 96, 96), (2, 67, 130, 3, 200, 200),
                (2, 65, 33, 2, 256, 256), (2, 100, 100, 4, 80, 80),
                (2, 33, 70, 4, 8, 8), (2, 70, 33, 4, 24, 24),
                (2, 129, 65, 4, 48, 96), (2, 65, 129, 4, 24, 40),
-               (8, 1025, 1025, 8, 96, 96)]
-PADDED_ATTN_TIMES = [(8, 1025, 1025, 8, 96), (8, 1025, 1025, 3, 256)]
+               (8, 1025, 1025, 8, 96, 96),
+               (2, 130, 67, 2, 384, 384), (2, 67, 130, 1, 768, 768),
+               (2, 65, 33, 2, 384, 768), (2, 70, 33, 2, 300, 40),
+               (2, 33, 33, 1, 1024, 1024),
+               (2, 1025, 1025, 2, 384, 384), (2, 1025, 1025, 1, 768, 768)]
+DEEP_ONCE_REFUSED = (1, 4, 4, 1, 264, 264)
+PADDED_ATTN_TIMES = [(8, 1025, 1025, 8, 96), (8, 1025, 1025, 3, 256),
+                     (8, 1025, 1025, 2, 384), (8, 1025, 1025, 1, 768)]
 # the kernel each key of phase 3b's times belongs to
 CONTRACT_KERNEL = {"fwd": "flash_attention_fwd", "bwd": "flash_attention_bwd",
                    "mlp_fwd": "mlp_block_fwd", "mlp_bwd": "mlp_block_bwd",
@@ -407,10 +434,15 @@ MLP_RAGGED = [(r, 128, 512) for r in (1, 7, 513)]
 # mlp_block at the widths the TPU kernel takes beyond the lifter's: ViT-L's
 # (1,024 x 4,096) and ViT-H's (1,280 x 5,120) at the lifter's 8,200 rows,
 # with D's output columns split across blocks (two slices of 512 and 640,
-# on the WMMA kernels), and widths that are no multiple of 16 (zero-padded
-# by the launcher: D 40 with H 100, D 776 with H 3,104, whose padded 784
-# also splits); a D past 1,280 must be refused.
+# on the WMMA kernels); past 1,280, D streamed through shared memory in
+# chunks: (1,344 x 5,376), the widest the TPU kernel's VMEM budget takes at
+# H = 4D, (2,048 x 2,048) and (4,096 x 512); and widths that are no
+# multiple of 16 (zero-padded by the launcher: D 40 with H 100, D 776 with
+# H 3,104, whose padded 784 also splits). D 1,296, refused before D was
+# streamed, runs in phase 3b.
 MLP_WIDE = [(8200, 1024, 4096, "wmma"), (8200, 1280, 5120, "wmma"),
+            (8200, 1344, 5376, "wmma"), (8200, 2048, 2048, "wmma"),
+            (8200, 4096, 512, "wmma"),
             (257, 40, 100, "wmma"), (257, 776, 3104, "wmma")]
 # The edges of mlp_block's wgmma tiling at D 768: one row either side of a
 # 64-row block (63, 64, 65), the last row of the 129th block missing
@@ -490,8 +522,10 @@ LR_IMAGE = (150000, 500, 1)     # grouped step: image rows, bilinear
 # within 2 px of the transformed keypoint.
 TOL_AUG_IMPL = 1e-6
 TOL_AUG_SEPARABLE = 1e-5
-AUG_STEPS = 3
-AUG_SCAN_STEPS = 2
+# steps of each augmented leg (cut from 3 and 2 to keep the script within
+# its time): a grouped step launches lane_resample 4 times, a scan step 40
+AUG_STEPS = 2
+AUG_SCAN_STEPS = 1
 # The card's published peaks (H100 SXM): bytes/s of device memory, dense
 # bf16 and plain fp32 operations/s.
 HBM_BYTES_S = 3.35e12
@@ -604,11 +638,11 @@ def _attention_path(dtype_name: str, D: int, Dv: int) -> str:
 
 
 def _check_attention_build() -> None:
-    """The wgmma kernels of both attention sources: registers and spills
-    from ptxas; a spill, or a wgmma that ptxas serialized (C7520: under a
-    branch it cannot prove uniform; C7512: beside a spill; C7513: an input
-    register written by another instruction while a group is in flight),
-    fails."""
+    """The wgmma kernels and the deep instance of both attention sources:
+    registers and spills from ptxas; a spill, or a wgmma that ptxas
+    serialized (C7520: under a branch it cannot prove uniform; C7512:
+    beside a spill; C7513: an input register written by another
+    instruction while a group is in flight), fails."""
     from pose3d_tpu_torch.ops.kernels import _build
 
     for name in ("flash_attention_fwd", "flash_attention_bwd"):
@@ -622,6 +656,16 @@ def _check_attention_build() -> None:
                 f"(384 threads; setmaxnreg gives the two consumer warpgroups "
                 f"240, the producer 24), spills {st} B stored / {ld} B "
                 f"loaded")
+            if st or ld:
+                raise SystemExit(f"{kern} spills registers")
+        deep = {k: v for k, v in report.items() if "deep" in k}
+        if len(deep) != 2:
+            raise SystemExit(f"{name}: want the deep instance's two kernels "
+                             f"(bf16, fp32) in the build log, found "
+                             f"{sorted(deep)}")
+        for kern, (regs, st, ld) in sorted(deep.items()):
+            log(f"[kernel] {kern}: {regs} registers a thread (128 threads), "
+                f"spills {st} B stored / {ld} B loaded")
             if st or ld:
                 raise SystemExit(f"{kern} spills registers")
         serial = [line.strip() for line in
@@ -734,11 +778,12 @@ def _check_row_reduce_build() -> None:
                 raise SystemExit(f"{kern} spills registers")
 
 
-def _launches_per_call(torch, fn, calls: int = 3, tries: int = 3) -> dict:
+def _launches_per_call(torch, fn, calls: int = 3, tries: int = 5) -> dict:
     """{kernel name: launches per call} that ``torch.profiler`` records
     over ``calls`` calls of ``fn`` (after one call outside the trace). The
     trace starts with a short sleep kernel, left out: a trace can miss the
-    first kernel after it starts, and now and then records none; a trace
+    first kernel after it starts, and now and then records none (on an
+    H100 once three times in a row, among ~115 traces of a run); a trace
     without the sleep kernel is taken again, up to ``tries`` times."""
     import re
 
@@ -871,24 +916,28 @@ def phase_kernels(torch) -> dict:
 
 
 def _check_padded_attention(torch, failures: list) -> tuple:
-    """Both attention kernels at ``PADDED_ATTN``, bf16 and fp32, against
-    the plain pair at the true depths: the pair each shape runs on read
-    from ``padded_pair``, its path and plan from ``launch_config`` held
-    equal to the built libraries', outputs of the true depths within the
-    bounds above, one launch counted a call, o, lse, dk and dv bitwise on
-    a repeat. Then a depth past 256 is refused before any launch. Returns
+    """Both attention kernels at ``PADDED_ATTN`` and
+    ``DEEP_ONCE_REFUSED``, bf16 and fp32, against the plain pair at the
+    true depths: the pair each shape runs on read from ``padded_pair`` (a
+    built pair, or past 256 the deep instance's multiples of 64), its
+    path and plan from ``launch_config`` held equal to the built
+    libraries', outputs of the true depths within the bounds above, one
+    launch counted a call, o, lse, dk and dv bitwise on a repeat. Returns
     (worst forward, worst backward) max |Δ|."""
     from pose3d_tpu_torch.ops.kernels import flash_attention as fa
 
     worst = worst_bwd = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).removeprefix("torch.")
-        for i, (B, Tq, Tk, H, D, Dv) in enumerate(PADDED_ATTN):
+        for i, (B, Tq, Tk, H, D, Dv) in enumerate(
+                PADDED_ATTN + [DEEP_ONCE_REFUSED]):
             Dp, Dvp = fa.padded_pair(D, Dv)
             cfg = fa.launch_config(B, Tq, Tk, H, Dp, Dvp, dtype.itemsize)
+            deep = fa.is_deep(Dp, Dvp)
             path_ok = (cfg["path"] == _attention_path(name, Dp, Dvp)
                        and fa.library_config(B, Tq, Tk, H, Dp, Dvp,
-                                             dtype.itemsize) == cfg)
+                                             dtype.itemsize) == cfg
+                       and (cfg["chunk"] == fa.DEEP_CHUNK) == deep)
             g = torch.Generator(device="cuda").manual_seed(7000 + i)
             mk = lambda *s: torch.randn(*s, generator=g, device="cuda").to(  # noqa: E731
                 dtype)
@@ -924,8 +973,13 @@ def _check_padded_attention(torch, failures: list) -> tuple:
                        and torch.isfinite(x).all().item()
                        and err <= TOL_GRAD[name]
                        * max(1.0, r.float().abs().max().item()))
+            route = (f"deep instance in chunks of {cfg['chunk']}, "
+                     f"{cfg['fwd']['slices']} / {cfg['bwd']['slices']} "
+                     f"column slices" if deep else "built pair")
+            once = (" (refused before the deep instance)"
+                    if (B, Tq, Tk, H, D, Dv) == DEEP_ONCE_REFUSED else "")
             log(f"[kernel] padded attention {name:8s} B={B} Tq={Tq} Tk={Tk} "
-                f"H={H} D={D} Dv={Dv} on the ({Dp}, {Dvp}) pair, "
+                f"H={H} D={D} Dv={Dv}{once} on the ({Dp}, {Dvp}) {route}, "
                 f"{cfg['path']} ({cfg['bwd']['rows']} keys a backward block, "
                 f"{cfg['fwd']['smem']} / {cfg['bwd']['smem']} B), the "
                 f"library's plan {'the same' if path_ok else 'DIFFERS'}: "
@@ -938,23 +992,6 @@ def _check_padded_attention(torch, failures: list) -> tuple:
                 failures.append(("padded attention", name, B, Tq, Tk, H, D,
                                  Dv))
             del q, k, v, o, o2, ro, grads, again, refs
-    q = torch.zeros(1, 4, 1, 264, device="cuda", dtype=torch.bfloat16)
-    counts = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
-    refused = []
-    for call in (lambda: fa.flash_attention_fwd(q, q, q),
-                 lambda: fa.flash_attention_bwd(
-                     q, q, q, q, q, torch.zeros(1, 1, 4, device="cuda"))):
-        try:
-            call()
-            refused.append(False)
-        except ValueError as e:
-            refused.append("256" in str(e))
-    ok = all(refused) and counts == (fa.flash_attention_fwd.launches,
-                                     fa.flash_attention_bwd.launches)
-    log(f"[kernel] attention at D = Dv = 264 on the card: both launchers "
-        f"refuse it naming the limit 256, no launch  {'ok' if ok else 'FAIL'}")
-    if not ok:
-        failures.append(("attention", "D 264 not refused"))
     return worst, worst_bwd
 
 
@@ -989,51 +1026,83 @@ def _check_lane_resample_bf16(torch, failures: list) -> float:
     return worst
 
 
-def _check_mlp_refusal(torch, failures: list) -> None:
-    """A D past 1,280 is refused on the card, naming the limit, before any
-    launch."""
+def _check_mlp_past_1280(torch, failures: list) -> None:
+    """D 1,296, which the launchers refused before D was streamed in
+    chunks, on the card in bf16 and fp32: one launch of each kernel, in two
+    chunks, against the plain version within ``TOL_MLP``."""
     from pose3d_tpu_torch.ops.kernels import mlp_block as mb
 
-    t = _row_inputs(torch, 4, 1296, 64, torch.bfloat16, 6500)
-    args = (t["x"], t["w1"], t["b1"], t["w2"], t["b2"])
-    counts = (mb.mlp_block_fwd.launches, mb.mlp_block_bwd.launches)
-    refused = []
-    for call in (lambda: mb.mlp_block_fwd(*args),
-                 lambda: mb.mlp_block_bwd(*args, t["dy"])):
-        try:
-            call()
-            refused.append(False)
-        except ValueError as e:
-            refused.append("1280" in str(e))
-    ok = all(refused) and counts == (mb.mlp_block_fwd.launches,
-                                     mb.mlp_block_bwd.launches)
-    log(f"[kernel] mlp_block at D 1,296 on the card: both launchers refuse it "
-        f"naming the limit 1280, no launch  {'ok' if ok else 'FAIL'}")
-    if not ok:
-        failures.append(("mlp_block", "D 1296 not refused"))
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        t = _row_inputs(torch, 4, 1296, 64, dtype, 6500)
+        args = (t["x"], t["w1"], t["b1"], t["w2"], t["b2"])
+        counts = (mb.mlp_block_fwd.launches, mb.mlp_block_bwd.launches)
+        out = mb.mlp_block_fwd(*args)
+        grads = mb.mlp_block_bwd(*args, t["dy"])
+        refs = (mb.mlp_block_fwd_reference(*args),
+                *mb.mlp_block_bwd_reference(t["x"], t["w1"].float(), t["b1"],
+                                            t["w2"].float(), t["b2"],
+                                            t["dy"]))
+        torch.cuda.synchronize()
+        errs = [_rel_err(a, r)[1] for a, r in zip((out, *grads), refs)]
+        chunks = mb.launch_config(4, 1296, 64, dtype.itemsize)["chunks"]
+        ok = (all(e <= TOL_MLP[name] for e in errs) and chunks[0] == 2
+              and (mb.mlp_block_fwd.launches, mb.mlp_block_bwd.launches)
+              == (counts[0] + 1, counts[1] + 1))
+        log(f"[kernel] mlp_block {name:8s} at D 1,296 (refused before D was "
+            f"streamed) in {chunks[0]} chunks of {chunks[1]}: out, dx, dw1, "
+            f"db1, dw2, db2 max|d|/max(1,|ref|) "
+            + ", ".join(f"{e:.2e}" for e in errs)
+            + f" (tol {TOL_MLP[name]:.0e}), one launch each  "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(("mlp_block", name, "D 1296"))
+        del t, args, out, grads, refs
 
 
-def _heads8_step(torch) -> dict:
+def _heads_step(torch, heads: int) -> dict:
     """One training step of the full-width lifter with
-    ``transformer_heads=8`` (head depth 96 in the fusion and final blocks:
-    the padded route), batch 2 x accumulation 1, dropout off, through the
-    kernels against the plain pair from the same seeded init, in fp32 and
-    bf16: the loss within the step bounds of phase 5, and the first
-    layer's gradient finite and nonzero. Returns the kernels' launches of
-    the bf16 step."""
+    ``transformer_heads=heads`` (8: head depth 96 in the fusion and final
+    blocks, the padded route; 2: 384, the deep instance), batch 2 x
+    accumulation 1, dropout off, through the kernels against the plain
+    pair from the same seeded init, in fp32 and bf16, within the step
+    bounds of phase 5: the loss, the whole gradient against the plain
+    pair's in the same dtype (bf16's distance from fp32 is logged: at
+    these head depths the bf16 plain pair's own reaches phase 5's bound),
+    and the gradient of each
+    fusion and final attention block (the layers on the route this
+    ``heads`` takes) against the plain pair's in the same dtype; the
+    first layer's gradient finite and nonzero. Returns the kernels'
+    launches of the bf16 step."""
     from pose3d_tpu_torch.core.config import TransformerModelConfig
     from pose3d_tpu_torch.models import build_model
+    from pose3d_tpu_torch.ops.kernels import flash_attention as fa
     from pose3d_tpu_torch.train import loop, state as tstate, step as tstep
 
-    cfg = TransformerModelConfig(transformer_heads=8,
+    cfg = TransformerModelConfig(transformer_heads=heads,
                                  transformer_dropout_rate=0.0,
                                  regression_dropout=0.0)
+    D = cfg.transformer_embed_dim // heads
+    pair = fa.padded_pair(D, D)
+    route = (f"the deep instance at {pair}" if fa.is_deep(*pair)
+             else f"the {pair} pair")
     sb = loop.to_device(next(loop._superbatches(_train_batches(
         8, 1, 2, tuple(cfg.image_size), cfg.num_joints), 1)), "cuda")
-    launches = {}
+
+    def block(pname: str):
+        """The fusion or final attention module a parameter belongs to."""
+        for stem in ("cross_modal_fusion_layers.", "final_encoder."):
+            if pname.startswith(stem):
+                mod = pname.split(".")[2]
+                if mod.startswith("cross_attn") or mod == "attn":
+                    return ".".join(pname.split(".")[:3])
+        return None
+
+    def rel_l2(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    launches, runs = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).removeprefix("torch.")
-        out = {}
         for impl in ("reference", "auto"):
             model = build_model(
                 cfg, device="cuda", dtype=dtype, train=True,
@@ -1044,36 +1113,119 @@ def _heads8_step(torch) -> dict:
             m = tstep.make_train_step()(st, sb)
             torch.cuda.synchronize()
             after = launch_counts()
-            pname, first = next(iter(model.named_parameters()))
-            out[impl] = (m["total_loss"].item(), pname, first.grad)
-            if impl == "auto":
+            grads = {n: p.grad.detach().double().flatten()
+                     for n, p in model.named_parameters()
+                     if p.grad is not None}
+            runs[dtype, impl] = (m["total_loss"].item(),
+                                 next(iter(model.named_parameters()))[0],
+                                 grads)
+            if impl == "auto" and dtype == torch.bfloat16:
                 launches = {k: after[k] - before[k] for k in after}
-            del model, st
-        (l_ref, _, _), (l_k, pname, grad) = out["reference"], out["auto"]
+            del model, st, m
+            torch.cuda.empty_cache()
+    truth = torch.cat(list(runs[torch.float32, "reference"][2].values()))
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        tol = TOL_STEP_GRAD_REL_L2[name]
+        (l_ref, _, plain), (l_k, pname, grads) = (runs[dtype, "reference"],
+                                                  runs[dtype, "auto"])
         dl = abs(l_k - l_ref) / abs(l_ref)
-        gmax = grad.float().abs().max().item() if grad is not None else 0.0
+        first = grads.get(pname)
+        gmax = first.abs().max().item() if first is not None else 0.0
+        whole = torch.cat(list(grads.values()))
+        plain_whole = torch.cat(list(plain.values()))
+        rel_plain = rel_l2(whole, plain_whole)
+        blocks = {}
+        for n in grads:
+            if block(n) is not None:
+                blocks.setdefault(block(n), []).append(n)
+        per_block = {b: rel_l2(torch.cat([grads[n] for n in ns]),
+                               torch.cat([plain[n] for n in ns]))
+                     for b, ns in blocks.items()}
+        worst_b = max(per_block, key=per_block.get)
+        n_blocks = cfg.num_cross_modal_layers * 2 + cfg.final_encoder_depth
         ok = (np.isfinite(l_k) and dl <= TOL_STEP_LOSS[name]
-              and grad is not None and torch.isfinite(grad).all().item()
-              and gmax > 0.0)
+              and bool(torch.isfinite(whole).all().item()) and gmax > 0.0
+              and rel_plain <= tol
+              and len(per_block) == n_blocks
+              and all(v <= tol for v in per_block.values()))
         attn = {k: v for k, v in launches.items() if "attention" in k}
-        log(f"[kernel] transformer_heads=8 full-width step {name} B=2 x A=1 "
-            f"(fusion and final attention at head depth 96 on the (128, "
-            f"128) pair): loss {l_k:.6f} vs plain pair {l_ref:.6f} (rel "
-            f"{dl:.2e}, tol {TOL_STEP_LOSS[name]:.0e}); first layer "
-            f"{pname}'s gradient finite, max |g| {gmax:.3e}; launches "
+        extra = ("" if dtype == torch.float32 else
+                 f" (vs the fp32 plain pair {rel_l2(whole, truth):.3e}, the "
+                 f"plain pair's own bf16 vs fp32 "
+                 f"{rel_l2(plain_whole, truth):.3e}: bf16's rounding, "
+                 f"not the kernels')")
+        log(f"[kernel] transformer_heads={heads} full-width step {name} B=2 "
+            f"x A=1 (fusion and final attention at head depth {D} on "
+            f"{route}): loss {l_k:.6f} vs plain pair {l_ref:.6f} (rel "
+            f"{dl:.2e}, tol {TOL_STEP_LOSS[name]:.0e}); gradient rel L2 vs "
+            f"the plain pair {rel_plain:.3e} (tol {tol:.0e}) over "
+            f"{whole.numel()} values{extra}; "
+            f"each of the {len(per_block)} fusion and final attention "
+            f"blocks' gradient vs the plain pair's at most "
+            f"{per_block[worst_b]:.3e} ({worst_b}); first layer {pname}'s "
+            f"gradient finite, max |g| {gmax:.3e}; launches "
             f"{attn if dtype == torch.bfloat16 else '(fp32)'}  "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            raise SystemExit("the transformer_heads=8 step through the "
-                             "kernels disagrees with the plain pair")
-        del out, grad
-        torch.cuda.empty_cache()
+            raise SystemExit(f"the transformer_heads={heads} step through "
+                             "the kernels disagrees with the plain pair")
+    del runs, truth
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _heads1_serve(torch) -> dict:
+    """A served batch-8 forward of the full-width lifter with
+    ``transformer_heads=1`` (head depth 768 in the fusion and final
+    blocks: the deep instance) through ``serve.make_serving_fn``, bf16
+    with seeded weights, against a direct forward of the same weights
+    with the plain attention: relative L2 within ``TOL_SLICE_REL_L2``, 20
+    forward launches (8 on the deep instance). Returns the launches."""
+    from pose3d_tpu_torch import serve
+    from pose3d_tpu_torch.core.config import TransformerModelConfig
+    from pose3d_tpu_torch.models import build_model
+
+    cfg = TransformerModelConfig(transformer_heads=1)
+    model = build_model(cfg, device="cuda", dtype=torch.bfloat16,
+                        generator=torch.Generator("cuda").manual_seed(1))
+    fn = serve.make_serving_fn(model)
+    req = _request_inputs(11, 8, tuple(cfg.image_size), cfg.num_joints)
+    before = launch_counts()
+    got = fn(*req)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    launches = {k: after[k] - before[k] for k in after}
+    ref = build_model(cfg, device="cuda", dtype=torch.bfloat16,
+                      attention_impl="reference")
+    ref.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        want = ref(*[torch.from_numpy(x).cuda() for x in req]).float() \
+            .cpu().numpy()
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    per_forward = (cfg.vit_depth + 2 * cfg.num_cross_modal_layers
+                   + cfg.final_encoder_depth)
+    ok = (got.shape == (8, cfg.num_joints, 3) and np.isfinite(got).all()
+          and rel <= TOL_SLICE_REL_L2
+          and launches["flash_attention_fwd"] == per_forward)
+    log(f"[kernel] transformer_heads=1 full-width served batch-8 forward "
+        f"(fusion and final attention at head depth 768 on the deep "
+        f"instance) through make_serving_fn: rel L2 {rel:.3e} against a "
+        f"direct forward with the plain attention (tol "
+        f"{TOL_SLICE_REL_L2:.0e}), forward launches "
+        f"{launches['flash_attention_fwd']} (want {per_forward})  "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the transformer_heads=1 served forward disagrees "
+                         "with the direct forward")
+    del model, ref
+    torch.cuda.empty_cache()
     return launches
 
 
 def _time_padded_attention(torch, card: str) -> dict:
-    """The padded route's times at ``PADDED_ATTN_TIMES`` (bf16), both
-    directions: kernel (padding and slicing included), plain pair,
+    """The padded and deep routes' times at ``PADDED_ATTN_TIMES`` (bf16),
+    both directions: kernel (padding and slicing included), plain pair,
     ``scaled_dot_product_attention``'s device time at the true depth (a
     yardstick only) and the bound of the true depth's work (phase 6 times
     the lifter's (1025, 1025, 12, 64) on its own wgmma pair beside them)."""
@@ -1101,6 +1253,10 @@ def _time_padded_attention(torch, card: str) -> dict:
                                           bound_ms=bound, bound_by=by)
         route = ("its own pair" if (Dp, Dvp) == (D, D)
                  else f"padded to the ({Dp}, {Dvp}) pair")
+        if fa.is_deep(Dp, Dvp):
+            route = (f"the deep instance ({cfg['fwd']['slices']} / "
+                     f"{cfg['bwd']['slices']} column slices, S summed in "
+                     f"chunks of {cfg['chunk']})")
         log(f"[time] attention bf16 B={B} T={T} H={H} D={D}, {route} "
             f"({cfg['path']}): kernel {kt:.4f} ms ({bound / kt:.1%} of the "
             f"bound), plain {pt:.4f} ms, scaled_dot_product_attention "
@@ -1133,8 +1289,9 @@ def _time_padded_attention(torch, card: str) -> dict:
 
 
 def _time_mlp_wide(torch, card: str) -> dict:
-    """mlp_block in bf16 at ViT-L's and ViT-H's widths over the lifter's
-    8,200 rows, both directions: kernel, plain pair, the library's three
+    """mlp_block in bf16 at the wide widths of ``MLP_WIDE`` over the
+    lifter's 8,200 rows (ViT-L's, ViT-H's, and past 1,280 the streamed
+    ones), both directions: kernel, plain pair, the library's three
     calls ``F.linear → F.gelu → F.linear`` and their autograd backward (a
     yardstick: they write the hidden activation to device memory), and the
     bound of the counted operations (4·N·D·H forward, 10·N·D·H backward)."""
@@ -1144,7 +1301,7 @@ def _time_mlp_wide(torch, card: str) -> dict:
 
     times = {}
     bf16 = torch.bfloat16
-    for i, (N, D, H, _) in enumerate(MLP_WIDE[:2]):
+    for i, (N, D, H, _) in enumerate(s for s in MLP_WIDE if s[0] == 8200):
         cfg = mb.launch_config(N, D, H, 2)
         t = _row_inputs(torch, N, D, H, bf16, 7100 + i)
         args = (t["x"], t["w1"], t["b1"], t["w2"], t["b2"])
@@ -1163,7 +1320,8 @@ def _time_mlp_wide(torch, card: str) -> dict:
         times[("mlp_fwd", N, D, H)] = dict(ms=kt, plain_ms=pt, library_ms=lt,
                                            bound_ms=bound, bound_by=by)
         log(f"[time] mlp_block forward bf16 N={N} D={D} H={H} ({cfg['path']}"
-            f", {cfg['slices']} column slices of {cfg['cols']}, each "
+            f", D in {cfg['chunks'][0]} chunks of {cfg['chunks'][1]}, "
+            f"{cfg['slices']} column slices of {cfg['cols']}, each "
             f"recomputing x·w1: {2 * (1 + cfg['slices'])}·N·D·H executed for "
             f"4·N·D·H counted): kernel {kt:.4f} ms ({bound / kt:.1%} of the "
             f"bound), plain {pt:.4f} ms, F.linear -> F.gelu -> F.linear "
@@ -1194,18 +1352,22 @@ def _time_mlp_wide(torch, card: str) -> dict:
 def phase_contracts(torch, card: str) -> dict:
     """The kernels at the shapes their TPU kernels take beyond the built
     ones (phase 3b of the module docstring): attention at every head depth
-    up to 256 through the padded route, ``mlp_block`` up to ViT-H's width
-    (``MLP_WIDE`` runs in phase 3's row-op check), bf16 ``lane_resample``,
-    the refusals past the limits, one full-width ``transformer_heads=8``
-    training step, and the times of the new shapes."""
+    through the padded route and past 256 the deep instance, ``mlp_block``
+    past ViT-H's width (``MLP_WIDE`` runs in phase 3's row-op check; D
+    1,296 here), bf16 ``lane_resample``, full-width ``transformer_heads=8``
+    and ``=2`` training steps, a ``transformer_heads=1`` served forward,
+    and the times of the new shapes. The launches it returns are the three
+    full-width runs' together."""
     failures = []
     worst = _check_padded_attention(torch, failures)
     worst_lr = _check_lane_resample_bf16(torch, failures)
-    _check_mlp_refusal(torch, failures)
+    _check_mlp_past_1280(torch, failures)
     if failures:
         raise SystemExit(f"kernel disagrees with its plain version: "
                          f"{failures}")
-    launches = _heads8_step(torch)
+    runs = [_heads_step(torch, 8), _heads_step(torch, 2),
+            _heads1_serve(torch)]
+    launches = {k: sum(r.get(k, 0) for r in runs) for k in runs[0]}
     times = {**_time_padded_attention(torch, card),
              **_time_mlp_wide(torch, card)}
     calls = _path_lane_calls(torch, 100, 500, 500, 4000)
@@ -1215,7 +1377,7 @@ def phase_contracts(torch, card: str) -> dict:
     del calls, x, a, o
     torch.cuda.empty_cache()
     return {"worst": worst, "worst_lr_bf16": worst_lr,
-            "heads8_launches": launches, "times": times}
+            "launches": launches, "times": times}
 
 
 def _cnn_config(**kw):
@@ -1494,7 +1656,10 @@ def _check_row_ops(torch, failures: list) -> dict:
                      + (f" padded to {cfg['padded']}"
                         if cfg["padded"] != (D, H) else "")
                      + (f" {cfg['slices']} column slices of {cfg['cols']}"
-                        if cfg["slices"] > 1 else ""))
+                        if cfg["slices"] > 1 else "")
+                     + (f", D streamed in {cfg['chunks'][0]} chunks of "
+                        f"{cfg['chunks'][1]}" if cfg["chunks"][0] > 1
+                        else ""))
             held("mlp_block_fwd", label, ("out",), (out,), (again,), (ref,),
                  (TOL_MLP[name],), (dtype,))
             grads = mb.mlp_block_bwd(*args, t["dy"])
@@ -3320,7 +3485,9 @@ CLI_EVAL = 2            # --eval-interval of the CNN and transformer runs
 CLI_TF_STEPS = 2
 CLI_SCAN_STEPS = 1
 TOL_CLI_EVAL = 1e-4     # cli.evaluate against an in-process evaluate
-FEED_STEPS, FEED_WINDOW = 9, 3  # train_model runs of the host-feed times
+# train_model runs of the host-feed times: two windows of 3 steps, the
+# second read (cut from three windows to keep the script within its time)
+FEED_STEPS, FEED_WINDOW = 6, 3
 
 
 class _CliWriter(_Scalars):
@@ -3773,18 +3940,20 @@ def phase_cli(torch, tmp: Path, card: str) -> dict:
 # --- phase 11: the data path from the shell ----------------------------------
 
 # Frames per subject of the synthetic Human3.6M layout: the train subjects
-# give 300 samples, three 10 x 10 steps in one epoch; the test subjects 20.
-DATA_FRAMES = {1: 60, 5: 60, 6: 60, 7: 60, 8: 60, 9: 10, 11: 10}
+# give 200 samples, two 10 x 10 steps in one epoch; the test subjects 20
+# (cut from 60 frames a train subject, three steps an epoch, to keep the
+# script within its time).
+DATA_FRAMES = {1: 40, 5: 40, 6: 40, 7: 40, 8: 40, 9: 10, 11: 10}
 DATA_TRAIN, DATA_TEST = (1, 5, 6, 7, 8), (9, 11)
 DATA_HW = (1000, 1000)  # Human3.6M's frame size (height, width)
 DATA_CHUNK = 100        # samples an archive: chunker, splitter, shuffler
-# Steps of each training run from the shuffled archives: 4 steps are the
-# first epoch of the 300 train samples and one step of the second, as many
+# Steps of each training run from the shuffled archives: 3 steps are the
+# first epoch of the 200 train samples and one step of the second, as many
 # steps after the first epoch as the script's time limit leaves to read.
-# The step time read is the one after the first epoch (step 4): by then
+# The step time read is the one after the first epoch (step 3): by then
 # the read-ahead of up to two archives, filled while step 1 builds, is
 # spent, and each step waits on the feed.
-DATA_STEPS, DATA_WARM = 4, 3
+DATA_STEPS, DATA_WARM = 3, 2
 # batch_pallas:N: at 500 x 500 the stem and stage 1 have 250² and 125²
 # pixels a sample, stage 2 63², stage 3 32²: N = 4000 leaves the stem and
 # stage 1 on the kernel and puts stage 2 and after under the gate.
@@ -4206,7 +4375,7 @@ def phase_data(torch, tmp: Path, card: str) -> dict:
 
 # -- phase 12: export -----------------------------------------------------------
 
-EXPORT_STEPS = 3        # the transformer from the CLI, with and without --remat
+EXPORT_STEPS = 2        # the transformer from the CLI, with and without --remat
 INFER_IMAGES, INFER_BATCH = 16, 8
 INFER_HW = (1000, 1000)  # Human3.6M's frame size (height, width)
 EXPORT_BATCHES = (1, 3, 8)
@@ -4491,13 +4660,6 @@ class _Child:
             self.proc.wait()
 
 
-def _subprocess_json(code: str, cwd: Path, timeout: int = 600) -> tuple:
-    """Run ``code`` in a fresh interpreter with the repository on its path:
-    (the JSON object on the last line of its standard output, its standard
-    error)."""
-    return _Child(code, cwd, timeout).result()
-
-
 def _export_infer_start(tmp: Path, pths: dict) -> dict:
     """``cli.infer`` on ``INFER_IMAGES`` cached 1000x1000 frames, at batch
     ``INFER_BATCH``, in its own process for each lifter, both started now:
@@ -4619,7 +4781,7 @@ def _artifact_outputs(torch, program, batches, seed: int, hw, J,
 
 def _export_artifacts(torch, tmp: Path, pths: dict, card: str) -> dict:
     """``cli.export`` of both lifters: dynamic ``xla``, the transformer
-    with ``--attention-backend pallas``, ``--batch-size 8`` and
+    with ``--attention-backend pallas`` and ``--batch-size 8``, and
     ``--quantize int8``; each artifact against the live model at batches
     1, 3 and 8; the ``pallas`` graph's operator and its launches; the
     ``xla`` artifact loaded where ``pose3d_tpu_torch`` cannot be
@@ -4631,9 +4793,12 @@ def _export_artifacts(torch, tmp: Path, pths: dict, card: str) -> dict:
     launches = dict.fromkeys(KERNELS, 0)
     alone = []
     try:
-        for model_type, pth in pths.items():
-            _export_one(torch, tmp, pths, model_type, pth, variants, arts,
-                        launches, alone, card)
+        # the CNN's two artifacts first: the no-import check starts once
+        # both xla ones exist and then runs beside the transformer's last
+        # three exports
+        for model_type in sorted(pths, key=lambda m: m != "cnn"):
+            _export_one(torch, tmp, pths, model_type, pths[model_type],
+                        variants, arts, launches, alone, card)
         res, _ = alone[0].result()
     finally:
         for child in alone:
@@ -4706,7 +4871,9 @@ def _export_one(torch, tmp: Path, pths: dict, model_type: str, pth: Path,
     want8 = _live_outputs(torch, live, EXPORT_BATCHES, 70, hw, J)
     del live, deq
     for name, extra in variants.items():
-        if name == "pallas" and model_type != "transformer":
+        # the static batch is traced the same way for either lifter: the
+        # transformer's artifact (served in (e)) stands for both
+        if name in ("pallas", "static") and model_type != "transformer":
             continue
         path = tmp / f"art_{model_type}_{name}"
         t0 = time.perf_counter()
@@ -4877,7 +5044,7 @@ S1_FRAMES = {"cam_a": 4, "cam_b": 4}        # 1000x1000 JPEG frames a folder
 S1_HW = (1000, 1000)
 S1_BATCH = 8                                # preprocess and cli.infer batch
 S1_SERVE_BATCHES = (1, 8)
-S1_TIMED = 3                                # timed forwards a setting
+S1_TIMED = 2                                # timed forwards a setting
 # relative L2, kernel against plain: fp32 (the CLIs' dtype, the scalar
 # kernel) differs by summation order only; bf16 (wmma for the PSA pair,
 # wgmma for Dinov2) rounds P and o to bf16, so it is the lifter's slice
@@ -5364,9 +5531,10 @@ def _s1_preprocess(torch, tmp: Path, paths: dict, files, want,
     (``finished.txt``); ``cli.infer --stage1 cached`` over the artifacts
     and ``cli.infer --stage1 jax`` with the weights, finite joints; both
     stage-1 CLIs again with ``--data-parallel`` (one replica a card: here
-    one), their outputs against the runs without it. ``beside()``, when
-    given, is called when the first run is done: what it starts runs
-    beside the second process."""
+    one), their outputs against the runs without it, in a process of
+    their own beside the process of the runs without the flag.
+    ``beside()``, when given, is called when the first run is done: what
+    it starts runs beside those two processes."""
     src, out = files[0].parent.parent, tmp / "s1_artifacts"
     argv = [str(src), str(out), "--kp-weights", str(paths["yolo"]),
             "--depth-weights", str(paths["depth"]),
@@ -5392,14 +5560,9 @@ def _s1_preprocess(torch, tmp: Path, paths: dict, files, want,
     if beside is not None:
         beside()
     one = out / files[0].parent.name
-    code = textwrap.dedent(f"""
+    head = textwrap.dedent(f"""
         import json
         from pose3d_tpu_torch.cli import infer, preprocess
-        rerun = preprocess.main({argv!r})
-        cached = infer.main(["--checkpoint_path", {str(paths['lifter'])!r},
-                             "--input_folder", {str(one)!r},
-                             "--output_folder", {str(tmp / 's1_cached')!r},
-                             "--batch-size", "{S1_BATCH}"])
         def jax_infer(out, *extra):
             return infer.main(["--checkpoint_path", {str(paths['lifter'])!r},
                                "--input_folder",
@@ -5408,17 +5571,29 @@ def _s1_preprocess(torch, tmp: Path, paths: dict, files, want,
                                "--kp-weights", {str(paths['yolo'])!r},
                                "--depth-weights", {str(paths['depth'])!r},
                                "--batch-size", "{S1_BATCH}", *extra])
-
+    """)
+    # two processes side by side: the runs without the flag, and the
+    # --data-parallel ones (which read only the frames and the weights)
+    plain = _Child(head + textwrap.dedent(f"""
+        rerun = preprocess.main({argv!r})
+        cached = infer.main(["--checkpoint_path", {str(paths['lifter'])!r},
+                             "--input_folder", {str(one)!r},
+                             "--output_folder", {str(tmp / 's1_cached')!r},
+                             "--batch-size", "{S1_BATCH}"])
         jax = jax_infer({str(tmp / 's1_jax')!r})
+        print(json.dumps({{"rerun": rerun, "cached": cached, "jax": jax}}))
+    """), tmp)
+    dp = _Child(head + textwrap.dedent(f"""
         dp_pre = preprocess.main({argv!r}[:1] + [{str(tmp / 's1_artifacts_dp')!r}]
                                  + {argv!r}[2:] + ["--data-parallel"])
         dp_jax = jax_infer({str(tmp / 's1_jax_dp')!r}, "--data-parallel")
-        print(json.dumps({{"rerun": rerun, "cached": cached, "jax": jax,
-                          "dp_pre": dp_pre, "dp_jax": dp_jax}}))
-    """)
-    t0 = time.perf_counter()
-    res, err = _subprocess_json(code, tmp)
-    wall = time.perf_counter() - t0
+        print(json.dumps({{"dp_pre": dp_pre, "dp_jax": dp_jax}}))
+    """), tmp)
+    try:
+        res = {**plain.result()[0], **dp.result()[0]}
+    finally:
+        plain.stop()
+        dp.stop()
     n_one = S1_FRAMES[files[0].parent.name]
     joints = [np.load(p) for d in ("s1_cached", "s1_jax")
               for p in sorted((tmp / d).glob("*_pred_joints3d.npy"))]
@@ -5433,14 +5608,15 @@ def _s1_preprocess(torch, tmp: Path, paths: dict, files, want,
     dp_diff = max(float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
                   for a, b in zip(dp_joints, joints[n_one:]))
     dp_ok = len(dp_joints) == n_one and dp_diff <= 1e-3
-    log(f"[stage1] (c) second process ({wall:.1f} s, beside (d)'s server "
-        f"starting): preprocess again "
-        f"into the same tree: {res['rerun']} images (finished.txt in each "
-        f"folder); cli.infer --stage1 cached "
+    log(f"[stage1] (c) two more processes side by side ({plain.seconds:.1f}"
+        f" and {dp.seconds:.1f} s, beside (d)'s server starting): preprocess "
+        f"again into the same tree: {res['rerun']} images (finished.txt in "
+        f"each folder); cli.infer --stage1 cached "
         f"{res['cached']} and --stage1 jax {res['jax']} joint files (want "
         f"{n_one} each), finite  {'ok' if ok else 'FAIL'}")
     log(f"[stage1] (c) --data-parallel (a replica on each of the "
-        f"{torch.cuda.device_count()} card(s)): cli.preprocess "
+        f"{torch.cuda.device_count()} card(s)), its own process: "
+        f"cli.preprocess "
         f"{res['dp_pre']} images, artifacts against the provider: {dp_agree}"
         f"; cli.infer --stage1 jax {len(dp_joints)} joint files, max |Δ| "
         f"{dp_diff:.2e} of the run without the flag (bound 1e-3)  "
@@ -5535,8 +5711,8 @@ def _s1_serve(torch, server: dict, bodies, want, card: str) -> None:
     top = max(S1_SERVE_BATCHES)
     ok = code == 404 and max(rels) <= TOL_S1_SERVE and sizes[top] == top
     log(f"[stage1] (d) serve_http --checkpoint (pipeline) polled healthy "
-        f"{up:.1f} s after its start (it started beside (c)'s second "
-        f"process and was polled after it); "
+        f"{up:.1f} s after its start (it started beside (c)'s later "
+        f"processes and was polled after them); "
         f"/predict_image at batch 1 and 8 concurrent: device "
         f"batches {sizes}; joints against a direct provider + lifter call "
         f"rel L2 max {max(rels):.3e} (tol {TOL_S1_SERVE:.0e}); /predict "
@@ -5633,9 +5809,9 @@ def phase_stage1(torch, tmp: Path, card: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     _s1_attention_times(torch, card)
-    # (d)'s server starts as (c)'s second process does: its start-up, the
-    # weights read and a batch-1 warmup, overlaps that process; it is timed
-    # once that process is done
+    # (d)'s server starts as (c)'s two later processes do: its start-up,
+    # the weights read and a batch-1 warmup, overlaps them; it is timed
+    # once they are done
     server = []
     try:
         _s1_preprocess(torch, tmp, paths, files, want_s1, card,
@@ -6270,15 +6446,16 @@ def _tools_overfit(tmp: Path) -> dict:
 
 
 def tools_start(torch, tmp: Path, card: str) -> dict:
-    """Phase 15, begun before phase 14: (a) the doctor alone, then (b) the
-    lifecycle of both families and (c) the transformer overfit followed by
-    (d) its int8 accuracy started side by side, each chain in processes of
-    its own, to run beside phase 14 (whose two ranks share the card too
-    and time nothing that is compared). ``phase_tools`` waits for them."""
+    """Phase 15, begun before phase 14: (b) the lifecycle of both families
+    and (c) the transformer overfit followed by (d) its int8 accuracy
+    started side by side, each chain in processes of its own, to run
+    beside phase 14 (whose two ranks share the card too and time nothing
+    that is compared). ``phase_tools`` runs (a), the doctor, and waits for
+    them: the chains are the phase's longest part, so the doctor runs
+    beside their end rather than before their start."""
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    _tools_doctor(torch, tmp, card)
     ex = ThreadPoolExecutor(3)
     jobs = {"cnn": ex.submit(_tools_lifecycle, tmp, "cnn"),
             "transformer": ex.submit(_tools_lifecycle, tmp, "transformer"),
@@ -6287,9 +6464,15 @@ def tools_start(torch, tmp: Path, card: str) -> dict:
 
 
 def phase_tools(torch, tmp: Path, card: str, started: dict) -> dict:
-    """Phase 15 finished: the chains of ``tools_start`` waited for and
-    checked. Returns the launches the scripts' processes report, summed."""
+    """Phase 15 finished: (a) the doctor, then the chains of
+    ``tools_start`` waited for and checked. Returns the launches the
+    scripts' processes report, summed."""
     t0 = started["t0"]
+    try:
+        _tools_doctor(torch, tmp, card)
+    except BaseException:
+        started["ex"].shutdown(wait=True)
+        raise
     with started["ex"]:
         res = {k: f.result() for k, f in started["jobs"].items()}
     for mt in ("cnn", "transformer"):
@@ -6431,7 +6614,7 @@ def main() -> int:
         data = timed("data", phase_data, torch, Path(tmp), card)
         export = timed("export", phase_export, torch, Path(tmp), card)
         stage1 = timed("stage1", phase_stage1, torch, Path(tmp), card)
-        bg = timed("tools (the doctor; the chains started)", tools_start,
+        bg = timed("tools (the chains started)", tools_start,
                    torch, Path(tmp), card)
         try:
             par = timed("parallel (beside the tools chains)",
@@ -6439,7 +6622,8 @@ def main() -> int:
         except BaseException:
             bg["ex"].shutdown(wait=True)
             raise
-        tools = timed("tools (the chains waited for)", phase_tools, torch,
+        tools = timed("tools (the doctor; the chains waited for)",
+                      phase_tools, torch,
                       Path(tmp), card, bg)
     phase_imports()
     # (file:line of the TPU kernel, launches on its main path, key of the
@@ -6485,12 +6669,14 @@ def main() -> int:
         **worst[name],
         **times[key],
         # the shapes beyond the built ones (phase 3b): head depths padded to
-        # a built pair, ViT-L's and ViT-H's MLP widths, bf16 lane_resample
+        # a built pair or past 256 on the deep instance, the MLP past 768
+        # and past 1,280, bf16 lane_resample; the launches of its three
+        # full-width runs (transformer_heads 8 and 2 steps, 1 served)
         "contract_times": [
             {"shape": list(k[1:]), **v}
             for k, v in contracts["times"].items()
             if CONTRACT_KERNEL[k[0]] == name],
-        "contract_launches": contracts["heads8_launches"].get(name, 0),
+        "contract_launches": contracts["launches"].get(name, 0),
     } for name, (replaces, launches, key) in kernels.items()]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -58,6 +58,11 @@
 //  * attn_bwd_f32 (fp32): scalar FMA (WMMA would drop fp32 inputs to TF32);
 //    each thread pair owns one query row for S/dP/dQ and one key row for
 //    dK/dV.
+// D or Dv above 256 (the wrapper pads both to multiples of 64) take the
+// deep instance of the same two paths (namespace deep below): S over D and
+// dP over Dv summed in 64-column chunks, the columns of dQ, dK and dV in
+// slices of 128 on gridDim.y, 64 keys a block for WMMA (140,800 bytes of
+// shared memory) and 32 for fp32 (128,000) at every depth.
 // D or Dv in (128, 256] take the (256, 256) instance of the two simple
 // paths with 32 keys a block (keys_per_block): at 64 keys the tiles would
 // need 287,232 (WMMA) or 299,520 (fp32) bytes of the 232,448 a block has,
@@ -108,6 +113,13 @@ struct Args {
   long long osb, ost, osh, gsb, gst, gsh;
 };
 
+// The deep instance's arguments: Args (whose layout the other kernels keep)
+// and the runtime depths, multiples of attn::kDeepChunk, and column slices.
+struct DeepArgs {
+  Args a;
+  int D, Dv, slices;
+};
+
 __device__ __forceinline__ void unpack8(const uint4& u, float* f,
                                         const __nv_bfloat16*) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
@@ -127,13 +139,14 @@ __device__ __forceinline__ void unpack8(const uint4& u, float* f,
   f[3] = __uint_as_float(u.w);
 }
 
-// rowsum(dO * O) in fp32 over a row of depth DV
-template <typename T, int DV>
-__device__ __forceinline__ float row_delta(const T* o, const T* g) {
+// rowsum(dO * O) in fp32 over a row of depth dv (a multiple of 16 bytes),
+// in column order whatever the depth: the built pairs and the deep instance
+// form the same sums
+template <typename T>
+__device__ __forceinline__ float row_delta(const T* o, const T* g, int dv) {
   constexpr int VEC = 16 / sizeof(T);
   float acc = 0.f;
-#pragma unroll
-  for (int d = 0; d < DV; d += VEC) {
+  for (int d = 0; d < dv; d += VEC) {
     float fo[8], fg[8];
     unpack8(*reinterpret_cast<const uint4*>(o + d), fo, o);
     unpack8(*reinterpret_cast<const uint4*>(g + d), fg, g);
@@ -143,9 +156,10 @@ __device__ __forceinline__ float row_delta(const T* o, const T* g) {
   return acc;
 }
 
-// delta[b, h, t] = sum_d dO * O in fp32, and dq_acc[b, t, h, :] = 0.
-template <typename T, int D, int DV>
-__global__ void bwd_prologue(Args a) {
+// delta[b, h, t] = sum_d dO * O in fp32 over DV, and dq_acc[b, t, h, :D] = 0;
+// the simple paths' and the deep instance's
+template <typename T>
+__global__ void bwd_prologue(Args a, int D, int DV) {
   const long long rows = (long long)a.B * a.Tq * a.H;
   for (long long row = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        row < rows; row += (long long)gridDim.x * blockDim.x) {
@@ -155,9 +169,8 @@ __global__ void bwd_prologue(Args a) {
     const int b = (int)(bt / a.Tq);
     const T* o = static_cast<const T*>(a.o) + b * a.osb + t * a.ost + h * a.osh;
     const T* g = static_cast<const T*>(a.g) + b * a.gsb + t * a.gst + h * a.gsh;
-    a.delta[((long long)b * a.H + h) * a.Tq + t] = row_delta<T, DV>(o, g);
+    a.delta[((long long)b * a.H + h) * a.Tq + t] = row_delta<T>(o, g, DV);
     float4* dq = reinterpret_cast<float4*>(a.dq_acc + row * D);
-#pragma unroll
     for (int d = 0; d < D / 4; ++d) dq[d] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
@@ -582,6 +595,475 @@ int grid_1d(long long n, int threads) {
   return (int)(blocks < 8192 ? (blocks > 0 ? blocks : 1) : 8192);
 }
 
+// ---- D or Dv above 256: the deep instance ---------------------------------
+//
+// One instance a dtype, the depths a runtime loop bound (D and Dv multiples
+// of attn::kDeepChunk = 64). A block owns a tile of keys and one slice s of
+// attn::kDeepSlice = 128 columns (blockIdx.y = head * slices + s): dK's and
+// dQ's columns [128 s, 128 s + 128) of D and dV's of Dv, where they exist.
+// Per query tile it sums S = Q K^T over D and dP = dO V^T over Dv in
+// 64-column chunks staged through shared memory (the same order in every
+// slice, so every slice forms the same P and dS), then adds its columns of
+// dV = P^T dO, dK = dS^T Q and, by the fp32 atomics of the other paths,
+// dQ = dS K. Shared memory is fixed at every depth.
+namespace deep {
+
+constexpr int DC = attn::kDeepChunk;
+constexpr int DS = attn::kDeepSlice;
+constexpr int BK_BF16 = 64;   // keys a block: WMMA
+constexpr int BK_F32 = 32;    // fp32 (four threads a key row split dK, dV)
+
+struct Bf16Layout {
+  static constexpr int BK = BK_BF16;
+  static constexpr int LDC = DC + 8;    // bf16 chunk pitch
+  static constexpr int LDL = DS + 8;    // bf16 slice pitch
+  static constexpr int LDS = DS + 4;    // fp32 S / staging pitch
+  static constexpr int LDD = BK + 4;    // fp32 dP pitch
+  static constexpr int LDP = BK + 8;    // bf16 P / dS pitch
+  static constexpr size_t bytes =
+      (size_t)(BQ + BK) * LDC * 2       // Q or dO chunk, K or V chunk
+      + (size_t)(BK + 2 * BQ) * LDL * 2 // K, Q, dO slices
+      + (size_t)BQ * LDS * 4            // S (also dQ/dK/dV staging)
+      + (size_t)BQ * LDD * 4            // dP
+      + (size_t)2 * BQ * LDP * 2        // P, dS
+      + (size_t)2 * BQ * 4;             // lse, delta
+};
+
+__global__ void __launch_bounds__(NT) attn_bwd_deep_bf16(DeepArgs args) {
+  const Args& a = args.a;
+  using namespace nvcuda;
+  typedef __nv_bfloat16 bf16;
+  typedef Bf16Layout L;
+  constexpr int BK = L::BK, LDC = L::LDC, LDL = L::LDL, LDS = L::LDS,
+                LDD = L::LDD, LDP = L::LDP;
+  constexpr int NF = DS / 16;   // 16-column fragments of a slice
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ac = reinterpret_cast<bf16*>(smem);     // Q or dO chunk [BQ][LDC]
+  bf16* Bc = Ac + BQ * LDC;                     // K or V chunk [BK][LDC]
+  bf16* Kl = Bc + BK * LDC;                     // K slice [BK][LDL]
+  bf16* Ql = Kl + BK * LDL;                     // Q slice [BQ][LDL]
+  bf16* Gl = Ql + BQ * LDL;                     // dO slice [BQ][LDL]
+  float* Ss = reinterpret_cast<float*>(Gl + BQ * LDL);
+  float* dPs = Ss + BQ * LDS;
+  bf16* Ps = reinterpret_cast<bf16*>(dPs + BQ * LDD);
+  bf16* dSs = Ps + BQ * LDP;
+  float* lse_s = reinterpret_cast<float*>(dSs + BQ * LDP);
+  float* delta_s = lse_s + BQ;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int k0 = blockIdx.x * BK;
+  const int h = blockIdx.y / args.slices;
+  const int slice = blockIdx.y % args.slices;
+  const int b = blockIdx.z;
+  const int c0 = slice * DS;
+  const int nk = max(0, min(DS, args.D - c0));    // this slice's dQ, dK columns
+  const int nv = max(0, min(DS, args.Dv - c0));   // and dV columns
+
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qsb + h * a.qsh;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ksb + h * a.ksh;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vsb + h * a.vsh;
+  const bf16* gb = static_cast<const bf16*>(a.g) + b * a.gsb + h * a.gsh;
+  const long long bh = (long long)b * a.H + h;
+  const float* lse = a.lse + bh * a.Tq;
+  const float* delta = a.delta + bh * a.Tq;
+  const long long row_stride = (long long)a.H * args.D;    // dq/dk token stride
+  const long long row_stride_v = (long long)a.H * args.Dv; // dv token stride
+  float* dqb = a.dq_acc + (long long)b * a.Tq * row_stride + h * args.D + c0;
+
+  if (nk > 0)
+    attn::load_window<bf16, BK, NT>(Kl, LDL, kb + c0, a.kst, k0, a.Tk, nk);
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk_f[NF], dv_f[NF];
+#pragma unroll
+  for (int n = 0; n < NF; ++n) {
+    wmma::fill_fragment(dk_f[n], 0.f);
+    wmma::fill_fragment(dv_f[n], 0.f);
+  }
+
+  float* Sw = Ss + warp * 16 * LDS;
+  float* dPw = dPs + warp * 16 * LDD;
+  bf16* Pw = Ps + warp * 16 * LDP;
+  bf16* dSw = dSs + warp * 16 * LDP;
+  const int r = lane >> 1;
+  const int half = lane & 1;
+
+  for (int q0 = 0; q0 < a.Tq; q0 += BQ) {
+    __syncthreads();  // every warp is done with the previous query tile
+    if (nk > 0)
+      attn::load_window<bf16, BQ, NT>(Ql, LDL, qb + c0, a.qst, q0, a.Tq, nk);
+    if (nv > 0)
+      attn::load_window<bf16, BQ, NT>(Gl, LDL, gb + c0, a.gst, q0, a.Tq, nv);
+    load_rows(lse_s, delta_s, lse, delta, q0, a.Tq);
+
+    // S = Q K^T over D, then dP = dO V^T over Dv, for this warp's 16 query
+    // rows: each chunk's products added to the sums kept in Sw / dPw (fp32
+    // in shared memory, one accumulator in registers at a time).
+    for (int pass = 0; pass < 2; ++pass) {
+      const bf16* ab = pass == 0 ? qb : gb;
+      const bf16* bb = pass == 0 ? kb : vb;
+      const long long ast = pass == 0 ? a.qst : a.gst;
+      const long long bst = pass == 0 ? a.kst : a.vst;
+      const int depth = pass == 0 ? args.D : args.Dv;
+      float* out = pass == 0 ? Sw : dPw;
+      const int ld = pass == 0 ? LDS : LDD;
+      for (int d0 = 0; d0 < depth; d0 += DC) {
+        __syncthreads();  // every warp is done with the last chunk
+        attn::load_window<bf16, BQ, NT>(Ac, LDC, ab + d0, ast, q0, a.Tq, DC);
+        attn::load_window<bf16, BK, NT>(Bc, LDC, bb + d0, bst, k0, a.Tk, DC);
+        __syncthreads();
+#pragma unroll
+        for (int n = 0; n < BK / 16; ++n) {
+          wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
+          if (d0 == 0) {
+            wmma::fill_fragment(sf, 0.f);
+          } else {
+            wmma::load_matrix_sync(sf, out + n * 16, ld, wmma::mem_row_major);
+          }
+#pragma unroll
+          for (int kk = 0; kk < DC / 16; ++kk) {
+            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
+                af;
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
+                bf;
+            wmma::load_matrix_sync(af, Ac + warp * 16 * LDC + kk * 16, LDC);
+            wmma::load_matrix_sync(bf, Bc + n * 16 * LDC + kk * 16, LDC);
+            wmma::mma_sync(sf, af, bf, sf);
+          }
+          wmma::store_matrix_sync(out + n * 16, sf, ld, wmma::mem_row_major);
+        }
+      }
+    }
+    __syncwarp();
+
+    // P = exp(scale*S - lse) and dS = P (dP - delta), rounded to bf16; 0
+    // outside [Tq, Tk]. The lane pair (2r, 2r+1) shares row r.
+    {
+      const int row = warp * 16 + r;
+      const bool row_ok = q0 + row < a.Tq;
+      const float l = lse_s[row];
+      const float dl = delta_s[row];
+#pragma unroll 8
+      for (int c = 0; c < BK / 2; ++c) {
+        const int col = half * (BK / 2) + c;
+        float p = 0.f;
+        float ds = 0.f;
+        if (row_ok && k0 + col < a.Tk) {
+          p = expf(Sw[r * LDS + col] * a.scale - l);
+          ds = p * (dPw[r * LDD + col] - dl);
+        }
+        Pw[r * LDP + col] = __float2bfloat16(p);
+        dSw[r * LDP + col] = __float2bfloat16(ds);
+      }
+    }
+    __syncwarp();
+
+    // dQ[:, slice] for this warp's 16 query rows: dS K[:, slice], staged in
+    // its rows of S and added into the fp32 accumulator with the scale.
+    for (int n = 0; n < nk / 16; ++n) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> qacc;
+      wmma::fill_fragment(qacc, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> sf;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> kf;
+        wmma::load_matrix_sync(sf, dSw + kk * 16, LDP);
+        wmma::load_matrix_sync(kf, Kl + kk * 16 * LDL + n * 16, LDL);
+        wmma::mma_sync(qacc, sf, kf, qacc);
+      }
+      wmma::store_matrix_sync(Sw + n * 16, qacc, LDS, wmma::mem_row_major);
+    }
+    __syncwarp();
+    for (int i = lane; i < 16 * nk; i += 32) {
+      const int rr = i / nk;
+      const int c = i % nk;
+      const int t = q0 + warp * 16 + rr;
+      if (t < a.Tq) {
+        atomicAdd(dqb + t * row_stride + c, Sw[rr * LDS + c] * a.scale);
+      }
+    }
+    __syncthreads();  // every warp's rows of P and dS are written
+
+    // dV[:, slice] += P^T dO[:, slice] and dK[:, slice] += dS^T Q[:, slice]
+    // for this warp's 16 key rows.
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> pt, st;
+      wmma::load_matrix_sync(pt, Ps + kk * 16 * LDP + warp * 16, LDP);
+      wmma::load_matrix_sync(st, dSs + kk * 16 * LDP + warp * 16, LDP);
+#pragma unroll
+      for (int n = 0; n < NF; ++n) {
+        if (n * 16 < nv) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> gf;
+          wmma::load_matrix_sync(gf, Gl + kk * 16 * LDL + n * 16, LDL);
+          wmma::mma_sync(dv_f[n], pt, gf, dv_f[n]);
+        }
+        if (n * 16 < nk) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> qf;
+          wmma::load_matrix_sync(qf, Ql + kk * 16 * LDL + n * 16, LDL);
+          wmma::mma_sync(dk_f[n], st, qf, dk_f[n]);
+        }
+      }
+    }
+  }
+
+  // Write this slice's dV, then dK * scale, for the valid key rows, staged
+  // through the warp's own rows of S.
+  bf16* dvb = static_cast<bf16*>(a.dv) + (long long)b * a.Tk * row_stride_v +
+              h * args.Dv + c0;
+  bf16* dkb = static_cast<bf16*>(a.dk) + (long long)b * a.Tk * row_stride +
+              h * args.D + c0;
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < NF; ++n) {
+    if (n * 16 < nv)
+      wmma::store_matrix_sync(Sw + n * 16, dv_f[n], LDS, wmma::mem_row_major);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * nv; i += 32) {
+    const int rr = i / nv;
+    const int c = i % nv;
+    const int t = k0 + warp * 16 + rr;
+    if (t < a.Tk) dvb[t * row_stride_v + c] = __float2bfloat16(Sw[rr * LDS + c]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < NF; ++n) {
+    if (n * 16 < nk)
+      wmma::store_matrix_sync(Sw + n * 16, dk_f[n], LDS, wmma::mem_row_major);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * nk; i += 32) {
+    const int rr = i / nk;
+    const int c = i % nk;
+    const int t = k0 + warp * 16 + rr;
+    if (t < a.Tk) {
+      dkb[t * row_stride + c] = __float2bfloat16(Sw[rr * LDS + c] * a.scale);
+    }
+  }
+}
+
+struct F32Layout {
+  static constexpr int BK = BK_F32;
+  static constexpr int LDC = DC + 4;    // chunk pitch (rows 16-byte aligned)
+  static constexpr int LDL = DS + 4;    // slice pitch
+  static constexpr int LDP = BK + 1;
+  static constexpr size_t bytes =
+      (size_t)(BQ + BK) * LDC * 4       // Q or dO chunk, K or V chunk
+      + (size_t)(BK + 2 * BQ) * LDL * 4 // K, Q, dO slices
+      + (size_t)2 * BQ * LDP * 4        // P, dS
+      + (size_t)2 * BQ * 4;             // lse, delta
+};
+
+__global__ void __launch_bounds__(NT) attn_bwd_deep_f32(DeepArgs args) {
+  const Args& a = args.a;
+  typedef F32Layout L;
+  constexpr int BK = L::BK, LDC = L::LDC, LDL = L::LDL, LDP = L::LDP;
+  constexpr int CPT = BK / 2;     // key columns a thread of a query row
+  constexpr int KP = NT / BK;     // threads a key row (dK, dV)
+  constexpr int CP = DS / KP;     // their columns each
+  constexpr int DQC = 32;         // dQ's columns go by in chunks of DQC
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Ac = reinterpret_cast<float*>(smem);
+  float* Bc = Ac + BQ * LDC;
+  float* Kl = Bc + BK * LDC;
+  float* Ql = Kl + BK * LDL;
+  float* Gl = Ql + BQ * LDL;
+  float* Ps = Gl + BQ * LDL;
+  float* dSs = Ps + BQ * LDP;
+  float* lse_s = dSs + BQ * LDP;
+  float* delta_s = lse_s + BQ;
+
+  const int tid = threadIdx.x;
+  const int r = tid >> 1;      // query row (S, dP, dQ)
+  const int half = tid & 1;
+  const int kr = tid / KP;     // key row (dK, dV)
+  const int part = tid % KP;   // and which of its KP column parts
+  const int k0 = blockIdx.x * BK;
+  const int h = blockIdx.y / args.slices;
+  const int slice = blockIdx.y % args.slices;
+  const int b = blockIdx.z;
+  const int c0 = slice * DS;
+  const int nk = max(0, min(DS, args.D - c0));
+  const int nv = max(0, min(DS, args.Dv - c0));
+  const bool has_k = part * CP < nk, has_v = part * CP < nv;
+
+  const float* qb = static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh;
+  const float* kb = static_cast<const float*>(a.k) + b * a.ksb + h * a.ksh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.vsb + h * a.vsh;
+  const float* gb = static_cast<const float*>(a.g) + b * a.gsb + h * a.gsh;
+  const long long bh = (long long)b * a.H + h;
+  const float* lse = a.lse + bh * a.Tq;
+  const float* delta = a.delta + bh * a.Tq;
+  const long long row_stride = (long long)a.H * args.D;
+  float* dqb = a.dq_acc + (long long)b * a.Tq * row_stride + h * args.D + c0;
+
+  if (nk > 0)
+    attn::load_window<float, BK, NT>(Kl, LDL, kb + c0, a.kst, k0, a.Tk, nk);
+
+  float dk[CP], dv[CP];
+#pragma unroll
+  for (int i = 0; i < CP; ++i) dk[i] = dv[i] = 0.f;
+
+  for (int q0 = 0; q0 < a.Tq; q0 += BQ) {
+    __syncthreads();
+    if (nk > 0)
+      attn::load_window<float, BQ, NT>(Ql, LDL, qb + c0, a.qst, q0, a.Tq, nk);
+    if (nv > 0)
+      attn::load_window<float, BQ, NT>(Gl, LDL, gb + c0, a.gst, q0, a.Tq, nv);
+    load_rows(lse_s, delta_s, lse, delta, q0, a.Tq);
+
+    // S over D, then dP over Dv, for query row r and this thread's key
+    // columns (j = 2c + half), each one fmaf chain in depth order.
+    float s[CPT], dp[CPT];
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) s[c] = dp[c] = 0.f;
+    for (int pass = 0; pass < 2; ++pass) {
+      const float* ab = pass == 0 ? qb : gb;
+      const float* bb = pass == 0 ? kb : vb;
+      const long long ast = pass == 0 ? a.qst : a.gst;
+      const long long bst = pass == 0 ? a.kst : a.vst;
+      const int depth = pass == 0 ? args.D : args.Dv;
+      for (int d0 = 0; d0 < depth; d0 += DC) {
+        __syncthreads();
+        attn::load_window<float, BQ, NT>(Ac, LDC, ab + d0, ast, q0, a.Tq, DC);
+        attn::load_window<float, BK, NT>(Bc, LDC, bb + d0, bst, k0, a.Tk, DC);
+        __syncthreads();
+        const float* ar = Ac + r * LDC;
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          const float* br = Bc + (2 * c + half) * LDC;
+          float acc = pass == 0 ? s[c] : dp[c];
+#pragma unroll 4
+          for (int d = 0; d < DC; d += 4) {
+            const float4 x = *reinterpret_cast<const float4*>(ar + d);
+            const float4 y = *reinterpret_cast<const float4*>(br + d);
+            acc = fmaf(x.x, y.x, acc);
+            acc = fmaf(x.y, y.y, acc);
+            acc = fmaf(x.z, y.z, acc);
+            acc = fmaf(x.w, y.w, acc);
+          }
+          if (pass == 0) s[c] = acc; else dp[c] = acc;
+        }
+      }
+    }
+    {
+      const bool row_ok = q0 + r < a.Tq;
+      const float l = lse_s[r];
+      const float dl = delta_s[r];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const int j = 2 * c + half;
+        float p = 0.f;
+        float ds = 0.f;
+        if (row_ok && k0 + j < a.Tk) {
+          p = expf(s[c] * a.scale - l);
+          ds = p * (dp[c] - dl);
+        }
+        Ps[r * LDP + j] = p;
+        dSs[r * LDP + j] = ds;
+      }
+    }
+    __syncthreads();
+
+    // dQ row r, this thread's half of the slice's columns: dS K * scale.
+    if (q0 + r < a.Tq) {
+      float* out = dqb + (long long)(q0 + r) * row_stride;
+      const int nh = nk / 2;
+      for (int cc = half * nh; cc < (half + 1) * nh; cc += DQC) {
+        float dq[DQC];
+#pragma unroll
+        for (int i = 0; i < DQC; ++i) dq[i] = 0.f;
+        for (int j = 0; j < BK; ++j) {
+          const float ds = dSs[r * LDP + j];
+          const float* krow = Kl + j * LDL + cc;
+#pragma unroll
+          for (int i = 0; i < DQC; ++i) dq[i] = fmaf(ds, krow[i], dq[i]);
+        }
+#pragma unroll
+        for (int i = 0; i < DQC; ++i) atomicAdd(out + cc + i, dq[i] * a.scale);
+      }
+    }
+
+    // dV and dK for key row kr, this thread's columns of the slice.
+    for (int i = 0; i < BQ; ++i) {
+      const float p = Ps[i * LDP + kr];
+      const float ds = dSs[i * LDP + kr];
+      const float* gr = Gl + i * LDL + part * CP;
+      const float* qr = Ql + i * LDL + part * CP;
+      if (has_v) {
+#pragma unroll
+        for (int d = 0; d < CP; ++d) dv[d] = fmaf(p, gr[d], dv[d]);
+      }
+      if (has_k) {
+#pragma unroll
+        for (int d = 0; d < CP; ++d) dk[d] = fmaf(ds, qr[d], dk[d]);
+      }
+    }
+  }
+
+  const int t = k0 + kr;
+  if (t < a.Tk) {
+    float* dvo = static_cast<float*>(a.dv) +
+                 ((long long)b * a.Tk + t) * a.H * args.Dv + h * args.Dv + c0 +
+                 part * CP;
+    float* dko = static_cast<float*>(a.dk) +
+                 ((long long)b * a.Tk + t) * row_stride + h * args.D + c0 +
+                 part * CP;
+    if (has_v) {
+#pragma unroll
+      for (int i = 0; i < CP; ++i) dvo[i] = dv[i];
+    }
+    if (has_k) {
+#pragma unroll
+      for (int i = 0; i < CP; ++i) dko[i] = dk[i] * a.scale;
+    }
+  }
+}
+
+int keys(bool is_bf16) { return is_bf16 ? BK_BF16 : BK_F32; }
+size_t smem_bytes(bool is_bf16) {
+  return is_bf16 ? Bf16Layout::bytes : F32Layout::bytes;
+}
+
+// prologue, main kernel; the bf16 dQ cast is the caller's
+int launch(bool is_bf16, const DeepArgs& args, cudaStream_t st) {
+  const Args& a = args.a;
+  const long long gy = (long long)a.H * args.slices;
+  if (gy > 65535) return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)a.B * a.Tq * a.H;
+  if (is_bf16) {
+    bwd_prologue<__nv_bfloat16><<<grid_1d(rows, 256), 256, 0, st>>>(
+        a, args.D, args.Dv);
+  } else {
+    bwd_prologue<float><<<grid_1d(rows, 256), 256, 0, st>>>(a, args.D,
+                                                            args.Dv);
+  }
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const size_t bytes = smem_bytes(is_bf16);
+  const int bk = keys(is_bf16);
+  const dim3 grid((a.Tk + bk - 1) / bk, (unsigned)gy, a.B);
+  if (is_bf16) {
+    e = cudaFuncSetAttribute(attn_bwd_deep_bf16,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+    attn_bwd_deep_bf16<<<grid, NT, bytes, st>>>(args);
+  } else {
+    e = cudaFuncSetAttribute(attn_bwd_deep_f32,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+    attn_bwd_deep_f32<<<grid, NT, bytes, st>>>(args);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace deep
+
 // ---- bf16, D = Dv in {48, 64}: wgmma on TMA-fed tiles ---------------------
 
 namespace wg {
@@ -637,7 +1119,7 @@ __global__ void bwd_rows(Args a, float2* __restrict__ rows) {
     if (t < a.Tq) {
       const bf16* o = static_cast<const bf16*>(a.o) + b * a.osb + t * a.ost + h * a.osh;
       const bf16* g = static_cast<const bf16*>(a.g) + b * a.gsb + t * a.gst + h * a.gsh;
-      out = make_float2(a.lse[bh * a.Tq + t] * LOG2E, row_delta<bf16, D>(o, g));
+      out = make_float2(a.lse[bh * a.Tq + t] * LOG2E, row_delta<bf16>(o, g, D));
     }
     rows[bh * tqp + t] = out;
   }
@@ -939,9 +1421,9 @@ int dispatch(bool is_bf16, const Args& a, cudaStream_t st) {
     if constexpr (attn::wgmma_depth(D, DV)) rc = wg::launch<D>(a, st);
   } else {
     if (is_bf16) {
-      bwd_prologue<__nv_bfloat16, D, DV><<<grid_1d(rows, 256), 256, 0, st>>>(a);
+      bwd_prologue<__nv_bfloat16><<<grid_1d(rows, 256), 256, 0, st>>>(a, D, DV);
     } else {
-      bwd_prologue<float, D, DV><<<grid_1d(rows, 256), 256, 0, st>>>(a);
+      bwd_prologue<float><<<grid_1d(rows, 256), 256, 0, st>>>(a, D, DV);
     }
     rc = (int)cudaGetLastError();
     if (rc != 0) return rc;
@@ -992,6 +1474,15 @@ int pose3d_flash_attention_bwd(
   a.gsb = gsb; a.gst = gst; a.gsh = gsh;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bf = is_bf16 != 0;
+  if (attn::deep_pair(D, Dv)) {
+    const DeepArgs args{a, D, Dv, attn::deep_bwd_slices(D, Dv)};
+    const int rc = deep::launch(bf, args, st);
+    if (rc != 0 || !bf) return rc;
+    const long long n = (long long)B * Tq * H * D;
+    cast_to_bf16<<<grid_1d(n, 256), 256, 0, st>>>(
+        a.dq_acc, static_cast<__nv_bfloat16*>(a.dq), n);
+    return (int)cudaGetLastError();
+  }
   switch (attn::pair_index(D, Dv)) {
     case 0: return dispatch<32, 32>(bf, a, st);
     case 1: return dispatch<48, 48>(bf, a, st);
@@ -1008,12 +1499,24 @@ int pose3d_flash_attention_bwd(
 // cfg[0] the path (0 scalar fp32, 1 WMMA, 2 wgmma), cfg[1] keys a block,
 // cfg[2..4] the main kernel's grid, cfg[5] its dynamic shared memory in
 // bytes, cfg[6] its threads a block, cfg[7] the fp32 scratch `delta` needs
-// (floats). Returns 0, or cudaErrorInvalidValue for a pair that is not
-// built.
+// (floats), cfg[8] the depth columns a step of the S and dP sums takes (D
+// itself on a built pair, 64 on the deep instance), cfg[9] the column
+// slices (gridDim.y is H times them). Returns 0, or cudaErrorInvalidValue
+// for a pair that is neither built nor deep.
 int pose3d_flash_attention_bwd_config(int is_bf16, int B, int Tq, int Tk,
                                       int H, int D, int Dv, long long* cfg) {
+  if (attn::deep_pair(D, Dv)) {
+    cfg[0] = is_bf16 ? kPathWmma : kPathScalar;
+    cfg[1] = deep::keys(is_bf16);
+    cfg[5] = (long long)deep::smem_bytes(is_bf16);
+    cfg[6] = NT, cfg[7] = (long long)B * H * Tq;
+    cfg[8] = attn::kDeepChunk, cfg[9] = attn::deep_bwd_slices(D, Dv);
+    cfg[2] = (Tk + cfg[1] - 1) / cfg[1], cfg[3] = H * cfg[9], cfg[4] = B;
+    return 0;
+  }
   const int pair = attn::pair_index(D, Dv);
   if (pair < 0) return (int)cudaErrorInvalidValue;
+  cfg[8] = D, cfg[9] = 1;
   const size_t wmma_smem[attn::kPairs] = {
       Bf16Layout<32, 32>::bytes, Bf16Layout<48, 48>::bytes,
       Bf16Layout<64, 64>::bytes, Bf16Layout<128, 128>::bytes,

@@ -21,6 +21,52 @@ inline int pair_index(int D, int Dv) {
   return -1;
 }
 
+// The deep instance of the WMMA and fp32 kernels: D or Dv above 256, both
+// multiples of kDeepChunk (the wrappers zero-pad them), with the depths a
+// runtime loop bound. Scores are summed over D (and the backward's dP over
+// Dv) in chunks of kDeepChunk columns staged through shared memory in a
+// fixed order; output columns go to blocks in slices of kDeepSlice on
+// gridDim.y (H x slices), each slice recomputing the scores over all of D,
+// so that every slice sees the same P.
+constexpr int kDeepChunk = 64;
+constexpr int kDeepSlice = 128;
+inline bool deep_pair(int D, int Dv) {
+  return D >= kDeepChunk && Dv >= kDeepChunk && D % kDeepChunk == 0 &&
+         Dv % kDeepChunk == 0 && (D > 256 || Dv > 256);
+}
+// The forward slices Dv (o's columns); the backward slices D and Dv
+// together (slice s owns dQ's and dK's columns [s, s + 1) * kDeepSlice of D
+// and dV's of Dv, where they exist).
+inline int deep_fwd_slices(int Dv) {
+  return (Dv + kDeepSlice - 1) / kDeepSlice;
+}
+inline int deep_bwd_slices(int D, int Dv) {
+  return ((D > Dv ? D : Dv) + kDeepSlice - 1) / kDeepSlice;
+}
+
+// Rows [row0, row0 + ROWS) of a [T, width] window of a strided [T, ...]
+// slice (token stride st; src points at the window's first column) into a
+// shared tile of pitch ld, 16 bytes at a time by NT threads; rows >= nrows
+// become 0. width * sizeof(T), ld * sizeof(T), st * sizeof(T) and src's
+// address are multiples of 16.
+template <typename T, int ROWS, int NT>
+__device__ __forceinline__ void load_window(T* dst, int ld, const T* src,
+                                            long long st, int row0, int nrows,
+                                            int width) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int vpr = width / VEC;
+  for (int i = threadIdx.x; i < ROWS * vpr; i += NT) {
+    const int r = i / vpr;
+    const int c = (i % vpr) * VEC;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    const int t = row0 + r;
+    if (t < nrows) {
+      val = *reinterpret_cast<const uint4*>(src + (long long)t * st + c);
+    }
+    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+  }
+}
+
 // The wgmma kernels take bf16 at the lifter's depths, D = Dv in {48, 64}.
 constexpr bool wgmma_depth(int D, int Dv) {
   return D == Dv && (D == 48 || D == 64);

@@ -60,7 +60,10 @@
 //    doubled the source's build time).
 // D or Dv in (128, 256] take the (256, 256) instance of the two simple
 // paths: 194,560 bytes of shared memory for WMMA (64 rows), 174,720 for
-// fp32 (32 rows).
+// fp32 (32 rows). D or Dv above 256 (the wrapper pads both to multiples of
+// 64) take the deep instance of the same two paths (namespace deep below):
+// S summed over D in 64-column chunks, o's columns in slices of 128 on
+// gridDim.y, 96,256 bytes (WMMA) or 85,248 (fp32) at every depth.
 
 #include <math.h>
 #include <mma.h>
@@ -87,6 +90,13 @@ struct Args {
   float scale;
   // element strides of batch, token and head (the last dim is contiguous)
   long long qsb, qst, qsh, ksb, kst, ksh, vsb, vst, vsh;
+};
+
+// The deep instance's arguments: Args (whose layout the other kernels keep)
+// and the runtime depths, multiples of attn::kDeepChunk, and column slices.
+struct DeepArgs {
+  Args a;
+  int D, Dv, slices;
 };
 
 // Copy rows [row0, row0 + 64) of a [T, D] slice (token stride st) into a
@@ -391,6 +401,317 @@ __global__ void __launch_bounds__(NT) attn_fwd_f32(Args a) {
   }
 }
 
+// ---- D or Dv above 256: the deep instance ---------------------------------
+//
+// One instance a dtype, the depths a runtime loop bound (D and Dv multiples
+// of attn::kDeepChunk = 64). A block owns 64 query rows and one slice of up
+// to attn::kDeepSlice = 128 of o's columns (blockIdx.y = head * slices +
+// slice). Per key tile it sums S = Q K^T over D in 64-column chunks of Q and
+// K staged through shared memory, in the same order in every slice, so every
+// slice computes the same S, the same online-softmax state and the same lse
+// (written by slice 0); then it adds P V for its slice's columns of V. The
+// shared memory is fixed (no tile spans D or Dv) and S is computed once a
+// slice: ceil(Dv / 128) * 2*Tq*Tk*D + 2*Tq*Tk*Dv operations in all.
+namespace deep {
+
+constexpr int DC = attn::kDeepChunk;
+constexpr int DS = attn::kDeepSlice;
+
+constexpr size_t smem_bf16() {
+  return (size_t)2 * BQ * (DC + 8) * 2    // Q, K chunks (bf16)
+         + (size_t)BK * (DS + 8) * 2      // V slice (bf16)
+         + (size_t)BQ * (BK + 4) * 4      // scores (fp32)
+         + (size_t)BQ * (BK + 8) * 2      // probabilities (bf16)
+         + (size_t)BQ * (DS + 4) * 4;     // output accumulator (fp32)
+}
+
+__global__ void __launch_bounds__(NT) attn_fwd_deep_bf16(DeepArgs args) {
+  const Args& a = args.a;
+  using namespace nvcuda;
+  typedef __nv_bfloat16 bf16;
+  constexpr int LDH = DC + 8;
+  constexpr int LDV = DS + 8;
+  constexpr int LDS = BK + 4;
+  constexpr int LDP = BK + 8;
+  constexpr int LDO = DS + 4;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + BQ * LDH;
+  bf16* Vs = Ks + BK * LDH;
+  float* Ss = reinterpret_cast<float*>(Vs + BK * LDV);
+  bf16* Ps = reinterpret_cast<bf16*>(Ss + BQ * LDS);
+  float* Os = reinterpret_cast<float*>(Ps + BQ * LDP);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y / args.slices;
+  const int slice = blockIdx.y % args.slices;
+  const int b = blockIdx.z;
+  const int c0 = slice * DS;                  // this block's columns of o
+  const int ncols = min(DS, args.Dv - c0);       // 64 or 128
+
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.qsb + h * a.qsh;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.ksb + h * a.ksh;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.vsb + h * a.vsh + c0;
+
+  for (int i = tid; i < BQ * LDO; i += NT) Os[i] = 0.f;
+
+  float* Sw = Ss + warp * 16 * LDS;
+  bf16* Pw = Ps + warp * 16 * LDP;
+  float* Ow = Os + warp * 16 * LDO;
+  const int r = lane >> 1;
+  const int half = lane & 1;
+  const float sl2 = a.scale * LOG2E;
+  float m_run = -INFINITY;
+  float l_run = 0.f;
+
+  for (int k0 = 0; k0 < a.Tk; k0 += BK) {
+    __syncthreads();  // every warp is done with the previous V slice
+    attn::load_window<bf16, BK, NT>(Vs, LDV, vb, a.vst, k0, a.Tk, ncols);
+
+    // S = Q K^T for this warp's 16 rows, summed over D chunk by chunk in
+    // the four accumulators.
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf[BK / 16];
+#pragma unroll
+    for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(sf[n], 0.f);
+    for (int d0 = 0; d0 < args.D; d0 += DC) {
+      if (d0 > 0) __syncthreads();  // every warp is done with the last chunk
+      attn::load_window<bf16, BQ, NT>(Qs, LDH, qb + d0, a.qst, q0, a.Tq, DC);
+      attn::load_window<bf16, BK, NT>(Ks, LDH, kb + d0, a.kst, k0, a.Tk, DC);
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < DC / 16; ++kk) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf;
+        wmma::load_matrix_sync(qf, Qs + warp * 16 * LDH + kk * 16, LDH);
+#pragma unroll
+        for (int n = 0; n < BK / 16; ++n) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>
+              kf;
+          wmma::load_matrix_sync(kf, Ks + n * 16 * LDH + kk * 16, LDH);
+          wmma::mma_sync(sf[n], qf, kf, sf[n]);
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < BK / 16; ++n)
+      wmma::store_matrix_sync(Sw + n * 16, sf[n], LDS, wmma::mem_row_major);
+    __syncwarp();
+
+    // Online softmax, as attn_fwd_bf16: the lane pair shares row r.
+    float s[32];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      const int col = half * 32 + c;
+      float x = Sw[r * LDS + col];
+      if (k0 + col >= a.Tk) x = -INFINITY;
+      s[c] = x;
+      mx = fmaxf(mx, x);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    const float m_new = fmaxf(m_run, mx);
+    const float alpha = exp2f((m_run - m_new) * sl2);
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      const float p = exp2f((s[c] - m_new) * sl2);
+      Pw[r * LDP + half * 32 + c] = __float2bfloat16(p);
+      sum += p;
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    l_run = l_run * alpha + sum;
+    m_run = m_new;
+#pragma unroll 8
+    for (int d = 0; d < DS / 2; ++d) Ow[r * LDO + half * (DS / 2) + d] *= alpha;
+    __syncwarp();
+
+    // O[:, slice] += P V[:, slice]
+    for (int n = 0; n < ncols / 16; ++n) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> of;
+      wmma::load_matrix_sync(of, Ow + n * 16, LDO, wmma::mem_row_major);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
+        wmma::load_matrix_sync(pf, Pw + kk * 16, LDP);
+        wmma::load_matrix_sync(vf, Vs + kk * 16 * LDV + n * 16, LDV);
+        wmma::mma_sync(of, pf, vf, of);
+      }
+      wmma::store_matrix_sync(Ow + n * 16, of, LDO, wmma::mem_row_major);
+    }
+    __syncwarp();
+  }
+
+  const int t = q0 + warp * 16 + r;
+  if (t < a.Tq) {
+    const float inv = 1.f / l_run;
+    bf16* ob = static_cast<bf16*>(a.o) +
+               (((long long)b * a.Tq + t) * a.H + h) * args.Dv + c0;
+    for (int d = 0; d < ncols / 2; ++d) {
+      const int dd = half * (ncols / 2) + d;
+      ob[dd] = __float2bfloat16(Ow[r * LDO + dd] * inv);
+    }
+    if (half == 0 && slice == 0) {
+      a.lse[((long long)b * a.H + h) * a.Tq + t] = m_run * a.scale + logf(l_run);
+    }
+  }
+}
+
+// fp32: 64 query rows a block, two threads a row, each with 32 of a key
+// tile's scores and 64 of the slice's output columns in registers.
+constexpr size_t smem_f32() {
+  return (size_t)BQ * (DC + 4) * 4        // Q chunk
+         + (size_t)BK * (DC + 4) * 4      // K chunk
+         + (size_t)BK * (DS + 4) * 4      // V slice
+         + (size_t)BQ * (BK + 1) * 4;     // probabilities
+}
+
+__global__ void __launch_bounds__(NT) attn_fwd_deep_f32(DeepArgs args) {
+  const Args& a = args.a;
+  constexpr int TPR = NT / BQ;    // threads a query row
+  constexpr int CPT = BK / TPR;   // key columns a thread
+  constexpr int OPT = DS / TPR;   // output columns a thread
+  constexpr int LDC = DC + 4;
+  constexpr int LDV = DS + 4;
+  constexpr int LDP = BK + 1;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Ks = Qs + BQ * LDC;
+  float* Vs = Ks + BK * LDC;
+  float* Ps = Vs + BK * LDV;
+
+  const int tid = threadIdx.x;
+  const int r = tid / TPR;
+  const int part = tid % TPR;
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y / args.slices;
+  const int slice = blockIdx.y % args.slices;
+  const int b = blockIdx.z;
+  const int t = q0 + r;
+  const int c0 = slice * DS;
+  const int ncols = min(DS, args.Dv - c0);
+  const bool owns = part * OPT < ncols;   // this thread has output columns
+
+  const float* qb = static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh;
+  const float* kb = static_cast<const float*>(a.k) + b * a.ksb + h * a.ksh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.vsb + h * a.vsh + c0;
+
+  float o[OPT];
+#pragma unroll
+  for (int i = 0; i < OPT; ++i) o[i] = 0.f;
+  const float sl2 = a.scale * LOG2E;
+  float m_run = -INFINITY;
+  float l_run = 0.f;
+
+  for (int k0 = 0; k0 < a.Tk; k0 += BK) {
+    __syncthreads();
+    attn::load_window<float, BK, NT>(Vs, LDV, vb, a.vst, k0, a.Tk, ncols);
+
+    float s[CPT];
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) s[c] = 0.f;
+    for (int d0 = 0; d0 < args.D; d0 += DC) {
+      if (d0 > 0) __syncthreads();
+      attn::load_window<float, BQ, NT>(Qs, LDC, qb + d0, a.qst, q0, a.Tq, DC);
+      attn::load_window<float, BK, NT>(Ks, LDC, kb + d0, a.kst, k0, a.Tk, DC);
+      __syncthreads();
+      const float* qr = Qs + r * LDC;
+#pragma unroll 4
+      for (int c = 0; c < CPT; ++c) {
+        const float* kr = Ks + (TPR * c + part) * LDC;
+        float acc = s[c];
+#pragma unroll 4
+        for (int d = 0; d < DC; d += 4) {
+          const float4 kv = *reinterpret_cast<const float4*>(kr + d);
+          const float4 qv = *reinterpret_cast<const float4*>(qr + d);
+          acc = fmaf(qv.x, kv.x, acc);
+          acc = fmaf(qv.y, kv.y, acc);
+          acc = fmaf(qv.z, kv.z, acc);
+          acc = fmaf(qv.w, kv.w, acc);
+        }
+        s[c] = acc;
+      }
+    }
+    float mx = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      if (k0 + TPR * c + part >= a.Tk) s[c] = -INFINITY;
+      mx = fmaxf(mx, s[c]);
+    }
+#pragma unroll
+    for (int w = 1; w < TPR; w *= 2)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, w));
+    const float m_new = fmaxf(m_run, mx);
+    const float alpha = exp2f((m_run - m_new) * sl2);
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      const float p = exp2f((s[c] - m_new) * sl2);
+      Ps[r * LDP + TPR * c + part] = p;
+      sum += p;
+    }
+#pragma unroll
+    for (int w = 1; w < TPR; w *= 2)
+      sum += __shfl_xor_sync(0xffffffffu, sum, w);
+    l_run = l_run * alpha + sum;
+    m_run = m_new;
+    __syncwarp();
+
+#pragma unroll
+    for (int i = 0; i < OPT; ++i) o[i] *= alpha;
+    if (owns) {
+      for (int j = 0; j < BK; ++j) {
+        const float p = Ps[r * LDP + j];
+        const float* vr = Vs + j * LDV + part * OPT;
+#pragma unroll
+        for (int i = 0; i < OPT; ++i) o[i] = fmaf(p, vr[i], o[i]);
+      }
+    }
+  }
+
+  if (t < a.Tq) {
+    const float inv = 1.f / l_run;
+    if (owns) {
+      float* ob = static_cast<float*>(a.o) +
+                  (((long long)b * a.Tq + t) * a.H + h) * args.Dv + c0 +
+                  part * OPT;
+#pragma unroll
+      for (int i = 0; i < OPT; ++i) ob[i] = o[i] * inv;
+    }
+    if (part == 0 && slice == 0) {
+      a.lse[((long long)b * a.H + h) * a.Tq + t] = m_run * a.scale + logf(l_run);
+    }
+  }
+}
+
+int launch(bool is_bf16, const DeepArgs& args, int B, cudaStream_t stream) {
+  const Args& a = args.a;
+  const long long gy = (long long)a.H * args.slices;
+  if (gy > 65535) return (int)cudaErrorInvalidValue;
+  const size_t smem = is_bf16 ? smem_bf16() : smem_f32();
+  const dim3 grid((a.Tq + BQ - 1) / BQ, (unsigned)gy, B);
+  cudaError_t e;
+  if (is_bf16) {
+    e = cudaFuncSetAttribute(attn_fwd_deep_bf16,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    attn_fwd_deep_bf16<<<grid, NT, smem, stream>>>(args);
+  } else {
+    e = cudaFuncSetAttribute(attn_fwd_deep_f32,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    attn_fwd_deep_f32<<<grid, NT, smem, stream>>>(args);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace deep
+
 // ---- bf16, D = Dv in {48, 64}: wgmma on TMA-fed tiles ---------------------
 
 namespace wg {
@@ -640,8 +961,9 @@ int dispatch(bool is_bf16, const Args& a, int B, cudaStream_t stream) {
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
-// is_bf16: 1 for bfloat16, 0 for float32. q, k: depth D; v and o: depth Dv.
-// Strides are in elements.
+// is_bf16: 1 for bfloat16, 0 for float32. q, k: depth D; v and o: depth Dv;
+// a built pair (attn::pair_index) or a deep one (attn::deep_pair). Strides
+// are in elements.
 int pose3d_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int is_bf16, int B, int Tq, int Tk, int H, int D, int Dv, float scale,
@@ -657,6 +979,10 @@ int pose3d_flash_attention_fwd(
   a.vsb = vsb; a.vst = vst; a.vsh = vsh;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bf = is_bf16 != 0;
+  if (attn::deep_pair(D, Dv)) {
+    const DeepArgs args{a, D, Dv, attn::deep_fwd_slices(Dv)};
+    return deep::launch(bf, args, B, st);
+  }
   switch (attn::pair_index(D, Dv)) {
     case 0: return dispatch<32, 32>(bf, a, B, st);
     case 1: return dispatch<48, 48>(bf, a, B, st);
@@ -672,13 +998,24 @@ int pose3d_flash_attention_fwd(
 // What pose3d_flash_attention_fwd does for a shape, without launching:
 // cfg[0] the path (0 scalar fp32, 1 WMMA, 2 wgmma), cfg[1] query rows a
 // block, cfg[2..4] the grid, cfg[5] dynamic shared memory in bytes, cfg[6]
-// threads a block. Returns 0, or cudaErrorInvalidValue for a pair that is
-// not built.
+// threads a block, cfg[7] the depth columns a step of the score sum takes
+// (D itself on a built pair, 64 on the deep instance), cfg[8] the slices of
+// o's columns (gridDim.y is H times them). Returns 0, or
+// cudaErrorInvalidValue for a pair that is neither built nor deep.
 int pose3d_flash_attention_fwd_config(int is_bf16, int B, int Tq, int Tk,
                                       int H, int D, int Dv, int* cfg) {
   (void)Tk;
+  if (attn::deep_pair(D, Dv)) {
+    cfg[0] = is_bf16 ? kPathWmma : kPathScalar, cfg[1] = BQ;
+    cfg[5] = (int)(is_bf16 ? deep::smem_bf16() : deep::smem_f32());
+    cfg[6] = NT, cfg[7] = attn::kDeepChunk;
+    cfg[8] = attn::deep_fwd_slices(Dv);
+    cfg[2] = (Tq + BQ - 1) / BQ, cfg[3] = H * cfg[8], cfg[4] = B;
+    return 0;
+  }
   const int pair = attn::pair_index(D, Dv);
   if (pair < 0) return (int)cudaErrorInvalidValue;
+  cfg[7] = D, cfg[8] = 1;
   const size_t wmma_smem[attn::kPairs] = {
       smem_bf16<32, 32>(), smem_bf16<48, 48>(), smem_bf16<64, 64>(),
       smem_bf16<128, 128>(), smem_bf16<32, 64>(), smem_bf16<16, 16>(),

@@ -65,10 +65,16 @@
 // earlier pair (WMMA m16n16k16, below); fp32 is a scalar-FMA version of
 // that pair, slow and right (fp32 inputs would drop to TF32 on the tensor
 // cores). D and H are multiples of 16 (the wrapper pads other widths with
-// zeros), D at most 1,280: above 768 both kernels of the pair split D into
+// zeros): above 768 both kernels of the pair split D into
 // column_slices(D) on gridDim.y (dx's columns; dW1's rows, dW2's columns,
 // db2), and each slice recomputes a and dga over all of D, so da is formed
-// from whole sums and rounded once, as the TPU kernel does.
+// from whole sums and rounded once, as the TPU kernel does. Above 1,280 x's
+// and g's [rows, D] tiles do not fit whole: both kernels stream D in
+// depth_chunks(D) of at most 1,280 columns, summing x W1 and g W2^T over
+// the chunks in order (fp32) before the GELU and its derivative, and the
+// dW kernel then loads its own slice's columns of the tile for dW1, dW2
+// and db2. Up to 1,280 the one chunk is all of D: plan and bits as
+// before.
 //  * ragged rows are zero in shared memory (TMA fills them): x = 0 and g = 0
 //    give da = 0 and add nothing anywhere; dx rows >= N are not stored.
 //
@@ -113,8 +119,8 @@ constexpr int LDP = HW + 4;   // fp32 pitch of its partial tiles
 constexpr int LDH = HW + 8;   // bf16 pitch of its ga and da tiles
 
 size_t smem_dx_bf16(int D) {
-  return (size_t)2 * BR * (D + 8) * 2 + (size_t)2 * BR * LDA * 4 +
-         (size_t)BR * LDD * 2;
+  return (size_t)2 * BR * (depth_chunks(D).cols + 8) * 2 +
+         (size_t)2 * BR * LDA * 4 + (size_t)BR * LDD * 2;
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -123,7 +129,10 @@ mlp_bwd_dx_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                 const bf16* __restrict__ g, bf16* __restrict__ dx,
                 long long N, int D, int H, int cols) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int LDX = D + 8;
+  // x's and g's rows in chunks of W columns (all of D up to 1,280)
+  const Slices ch = depth_chunks(D);
+  const int W = ch.cols;
+  const int LDX = W + 8;
   bf16* Xs = reinterpret_cast<bf16*>(smem);
   bf16* Gt = Xs + BR * LDX;
   float* As = reinterpret_cast<float*>(Gt + BR * LDX);
@@ -133,13 +142,14 @@ mlp_bwd_dx_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const long long row0 = (long long)blockIdx.x * BR;
-  const int nfrag = D / 16;
   // this block's dx columns [c0, c0 + nout * 16)
   const int c0 = blockIdx.y * cols;
   const int nout = min(cols, D - c0) / 16;
 
-  load_rows<bf16, BR>(Xs, LDX, x, row0, N, D);
-  load_rows<bf16, BR>(Gt, LDX, g, row0, N, D);
+  if (ch.n == 1) {
+    load_rows<bf16, BR>(Xs, LDX, x, row0, N, D);
+    load_rows<bf16, BR>(Gt, LDX, g, row0, N, D);
+  }
   AccFrag acc[2][kMaxFrags];
 #pragma unroll
   for (int i = 0; i < kMaxFrags; ++i) {
@@ -153,14 +163,23 @@ mlp_bwd_dx_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 
   for (int h0 = 0; h0 < H; h0 += HC) {
     const int hc = min(HC, H - h0);
-    if (cf * 16 < hc) {
-      AccFrag pa, pd;
-      wmma::fill_fragment(pa, 0.f);
-      wmma::fill_fragment(pd, 0.f);
-      const bf16* w1p = w1 + h0 + cf * 16;                    // rows k
-      const bf16* w2p = w2 + (long long)(h0 + cf * 16) * D;   // columns k
+    const bool act = cf * 16 < hc;
+    AccFrag pa, pd;
+    wmma::fill_fragment(pa, 0.f);
+    wmma::fill_fragment(pd, 0.f);
+    for (int kc = 0; kc < D; kc += W) {   // D's chunks in order
+      const int kw = min(W, D - kc);
+      if (ch.n > 1) {
+        __syncthreads();   // every warp is done with the last chunk
+        load_cols<bf16, BR>(Xs, LDX, x, row0, N, D, kc, kw);
+        load_cols<bf16, BR>(Gt, LDX, g, row0, N, D, kc, kw);
+        __syncthreads();
+      }
+      if (!act) continue;
+      const bf16* w1p = w1 + (long long)kc * H + h0 + cf * 16;      // rows k
+      const bf16* w2p = w2 + (long long)(h0 + cf * 16) * D + kc;    // cols k
 #pragma unroll 4
-      for (int k = 0; k < nfrag; ++k) {
+      for (int k = 0; k < kw / 16; ++k) {
         ARow xf, gf;
         BRow w1f;
         BCol w2f;
@@ -171,6 +190,8 @@ mlp_bwd_dx_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
         wmma::load_matrix_sync(w2f, w2p + k * 16, D);
         wmma::mma_sync(pd, gf, w2f, pd);
       }
+    }
+    if (act) {
       wmma::store_matrix_sync(As + rf * 16 * LDA + cf * 16, pa, LDA,
                               wmma::mem_row_major);
       wmma::store_matrix_sync(DGs + rf * 16 * LDA + cf * 16, pd, LDA,
@@ -231,8 +252,8 @@ mlp_bwd_dx_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 }
 
 size_t smem_dw_bf16(int D) {
-  return (size_t)2 * BR * (D + 8) * 2 + (size_t)4 * BR * LDP * 4 +
-         (size_t)2 * BR * LDH * 2;
+  return (size_t)2 * BR * (depth_chunks(D).cols + 8) * 2 +
+         (size_t)4 * BR * LDP * 4 + (size_t)2 * BR * LDH * 2;
 }
 
 // Columns of db2 that block (b, s) of the grid owns: c0 + b + q * gridDim.x
@@ -248,7 +269,11 @@ mlp_bwd_dw_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                 float* __restrict__ db2, long long N, int D, int H,
                 int cols) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int LDX = D + 8;
+  // x's and g's rows in chunks of W columns (all of D up to 1,280); past
+  // one chunk the tiles are then loaded again with the block's own columns
+  const Slices ch = depth_chunks(D);
+  const int W = ch.cols;
+  const int LDX = W + 8;
   bf16* Xs = reinterpret_cast<bf16*>(smem);
   bf16* Gt = Xs + BR * LDX;
   float* Ps = reinterpret_cast<float*>(Gt + BR * LDX);  // [4][BR][LDP]
@@ -258,11 +283,11 @@ mlp_bwd_dw_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int h0 = blockIdx.x * HW;
-  const int nfrag = D / 16;
   // this block's rows of dW1, columns of dW2 and db2: [c0, c0 + dc)
   const int c0 = blockIdx.y * cols;
   const int dc = min(cols, D - c0);
   const int nout = dc / 16;
+  const int xo = ch.n == 1 ? c0 : 0;   // where those columns lie in Xs, Gt
 
   AccFrag acc1[kMaxFrags], acc2[kMaxFrags];
 #pragma unroll
@@ -275,27 +300,31 @@ mlp_bwd_dw_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 #pragma unroll
   for (int j = 0; j < kDb2PerThread; ++j) s_b2[j] = 0.f;
 
-  // x W1 and g W2^T for the 16 columns: warp = (which, row half, depth half)
+  // x W1 and g W2^T for the 16 columns: warp = (which, row half, depth
+  // half of each chunk)
   const int which = warp >> 2, rf = (warp >> 1) & 1, kh = warp & 1;
-  const int k_lo = kh == 0 ? 0 : nfrag / 2;
-  const int k_hi = kh == 0 ? nfrag / 2 : nfrag;
   float* Pw = Ps + (which * 2 + kh) * BR * LDP + rf * 16 * LDP;
 
   for (long long row0 = 0; row0 < N; row0 += BR) {
-    __syncthreads();   // the previous tile's products are done with Xs, Gt
-    load_rows<bf16, BR>(Xs, LDX, x, row0, N, D);
-    load_rows<bf16, BR>(Gt, LDX, g, row0, N, D);
-    __syncthreads();
-    {
-      AccFrag p;
-      wmma::fill_fragment(p, 0.f);
+    AccFrag p;
+    wmma::fill_fragment(p, 0.f);
+    for (int kc = 0; kc < D; kc += W) {   // D's chunks in order
+      const int kw = min(W, D - kc);
+      const int nfrag = kw / 16;
+      const int k_lo = kh == 0 ? 0 : nfrag / 2;
+      const int k_hi = kh == 0 ? nfrag / 2 : nfrag;
+      __syncthreads();   // the previous products are done with Xs, Gt
+      load_cols<bf16, BR>(Xs, LDX, x, row0, N, D, kc, kw);
+      load_cols<bf16, BR>(Gt, LDX, g, row0, N, D, kc, kw);
+      __syncthreads();
       if (which == 0) {
 #pragma unroll 4
         for (int k = k_lo; k < k_hi; ++k) {
           ARow xf;
           BRow wf;
           wmma::load_matrix_sync(xf, Xs + rf * 16 * LDX + k * 16, LDX);
-          wmma::load_matrix_sync(wf, w1 + (long long)k * 16 * H + h0, H);
+          wmma::load_matrix_sync(wf, w1 + (long long)(kc + k * 16) * H + h0,
+                                 H);
           wmma::mma_sync(p, xf, wf, p);
         }
       } else {
@@ -304,11 +333,16 @@ mlp_bwd_dw_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
           ARow gf;
           BCol wf;
           wmma::load_matrix_sync(gf, Gt + rf * 16 * LDX + k * 16, LDX);
-          wmma::load_matrix_sync(wf, w2 + (long long)h0 * D + k * 16, D);
+          wmma::load_matrix_sync(wf, w2 + (long long)h0 * D + kc + k * 16, D);
           wmma::mma_sync(p, gf, wf, p);
         }
       }
-      wmma::store_matrix_sync(Pw, p, LDP, wmma::mem_row_major);
+    }
+    wmma::store_matrix_sync(Pw, p, LDP, wmma::mem_row_major);
+    if (ch.n > 1) {
+      __syncthreads();   // every product is done with the last chunk
+      load_cols<bf16, BR>(Xs, LDX, x, row0, N, D, c0, dc);
+      load_cols<bf16, BR>(Gt, LDX, g, row0, N, D, c0, dc);
     }
     __syncthreads();
     for (int i = tid; i < BR * HW; i += kThreads) {
@@ -334,7 +368,7 @@ mlp_bwd_dw_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
         float s = 0.f;
 #pragma unroll 8
         for (int r = 0; r < BR; ++r)
-          s += __bfloat162float(Gt[r * LDX + c0 + c]);
+          s += __bfloat162float(Gt[r * LDX + xo + c]);
         s_b2[j] += s;
       }
     }
@@ -352,9 +386,9 @@ mlp_bwd_dw_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
         if (f < nout) {
           ACol xt;
           BRow gt;
-          wmma::load_matrix_sync(xt, Xs + kk * 16 * LDX + c0 + f * 16, LDX);
+          wmma::load_matrix_sync(xt, Xs + kk * 16 * LDX + xo + f * 16, LDX);
           wmma::mma_sync(acc1[i], xt, daf, acc1[i]);
-          wmma::load_matrix_sync(gt, Gt + kk * 16 * LDX + c0 + f * 16, LDX);
+          wmma::load_matrix_sync(gt, Gt + kk * 16 * LDX + xo + f * 16, LDX);
           wmma::mma_sync(acc2[i], gaf, gt, acc2[i]);
         }
       }
@@ -1053,9 +1087,11 @@ int launch(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
 constexpr int FR = 16;   // rows per tile in mlp_bwd_dx_f32
 constexpr int FC = 64;   // hidden columns per chunk there
 
-// Xs, Gt [FR][D], Os [FR][cols] (the block's dx columns), DAs [FR][FC]
+// Xs, Gt [FR][W] (a chunk of D: all of it up to 1,280), Os [FR][cols] (the
+// block's dx columns), DAs [FR][FC]
 size_t smem_dx_f32(int D) {
-  return (size_t)(2 * FR * D + FR * column_slices(D).cols + 2 * FR * FC) * 4;
+  return (size_t)(2 * FR * depth_chunks(D).cols + FR * column_slices(D).cols +
+                  2 * FR * FC) * 4;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -1064,36 +1100,50 @@ mlp_bwd_dx_f32(const float* __restrict__ x, const float* __restrict__ w1,
                const float* __restrict__ g, float* __restrict__ dx,
                long long N, int D, int H, int cols) {
   extern __shared__ __align__(128) unsigned char smem[];
+  const Slices ch = depth_chunks(D);
+  const int W = ch.cols;
   float* Xs = reinterpret_cast<float*>(smem);
-  float* Gt = Xs + FR * D;
-  float* Os = Gt + FR * D;
+  float* Gt = Xs + FR * W;
+  float* Os = Gt + FR * W;
   float* DAs = Os + FR * cols;    // [FR][FC]
   const int tid = threadIdx.x;
   const long long row0 = (long long)blockIdx.x * FR;
   const int c0 = blockIdx.y * cols;       // this block's dx columns
   const int dc = min(cols, D - c0);
 
-  load_rows<float, FR>(Xs, D, x, row0, N, D);
-  load_rows<float, FR>(Gt, D, g, row0, N, D);
+  if (ch.n == 1) {
+    load_rows<float, FR>(Xs, W, x, row0, N, D);
+    load_rows<float, FR>(Gt, W, g, row0, N, D);
+  }
   for (int i = tid; i < FR * dc; i += kThreads) Os[i] = 0.f;
   __syncthreads();
 
   const int h = tid % FC, rg = tid / FC;
   for (int h0 = 0; h0 < H; h0 += FC) {
     const int hc = min(FC, H - h0);
-    if (h < hc) {
-      float a[4] = {0.f, 0.f, 0.f, 0.f}, dg[4] = {0.f, 0.f, 0.f, 0.f};
-      const float* w1p = w1 + h0 + h;
-      const float* w2p = w2 + (long long)(h0 + h) * D;
-      for (int k = 0; k < D; ++k) {
+    float a[4] = {0.f, 0.f, 0.f, 0.f}, dg[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int kc = 0; kc < D; kc += W) {   // D's chunks in order
+      const int kw = min(W, D - kc);
+      if (ch.n > 1) {
+        __syncthreads();
+        load_cols<float, FR>(Xs, W, x, row0, N, D, kc, kw);
+        load_cols<float, FR>(Gt, W, g, row0, N, D, kc, kw);
+        __syncthreads();
+      }
+      if (h >= hc) continue;
+      const float* w1p = w1 + (long long)kc * H + h0 + h;
+      const float* w2p = w2 + (long long)(h0 + h) * D + kc;
+      for (int k = 0; k < kw; ++k) {
         const float u = w1p[(long long)k * H];
         const float v = w2p[k];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          a[i] = fmaf(Xs[(rg * 4 + i) * D + k], u, a[i]);
-          dg[i] = fmaf(Gt[(rg * 4 + i) * D + k], v, dg[i]);
+          a[i] = fmaf(Xs[(rg * 4 + i) * W + k], u, a[i]);
+          dg[i] = fmaf(Gt[(rg * 4 + i) * W + k], v, dg[i]);
         }
       }
+    }
+    if (h < hc) {
       const float b = b1[h0 + h];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -1123,13 +1173,14 @@ mlp_bwd_dx_f32(const float* __restrict__ x, const float* __restrict__ w1,
 }
 
 // rows a tile of mlp_bwd_dw_f32: 32, or 16 where two 32-row fp32 tiles of
-// x and g would not fit a block's shared memory (D above 880)
+// x's and g's chunk would not fit a block's shared memory (D above 880)
 inline int dw_f32_rows(int D) {
-  return (size_t)(2 * BR * D + 2 * BR * HW) * 4 <= kMaxSmem ? BR : 16;
+  const int W = depth_chunks(D).cols;
+  return (size_t)(2 * BR * W + 2 * BR * HW) * 4 <= kMaxSmem ? BR : 16;
 }
 size_t smem_dw_f32(int D) {
   const int rows = dw_f32_rows(D);
-  return (size_t)(2 * rows * D + 2 * rows * HW) * 4;
+  return (size_t)(2 * rows * depth_chunks(D).cols + 2 * rows * HW) * 4;
 }
 
 // RT rows a tile: a thread computes a and dga for RT / 16 of them
@@ -1143,14 +1194,19 @@ mlp_bwd_dw_f32(const float* __restrict__ x, const float* __restrict__ w1,
                int cols) {
   constexpr int RPT = RT / 16;
   extern __shared__ __align__(128) unsigned char smem[];
+  // x's and g's rows in chunks of W columns (all of D up to 1,280); past
+  // one chunk the tiles are then loaded again with the block's own columns
+  const Slices ch = depth_chunks(D);
+  const int W = ch.cols;
   float* Xs = reinterpret_cast<float*>(smem);
-  float* Gt = Xs + RT * D;
-  float* GAs = Gt + RT * D;       // [RT][HW]
+  float* Gt = Xs + RT * W;
+  float* GAs = Gt + RT * W;       // [RT][HW]
   float* DAs = GAs + RT * HW;
   const int tid = threadIdx.x;
   const int h0 = blockIdx.x * HW;
   const int c0 = blockIdx.y * cols;       // this block's slice of D
   const int dc = min(cols, D - c0);
+  const int xo = ch.n == 1 ? c0 : 0;      // where it lies in Xs, Gt
 
   // this thread's columns d = c0 + tid, + 256, + 512 of dW1[:, chunk] and
   // dW2[chunk, :]
@@ -1171,21 +1227,24 @@ mlp_bwd_dw_f32(const float* __restrict__ x, const float* __restrict__ w1,
   const float bias = b1[h0 + h];
 
   for (long long row0 = 0; row0 < N; row0 += RT) {
-    __syncthreads();
-    load_rows<float, RT>(Xs, D, x, row0, N, D);
-    load_rows<float, RT>(Gt, D, g, row0, N, D);
-    __syncthreads();
     {
       float av[RPT], dv[RPT];
 #pragma unroll
       for (int i = 0; i < RPT; ++i) av[i] = dv[i] = 0.f;
-      for (int k = 0; k < D; ++k) {
-        const float u = w1p[(long long)k * H];
-        const float v = w2p[k];
+      for (int kc = 0; kc < D; kc += W) {   // D's chunks in order
+        const int kw = min(W, D - kc);
+        __syncthreads();
+        load_cols<float, RT>(Xs, W, x, row0, N, D, kc, kw);
+        load_cols<float, RT>(Gt, W, g, row0, N, D, kc, kw);
+        __syncthreads();
+        for (int k = 0; k < kw; ++k) {
+          const float u = w1p[(long long)(kc + k) * H];
+          const float v = w2p[kc + k];
 #pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          av[i] = fmaf(Xs[(ra + 16 * i) * D + k], u, av[i]);
-          dv[i] = fmaf(Gt[(ra + 16 * i) * D + k], v, dv[i]);
+          for (int i = 0; i < RPT; ++i) {
+            av[i] = fmaf(Xs[(ra + 16 * i) * W + k], u, av[i]);
+            dv[i] = fmaf(Gt[(ra + 16 * i) * W + k], v, dv[i]);
+          }
         }
       }
 #pragma unroll
@@ -1194,6 +1253,11 @@ mlp_bwd_dw_f32(const float* __restrict__ x, const float* __restrict__ w1,
         GAs[(ra + 16 * i) * HW + h] = gelu(a);
         DAs[(ra + 16 * i) * HW + h] = dv[i] * gelu_grad(a);
       }
+    }
+    if (ch.n > 1) {
+      __syncthreads();   // every thread is done with the last chunk
+      load_cols<float, RT>(Xs, W, x, row0, N, D, c0, dc);
+      load_cols<float, RT>(Gt, W, g, row0, N, D, c0, dc);
     }
     __syncthreads();
     if (tid < HW) {
@@ -1209,7 +1273,7 @@ mlp_bwd_dw_f32(const float* __restrict__ x, const float* __restrict__ w1,
       if (c < dc) {
         float s = 0.f;
 #pragma unroll 8
-        for (int r = 0; r < RT; ++r) s += Gt[r * D + c0 + c];
+        for (int r = 0; r < RT; ++r) s += Gt[r * W + xo + c];
         s_b2[j] += s;
       }
     }
@@ -1218,7 +1282,8 @@ mlp_bwd_dw_f32(const float* __restrict__ x, const float* __restrict__ w1,
       const int d = c0 + tid + kThreads * j;
       if (d < c0 + dc) {
         for (int r = 0; r < RT; ++r) {
-          const float xv = Xs[r * D + d], gv = Gt[r * D + d];
+          const float xv = Xs[r * W + d - c0 + xo];
+          const float gv = Gt[r * W + d - c0 + xo];
 #pragma unroll
           for (int c = 0; c < HW; ++c) {
             acc1[j][c] = fmaf(xv, DAs[r * HW + c], acc1[j][c]);
@@ -1289,7 +1354,7 @@ extern "C" {
 // success). x, g, dx: [N, D]; w1: [D, H]; w2: [H, D], all contiguous, one
 // type (is_bf16: 1 bfloat16, 0 float32) and 32-byte aligned; b1 fp32 [H];
 // dw1 [D, H], db1 [H], dw2 [H, D], db2 [D] fp32, each written once. D and H
-// multiples of 16, D <= 1280; otherwise cudaErrorInvalidValue. `scratch` is
+// multiples of 16; otherwise cudaErrorInvalidValue. `scratch` is
 // fp32 device memory of `scratch_len` floats, at least what
 // pose3d_mlp_block_bwd_config reports in cfg[8] (0: may be null).
 int pose3d_mlp_block_bwd(const void* x, const void* w1, const void* b1,
@@ -1297,7 +1362,8 @@ int pose3d_mlp_block_bwd(const void* x, const void* w1, const void* b1,
                          void* db1, void* dw2, void* db2, void* scratch,
                          long long scratch_len, int is_bf16, long long N,
                          int D, int H, void* stream) {
-  if (N < 1 || D < 16 || H < 16 || D % 16 != 0 || H % 16 != 0 || D > kMaxD)
+  if (N < 1 || D < 16 || H < 16 || D % 16 != 0 || H % 16 != 0 ||
+      column_slices(D).n > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* fb1 = static_cast<const float*>(b1);
@@ -1332,10 +1398,13 @@ int pose3d_mlp_block_bwd(const void* x, const void* w1, const void* b1,
 // block, cfg[2] blocks, cfg[3] dynamic shared memory; for the dW kernel
 // cfg[4] rows a tile, cfg[5] blocks, cfg[6] row groups G, cfg[7] dynamic
 // shared memory; cfg[8] floats of scratch; cfg[9] column slices of D (the
-// blocks of both kernels count them). Returns 0.
+// blocks of both kernels count them); cfg[10] the chunks D is streamed in,
+// cfg[11] columns a chunk (1 and D up to 1,280). Returns 0.
 int pose3d_mlp_block_bwd_config(int is_bf16, long long N, int D, int H,
                                 long long* cfg) {
   const Slices sl = column_slices(D);   // one slice when D <= 768
+  const Slices ch = depth_chunks(D);    // one chunk when D <= 1280
+  cfg[10] = ch.n, cfg[11] = ch.cols;
   if (takes_wgmma(is_bf16, D)) {
     const wg::Split sp = wg::split_rows(N, H);
     cfg[0] = kPathWgmma, cfg[1] = wg::BM, cfg[3] = (long long)wg::SMEM_DX;

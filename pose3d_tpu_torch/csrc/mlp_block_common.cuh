@@ -20,21 +20,33 @@ constexpr int kWarps = 8;
 // eight warps of a block cover 8 * 6 * 16 = 768 output columns
 constexpr int kMaxFrags = 6;
 constexpr int kMaxCols = kWarps * kMaxFrags * 16;
-// The widest D the kernels take (ViT-H's 1,280). Above kMaxCols the WMMA
-// and scalar kernels split the output columns of out and dx (and the rows
-// of dW1, columns of dW2) across blocks on gridDim.y, each block still
-// summing x W1 and g W2^T over all of D before the GELU: the first products
-// are computed once for each slice.
-constexpr int kMaxD = 1280;
+// Above kMaxCols the WMMA and scalar kernels split the output columns of
+// out and dx (and the rows of dW1, columns of dW2) across blocks on
+// gridDim.y, each block still summing x W1 and g W2^T over all of D before
+// the GELU: the first products are computed once for each slice.
+// Above kMaxChunk (ViT-H's 1,280) they no longer hold a tile's rows of x
+// (and g) whole in shared memory: they stream D through it in
+// depth_chunks(D), summing x W1 and g W2^T over the chunks in order, in
+// fp32, before the GELU. Up to kMaxChunk the one chunk is all of D: those
+// widths keep the tile, the plan and the bits they had.
+constexpr int kMaxChunk = 1280;
 
-// The column split of a width D: n slices of `cols` columns (a multiple of
-// 16, at most kMaxCols; the last slice may be narrower).
+// A split of a width D into n parts of `cols` columns (a multiple of 16;
+// the last part may be narrower).
 struct Slices {
   int n, cols;
 };
-__host__ __device__ inline Slices column_slices(int D) {
-  const int n = (D + kMaxCols - 1) / kMaxCols;
+__host__ __device__ inline Slices split_width(int D, int most) {
+  const int n = (D + most - 1) / most;
   return {n, 16 * ((D + 16 * n - 1) / (16 * n))};
+}
+// The column split of the outputs: at most kMaxCols a slice.
+__host__ __device__ inline Slices column_slices(int D) {
+  return split_width(D, kMaxCols);
+}
+// The chunks D is streamed in: at most kMaxChunk columns a chunk.
+__host__ __device__ inline Slices depth_chunks(int D) {
+  return split_width(D, kMaxChunk);
 }
 
 constexpr float kSqrtHalf = 0.70710678118654752440f;
@@ -61,24 +73,33 @@ __device__ __forceinline__ float gelu_grad(float a) {
   return cdf + a * pdf;
 }
 
-// Rows [row0, row0 + ROWS) of a contiguous [N, D] matrix into a shared tile
-// of row pitch `ld` elements, 16 bytes at a time (D * sizeof(T) and
-// ld * sizeof(T) are multiples of 16); rows >= N become 0.
+// Rows [row0, row0 + ROWS) and columns [c0, c0 + w) of a contiguous
+// [N, D] matrix into a shared tile of row pitch `ld` elements, 16 bytes at
+// a time (c0, w, D and ld times sizeof(T) are multiples of 16); rows >= N
+// become 0.
 template <typename T, int ROWS>
-__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
-                                          long long row0, long long N,
-                                          int D) {
+__device__ __forceinline__ void load_cols(T* dst, int ld, const T* src,
+                                          long long row0, long long N, int D,
+                                          int c0, int w) {
   constexpr int VEC = 16 / sizeof(T);
-  const int vpr = D / VEC;
+  const int vpr = w / VEC;
   for (int i = threadIdx.x; i < ROWS * vpr; i += kThreads) {
     const int r = i / vpr;
     const int c = (i % vpr) * VEC;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < N) {
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * D + c);
+      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * D + c0 + c);
     }
     *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
   }
+}
+
+// All D columns of those rows (load_cols with the whole width).
+template <typename T, int ROWS>
+__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src,
+                                          long long row0, long long N,
+                                          int D) {
+  load_cols<T, ROWS>(dst, ld, src, row0, N, D, 0, D);
 }
 
 // ---- the wgmma kernels (bf16, D a multiple of 64) ------------------------

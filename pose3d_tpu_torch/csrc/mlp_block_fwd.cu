@@ -73,13 +73,19 @@
 //    straight from L2); D and H must be multiples of 16 (the wrapper pads
 //    other widths with zeros). fp32 inputs would drop to TF32 on the tensor
 //    cores, so the fp32 path is a scalar-FMA tile of 16 rows: slow and right;
-//  * D above 768 (ViT-L's 1,024, ViT-H's 1,280; at most 1,280): the WMMA and
+//  * D above 768 (ViT-L's 1,024, ViT-H's 1,280, and wider): the WMMA and
 //    fp32 kernels split the output columns into column_slices(D) on
 //    gridDim.y, at most 768 a block, and every slice computes a = x W1 + b1
 //    over all of D itself (2*N*D*H a slice for x W1, 2*N*D*H in all for
 //    the second product). The wgmma kernel keeps
 //    D <= 768: its x tile would be 160 KB of the 227 at D 1,280, beside a
 //    96 KB ring;
+//  * D above 1,280: x's [rows, D] tile no longer fits whole beside the
+//    rest, so those two kernels stream it through shared memory in
+//    depth_chunks(D) of at most 1,280 columns, once for every hidden chunk,
+//    summing x W1 over the chunks in order (fp32) before the GELU: a is
+//    rounded once, as in the TPU kernel. Up to 1,280 the one chunk is all
+//    of D, loaded once: the plan and the bits of those widths as before;
 //  * ragged rows: the x tile's rows >= N are zero and never stored.
 
 #include <mma.h>
@@ -99,7 +105,7 @@ constexpr int LDA = HC + 4;   // fp32 chunk pitch
 constexpr int LDG = HC + 8;   // bf16 chunk pitch
 
 size_t smem_bf16(int D) {
-  return (size_t)BR * (D + 8) * 2 + (size_t)BR * LDA * 4 +
+  return (size_t)BR * (depth_chunks(D).cols + 8) * 2 + (size_t)BR * LDA * 4 +
          (size_t)BR * LDG * 2;
 }
 
@@ -109,7 +115,10 @@ mlp_fwd_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
              const float* __restrict__ b2, bf16* __restrict__ out,
              long long N, int D, int H, int cols) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int LDX = D + 8;
+  // x's rows in chunks of W columns (one chunk, all of D, up to 1,280)
+  const Slices ch = depth_chunks(D);
+  const int W = ch.cols;
+  const int LDX = W + 8;
   bf16* Xs = reinterpret_cast<bf16*>(smem);
   float* As = reinterpret_cast<float*>(Xs + BR * LDX);
   bf16* Gs = reinterpret_cast<bf16*>(As + BR * LDA);
@@ -117,12 +126,11 @@ mlp_fwd_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const long long row0 = (long long)blockIdx.x * BR;
-  const int nfrag = D / 16;
   // this block's output columns [c0, c0 + nout * 16) (all of D when D <= 768)
   const int c0 = blockIdx.y * cols;
   const int nout = min(cols, D - c0) / 16;
 
-  load_rows<bf16, BR>(Xs, LDX, x, row0, N, D);
+  if (ch.n == 1) load_rows<bf16, BR>(Xs, LDX, x, row0, N, D);
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][kMaxFrags];
 #pragma unroll
@@ -138,17 +146,25 @@ mlp_fwd_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 
   for (int h0 = 0; h0 < H; h0 += HC) {
     const int hc = min(HC, H - h0);
-    // a = x W1[:, h0 : h0 + hc] for this warp's two fragments
+    // a = x W1[:, h0 : h0 + hc] for this warp's two fragments, summed over
+    // D's chunks in order
     {
       const bool doa = cfa * 16 < hc, dob = cfb * 16 < hc;
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> pa, pb;
       wmma::fill_fragment(pa, 0.f);
       wmma::fill_fragment(pb, 0.f);
-      if (doa) {
-        const bf16* wa = w1 + h0 + cfa * 16;
-        const bf16* wb = w1 + h0 + cfb * 16;
+      for (int kc = 0; kc < D; kc += W) {
+        const int kw = min(W, D - kc);
+        if (ch.n > 1) {
+          __syncthreads();   // every warp is done with the last chunk
+          load_cols<bf16, BR>(Xs, LDX, x, row0, N, D, kc, kw);
+          __syncthreads();
+        }
+        if (!doa) continue;
+        const bf16* wa = w1 + (long long)kc * H + h0 + cfa * 16;
+        const bf16* wb = w1 + (long long)kc * H + h0 + cfb * 16;
 #pragma unroll 4
-        for (int k = 0; k < nfrag; ++k) {
+        for (int k = 0; k < kw / 16; ++k) {
           wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> xf;
           wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> wf;
           wmma::load_matrix_sync(xf, Xs + rf * 16 * LDX + k * 16, LDX);
@@ -159,6 +175,8 @@ mlp_fwd_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w1,
             wmma::mma_sync(pb, xf, wf, pb);
           }
         }
+      }
+      if (doa) {
         wmma::store_matrix_sync(As + rf * 16 * LDA + cfa * 16, pa, LDA,
                                 wmma::mem_row_major);
         if (dob) {
@@ -452,13 +470,14 @@ int launch(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
 
 }  // namespace wg
 
-// fp32: 16 rows to a block, scalar FMA. Xs is [16][D], Os [16][cols] (the
-// block's output columns), As [16][64].
+// fp32: 16 rows to a block, scalar FMA. Xs is [16][W] (a chunk of D: all of
+// it up to 1,280), Os [16][cols] (the block's output columns), As [16][64].
 constexpr int FR = 16;
 constexpr int FC = 64;
 
 size_t smem_f32(int D) {
-  return (size_t)(FR * D + FR * column_slices(D).cols + FR * FC) * 4;
+  return (size_t)(FR * depth_chunks(D).cols + FR * column_slices(D).cols +
+                  FR * FC) * 4;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -467,15 +486,17 @@ mlp_fwd_f32(const float* __restrict__ x, const float* __restrict__ w1,
             const float* __restrict__ b2, float* __restrict__ out,
             long long N, int D, int H, int cols) {
   extern __shared__ __align__(128) unsigned char smem[];
+  const Slices ch = depth_chunks(D);
+  const int W = ch.cols;
   float* Xs = reinterpret_cast<float*>(smem);
-  float* Os = Xs + FR * D;
+  float* Os = Xs + FR * W;
   float* As = Os + FR * cols;
   const int tid = threadIdx.x;
   const long long row0 = (long long)blockIdx.x * FR;
   const int c0 = blockIdx.y * cols;       // this block's output columns
   const int dc = min(cols, D - c0);
 
-  load_rows<float, FR>(Xs, D, x, row0, N, D);
+  if (ch.n == 1) load_rows<float, FR>(Xs, W, x, row0, N, D);
   for (int i = tid; i < FR * dc; i += kThreads) Os[i] = 0.f;
   __syncthreads();
 
@@ -483,16 +504,25 @@ mlp_fwd_f32(const float* __restrict__ x, const float* __restrict__ w1,
   const int rg = tid / FC;      // and its four rows
   for (int h0 = 0; h0 < H; h0 += FC) {
     const int hc = min(FC, H - h0);
-    if (h < hc) {
-      float a[4] = {0.f, 0.f, 0.f, 0.f};
-      const float* wp = w1 + h0 + h;
-      for (int k = 0; k < D; ++k) {
+    float a[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int kc = 0; kc < D; kc += W) {
+      const int kw = min(W, D - kc);
+      if (ch.n > 1) {
+        __syncthreads();
+        load_cols<float, FR>(Xs, W, x, row0, N, D, kc, kw);
+        __syncthreads();
+      }
+      if (h >= hc) continue;
+      const float* wp = w1 + (long long)kc * H + h0 + h;
+      for (int k = 0; k < kw; ++k) {
         const float w = wp[(long long)k * H];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          a[i] = fmaf(Xs[(rg * 4 + i) * D + k], w, a[i]);
+          a[i] = fmaf(Xs[(rg * 4 + i) * W + k], w, a[i]);
         }
       }
+    }
+    if (h < hc) {
       const float b = b1[h0 + h];
 #pragma unroll
       for (int i = 0; i < 4; ++i) As[(rg * 4 + i) * FC + h] = gelu(a[i] + b);
@@ -533,12 +563,13 @@ extern "C" {
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // x, out: [N, D]; w1: [D, H]; w2: [H, D], all contiguous, one type (is_bf16:
 // 1 bfloat16, 0 float32) and 32-byte aligned; b1 [H], b2 [D] fp32. D and H
-// multiples of 16, D <= 1280; otherwise cudaErrorInvalidValue.
+// multiples of 16; otherwise cudaErrorInvalidValue.
 int pose3d_mlp_block_fwd(const void* x, const void* w1, const void* b1,
                          const void* w2, const void* b2, void* out,
                          int is_bf16, long long N, int D, int H,
                          void* stream) {
-  if (N < 1 || D < 16 || H < 16 || D % 16 != 0 || H % 16 != 0 || D > kMaxD)
+  if (N < 1 || D < 16 || H < 16 || D % 16 != 0 || H % 16 != 0 ||
+      column_slices(D).n > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* fb1 = static_cast<const float*>(b1);
@@ -576,11 +607,15 @@ int pose3d_mlp_block_fwd(const void* x, const void* w1, const void* b1,
 // What pose3d_mlp_block_fwd does for a shape, without launching: cfg[0] the
 // path (0 scalar fp32, 1 WMMA, 2 wgmma), cfg[1] rows a block, cfg[2] blocks
 // (row blocks times column slices), cfg[3] dynamic shared memory in bytes,
-// cfg[4] column slices, cfg[5] columns a slice. Returns 0.
+// cfg[4] column slices, cfg[5] columns a slice, cfg[6] the chunks D is
+// streamed in, cfg[7] columns a chunk (1 and D on the wgmma path and up to
+// 1,280). Returns 0.
 int pose3d_mlp_block_fwd_config(int is_bf16, long long N, int D, int H,
                                 int* cfg) {
   (void)H;
   const Slices sl = column_slices(D);   // one slice when D <= 768
+  const Slices ch = depth_chunks(D);    // one chunk when D <= 1280
+  cfg[6] = ch.n, cfg[7] = ch.cols;
   if (takes_wgmma(is_bf16, D)) {
     cfg[0] = kPathWgmma, cfg[1] = wg::BM, cfg[3] = (int)wg::SMEM;
   } else if (is_bf16) {

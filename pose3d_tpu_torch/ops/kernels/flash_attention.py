@@ -28,12 +28,18 @@ lifter's depths, TMA-fed tiles of 128 query rows or keys a block),
 ``wmma`` (bf16, the other pairs) and ``scalar`` (fp32).
 
 The kernels are built for the (D, Dv) pairs in :data:`PAIRS`; like the TPU
-kernel, the launchers take any D and Dv up to :data:`MAX_DEPTH` (256):
-another pair is zero-padded to the smallest built pair that holds it
-(:func:`padded_pair`), q and k to its D, v, o and dO to its Dv, and the
-outputs are sliced back. Zero columns add nothing to QKᵀ, give zero output
-columns and leave δ = rowsum(dO∘O) as it was; the scale stays 1/√D of the
-true D. Deeper heads raise.
+kernel, the launchers take any D and Dv >= 1: up to 256 another pair is
+zero-padded to the smallest built pair that holds it (:func:`padded_pair`),
+q and k to its D, v, o and dO to its Dv, and the outputs are sliced back.
+Zero columns add nothing to QKᵀ, give zero output columns and leave
+δ = rowsum(dO∘O) as it was; the scale stays 1/√D of the true D. Where D or
+Dv passes 256 both are padded to multiples of :data:`DEEP_CHUNK` (64) and
+run on the deep instance of the ``wmma`` and ``scalar`` paths, whose
+depths are a loop bound: the scores (and the backward's dP) are summed over
+the depth in 64-column chunks, and the output columns are split into
+slices of :data:`DEEP_SLICE` (128) across blocks, each slice recomputing
+the scores in the same order (:func:`launch_config`'s ``chunk`` and
+``slices``).
 """
 
 from __future__ import annotations
@@ -52,8 +58,12 @@ from pose3d_tpu_torch.ops.kernels import _build
 # C dispatch
 PAIRS = ((32, 32), (48, 48), (64, 64), (128, 128), (32, 64), (16, 16),
          (256, 256))
-# the deepest D and Dv the launchers take (padded to the (256, 256) pair)
-MAX_DEPTH = 256
+# past depth 256 (the widest built pair), the deep instance: depths padded
+# to whole chunks of DEEP_CHUNK columns, output columns in slices of
+# DEEP_SLICE a block (the C attn::kDeepChunk, attn::kDeepSlice)
+DEEP_CHUNK = 64
+DEEP_SLICE = 128
+_DEEP_KEYS = {2: 64, 4: 32}     # keys a block of the deep backward
 _DTYPES = (torch.bfloat16, torch.float32)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # the kernels' paths, as the C entry points number them
@@ -76,19 +86,39 @@ def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def is_deep(D: int, Dv: int) -> bool:
+    """Whether (D, Dv) runs on the deep instance as it is (the C
+    ``attn::deep_pair``): both multiples of :data:`DEEP_CHUNK`, one past
+    256."""
+    return (D >= DEEP_CHUNK and Dv >= DEEP_CHUNK and D % DEEP_CHUNK == 0
+            and Dv % DEEP_CHUNK == 0 and max(D, Dv) > PAIRS[-1][0])
+
+
 def padded_pair(D: int, Dv: int) -> Tuple[int, int]:
-    """The built pair (Dp, Dvp) that the launchers run q, k of depth D and
-    v of depth Dv on: (D, Dv) itself when it is built, else the smallest
-    built pair with Dp >= D and Dvp >= Dv (least Dp + Dvp, then least Dp),
-    the inputs zero-padded to it. Raises ValueError past
-    :data:`MAX_DEPTH`."""
-    if not (1 <= D <= MAX_DEPTH and 1 <= Dv <= MAX_DEPTH):
-        raise ValueError(
-            f"head dim D={D} with value depth Dv={Dv}: the kernels take D "
-            f"and Dv from 1 to {MAX_DEPTH} (the widest pair built is "
-            f"{PAIRS[-1]})")
+    """The pair (Dp, Dvp) that the launchers run q, k of depth D and v of
+    depth Dv on, the inputs zero-padded to it: (D, Dv) itself when it is
+    built, else the smallest built pair with Dp >= D and Dvp >= Dv (least
+    Dp + Dvp, then least Dp); past depth 256 D and Dv each rounded up to a
+    multiple of :data:`DEEP_CHUNK` (the deep instance). Raises ValueError
+    for an empty depth."""
+    if D < 1 or Dv < 1:
+        raise ValueError(f"head dim D={D} with value depth Dv={Dv}: the "
+                         "kernels take D, Dv >= 1")
+    if max(D, Dv) > PAIRS[-1][0]:
+        return (DEEP_CHUNK * _ceil(D, DEEP_CHUNK),
+                DEEP_CHUNK * _ceil(Dv, DEEP_CHUNK))
     return min((p for p in PAIRS if p[0] >= D and p[1] >= Dv),
                key=lambda p: (p[0] + p[1], p[0]))
+
+
+def slices(D: int, Dv: int) -> Tuple[int, int]:
+    """(forward, backward) column slices of the pair the kernels run:
+    1 and 1 on a built pair; on the deep instance ceil(Dv / 128) of o's
+    columns and ceil(max(D, Dv) / 128) of dQ's, dK's and dV's (the C
+    ``deep_fwd_slices`` / ``deep_bwd_slices``)."""
+    if not is_deep(D, Dv):
+        return 1, 1
+    return _ceil(Dv, DEEP_SLICE), _ceil(max(D, Dv), DEEP_SLICE)
 
 
 def _bwd_keys(D: int, Dv: int) -> int:
@@ -106,18 +136,49 @@ def launch_config(B: int, Tq: int, Tk: int, H: int, D: int, Dv: int,
     same from the built libraries, :func:`library_config`).
 
     ``path``: ``"wgmma"`` (bf16, D = Dv in {48, 64}), ``"wmma"`` (bf16,
-    any other pair) or ``"scalar"`` (fp32). ``fwd``: query ``rows`` a
-    block (32 for the (256, 256) pair in fp32); ``bwd``: keys (``rows``) a
-    block, 64, or 32 for the (256, 256) pair; each with its ``grid`` (x, y,
-    z) = (row blocks, H, B), dynamic shared memory ``smem`` in bytes and
+    any other pair) or ``"scalar"`` (fp32). ``chunk``: the depth columns
+    a step of the score sums takes (D on a built pair, 64 on the deep
+    instance). ``fwd``: query ``rows`` a block (32 for the (256, 256) pair
+    in fp32); ``bwd``: keys (``rows``) a block, 64, or 32 for the (256,
+    256) pair and the deep fp32 instance; each with its ``slices`` of the
+    output columns (:func:`slices`), its ``grid`` (x, y, z) = (row blocks,
+    H × slices, B), dynamic shared memory ``smem`` in bytes and
     ``threads`` a block; ``scratch_floats``: the fp32 scratch the backward
     needs beside the dQ accumulator (δ, or on the wgmma path the
     interleaved (lse·log2 e, δ) rows padded to whole 64-row query tiles).
-    Raises ValueError for a pair that is not built (the launchers pad
-    other pairs first: :func:`padded_pair`)."""
+    Raises ValueError for a pair that is neither built nor deep (the
+    launchers pad other pairs first: :func:`padded_pair`)."""
+    if is_deep(D, Dv):
+        sf, sb = slices(D, Dv)
+        keys = _DEEP_KEYS[itemsize]
+        c, s = DEEP_CHUNK, DEEP_SLICE
+        if itemsize == 2:
+            path = "wmma"
+            # Q, K chunks, V slice, S, P, O (fwd); two chunks, the K, Q and
+            # dO slices, S / staging, dP, P, dS, lse, δ (bwd)
+            fwd = (2 * 64 * (c + 8) * 2 + 64 * (s + 8) * 2 + 64 * 68 * 4
+                   + 64 * 72 * 2 + 64 * (s + 4) * 4)
+            bwd = ((64 + keys) * (c + 8) * 2 + (keys + 128) * (s + 8) * 2
+                   + 64 * (s + 4) * 4 + 64 * (keys + 4) * 4
+                   + 2 * 64 * (keys + 8) * 2 + 2 * 64 * 4)
+        else:
+            path = "scalar"
+            fwd = (2 * 64 * (c + 4) + 64 * (s + 4) + 64 * 65) * 4
+            bwd = ((64 + keys) * (c + 4) + (keys + 128) * (s + 4)
+                   + 2 * 64 * (keys + 1) + 2 * 64) * 4
+        return {
+            "path": path, "chunk": c, "scratch_floats": B * H * Tq,
+            "fwd": {"rows": _BLOCK, "slices": sf,
+                    "grid": (_ceil(Tq, _BLOCK), H * sf, B), "smem": fwd,
+                    "threads": _THREADS},
+            "bwd": {"rows": keys, "slices": sb,
+                    "grid": (_ceil(Tk, keys), H * sb, B), "smem": bwd,
+                    "threads": _THREADS},
+        }
     if (D, Dv) not in PAIRS:
         raise ValueError(f"(D, Dv) = ({D}, {Dv}) is not built; pairs: "
-                         f"{PAIRS}")
+                         f"{PAIRS}, and past depth 256 multiples of "
+                         f"{DEEP_CHUNK}")
     if itemsize == 2 and D == Dv and D in (48, 64):
         path, rows, threads = "wgmma", _WG_BLOCK, _WG_THREADS
         fwd, bwd = _WG_SMEM_FWD, _WG_SMEM_BWD
@@ -147,11 +208,11 @@ def launch_config(B: int, Tq: int, Tk: int, H: int, D: int, Dv: int,
             bwd = ((keys + 64) * (D + 4) + (keys + 64) * (Dv + 4)
                    + 2 * 64 * (keys + 1) + 2 * 64) * 4
     return {
-        "path": path, "scratch_floats": scratch,
-        "fwd": {"rows": rows, "grid": (_ceil(Tq, rows), H, B), "smem": fwd,
-                "threads": threads},
-        "bwd": {"rows": keys, "grid": (_ceil(Tk, keys), H, B), "smem": bwd,
-                "threads": threads},
+        "path": path, "chunk": D, "scratch_floats": scratch,
+        "fwd": {"rows": rows, "slices": 1, "grid": (_ceil(Tq, rows), H, B),
+                "smem": fwd, "threads": threads},
+        "bwd": {"rows": keys, "slices": 1, "grid": (_ceil(Tk, keys), H, B),
+                "smem": bwd, "threads": threads},
     }
 
 
@@ -160,7 +221,7 @@ def library_config(B: int, Tq: int, Tk: int, H: int, D: int, Dv: int,
     """:func:`launch_config` as the built libraries report it (builds
     them at first use; needs the card's toolkit)."""
     is_bf16 = int(itemsize == 2)
-    fwd = (ctypes.c_int * 7)()
+    fwd = (ctypes.c_int * 9)()
     lib = load_library("flash_attention_fwd")
     lib.pose3d_flash_attention_fwd_config.argtypes = [_I] * 7 + [_P]
     rc = lib.pose3d_flash_attention_fwd_config(is_bf16, B, Tq, Tk, H, D, Dv,
@@ -169,22 +230,24 @@ def library_config(B: int, Tq: int, Tk: int, H: int, D: int, Dv: int,
                       Tk, H, D, Dv)
     if rc != 0:
         raise ValueError(f"(D, Dv) = ({D}, {Dv}) is not built")
-    if fwd[0] != bwd[0]:
-        raise RuntimeError(f"forward takes path {fwd[0]}, backward {bwd[0]}")
+    if fwd[0] != bwd[0] or fwd[7] != bwd[8]:
+        raise RuntimeError(f"forward takes path {fwd[0]} in chunks of "
+                           f"{fwd[7]}, backward {bwd[0]} in chunks of "
+                           f"{bwd[8]}")
     return {
-        "path": PATHS[fwd[0]], "scratch_floats": bwd[7],
-        "fwd": {"rows": fwd[1], "grid": tuple(fwd[2:5]), "smem": fwd[5],
-                "threads": fwd[6]},
-        "bwd": {"rows": bwd[1], "grid": tuple(bwd[2:5]), "smem": bwd[5],
-                "threads": bwd[6]},
+        "path": PATHS[fwd[0]], "chunk": fwd[7], "scratch_floats": bwd[7],
+        "fwd": {"rows": fwd[1], "slices": fwd[8], "grid": tuple(fwd[2:5]),
+                "smem": fwd[5], "threads": fwd[6]},
+        "bwd": {"rows": bwd[1], "slices": bwd[9], "grid": tuple(bwd[2:5]),
+                "smem": bwd[5], "threads": bwd[6]},
     }
 
 
 def _bwd_config(lib: ctypes.CDLL, is_bf16: int, B: int, Tq: int, Tk: int,
                 H: int, D: int, Dv: int):
     """The backward's dispatch as its library reports it: path, keys a
-    block, grid (3), smem, threads, scratch floats."""
-    out = (ctypes.c_longlong * 8)()
+    block, grid (3), smem, threads, scratch floats, chunk, slices."""
+    out = (ctypes.c_longlong * 10)()
     lib.pose3d_flash_attention_bwd_config.argtypes = [_I] * 7 + [_P]
     rc = lib.pose3d_flash_attention_bwd_config(is_bf16, B, Tq, Tk, H, D, Dv,
                                                out)
@@ -281,14 +344,15 @@ def _check(fn: str, q, k, v, **more) -> None:
             raise ValueError(f"{fn}: {name} must have q's shape with v's "
                              f"depth {(B, Tq, H, Dv)}, got {tuple(x.shape)}")
     try:
-        padded_pair(D, Dv)
+        Dp, Dvp = padded_pair(D, Dv)
     except ValueError as e:
         raise ValueError(f"{fn}: {e}") from None
     if Tq == 0 or k.shape[1] == 0:
         raise ValueError(f"{fn}: empty query or key sequence")
-    if B > 65535 or H > 65535:
-        raise ValueError(f"{fn}: B and H must be <= 65535 "
-                         "(grid dimensions)")
+    if B > 65535 or H * max(slices(Dp, Dvp)) > 65535:
+        raise ValueError(f"{fn}: B and H times the column slices "
+                         f"{slices(Dp, Dvp)} must be <= 65535 (grid "
+                         "dimensions)")
     devices = {x.device for x in named.values()}
     if not (q.is_cuda and len(devices) == 1):
         raise ValueError(
@@ -321,7 +385,7 @@ def _pad_depth(x: torch.Tensor, depth: int) -> torch.Tensor:
 
 def run_padded_fwd(launch, q: torch.Tensor, k: torch.Tensor,
                    v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``launch(q, k, v, scale) -> (o, lse)`` on the built pair
+    """``launch(q, k, v, scale) -> (o, lse)`` on the pair
     :func:`padded_pair` names, at the scale of the true D (fixed here,
     before any padding), with o sliced back to Dv. The launchers run the
     kernel through it; the tests run the plain forward through it."""
@@ -357,8 +421,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     """Launch the Hopper kernel on PyTorch's current stream (on the pair
     :func:`padded_pair` names, the path :func:`launch_config` names for
     it). Raises on anything it does not take (non-CUDA tensors, other
-    dtypes, D or Dv above 256, an empty key sequence) and when the launch
-    is refused; it never falls back to the plain version.
+    dtypes, an empty depth or key sequence) and when the launch is refused;
+    it never falls back to the plain version.
 
     The output carries no autograd graph, so with grad mode on it raises
     for inputs that require grad: differentiate through
@@ -383,7 +447,7 @@ def _launch_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 def _launch_fwd_built(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of the forward on a built pair at ``scale``."""
+    """One launch of the forward on a built or deep pair at ``scale``."""
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     B, Tq, H, D = q.shape
     Tk, Dv = k.shape[1], v.shape[3]
@@ -458,7 +522,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _launch_bwd_built(q, k, v, o, do, lse, scale: float):
-    """One backward on a built pair at ``scale``; counts
+    """One backward on a built or deep pair at ``scale``; counts
     ``flash_attention_bwd.launches``."""
     B, Tq, H, D = q.shape
     Tk, Dv = k.shape[1], v.shape[3]

@@ -28,14 +28,15 @@ CPU tensor or when asked for by ``impl="reference"``. No model calls it
 (as in the JAX package, where the op stands alone); :func:`mlp_params`
 carries a module's parameters across.
 
-Widths: like the TPU kernel, the launchers take any D up to :data:`MAX_D`
-(1,280, ViT-H's) and any H. The kernels take multiples of 16; other
-widths are zero-padded to them (:func:`run_padded_fwd`): padded hidden
-units have zero weights and bias, GELU(0) = 0, so they add nothing, and
-padded columns of D are sliced off every output. Above 768 the WMMA and
-fp32 kernels split D's output columns across blocks (``slices`` in
-:func:`launch_config`), each block still summing x·w1 and g·w2ᵀ over all
-of D before the GELU.
+Widths: like the TPU kernel, the launchers take any D and H. The kernels
+take multiples of 16; other widths are zero-padded to them
+(:func:`run_padded_fwd`): padded hidden units have zero weights and bias,
+GELU(0) = 0, so they add nothing, and padded columns of D are sliced off
+every output. Above 768 the WMMA and fp32 kernels split D's output columns
+across blocks (``slices`` in :func:`launch_config`), each block still
+summing x·w1 and g·w2ᵀ over all of D before the GELU; above 1,280 they
+stream D through shared memory in chunks (``chunks``), summing over the
+chunks in order, in fp32, before the GELU.
 
 The plain versions round only where the kernels round: a bf16
 ``torch.matmul`` would return bf16 and so round ``a`` before the GELU and
@@ -61,8 +62,9 @@ from pose3d_tpu_torch.ops.kernels._launch import (
 
 IMPLS = ("auto", "reference")
 _DTYPES = (torch.bfloat16, torch.float32)
-# the widest D the kernels take (ViT-H's)
-MAX_D = 1280
+# the widest D a block holds whole in shared memory (ViT-H's); wider D is
+# streamed in chunks of at most this many columns (the C kMaxChunk)
+MAX_CHUNK = 1280
 # a block keeps its [rows, cols] output tile in registers (two warpgroups
 # with a 384-column slab each; six 16-column fragments to each of eight
 # warps on the WMMA path): at most 768 columns, so wider D is split into
@@ -105,12 +107,24 @@ def padded_widths(D: int, H: int) -> Tuple[int, int]:
     return 16 * _ceil(D, 16), 16 * _ceil(H, 16)
 
 
+def _split(D: int, most: int) -> Tuple[int, int]:
+    n = _ceil(D, most)
+    return n, 16 * _ceil(D, 16 * n)
+
+
 def column_slices(D: int) -> Tuple[int, int]:
     """(slices, cols): the kernels' split of D's output columns, at most
     :data:`MAX_COLS` a block, ``cols`` a multiple of 16 (the last slice
     may be narrower); (1, D) up to 768. Mirrors the C ``column_slices``."""
-    n = _ceil(D, MAX_COLS)
-    return n, 16 * _ceil(D, 16 * n)
+    return _split(D, MAX_COLS)
+
+
+def depth_chunks(D: int) -> Tuple[int, int]:
+    """(chunks, cols): the chunks the WMMA and fp32 kernels stream D
+    through shared memory in, at most :data:`MAX_CHUNK` columns each, in
+    the same way as :func:`column_slices`; (1, D) up to 1,280. Mirrors the
+    C ``depth_chunks``."""
+    return _split(D, MAX_CHUNK)
 
 
 def launch_config(N: int, D: int, H: int, itemsize: int) -> dict:
@@ -123,7 +137,9 @@ def launch_config(N: int, D: int, H: int, itemsize: int) -> dict:
     ``padded``: (Dp, Hp), the widths the kernels run on
     (:func:`padded_widths`); everything below is for them. ``slices``,
     ``cols``: D's output columns split across blocks (:func:`column_slices`;
-    one slice up to 768). ``path``: ``"wgmma"`` (bf16, Dp a multiple of 64
+    one slice up to 768). ``chunks``: (chunks, columns a chunk) that D is
+    streamed in (:func:`depth_chunks`; (1, D) up to 1,280). ``path``:
+    ``"wgmma"`` (bf16, Dp a multiple of 64
     up to 768: TMA-fed ``wgmma`` kernels), ``"wmma"`` (bf16, any other Dp:
     the WMMA kernels) or ``"scalar"`` (fp32). ``fwd`` / ``dx`` / ``dw``:
     ``rows`` a block (a tile for ``dw``), ``blocks`` (times the slices),
@@ -143,7 +159,7 @@ def launch_config(N: int, D: int, H: int, itemsize: int) -> dict:
         rows2 = max(64, _ceil(N, 256))
         scratch = groups * (2 * D * H + H) + _ceil(N, rows2) * D
         return {
-            **widths, "slices": 1, "cols": D,
+            **widths, "slices": 1, "cols": D, "chunks": (1, D),
             "path": "wgmma", "groups": groups, "scratch_bytes": 4 * scratch,
             "fwd": {"rows": _WG_ROWS, "blocks": _ceil(N, _WG_ROWS),
                     "smem": _WG_SMEM_FWD},
@@ -153,23 +169,25 @@ def launch_config(N: int, D: int, H: int, itemsize: int) -> dict:
                    "smem": _WG_SMEM_DW},
         }
     n, cols = column_slices(D)
+    chunks = depth_chunks(D)
+    W = chunks[1]       # x's (and g's) columns a block holds at once
     dw_rows = 32
     if itemsize == 2:
-        fwd = 32 * (D + 8) * 2 + 32 * 132 * 4 + 32 * 136 * 2
-        dx = 2 * 32 * (D + 8) * 2 + 2 * 32 * 68 * 4 + 32 * 72 * 2
-        dw = 2 * 32 * (D + 8) * 2 + 4 * 32 * 20 * 4 + 2 * 32 * 24 * 2
+        fwd = 32 * (W + 8) * 2 + 32 * 132 * 4 + 32 * 136 * 2
+        dx = 2 * 32 * (W + 8) * 2 + 2 * 32 * 68 * 4 + 32 * 72 * 2
+        dw = 2 * 32 * (W + 8) * 2 + 4 * 32 * 20 * 4 + 2 * 32 * 24 * 2
         rows, path = 32, "wmma"
     else:
-        # x (and g) [16, D], the block's output columns [16, cols], chunks
-        fwd = (16 * D + 16 * cols + 16 * 64) * 4
-        dx = (2 * 16 * D + 16 * cols + 2 * 16 * 64) * 4
+        # x (and g) [16, W], the block's output columns [16, cols], chunks
+        fwd = (16 * W + 16 * cols + 16 * 64) * 4
+        dx = (2 * 16 * W + 16 * cols + 2 * 16 * 64) * 4
         # x and g tiles of 32 rows, or of 16 where those do not fit
-        if (2 * 32 * D + 2 * 32 * 16) * 4 > MAX_SMEM:
+        if (2 * 32 * W + 2 * 32 * 16) * 4 > MAX_SMEM:
             dw_rows = 16
-        dw = (2 * dw_rows * D + 2 * dw_rows * 16) * 4
+        dw = (2 * dw_rows * W + 2 * dw_rows * 16) * 4
         rows, path = 16, "scalar"
     return {
-        **widths, "slices": n, "cols": cols,
+        **widths, "slices": n, "cols": cols, "chunks": chunks,
         "path": path, "groups": 1, "scratch_bytes": 0,
         "fwd": {"rows": rows, "blocks": _ceil(N, rows) * n, "smem": fwd},
         "dx": {"rows": rows, "blocks": _ceil(N, rows) * n, "smem": dx},
@@ -180,8 +198,8 @@ def launch_config(N: int, D: int, H: int, itemsize: int) -> dict:
 def _bwd_config(lib: ctypes.CDLL, is_bf16: int, N: int, D: int, H: int):
     """The backward's dispatch as its library reports it: path, dx rows,
     blocks, smem, dW rows, blocks, groups, smem, scratch floats, column
-    slices (for the padded widths)."""
-    out = (ctypes.c_longlong * 10)()
+    slices, depth chunks, columns a chunk (for the padded widths)."""
+    out = (ctypes.c_longlong * 12)()
     lib.pose3d_mlp_block_bwd_config.argtypes = [_I, _LL, _I, _I, _P]
     lib.pose3d_mlp_block_bwd_config(is_bf16, N, D, H, out)
     return out
@@ -190,18 +208,20 @@ def _bwd_config(lib: ctypes.CDLL, is_bf16: int, N: int, D: int, H: int):
 def library_config(N: int, D: int, H: int, itemsize: int) -> dict:
     """:func:`launch_config` as the built libraries report it (builds
     them at first use; needs the card's toolkit)."""
-    fwd = (ctypes.c_int * 6)()
+    fwd = (ctypes.c_int * 8)()
     is_bf16 = int(itemsize == 2)
     D, H = padded_widths(D, H)
     lib = load_library("mlp_block_fwd")
     lib.pose3d_mlp_block_fwd_config.argtypes = [_I, _LL, _I, _I, _P]
     lib.pose3d_mlp_block_fwd_config(is_bf16, N, D, H, fwd)
     bwd = _bwd_config(load_library("mlp_block_bwd"), is_bf16, N, D, H)
-    if fwd[0] != bwd[0] or fwd[4] != bwd[9]:
+    if (fwd[0], fwd[4], fwd[6]) != (bwd[0], bwd[9], bwd[10]):
         raise RuntimeError(f"forward takes path {fwd[0]} over {fwd[4]} "
-                           f"slices, backward {bwd[0]} over {bwd[9]}")
+                           f"slices and {fwd[6]} chunks, backward {bwd[0]} "
+                           f"over {bwd[9]} and {bwd[10]}")
     return {
         "padded": (D, H), "slices": fwd[4], "cols": fwd[5],
+        "chunks": (fwd[6], fwd[7]),
         "path": PATHS[fwd[0]], "groups": bwd[6], "scratch_bytes": 4 * bwd[8],
         "fwd": {"rows": fwd[1], "blocks": fwd[2], "smem": fwd[3]},
         "dx": {"rows": bwd[1], "blocks": bwd[2], "smem": bwd[3]},
@@ -293,11 +313,8 @@ def _check(fn: str, x2, w1, b1, w2, b2, g=None) -> Tuple[int, int, int]:
         if tuple(t.shape) != shape:
             raise ValueError(f"{fn}: {name} must be {shape}, got "
                              f"{tuple(t.shape)}")
-    if D > MAX_D or D < 1 or H < 1:
-        raise ValueError(
-            f"{fn}: D={D}, H={H}: the kernels take 1 <= D <= {MAX_D} (the "
-            f"widest, ViT-H's; above {MAX_COLS} the output columns are "
-            "split across blocks, each summing over all of D) and H >= 1")
+    if D < 1 or H < 1:
+        raise ValueError(f"{fn}: D={D}, H={H}: the kernels take D, H >= 1")
     named = {"x": x2, "w1": w1, "b1": b1, "w2": w2, "b2": b2}
     if g is not None:
         named["g"] = g
@@ -379,7 +396,7 @@ def mlp_block_fwd(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     ``w1`` and ``w2`` must already be in x's dtype and ``b1``, ``b2`` in
     fp32 (:func:`fused_mlp` casts them). Raises on anything the kernel does
     not take (non-CUDA tensors, other dtypes, tensors that are not
-    contiguous, D > 1280) and when the launch is refused; it copies only
+    contiguous, an empty width) and when the launch is refused; it copies only
     to pad a width and never falls back to the plain version.
     With grad mode on it raises for an input that requires grad:
     differentiate through :func:`fused_mlp`."""

@@ -13,9 +13,14 @@ against the plain version (o absolute, lse absolute, gradients relative to
 max(1, |ref|)), with a bitwise repeat of o, lse, dk, dv; then (bf16, B 8)
 the time of each kernel at the four shapes of the lifter beside
 ``scaled_dot_product_attention`` (its backward as device time from
-``torch.profiler``; ``--times-only`` the times alone, which also runs
+``torch.profiler``; ``--dump FILE`` the outputs of both kernels at
+``DUMP``'s shapes, bf16 and fp32, written to an ``.npz``, which also runs
+from an unpacked earlier commit, and ``--against FILE FILE`` two such dumps
+held equal, o, lse, dk and dv bitwise (dQ, summed by atomics, to
+``TOL_GRAD``); ``--times-only`` the times alone, which also runs
 from an unpacked earlier commit: ``cd DIR && PYTHONPATH=. python
-<repo>/scripts/attention_card.py --times-only``). Times are the device's:
+<repo>/scripts/attention_card.py --times-only``; ``--shape B,Tq,Tk,H,D``,
+repeatable, times those shapes in place of the lifter's). Times are the device's:
 calls queued behind a busy stream, and ``torch.profiler``'s kernel time
 beside them. Exits 1 on a disagreement. ``--variants`` instead
 rebuilds the two sources with parts of the ``wgmma`` kernels taken out (the
@@ -36,6 +41,7 @@ import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -55,6 +61,15 @@ EDGE = ([(t, t, 3, d) for t in (1, 16, 63, 64, 65, 127, 128, 129, 1041)
 # [B, T, 3, H, D] projection, and the PSA pair
 EXTRA = [(2, 130, 130, 4, 48, 48, True), (2, 1025, 1025, 12, 64, 64, True),
          (2, 400, 400, 6, 32, 64, False)]
+
+
+# (B, Tq, Tk, H, D, Dv) dumped by --dump: the padded route's pairs on the
+# simple paths and the wgmma pair, and past 256 the deep instance
+DUMP = [(2, 130, 67, 4, 96, 96), (2, 65, 33, 2, 256, 256),
+        (2, 33, 70, 4, 8, 8), (2, 70, 33, 4, 24, 24),
+        (2, 129, 65, 4, 48, 96), (2, 65, 129, 4, 24, 40),
+        (2, 130, 130, 4, 64, 64), (2, 130, 67, 2, 384, 384),
+        (2, 65, 33, 2, 384, 768)]
 
 
 def _inputs(B, Tq, Tk, H, D, Dv, dt, seed, packed=False):
@@ -152,11 +167,13 @@ def check(only) -> int:
     return bad
 
 
-def times() -> None:
+def times(shapes=None) -> None:
+    """Times at the lifter's four shapes, or at ``shapes`` ((B, Tq, Tk,
+    H, D) each, D = Dv), bf16."""
     card = torch.cuda.get_device_name(0)
     total_k, total_l = 0.0, 0.0
-    for Tq, Tk, H, D in PATH:
-        q, k, v, do = _inputs(8, Tq, Tk, H, D, D, torch.bfloat16, 50)
+    for B, Tq, Tk, H, D in shapes or [(8, *s) for s in PATH]:
+        q, k, v, do = _inputs(B, Tq, Tk, H, D, D, torch.bfloat16, 50)
         kf = _ms(lambda: fa.flash_attention_fwd(q, k, v))
         kfd = _device_ms(lambda: fa.flash_attention_fwd(q, k, v))
         o, lse = fa.flash_attention_fwd(q, k, v)
@@ -170,8 +187,8 @@ def times() -> None:
         dol = do.transpose(1, 2)
         lbd = _device_ms(lambda: torch.autograd.grad(
             ol, (ql, kl, vl), dol, retain_graph=True))
-        flop = 4 * 8 * H * Tq * Tk * D
-        print(f"[time] B=8 Tq={Tq} Tk={Tk} H={H} D={D}: fwd {kf:.4f} ms "
+        flop = 4 * B * H * Tq * Tk * D
+        print(f"[time] B={B} Tq={Tq} Tk={Tk} H={H} D={D}: fwd {kf:.4f} ms "
               f"({flop / kf / 1e9:.1f} TFLOP/s; {kfd:.4f} device), sdpa "
               f"{lf:.4f}; bwd {kb:.4f} ms ({2.5 * flop / kb / 1e9:.1f} "
               f"TFLOP/s; {kbd:.4f} device), sdpa bwd {lbd:.4f} device  "
@@ -194,7 +211,7 @@ def times() -> None:
             name = re.sub(r"\(.*", "", e.key).split("::")[-1]
             parts.append(f"{name} {t / max(1, e.count) / 1e3:.4f}")
         print(f"[time]   backward launches: {', '.join(parts)}", flush=True)
-    print(f"[time] sum over the four shapes, fwd + bwd: kernels {total_k:.4f} "
+    print(f"[time] sum over the shapes, fwd + bwd: kernels {total_k:.4f} "
           f"ms, sdpa {total_l:.4f} ms")
 
 
@@ -268,6 +285,48 @@ def variants() -> None:
                   f"  [{card}]", flush=True)
 
 
+def dump(path: str) -> None:
+    """o, lse, dq, dk, dv at ``DUMP``'s shapes, bf16 and fp32, from seeded
+    inputs, written to ``path``."""
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        for i, shape in enumerate(DUMP):
+            q, k, v, do = _inputs(*shape, dt, 500 + i)
+            o, lse = fa.flash_attention_fwd(q, k, v)
+            grads = fa.flash_attention_bwd(q, k, v, o, do, lse)
+            tag = f"{str(dt).removeprefix('torch.')}_{'_'.join(map(str, shape))}"
+            for name, x in zip(("o", "lse", "dq", "dk", "dv"), (o, lse, *grads)):
+                out[f"{tag}_{name}"] = x.float().cpu().numpy()
+    np.savez(path, **out)
+    print(f"[dump] {len(out)} arrays to {path}")
+
+
+def against(a: str, b: str) -> int:
+    """The number of arrays of two ``--dump`` files that differ: o, lse, dk
+    and dv in any bit (or in their names); dQ, which the fp32 atomics of
+    the simple paths sum in the order the blocks arrive (not bitwise on a
+    repeat), beyond ``TOL_GRAD`` of max(1, |ref|)."""
+    x, y = np.load(a), np.load(b)
+    names = sorted(set(x.files) | set(y.files))
+    bad, dq = [], 0.0
+    for n in names:
+        if n not in x.files or n not in y.files:
+            bad.append(n)
+        elif n.endswith("_dq"):
+            err = float(np.abs(x[n] - y[n]).max()
+                        / max(1.0, float(np.abs(x[n]).max())))
+            dq = max(dq, err)
+            dt = torch.bfloat16 if n.startswith("bfloat16") else torch.float32
+            if err > TOL_GRAD[dt]:
+                bad.append(n)
+        elif x[n].tobytes() != y[n].tobytes():
+            bad.append(n)
+    print(f"[against] {len(names) - len(bad)} of {len(names)} arrays agree "
+          f"(o, lse, dk, dv bitwise; dQ within {dq:.2e} of max(1, |ref|)); "
+          f"differ: {bad or 'none'}")
+    return len(bad)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--no-time", action="store_true")
@@ -276,7 +335,16 @@ def main() -> int:
     ap.add_argument("--times-only", action="store_true",
                     help="times at the lifter's shapes, no checks: also for "
                     "an earlier commit's package, which has no launch_config")
+    ap.add_argument("--shape", action="append", default=[],
+                    metavar="B,Tq,Tk,H,D",
+                    help="with --times-only: time this bf16 shape (D = Dv) "
+                    "in place of the lifter's; repeatable")
+    ap.add_argument("--dump", metavar="FILE")
+    ap.add_argument("--against", nargs=2, metavar="FILE")
     args = ap.parse_args()
+    if args.against:
+        return 1 if against(*args.against) else 0
+    shapes = [tuple(int(x) for x in s.split(",")) for s in args.shape]
     torch.backends.cuda.matmul.allow_tf32 = False
     print(torch.cuda.get_device_name(0), torch.__version__, torch.version.cuda)
     for name in ("flash_attention_fwd", "flash_attention_bwd"):
@@ -287,11 +355,14 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "Compiling entry",
                                        "warning", "error", "Performance")):
                 print("   ", line.strip())
+    if args.dump:
+        dump(args.dump)
+        return 0
     if args.variants:
         variants()
         return 0
     if args.times_only:
-        times()
+        times(shapes)
         return 0
     bad = check(args.only)
     if not args.no_time and not bad:

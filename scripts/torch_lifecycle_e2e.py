@@ -18,7 +18,10 @@ in its own process, on synthetic chunks (``tests/helpers_synthetic.py``):
   4. ``cli.evaluate --per-action`` on the final checkpoint;
   5. ``cli.export --ema`` → the artifact against the live model on the same
      batch (relative L2 within the bound the export phase of
-     ``chip_smoke.py`` holds artifacts to);
+     ``chip_smoke.py`` holds artifacts to; where the two are not bitwise
+     equal, both answers and their max |Δ| are kept in
+     ``export_mismatch.npz`` in the working directory, named in the
+     summary);
   6. ``serve_http --artifact`` round trip (npz over HTTP) answering what
      the artifact answers.
 
@@ -350,6 +353,15 @@ def lifecycle(mt: str, work: Path, device: str) -> dict:
         summary["export_rel_l2"] = rel
         summary["export_bit_identical"] = bool(np.array_equal(direct,
                                                               via_artifact))
+        if not summary["export_bit_identical"]:
+            # keep the evidence: both answers and where they differ most
+            diff = np.abs(direct.astype(np.float64) - via_artifact)
+            kept = work / "export_mismatch.npz"
+            np.savez(kept, direct=direct, artifact=via_artifact,
+                     max_abs_diff=diff.max(),
+                     argmax=np.unravel_index(diff.argmax(), diff.shape))
+            summary["export_mismatch_npz"] = str(kept)
+            summary["export_max_abs_diff"] = float(diff.max())
         port = None
         try:
             for line in _iter_lines_deadline(srv.stdout,

@@ -101,9 +101,10 @@ def _t(*shape, dtype=torch.float32):
 def test_wrappers_take_the_psa_pair_and_name_the_pairs_built():
     """(D 32, Dv 64) passes every check but the device one (these are CPU
     tensors); so does (32, 48), a pair that is not built, which the
-    launchers run on the built (32, 64) (:func:`padded_pair`); a value
-    depth past 256 is refused with the limit and the widest pair built, by
-    both launchers, before any launch."""
+    launchers run on the built (32, 64) (:func:`padded_pair`); so does a
+    value depth past 256, which runs on the deep instance (the pair padded
+    to multiples of 64); the launchers still refuse a dO of the wrong
+    depth, before any launch."""
     q, k, v = _t(1, 4, 2, 32), _t(1, 5, 2, 32), _t(1, 5, 2, 64)
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_fwd(q, k, v)
@@ -118,12 +119,12 @@ def test_wrappers_take_the_psa_pair_and_name_the_pairs_built():
     with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_bwd(q, k, v48, _t(1, 4, 2, 48), _t(1, 4, 2, 48),
                                lse)
-    bad_v = _t(1, 5, 2, 264)
-    with pytest.raises(ValueError, match=r"256 \(the widest pair built is "
-                       r"\(256, 256\)\)"):
-        fa.flash_attention_fwd(q, k, bad_v)
-    with pytest.raises(ValueError, match="value depth Dv=264"):
-        fa.flash_attention_bwd(q, k, bad_v, _t(1, 4, 2, 264),
+    deep_v = _t(1, 5, 2, 264)
+    assert fa.padded_pair(32, 264) == (64, 320)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_fwd(q, k, deep_v)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_bwd(q, k, deep_v, _t(1, 4, 2, 264),
                                _t(1, 4, 2, 264), lse)
     with pytest.raises(ValueError, match="q's shape with v's depth"):
         fa.flash_attention_bwd(q, k, v, o, _t(1, 4, 2, 32), lse)

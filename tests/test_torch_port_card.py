@@ -207,7 +207,8 @@ PADDED_SHAPES = [(2, 70, 33, 4, 96, 96), (1, 33, 70, 2, 200, 200),
 def test_flash_attention_takes_every_depth_up_to_256(dtype):
     """Depths off the built pairs, against the plain pair at the true
     depths: one launch of each kernel a call, o, lse, dk, dv bitwise on a
-    repeat; past 256 both launchers refuse before any launch."""
+    repeat; past 256 (once refused) D = Dv = 264 runs on the deep
+    instance, one launch, against the plain version."""
     _cuda()
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(16)
@@ -235,12 +236,13 @@ def test_flash_attention_takes_every_depth_up_to_256(dtype):
             assert (x.float() - r.float()).abs().max().item() <= tol
         assert torch.equal(grads[1], again[1]) and torch.equal(grads[2],
                                                                again[2])
-    deep = torch.zeros(1, 4, 1, 264, device="cuda", dtype=dt)
-    before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
-    with pytest.raises(ValueError, match="256"):
-        flash_attention_fwd(deep, deep, deep)
-    assert (flash_attention_fwd.launches,
-            flash_attention_bwd.launches) == before
+    deep = torch.randn(1, 4, 1, 264, generator=g, device="cuda").to(dt)
+    before = flash_attention_fwd.launches
+    o, lse = flash_attention_fwd(deep, deep, deep)
+    assert flash_attention_fwd.launches == before + 1
+    ro, rlse = flash_attention_fwd_reference(deep, deep, deep)
+    assert (o.float() - ro.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - rlse).abs().max().item() <= 1e-3
 
 
 @pytest.mark.cuda
@@ -274,6 +276,115 @@ def test_transformer_heads_8_backward_reaches_the_patch_embedding():
                           atol=1e-5)
 
 
+# (B, Tq, Tk, H, D, Dv) past depth 256: the deep instance (D and Dv padded
+# to multiples of 64, o's columns in slices of 128)
+DEEP_SHAPES = [(2, 130, 67, 2, 384, 384), (1, 67, 130, 1, 768, 768),
+               (2, 65, 33, 2, 384, 768), (2, 70, 33, 2, 300, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_deep_instance_matches_plain_version(dtype):
+    """Depths past 256 against the plain pair at the true depths: one
+    launch of each kernel a call, the plan the library reports equal to
+    ``launch_config``'s, o, lse, dk, dv bitwise on a repeat (every slice
+    computes the same P)."""
+    _cuda()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(19)
+    for B, Tq, Tk, H, D, Dv in DEEP_SHAPES:
+        Dp, Dvp = fa.padded_pair(D, Dv)
+        assert fa.is_deep(Dp, Dvp)
+        assert fa.library_config(B, Tq, Tk, H, Dp, Dvp, dt.itemsize) \
+            == fa.launch_config(B, Tq, Tk, H, Dp, Dvp, dt.itemsize)
+        q = torch.randn(B, Tq, H, D, generator=g, device="cuda").to(dt)
+        k = torch.randn(B, Tk, H, D, generator=g, device="cuda").to(dt)
+        v = torch.randn(B, Tk, H, Dv, generator=g, device="cuda").to(dt)
+        dy = torch.randn(B, Tq, H, Dv, generator=g, device="cuda").to(dt)
+        before = (flash_attention_fwd.launches, flash_attention_bwd.launches)
+        o, lse = flash_attention_fwd(q, k, v)
+        grads = flash_attention_bwd(q, k, v, o, dy, lse)
+        torch.cuda.synchronize()
+        assert (flash_attention_fwd.launches, flash_attention_bwd.launches) \
+            == (before[0] + 1, before[1] + 1)
+        ro, rlse = flash_attention_fwd_reference(q, k, v)
+        assert o.shape == (B, Tq, H, Dv) and o.dtype == dt
+        assert (o.float() - ro.float()).abs().max().item() <= TOL[dtype]
+        assert (lse - rlse).abs().max().item() <= 1e-3
+        o2, lse2 = flash_attention_fwd(q, k, v)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        again = flash_attention_bwd(q, k, v, o, dy, lse)
+        refs = flash_attention_bwd_reference(q, k, v, o, dy, lse)
+        for x, y, r in zip(grads, again, refs):
+            assert x.shape == r.shape and torch.isfinite(x).all()
+            tol = 1.5 * TOL[dtype] * max(1.0, r.float().abs().max().item())
+            assert (x.float() - r.float()).abs().max().item() <= tol
+        assert torch.equal(grads[1], again[1]) and torch.equal(grads[2],
+                                                               again[2])
+
+
+@pytest.mark.cuda
+def test_transformer_heads_1_backward_reaches_the_patch_embedding():
+    """A lifter whose fusion and final blocks attend at head depth 384
+    (embed 384 over one head: the deep instance) trains through the
+    kernels on the card: 3 backward launches on the deep instance (2
+    fusion, 1 final) beside the ViT block's, the patch embedding's
+    gradient as the plain pair's."""
+    _cuda()
+    cfg = TransformerModelConfig(
+        image_size=(64, 64), heatmap_size=32, transformer_embed_dim=384,
+        transformer_heads=1, vit_depth=1, vit_heads=6, final_encoder_depth=1,
+        num_cross_modal_layers=1, regression_hidden_dims=(32, 16),
+        transformer_dropout_rate=0.0, regression_dropout=0.0)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    args = (torch.rand(2, 64, 64, 3, generator=g, device="cuda"),
+            torch.rand(2, 64, 64, 1, generator=g, device="cuda"),
+            torch.rand(2, 17, 2, generator=g, device="cuda"))
+    grads = {}
+    for impl in ("auto", "reference"):
+        model = build_model(cfg, device="cuda", dtype=torch.float32,
+                            attention_impl=impl, train=True,
+                            generator=torch.Generator("cuda").manual_seed(0))
+        before = flash_attention_bwd.launches
+        model(*args).square().sum().backward()
+        launched = flash_attention_bwd.launches - before
+        assert launched == (4 if impl == "auto" else 0)  # + 1 ViT block
+        grads[impl] = model.vit_backbone.patch_embed.proj.weight.grad
+    assert grads["auto"] is not None and grads["auto"].abs().sum() > 0
+    assert torch.allclose(grads["auto"], grads["reference"], rtol=1e-3,
+                          atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_mlp_block_streams_d_2048_in_chunks(dtype):
+    """D 2,048 (two chunks of 1,024 streamed through shared memory, three
+    column slices) against the plain version, forward and the five
+    gradients, one launch a call, repeats bitwise, the plan the library
+    reports equal to ``launch_config``'s."""
+    _cuda()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(20)
+    x, w1, b1, w2, b2, dy = _mlp_inputs((70,), 2048, 2048, dt, g)
+    cfg = mb.launch_config(70, 2048, 2048, dt.itemsize)
+    assert cfg["chunks"] == (2, 1024) and cfg["slices"] == 3
+    assert mb.library_config(70, 2048, 2048, dt.itemsize) == cfg
+    before = (mb.mlp_block_fwd.launches, mb.mlp_block_bwd.launches)
+    out = mb.mlp_block_fwd(x, w1, b1, w2, b2)
+    grads = mb.mlp_block_bwd(x, w1, b1, w2, b2, dy)
+    torch.cuda.synchronize()
+    assert (mb.mlp_block_fwd.launches, mb.mlp_block_bwd.launches) \
+        == (before[0] + 1, before[1] + 1)
+    assert _rel_err(out, mb.mlp_block_fwd_reference(x, w1, b1, w2, b2)) \
+        <= TOL_MLP[dtype]
+    assert torch.equal(out, mb.mlp_block_fwd(x, w1, b1, w2, b2))
+    refs = mb.mlp_block_bwd_reference(x, w1.float(), b1, w2.float(), b2, dy)
+    again = mb.mlp_block_bwd(x, w1, b1, w2, b2, dy)
+    for a, b, r in zip(grads, again, refs):
+        assert a.shape == r.shape and torch.equal(a, b)
+        assert _rel_err(a, r) <= TOL_MLP[dtype]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("order", [0, 1])
 def test_lane_resample_bf16_matches_plain_version(order):
@@ -296,7 +407,7 @@ def test_lane_resample_bf16_matches_plain_version(order):
 def test_mlp_block_takes_every_width_up_to_1280(dtype):
     """ViT-H's D 1,280 (two column slices) and odd widths (zero-padded)
     against the plain version, one launch a call, repeats bitwise; past
-    1,280 refused."""
+    1,280 (once refused) D 1,296 runs streamed in two chunks."""
     _cuda()
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(17)
@@ -319,8 +430,9 @@ def test_mlp_block_takes_every_width_up_to_1280(dtype):
             assert a.shape == r.shape
             assert _rel_err(a, r) <= TOL_MLP[dtype]
     x, w1, b1, w2, b2, _ = _mlp_inputs((4,), 1296, 64, dt, g)
-    with pytest.raises(ValueError, match="1280"):
-        mb.mlp_block_fwd(x, w1, b1, w2, b2)
+    assert _rel_err(mb.mlp_block_fwd(x, w1, b1, w2, b2),
+                    mb.mlp_block_fwd_reference(x, w1, b1, w2, b2)) \
+        <= TOL_MLP[dtype]
 
 
 # (Tq, Tk, H, D): the edges of the wgmma kernels' tiles (64 query rows a
@@ -919,8 +1031,8 @@ def test_mlp_block_kernels_match_plain_version(dtype):
             assert torch.equal(a, b), (lead, D, H, name)     # no atomics
             assert _rel_err(a, r) <= TOL_MLP[dtype], (lead, D, H, name)
     # a width that is no multiple of 16 runs zero-padded to one (one
-    # launch), against the plain version at the true width; past 1,280 it
-    # is refused, naming the limit
+    # launch), against the plain version at the true width; past 1,280
+    # (once refused) it runs streamed in chunks
     narrow = (x[..., :8].contiguous(), w1[:8].contiguous(), b1,
               w2[:, :8].contiguous(), b2[:8].contiguous())
     before = mb.mlp_block_fwd.launches
@@ -929,9 +1041,9 @@ def test_mlp_block_kernels_match_plain_version(dtype):
     assert _rel_err(out, mb.mlp_block_fwd_reference(*narrow)) \
         <= TOL_MLP[dtype]
     wide = _mlp_inputs((4,), 1296, 64, dt, g)
+    assert _rel_err(mb.mlp_block_fwd(*wide[:5]),
+                    mb.mlp_block_fwd_reference(*wide[:5])) <= TOL_MLP[dtype]
     before = mb.mlp_block_fwd.launches
-    with pytest.raises(ValueError, match="1280"):
-        mb.mlp_block_fwd(*wide[:5])
     with pytest.raises(ValueError, match="not contiguous"):
         mb.mlp_block_fwd(x, w2.t(), b1, w2, b2)
     with pytest.raises(ValueError, match="CUDA"):

@@ -49,7 +49,10 @@ def test_cnn_lifecycle_on_the_cpu(tmp_path):
     assert s["compared_arrays"] > 100
     assert s["update_l2_after_sigterm"] > 0
     assert np.isfinite(s["eval_mpjpe_mm"])
-    assert s["export_bit_identical"] and s["export_rel_l2"] == 0.0
+    assert s["export_bit_identical"] and s["export_rel_l2"] == 0.0, (
+        "the artifact's answers differ from the live model's by max |d| "
+        f"{s.get('export_max_abs_diff')}; both are kept in "
+        f"{s.get('export_mismatch_npz')}")
     assert s["serve_roundtrip"] and s["serve_bit_identical"]
     assert set(s["launches"]) == {
         "flash_attention_fwd", "flash_attention_bwd", "bn_stats",

@@ -144,9 +144,12 @@ def _t(*shape, dtype=torch.float32):
 @pytest.mark.parametrize("args,match", [
     ((_t(1, 4, 2, 64),) * 3, "CUDA"),
     ((_t(1, 4, 2, 64, dtype=torch.float16),) * 3, "float16"),
-    # depths off the built pairs run padded; past 256 they are refused
-    ((_t(1, 4, 2, 264),) * 3, "head dim"),
-    ((_t(1, 4, 2, 64), _t(1, 5, 2, 64), _t(1, 5, 2, 300)), "value depth"),
+    # depths off the built pairs run padded, past 256 on the deep
+    # instance: these two pass every depth check and are refused only for
+    # lying on the CPU (the cases keep the names of the refusals they were)
+    pytest.param((_t(1, 4, 2, 264),) * 3, "CUDA", id="args2-head dim"),
+    pytest.param((_t(1, 4, 2, 64), _t(1, 5, 2, 64), _t(1, 5, 2, 300)),
+                 "CUDA", id="args3-value depth"),
     ((_t(1, 4, 2, 64), _t(1, 0, 2, 64), _t(1, 0, 2, 64)), "empty"),
     ((_t(4, 2, 64),) * 3, r"\[B, T, H, D\]"),
 ])

@@ -5,8 +5,8 @@ v, o and dO to its Dv, at the scale of the true D, and slice the outputs
 back. Here the plain pair stands in for the kernels
 (``run_padded_fwd`` / ``run_padded_bwd``), held to the unpadded plain pair
 and to the Pallas ``_fwd_impl`` / ``_bwd_impl`` in interpret mode; then
-``padded_pair``, the (256, 256) launch plan in ``launch_config`` and the
-refusal past depth 256."""
+``padded_pair``, the (256, 256) launch plan in ``launch_config`` and
+depths past 256, which pad to multiples of 64 for the deep instance."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -117,18 +117,24 @@ def test_padded_pair_is_the_smallest_built_pair_that_holds_it(D, Dv, want):
 
 @pytest.mark.parametrize("D,Dv", [(264, 264), (257, 8), (8, 300)])
 def test_depths_past_256_are_refused_naming_the_limit(D, Dv):
-    """Past depth 256 both launchers raise, naming the limit, before any
-    launch; so does ``padded_pair`` (and for an empty depth)."""
-    with pytest.raises(ValueError, match="256"):
-        fa.padded_pair(D, Dv)
-    with pytest.raises(ValueError, match="256"):
+    """Past depth 256 was refused until the deep instance took it: now
+    ``padded_pair`` rounds D and Dv up to multiples of 64 and both
+    launchers pass every depth check (these CPU tensors are refused only
+    for their device), before any launch. An empty depth is still
+    refused, naming it."""
+    Dp, Dvp = fa.padded_pair(D, Dv)
+    assert (Dp, Dvp) == (64 * -(-D // 64), 64 * -(-Dv // 64))
+    assert fa.is_deep(Dp, Dvp) and (Dp, Dvp) not in fa.PAIRS
+    with pytest.raises(ValueError, match="D=0"):
         fa.padded_pair(0, Dv)
     q, v = torch.zeros(1, 4, 1, D), torch.zeros(1, 4, 1, Dv)
     before = (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches)
-    with pytest.raises(ValueError, match="256"):
+    with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_fwd(q, q, v)
-    with pytest.raises(ValueError, match="256"):
+    with pytest.raises(ValueError, match="CUDA"):
         fa.flash_attention_bwd(q, q, v, v, v, torch.zeros(1, 1, 4))
+    with pytest.raises(ValueError, match="D=0"):
+        fa.flash_attention_fwd(q[..., :0], q[..., :0], v)
     assert (fa.flash_attention_fwd.launches,
             fa.flash_attention_bwd.launches) == before
 

@@ -5,7 +5,8 @@ in for the kernels), against the Pallas ``fused_mlp`` in interpret mode,
 output and all five gradients, at D 40 / H 100 and at ViT-L's D 1,024 /
 H 4,096 over a few rows; and ``launch_config``'s plan for the padded
 widths and for D above 768, whose output columns the WMMA and fp32
-kernels split across blocks; the refusal past D 1,280."""
+kernels split across blocks; D past 1,280, once refused, now streamed in
+chunks."""
 
 import jax
 import jax.numpy as jnp
@@ -155,11 +156,18 @@ def test_launchers_take_every_width_up_to_1280(D, H):
 
 @pytest.mark.parametrize("D", [1281, 1296, 2048])
 def test_launchers_refuse_d_past_1280_naming_the_limit(D):
+    """D past 1,280 was refused until the kernels streamed D in chunks: now
+    the width checks pass (these CPU tensors are refused only for their
+    device) and the plan takes two chunks; an empty hidden width is still
+    refused, naming it; no launch."""
     x, w1, b1, w2, b2 = map(torch.zeros, ((2, D), (D, 64), (64,), (64, D),
                                           (D,)))
     before = (mb.mlp_block_fwd.launches, mb.mlp_block_bwd.launches)
-    with pytest.raises(ValueError, match="1280"):
+    with pytest.raises(ValueError, match="CUDA"):
         mb.mlp_block_fwd(x, w1, b1, w2, b2)
-    with pytest.raises(ValueError, match="1280"):
+    with pytest.raises(ValueError, match="CUDA"):
         mb.mlp_block_bwd(x, w1, b1, w2, b2, x)
+    assert mb.launch_config(2, D, 64, 2)["chunks"][0] == 2
+    with pytest.raises(ValueError, match="H=0"):
+        mb.mlp_block_fwd(x, w1[:, :0], b1[:0], w2[:0], b2)
     assert (mb.mlp_block_fwd.launches, mb.mlp_block_bwd.launches) == before
