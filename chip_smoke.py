@@ -234,11 +234,10 @@ Phases, each fatal on failure:
      parameter + moment bytes; (c) the
      untrained stage-1 provider over two replicas on the card against one.
  15. tools: (a) ``python -m pose3d_tpu_torch.cli.doctor --probe --json`` in
-     its own process, after phase 14 and beside the end of (b)–(d): the
-     card the environment phase found, with its power limit, and all eight
-     kernel libraries loaded, its probes logged (taken beside that other
-     work: informational); (b)–(d) started before phase 14 and run beside
-     it, side by side, each in processes of its own, (b)
+     its own process: the card the environment phase found, with its power
+     limit, and all eight kernel libraries loaded, its probes logged (taken
+     beside other work: informational); (a)–(d) started before phase 14
+     and run beside it, side by side, each in processes of its own, (b)
      ``scripts/torch_lifecycle_e2e.py`` for the CNN and the transformer
      (head depth 16): train, SIGTERM, ``--checkpoint auto`` resume held
      bitwise to an uninterrupted control (both families: every attention
@@ -252,6 +251,29 @@ Phases, each fatal on failure:
      value); (d)
      ``scripts/torch_quantize_accuracy.py`` on its checkpoint, the int8 −
      fp32 MPJPE printed, the attention kernel inside the programs.
+
+Order and overlap. The phases run in the order 1–10, 12, 11, 13, 14, 15.
+Work that is only checked runs beside other work; every phase whose times
+go into PERF.md's kernel table (3, 3b, 6, 9, and 13's attention times)
+runs alone on the card. Beside the build (2), the full-width CNN's one
+forward that reads the ``bn_stats`` shapes of phase 3, and phase 13's
+weights and frames. Beside phase 12's (a) and (b), (c)'s two ``cli.infer``
+processes. In phase 12's (d) the transformer's ``xla`` and ``pallas``
+artifacts are made here, its ``static`` and ``int8`` ones and the CNN's
+two in two processes of their own; beside all of (d), in another process
+(``beside_main``), phase 11's layout and tools (``_data_tools``, on the
+host) and then its runs that are only checked (``_data_checked``: the
+``batch_pallas:N`` gate, ``cli.evaluate`` of bare state_dicts, a
+``batch_dot`` ``.pth`` served), and phase 13's (c) processes (``_s1_cli``:
+three beside the first ``cli.preprocess``, on the weights and frames
+written beside the build): phases 11 and 13 then read and check their
+results. Phase 13's server starts with that phase, beside its main path,
+and is waited for before its times. Beside phase 14, phase 15's doctor and
+three chains; phase 14's two ranks start before its (a) and wait for the
+one-process references. Every process of the run keeps the bytecode it
+compiles under ``build/pycache`` (``keep_bytecode``), where the next reads
+it: on the card's machine each process compiled ``torch`` again, 10 s of
+its start.
 
 Standard output ends with a JSON line of the kernels (``launches`` on
 the path that first drives each kernel, ``cli_launches`` on phase 10's
@@ -275,6 +297,7 @@ import io
 import json
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -562,7 +585,14 @@ def phase_environment(torch) -> str:
     return smi
 
 
-def phase_build() -> None:
+def phase_build(torch, tmp: Path) -> dict:
+    """Every kernel built from this checkout's sources, one nvcc per source
+    in parallel, the ptxas report read; beside the compilers, work that
+    needs no kernel of the build: the full-width CNN's one forward that
+    reads the ``bn_stats`` check's shapes (phase 3; its first cuDNN calls
+    take seconds) and stage 1's weights and frames (phase 13), written with
+    TF32 off as phase 3 leaves it for every later phase. Returns the
+    latter (``_s1_write_weights``' paths, ``_s1_frames``' files)."""
     from pose3d_tpu_torch.ops.kernels import _build, bn_stats, \
         flash_attention, lane_resample, layer_norm, mlp_block
 
@@ -581,10 +611,20 @@ def phase_build() -> None:
     # earlier run: the ptxas report below is read from this build's log
     shutil.rmtree(_build.BUILD_DIR, ignore_errors=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as ex:
+    def stage1_inputs():
+        with _tf32(torch, False, False):
+            paths = _s1_write_weights(torch, tmp, "cuda")
+        return {"paths": paths, "files": _s1_frames(tmp / "s1_frames")}
+
+    with ThreadPoolExecutor(len(KERNELS) + 2) as ex:
+        shapes = ex.submit(_bn_path_shapes, torch, 1)
+        s1 = ex.submit(stage1_inputs)
         list(ex.map(load, KERNELS))
+        shapes.result()
+        s1 = s1.result()
     log(f"[build] {len(KERNELS)} kernels in parallel: "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{time.perf_counter() - t0:.2f} s (the CNN's BatchNorm shapes read "
+        f"and stage 1's weights written beside them)")
     for name in KERNELS:
         log(f"[build] {name}: {_build.build_info[name]['seconds']:.2f} s "
             f"-> {_build.library_path(name).relative_to(ROOT)}")
@@ -595,6 +635,7 @@ def phase_build() -> None:
                     w in line for w in ("registers", "spill", "Performance",
                                         "Compiling entry", "bytes smem")):
                 log("[build]   " + line.strip())
+    return s1
 
 
 def _kernel_fns():
@@ -778,39 +819,34 @@ def _check_row_reduce_build() -> None:
                 raise SystemExit(f"{kern} spills registers")
 
 
-def _launches_per_call(torch, fn, calls: int = 3, tries: int = 5) -> dict:
+def _is_sleep(e) -> bool:
+    return _is_kernel(e) and ("spin" in e.key or "sleep" in e.key)
+
+
+def _launches_per_call(torch, fn, calls: int = 3) -> dict:
     """{kernel name: launches per call} that ``torch.profiler`` records
     over ``calls`` calls of ``fn`` (after one call outside the trace). The
     trace starts with a short sleep kernel, left out: a trace can miss the
     first kernel after it starts, and now and then records none (on an
     H100 once three times in a row, among ~115 traces of a run); a trace
-    without the sleep kernel is taken again, up to ``tries`` times."""
+    without the sleep kernel is taken again, up to five times."""
     import re
 
-    from torch.profiler import ProfilerActivity, profile
+    def traced():
+        torch.cuda._sleep(1000)
+        for _ in range(calls):
+            fn()
 
     fn()
-    torch.cuda.synchronize()
     out = {}
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1000)
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        out, slept = {}, False
-        for e in prof.key_averages():
-            if not _is_kernel(e):       # the host's runtime calls
-                continue
-            if "spin" in e.key or "sleep" in e.key:
-                slept = True
-                continue
-            key = e.key.replace("(anonymous namespace)::", "")
-            name = re.split(r"[<(]", re.sub(r"^void ", "", key))[0]
-            name = name.split("::")[-1].strip()
-            out[name] = out.get(name, 0) + e.count / calls
-        if slept:
-            break
+    for e in _profile_once(torch, traced, tries=5,
+                           complete=lambda rows: any(map(_is_sleep, rows))):
+        if not _is_kernel(e) or _is_sleep(e):   # the host's rows, the sleep
+            continue
+        key = e.key.replace("(anonymous namespace)::", "")
+        name = re.split(r"[<(]", re.sub(r"^void ", "", key))[0]
+        name = name.split("::")[-1].strip()
+        out[name] = out.get(name, 0) + e.count / calls
     return out
 
 
@@ -2223,26 +2259,45 @@ def _is_kernel(e) -> bool:
     return str(getattr(e, "device_type", "")).endswith("CUDA")
 
 
-def _profile_once(torch, fn, tries: int = 3, host: bool = True):
+def _profile_once(torch, fn, tries: int = 3, complete=None):
     """``torch.profiler``'s averaged rows of one synchronised call. Now and
-    then a trace records no kernel at all; the call is then traced again,
-    up to ``tries`` times (the caller's check of an empty trace stays).
-    ``host=False`` traces the card's kernels and copies alone, without the
-    host's operators: a step of thousands of launches (the scan CNN's) then
-    takes seconds to trace, not half a minute."""
+    then a trace records no kernel at all, or misses some: a trace that is
+    not ``complete(rows)`` (by default: one that holds no kernel) is taken
+    again, up to ``tries`` times (the caller's own check of what the trace
+    holds stays)."""
     from torch.profiler import ProfilerActivity, profile
 
-    activities = [ProfilerActivity.CPU] if host else []
+    complete = complete or (lambda rows: any(map(_is_kernel, rows)))
     for _ in range(tries):
         torch.cuda.synchronize()
-        with profile(activities=activities
-                     + [ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         rows = prof.key_averages()
-        if any(_is_kernel(e) for e in rows):
+        if complete(rows):
             break
     return rows
+
+
+def _busy_once(torch, fn, tries: int = 3) -> float:
+    """``_device_busy_ms`` of one synchronised call, from a trace of the
+    card's kernels and copies alone (no host operators), summed over the
+    trace's raw events: a step of thousands of launches (the scan CNN's,
+    ~47,000) then takes seconds to trace, where averaging its rows took
+    ten. Traced again, up to ``tries`` times, when it records no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        busy = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+                if str(e.device_type()).endswith("CUDA")]
+        if busy:
+            break
+    return sum(busy) / 1e6
 
 
 def _device_busy_ms(rows) -> float:
@@ -2463,12 +2518,10 @@ def phase_cnn(torch, tmp: Path, card: str) -> dict:
             plain.append(timed(bare))
             # what the card itself ran, apart from the host's launch gaps
             r.update(plain_ms=statistics.mean(plain), plain_runs=plain,
-                     busy=_device_busy_ms(_profile_once(
-                         torch, lambda: step(st, sb, gen, aug_gen),
-                         host=False)),
-                     plain_busy=_device_busy_ms(_profile_once(
-                         torch, lambda: bare(st, sb, gen, aug_gen),
-                         host=False)))
+                     busy=_busy_once(
+                         torch, lambda: step(st, sb, gen, aug_gen)),
+                     plain_busy=_busy_once(
+                         torch, lambda: bare(st, sb, gen, aug_gen)))
         r.update(step_ms=statistics.mean(ts), runs=ts, st=st, sb=sb,
                  step=step, gen=gen)
         return r
@@ -2495,9 +2548,8 @@ def phase_cnn(torch, tmp: Path, card: str) -> dict:
     if ra["launches"] != want:
         raise SystemExit("the scan path did not launch bn_stats once per "
                          "BatchNorm per microbatch")
-    busy = _device_busy_ms(_profile_once(
-        torch, lambda: ra["step"](ra["st"], ra["sb"], ra["gen"]),
-        host=False))
+    busy = _busy_once(
+        torch, lambda: ra["step"](ra["st"], ra["sb"], ra["gen"]))
     log(f"[time] CNN train step, {A}x{B} batch_pallas scan: device kernels "
         f"{busy:.1f} ms of the {ra['step_ms']:.1f} ms step (torch.profiler, "
         f"one step; the rest is the card waiting for the host's launches)  "
@@ -3322,16 +3374,20 @@ def _time_row_ops(torch, card: str) -> dict:
         f"{bound:.4f} ms ({by}: {flop / 1e9:.1f} GFLOP; bytes "
         f"{nbytes / HBM_BYTES_S * 1e3:.4f})  [{card}]")
     # which of the backward's two launches takes the time: the mean over the
-    # launches the trace holds (it can miss the first kernel after it starts)
-    prof = _profile_once(torch, lambda: [mb.mlp_block_bwd(*args, dy)
-                                         for _ in range(3)])
+    # launches the trace holds (it can miss the first kernel after it starts,
+    # and now and then most of them: a trace without all four kernels is
+    # taken again, up to five times)
+    parts = ("mlp_bwd_dx", "mlp_bwd_dw", "mlp_bwd_reduce", "mlp_bwd_db2")
 
-    def mean_ms(key):
-        found = [e for e in prof if _is_kernel(e) and key in e.key]
+    def mean_ms(rows, key):
+        found = [e for e in rows if _is_kernel(e) and key in e.key]
         return sum(_dev_own(e) for e in found) / 1e3 / max(
             1, sum(e.count for e in found))
-    dx_ms, dw_ms = mean_ms("mlp_bwd_dx"), mean_ms("mlp_bwd_dw")
-    red_ms, db2_ms = mean_ms("mlp_bwd_reduce"), mean_ms("mlp_bwd_db2")
+    prof = _profile_once(
+        torch, lambda: [mb.mlp_block_bwd(*args, dy) for _ in range(3)],
+        tries=5, complete=lambda rows: all(mean_ms(rows, k) > 0.0
+                                           for k in parts))
+    dx_ms, dw_ms, red_ms, db2_ms = (mean_ms(prof, k) for k in parts)
     n_kernels = sum(e.count for e in prof if _is_kernel(e))
     part_bytes = cfg["scratch_bytes"] + (2 * D * H + H + D) * 4
     log(f"[time] mlp_block backward, torch.profiler over three calls "
@@ -3562,9 +3618,6 @@ def _run_cli(torch, cli_main, argv, cwd: Path, stop_after=None) -> dict:
     just after. ``stop_after``: SIGTERM to this process right after the
     checkpoint of that step is written (the CLI's handler then stops the
     run at the next step, as a preemption would)."""
-    import os
-    import signal
-
     from pose3d_tpu_torch.train import loop
 
     cwd.mkdir(parents=True, exist_ok=True)
@@ -4117,8 +4170,9 @@ def _data_tools(tmp: Path, card: str) -> Path:
     for name, samples in (("chunker", n), ("split", n),
                           ("rechunker", len(train))):
         log(f"[time] cli.{name} (its own process, interpreter start "
-            f"included): {times[name]:.2f} s for {samples} samples = "
-            f"{samples / times[name]:.1f} samples/s  [{card}]")
+            f"included, beside the export phase's (d)): {times[name]:.2f} s "
+            f"for {samples} samples = {samples / times[name]:.1f} "
+            f"samples/s  [{card}]")
     return flow
 
 
@@ -4293,17 +4347,18 @@ def _data_serve_batch_dot(torch, tmp: Path) -> None:
         raise SystemExit("the batch_dot checkpoint does not serve")
 
 
-def phase_data(torch, tmp: Path, card: str) -> dict:
-    """The data path from the shell: a synthetic Human3.6M layout through
-    ``cli.chunker``, ``cli.split`` and ``cli.rechunker``; the host
+def phase_data(torch, tmp: Path, card: str, flow: Path,
+               checked: dict) -> dict:
+    """The data path from the shell, on ``flow``: what ``_data_tools`` (run
+    beside the export phase's (d)) made of a synthetic Human3.6M layout
+    through ``cli.chunker``, ``cli.split`` and ``cli.rechunker``; the host
     augmentor's time; the full-width CNN and the transformer trained with
     ``--augment`` from the shuffled archives beside the same runs without
-    it; a ``batch_pallas:N`` CNN in scan with its gate; ``cli.evaluate``
-    from bare state_dicts; a ``batch_dot`` ``.pth`` served."""
+    it. Returns their launches and ``checked``, those of
+    ``_data_checked`` (run beside (d) too)."""
     from pose3d_tpu_torch.cli import main as cli_main
 
     torch.cuda.empty_cache()
-    flow = _data_tools(tmp, card)
     _time_host_augment(flow, card)
     _time_host_feed(flow, card)
     attn = sum(PASS_LAUNCHES.values())
@@ -4347,6 +4402,20 @@ def phase_data(torch, tmp: Path, card: str) -> dict:
             f"{fmt(runs[model_type, True]['step_ms'])}, without "
             f"{fmt(runs[model_type, False]['step_ms'])}  [{card}]")
 
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in KERNELS}
+    return {k: launches[k] + checked[k] for k in KERNELS}
+
+
+def _data_checked(torch, tmp: Path, flow: Path) -> dict:
+    """The data phase's work that is only checked, run beside the export
+    phase's (d) (``beside_main``) once ``_data_tools`` made ``flow``: a
+    ``batch_pallas:N`` CNN in scan for one step from the shuffled archives
+    (``bn_stats`` once per BatchNorm at or above N pixels a sample per
+    microbatch, none below), ``cli.evaluate`` from bare state_dicts, a
+    ``batch_dot`` ``.pth`` served. Returns their launches."""
+    from pose3d_tpu_torch.cli import main as cli_main
+
     A = 10
     gate = f"batch_pallas:{DATA_GATE}"
     rec = _data_train(torch, cli_main, flow, tmp / "data_gate", "cnn", True,
@@ -4366,11 +4435,9 @@ def phase_data(torch, tmp: Path, card: str) -> dict:
         raise SystemExit("the batch_pallas:N gate failed a check")
     gc.collect()
     torch.cuda.empty_cache()
-    launches = {k: sum(r["launches"][k] for r in runs.values())
-                + rec["launches"][k] for k in KERNELS}
     ev = _data_evaluate(torch, flow, tmp)
     _data_serve_batch_dot(torch, tmp)
-    return {k: launches[k] + ev[k] for k in KERNELS}
+    return {k: rec["launches"][k] + ev[k] for k in KERNELS}
 
 
 # -- phase 12: export -----------------------------------------------------------
@@ -4623,13 +4690,32 @@ def _write_infer_folder(root: Path) -> None:
             "depth_max": float(rng.uniform(4.0, 6.0))}))
 
 
+def _descendants(pid: int) -> list:
+    """The processes that ``pid`` started, and those that they started,
+    from ``/proc``."""
+    kids = {}
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:        # "pid (comm) state ppid ...": comm may hold spaces
+            ppid = int(stat.read_text().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+        kids.setdefault(ppid, []).append(int(stat.parent.name))
+    found, todo = [], [pid]
+    while todo:
+        more = kids.get(todo.pop(), [])
+        found += more
+        todo += more
+    return found
+
+
 class _Child:
     """``code`` started now in a fresh interpreter with the repository on
     its path, its output to files, while the caller goes on; ``result()``
     waits for it (killed at ``timeout`` seconds from its start): (the JSON
     object on the last line of its standard output, its standard error).
-    ``seconds`` is then its wall time, start-up included. ``stop()`` kills
-    it if it still runs."""
+    ``seconds`` is then its wall time, start-up included, and ``stdout``
+    its whole standard output. ``stop()`` kills it, and the processes it
+    started, if it still runs."""
 
     def __init__(self, code: str, cwd: Path, timeout: int = 600):
         self.out, self.err = (tempfile.TemporaryFile("w+") for _ in "oe")
@@ -4652,11 +4738,18 @@ class _Child:
         out, err = self.out.read(), self.err.read()
         if rc != 0:
             raise SystemExit(f"subprocess failed ({rc}):\n{err[-4000:]}")
+        self.stdout = out
         return json.loads(out.strip().splitlines()[-1]), err
 
     def stop(self) -> None:
         if self.proc.poll() is None:
+            # the processes it started too; they all stay in the script's
+            # process group, so a signal to the group reaches them as well
+            started = _descendants(self.proc.pid)
             self.proc.kill()
+            for pid in started:
+                with contextlib.suppress(ProcessLookupError):
+                    os.kill(pid, signal.SIGKILL)
             self.proc.wait()
 
 
@@ -4779,50 +4872,109 @@ def _artifact_outputs(torch, program, batches, seed: int, hw, J,
     return out
 
 
+# cli.export's flags of each variant
+EXPORT_FLAGS = {"xla": [], "pallas": ["--attention-backend", "pallas"],
+                "static": ["--batch-size", str(EXPORT_STATIC)],
+                "int8": ["--quantize", "int8"]}
+
+
 def _export_artifacts(torch, tmp: Path, pths: dict, card: str) -> dict:
     """``cli.export`` of both lifters: dynamic ``xla``, the transformer
     with ``--attention-backend pallas`` and ``--batch-size 8``, and
     ``--quantize int8``; each artifact against the live model at batches
     1, 3 and 8; the ``pallas`` graph's operator and its launches; the
     ``xla`` artifact loaded where ``pose3d_tpu_torch`` cannot be
-    imported."""
-    variants = {"xla": [], "pallas": ["--attention-backend", "pallas"],
-                "static": ["--batch-size", str(EXPORT_STATIC)],
-                "int8": ["--quantize", "int8"]}
+    imported. The transformer's ``xla`` and ``pallas`` artifacts are made
+    and checked here, its ``static`` and ``int8`` ones and the CNN's two in
+    two processes of their own beside them (``_export_start``), and the
+    no-import check in a third, which waits for both ``xla`` artifacts."""
     arts = {}
     launches = dict.fromkeys(KERNELS, 0)
-    alone = []
+    # the static batch is traced the same way for either lifter: the
+    # transformer's artifact, served in (e), stands for both
+    children = [_export_start(tmp, pths, "cnn", ("xla", "int8")),
+                _export_start(tmp, pths, "transformer", ("static", "int8")),
+                _export_alone(tmp, pths)]
+
+    def collect(child) -> None:
+        """A process of ``_export_start``, done: its lines logged, its
+        artifacts and launches taken."""
+        res, _ = child.result()
+        for line in child.stdout.splitlines()[:-1]:
+            if line.startswith(("[export]", "[time]")):
+                log(line)
+        arts.update({(res["model_type"], k): Path(v)
+                     for k, v in res["arts"].items()})
+        for k, v in res["launches"].items():
+            launches[k] += v
+
     try:
-        # the CNN's two artifacts first: the no-import check starts once
-        # both xla ones exist and then runs beside the transformer's last
-        # three exports
-        for model_type in sorted(pths, key=lambda m: m != "cnn"):
-            _export_one(torch, tmp, pths, model_type, pths[model_type],
-                        variants, arts, launches, alone, card)
-        res, _ = alone[0].result()
+        _export_one(torch, tmp, pths, "transformer", pths["transformer"],
+                    ("xla", "pallas"), arts, launches)
+        collect(children[0])
+        collect(children[1])
+        res, _ = children[2].result()
     finally:
-        for child in alone:
+        for child in children:
             child.stop()
     ok = (not res["loaded"]
           and all(v <= TOL_SLICE_REL_L2 for v in res["rel"].values()))
     log(f"[export] (d) the xla artifacts loaded by torch.export.load in a "
         f"process where pose3d_tpu_torch, pose3d_tpu and JAX cannot be "
-        f"imported (started when both were written, beside the exports "
-        f"after them): batch-3 answers against the live model rel L2 "
+        f"imported (its process started with (d), each artifact read once "
+        f"written): batch-3 answers against the live model rel L2 "
         f"{res['rel']}; of those packages in sys.modules: "
         f"{res['loaded'] or 'none'}  {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("the xla artifact does not stand alone")
+    from pose3d_tpu_torch import serve
+
+    for model_type in pths:
+        mib = {v: serve.load_exported_meta(arts[model_type, v])[
+            "payload_bytes"] / 2 ** 20 for v in ("xla", "int8")}
+        log(f"[time] {model_type} artifact sizes: fp32 {mib['xla']:.1f} MiB, "
+            f"int8 {mib['int8']:.1f} MiB ({mib['int8'] / mib['xla']:.3f} of "
+            f"it)  [{card}]")
     return {"arts": arts, "launches": launches}
 
 
-def _export_alone(tmp: Path, pths: dict, arts: dict) -> _Child:
+def _export_start(tmp: Path, pths: dict, model_type: str,
+                  names: tuple) -> _Child:
+    """``_export_one`` for ``model_type``'s variants ``names`` in a process
+    of its own, started now (TF32 off, as phase 3 leaves it in this one):
+    its log lines and, last, its artifacts and launches."""
+    code = textwrap.dedent(f"""
+        import json
+        from pathlib import Path
+        import torch
+        import chip_smoke as cs
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        pths = {{k: Path(v) for k, v in {({k: str(v) for k, v in pths.items()})!r}.items()}}
+        arts, launches = {{}}, dict.fromkeys(cs.KERNELS, 0)
+        cs._export_one(torch, Path({str(tmp)!r}), pths, {model_type!r},
+                       pths[{model_type!r}], {names!r}, arts, launches)
+        print(json.dumps({{"model_type": {model_type!r},
+                          "arts": {{k[1]: str(v) for k, v in arts.items()}},
+                          "launches": launches}}))
+    """)
+    return _Child(code, tmp)
+
+
+# seconds the no-import check waits for an ``xla`` artifact (the check's
+# process is killed at ``_Child``'s 600)
+XLA_WAIT = 540
+
+
+def _export_alone(tmp: Path, pths: dict) -> _Child:
     """The ``xla`` artifacts of both lifters loaded by
     ``torch.export.load`` in a process where ``pose3d_tpu_torch``,
-    ``pose3d_tpu`` and JAX cannot be imported, started now: each one's
-    batch-3 answer against the live model's (``xla_<model>.npz``)."""
+    ``pose3d_tpu`` and JAX cannot be imported, started now: once each
+    artifact is written (its sidecar comes after its program), its batch-3
+    answer against the live model's (``xla_<model>.npz``)."""
     code = textwrap.dedent(f"""
-        import importlib.abc, json, sys
+        import importlib.abc, json, os, sys, time
+        from pathlib import Path
         import numpy as np, torch
         BLOCKED = ("pose3d_tpu_torch", "pose3d_tpu", "jax", "jaxlib", "flax")
 
@@ -4833,15 +4985,22 @@ def _export_alone(tmp: Path, pths: dict, arts: dict) -> _Child:
                 return None
 
         sys.meta_path.insert(0, Block())
-        out = {{}}
-        for mt, path in {[(m, str(arts[m, "xla"] / "model.pt2"))
-                          for m in pths]!r}:
+        out, t0 = {{}}, time.perf_counter()
+        for mt in {sorted(pths)!r}:
+            art = Path(f"art_{{mt}}_xla")
+            # inside this process's own limit; and not once the script that
+            # started it is gone
+            while not (art / "meta.json").exists():
+                if (time.perf_counter() - t0 > {XLA_WAIT}
+                        or os.getppid() != {os.getpid()}):
+                    raise SystemExit(f"{{art}} was never written")
+                time.sleep(0.2)
             d = np.load(f"xla_{{mt}}.npz")
             x = [torch.from_numpy(d[f"arr_{{i}}"]).cuda() for i in range(3)]
             with torch.inference_mode():
-                got = torch.export.load(path).module()(*x).float().cpu()
+                got = torch.export.load(art / "model.pt2").module()(*x)
             want = d["want"]
-            out[mt] = float(np.linalg.norm(got.numpy() - want)
+            out[mt] = float(np.linalg.norm(got.float().cpu().numpy() - want)
                             / np.linalg.norm(want))
         print(json.dumps({{"rel": out, "loaded": sorted(
             m for m in sys.modules if m.split(".")[0] in BLOCKED)}}))
@@ -4850,12 +5009,10 @@ def _export_alone(tmp: Path, pths: dict, arts: dict) -> _Child:
 
 
 def _export_one(torch, tmp: Path, pths: dict, model_type: str, pth: Path,
-                variants: dict, arts: dict, launches: dict, alone: list,
-                card: str) -> None:
-    """``_export_artifacts`` for one lifter: each variant exported and
-    checked into ``arts``, the ``pallas`` launches added to ``launches``;
-    once both ``xla`` artifacts are written, ``_export_alone`` is started
-    and its process put in ``alone``."""
+                names: tuple, arts: dict, launches: dict) -> None:
+    """``_export_artifacts`` for one lifter: each of its variants in
+    ``names`` exported and checked into ``arts``, the ``pallas`` launches
+    added to ``launches``."""
     from pose3d_tpu_torch import serve
     from pose3d_tpu_torch.cli import export as cli_export
     from pose3d_tpu_torch.checkpoint import load_pose_model
@@ -4864,17 +5021,18 @@ def _export_one(torch, tmp: Path, pths: dict, model_type: str, pth: Path,
                                 attention_impl="reference")
     hw, J = tuple(cfg.image_size), cfg.num_joints
     want = _live_outputs(torch, live, EXPORT_BATCHES, 70, hw, J)
-    np.savez(tmp / f"xla_{model_type}.npz",
-             *_request_inputs(73, 3, hw, J), want=want[3])
-    deq = dict(serve.dequantize_variables(serve.quantize_variables(live)))
-    live.load_state_dict(deq)
-    want8 = _live_outputs(torch, live, EXPORT_BATCHES, 70, hw, J)
-    del live, deq
-    for name, extra in variants.items():
-        # the static batch is traced the same way for either lifter: the
-        # transformer's artifact (served in (e)) stands for both
-        if name in ("pallas", "static") and model_type != "transformer":
-            continue
+    if "xla" in names:          # the no-import check's reference
+        np.savez(tmp / f"xla_{model_type}.npz",
+                 *_request_inputs(73, 3, hw, J), want=want[3])
+    want8 = None
+    if "int8" in names:
+        deq = dict(serve.dequantize_variables(serve.quantize_variables(live)))
+        live.load_state_dict(deq)
+        want8 = _live_outputs(torch, live, EXPORT_BATCHES, 70, hw, J)
+        del deq
+    del live
+    for name in names:
+        extra = EXPORT_FLAGS[name]
         path = tmp / f"art_{model_type}_{name}"
         t0 = time.perf_counter()
         cli_export.main(["--checkpoint", str(pth), "--output", str(path),
@@ -4921,13 +5079,6 @@ def _export_one(torch, tmp: Path, pths: dict, model_type: str, pth: Path,
         arts[model_type, name] = path
         del program
         torch.cuda.empty_cache()
-        if not alone and all((m, "xla") in arts for m in pths):
-            alone.append(_export_alone(tmp, pths, arts))
-    mib = {v: serve.load_exported_meta(arts[model_type, v])[
-        "payload_bytes"] / 2 ** 20 for v in ("xla", "int8")}
-    log(f"[time] {model_type} artifact sizes: fp32 {mib['xla']:.1f} MiB, "
-        f"int8 {mib['int8']:.1f} MiB ({mib['int8'] / mib['xla']:.3f} of "
-        f"it)  [{card}]")
 
 
 def _export_serve(torch, tmp: Path, arts: dict, card: str) -> dict:
@@ -4998,11 +5149,13 @@ def _export_serve(torch, tmp: Path, arts: dict, card: str) -> dict:
     return launches
 
 
-def phase_export(torch, tmp: Path, card: str) -> dict:
+def phase_export(torch, tmp: Path, card: str, s1: dict) -> dict:
     """The transformer's ``--remat`` from the CLI and its bare step against
     the plain one; the CNN's four per-sample normalisations; ``cli.infer``
     on cached 1000x1000 frames; ``cli.export`` of both lifters; ``serve_http
-    --artifact``. Returns the kernels' launches on these paths."""
+    --artifact``; beside (d), ``beside_main`` (stage 1's CLI processes on
+    ``s1``, the weights and frames of ``phase_build``). Returns the
+    kernels' launches on these paths and ``beside_main``'s results."""
     from pose3d_tpu_torch.checkpoint import save_pose_model
     from pose3d_tpu_torch.cli import main as cli_main
     from pose3d_tpu_torch.core.config import CNNModelConfig, \
@@ -5029,11 +5182,78 @@ def phase_export(torch, tmp: Path, card: str) -> dict:
     finally:
         for child in children.values():
             child.stop()
-    ex = _export_artifacts(torch, tmp, pths, card)
+    # (d) only checks: the data tools and stage 1's processes run beside it
+    beside = _beside_start(tmp, card, s1)
+    try:
+        ex = _export_artifacts(torch, tmp, pths, card)
+    except BaseException:
+        beside.stop()
+        raise
+    done = _beside_wait(beside)
     runs.append(ex["launches"])
     runs.append(_export_serve(torch, tmp, {**ex["arts"],
                                            "pth": pths["transformer"]}, card))
-    return {k: launches[k] + sum(r[k] for r in runs) for k in KERNELS}
+    return {"launches": {k: launches[k] + sum(r[k] for r in runs)
+                         for k in KERNELS}, **done}
+
+
+def beside_main(tmp: Path, card: str, paths: dict, files: list) -> dict:
+    """Work that only checks and needs none of the export phase, run in a
+    process of its own beside its (d) (``_beside_start``), each part in a
+    thread: the data phase's tools (``_data_tools``: the raw layout,
+    ``cli.chunker``, ``cli.split``, ``cli.rechunker``, on the host) and
+    then its checked runs (``_data_checked``), and stage 1's CLI processes
+    (``_s1_cli``) on the weights ``paths`` and frames ``files``; TF32 off,
+    as phase 3 leaves it in the script's process. Returns their results as
+    JSON values."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with ThreadPoolExecutor(3) as ex:
+        # the gate check's shapes: the CNN's first cuDNN calls take seconds
+        shapes = ex.submit(_bn_path_shapes, torch, 1)
+
+        def data():
+            flow = _data_tools(tmp, card)
+            shapes.result()
+            return flow, _data_checked(torch, tmp, flow)
+        data = ex.submit(data)
+        ran = ex.submit(_s1_cli, tmp, paths, files)
+        (flow, launches), ran = data.result(), ran.result()
+    return {"flow": str(flow), "data_launches": launches, "stage1_ran": ran}
+
+
+def _beside_start(tmp: Path, card: str, s1: dict) -> "_Child":
+    """``beside_main`` started now in a process of its own."""
+    paths = {k: str(v) for k, v in s1["paths"].items()}
+    files = [str(f) for f in s1["files"]]
+    return _Child(textwrap.dedent(f"""
+        import json
+        from pathlib import Path
+        import chip_smoke
+        print(json.dumps(chip_smoke.beside_main(
+            Path({str(tmp)!r}), {card!r},
+            {{k: Path(v) for k, v in {paths!r}.items()}},
+            [Path(f) for f in {files!r}])))
+    """), tmp, timeout=900)
+
+
+def _beside_wait(child: "_Child") -> dict:
+    """The process of ``_beside_start`` waited for (a failure in it fails
+    the run): its lines logged, and its results (the data phase's ``flow``
+    and launches, stage 1's ``ran``)."""
+    try:
+        res, _ = child.result()
+    finally:
+        child.stop()
+    for line in child.stdout.splitlines()[:-1]:
+        if line.startswith("["):
+            log(line)
+    log(f"[export] (d) the data tools and checks and stage 1's processes in "
+        f"a process of their own beside it: {child.seconds:.1f} s from its "
+        f"start")
+    return {**res, "flow": Path(res["flow"])}
 
 
 # --- stage 1 ------------------------------------------------------------------
@@ -5524,42 +5744,18 @@ def _s1_artifacts_agree(out: Path, files, want) -> str:
     return msg
 
 
-def _s1_preprocess(torch, tmp: Path, paths: dict, files, want,
-                   card: str, beside=None) -> None:
-    """(c): ``python -m pose3d_tpu_torch.cli.preprocess`` on the frames,
-    the artifacts against the provider; a second run skips every folder
-    (``finished.txt``); ``cli.infer --stage1 cached`` over the artifacts
-    and ``cli.infer --stage1 jax`` with the weights, finite joints; both
-    stage-1 CLIs again with ``--data-parallel`` (one replica a card: here
-    one), their outputs against the runs without it, in a process of
-    their own beside the process of the runs without the flag.
-    ``beside()``, when given, is called when the first run is done: what
-    it starts runs beside those two processes."""
+def _s1_cli(tmp: Path, paths: dict, files) -> dict:
+    """(c)'s processes, three side by side from the start: ``python -m
+    pose3d_tpu_torch.cli.preprocess`` on the frames, then (its artifacts
+    needed) a second run that skips every folder (``finished.txt``) and
+    ``cli.infer --stage1 cached`` over the artifacts; ``cli.infer --stage1
+    jax`` with the weights, without and with ``--data-parallel`` (one
+    replica a card: here one); ``cli.preprocess --data-parallel``. Returns
+    what they said, for ``_s1_cli_check``."""
     src, out = files[0].parent.parent, tmp / "s1_artifacts"
     argv = [str(src), str(out), "--kp-weights", str(paths["yolo"]),
             "--depth-weights", str(paths["depth"]),
             "--batch-size", str(S1_BATCH)]
-    env = {**os.environ, "PYTHONPATH": str(ROOT)}
-    t0 = time.perf_counter()
-    run = subprocess.run([sys.executable, "-m",
-                          "pose3d_tpu_torch.cli.preprocess", *argv],
-                         cwd=tmp, env=env, capture_output=True, text=True,
-                         timeout=600)
-    wall = time.perf_counter() - t0
-    if run.returncode != 0:
-        raise SystemExit(f"preprocess failed:\n{run.stderr[-4000:]}")
-    done = [ln.split("complete: ")[-1] for ln in run.stderr.splitlines()
-            if "Preprocessing complete" in ln]
-    log(f"[stage1] (c) cli.preprocess, {len(files)} {S1_HW[1]}x{S1_HW[0]} "
-        f"JPEG frames in {len(S1_FRAMES)} folders, own process "
-        f"({wall:.1f} s with start-up and weight loading): {done}; "
-        + _s1_artifacts_agree(out, files, want) + "  ok")
-    log(f"[time] stage1 cli.preprocess: {done[0] if done else '?'}  [{card}]")
-    for f in files:                       # the cached provider reads beside
-        shutil.copy(f, out / f.parent.name / f.name)
-    if beside is not None:
-        beside()
-    one = out / files[0].parent.name
     head = textwrap.dedent(f"""
         import json
         from pose3d_tpu_torch.cli import infer, preprocess
@@ -5572,28 +5768,65 @@ def _s1_preprocess(torch, tmp: Path, paths: dict, files, want,
                                "--depth-weights", {str(paths['depth'])!r},
                                "--batch-size", "{S1_BATCH}", *extra])
     """)
-    # two processes side by side: the runs without the flag, and the
-    # --data-parallel ones (which read only the frames and the weights)
-    plain = _Child(head + textwrap.dedent(f"""
-        rerun = preprocess.main({argv!r})
-        cached = infer.main(["--checkpoint_path", {str(paths['lifter'])!r},
-                             "--input_folder", {str(one)!r},
-                             "--output_folder", {str(tmp / 's1_cached')!r},
-                             "--batch-size", "{S1_BATCH}"])
+    # the runs that read only the frames and the weights
+    jax = _Child(head + textwrap.dedent(f"""
         jax = jax_infer({str(tmp / 's1_jax')!r})
-        print(json.dumps({{"rerun": rerun, "cached": cached, "jax": jax}}))
+        dp_jax = jax_infer({str(tmp / 's1_jax_dp')!r}, "--data-parallel")
+        print(json.dumps({{"jax": jax, "dp_jax": dp_jax}}))
     """), tmp)
     dp = _Child(head + textwrap.dedent(f"""
         dp_pre = preprocess.main({argv!r}[:1] + [{str(tmp / 's1_artifacts_dp')!r}]
                                  + {argv!r}[2:] + ["--data-parallel"])
-        dp_jax = jax_infer({str(tmp / 's1_jax_dp')!r}, "--data-parallel")
-        print(json.dumps({{"dp_pre": dp_pre, "dp_jax": dp_jax}}))
+        print(json.dumps({{"dp_pre": dp_pre}}))
     """), tmp)
+    again = None
     try:
-        res = {**plain.result()[0], **dp.result()[0]}
+        env = {**os.environ, "PYTHONPATH": str(ROOT)}
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m",
+                              "pose3d_tpu_torch.cli.preprocess", *argv],
+                             cwd=tmp, env=env, capture_output=True,
+                             text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise SystemExit(f"preprocess failed:\n{run.stderr[-4000:]}")
+        done = [ln.split("complete: ")[-1] for ln in run.stderr.splitlines()
+                if "Preprocessing complete" in ln]
+        for f in files:                   # the cached provider reads beside
+            shutil.copy(f, out / f.parent.name / f.name)
+        one = out / files[0].parent.name
+        again = _Child(head + textwrap.dedent(f"""
+            rerun = preprocess.main({argv!r})
+            cached = infer.main(["--checkpoint_path", {str(paths['lifter'])!r},
+                                 "--input_folder", {str(one)!r},
+                                 "--output_folder", {str(tmp / 's1_cached')!r},
+                                 "--batch-size", "{S1_BATCH}"])
+            print(json.dumps({{"rerun": rerun, "cached": cached}}))
+        """), tmp)
+        res = {**again.result()[0], **jax.result()[0], **dp.result()[0]}
     finally:
-        plain.stop()
-        dp.stop()
+        for child in (jax, dp, again):
+            if child is not None:
+                child.stop()
+    return {"wall": wall, "done": done, "res": res,
+            "seconds": (again.seconds, jax.seconds, dp.seconds)}
+
+
+def _s1_cli_check(torch, tmp: Path, files, want, card: str,
+                  ran: dict) -> None:
+    """(c) checked: the first run's artifacts against the provider's
+    Stage1Results ``want``; the second run skipped; ``cli.infer``'s joint
+    files finite; the ``--data-parallel`` runs against the runs without
+    the flag."""
+    out, res = tmp / "s1_artifacts", ran["res"]
+    log(f"[stage1] (c) cli.preprocess, {len(files)} {S1_HW[1]}x{S1_HW[0]} "
+        f"JPEG frames in {len(S1_FRAMES)} folders, own process "
+        f"({ran['wall']:.1f} s with start-up and weight loading, beside two "
+        f"more and the export phase's (d)): {ran['done']}; "
+        + _s1_artifacts_agree(out, files, want) + "  ok")
+    log(f"[time] stage1 cli.preprocess: "
+        f"{ran['done'][0] if ran['done'] else '?'} (beside two more "
+        f"processes of (c) and the export phase's (d))  [{card}]")
     n_one = S1_FRAMES[files[0].parent.name]
     joints = [np.load(p) for d in ("s1_cached", "s1_jax")
               for p in sorted((tmp / d).glob("*_pred_joints3d.npy"))]
@@ -5608,8 +5841,10 @@ def _s1_preprocess(torch, tmp: Path, paths: dict, files, want,
     dp_diff = max(float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
                   for a, b in zip(dp_joints, joints[n_one:]))
     dp_ok = len(dp_joints) == n_one and dp_diff <= 1e-3
-    log(f"[stage1] (c) two more processes side by side ({plain.seconds:.1f}"
-        f" and {dp.seconds:.1f} s, beside (d)'s server starting): preprocess "
+    log(f"[stage1] (c) three more processes (the first after that run, "
+        f"the others beside it: {ran['seconds'][0]:.1f}, "
+        f"{ran['seconds'][1]:.1f} and {ran['seconds'][2]:.1f} s, beside the "
+        f"export phase's (d)): preprocess "
         f"again into the same tree: {res['rerun']} images (finished.txt in "
         f"each folder); cli.infer --stage1 cached "
         f"{res['cached']} and --stage1 jax {res['jax']} joint files (want "
@@ -5667,52 +5902,55 @@ def _s1_serve_stop(server: dict) -> None:
             proc.wait()
 
 
-def _s1_serve(torch, server: dict, bodies, want, card: str) -> None:
-    """(d): the server of ``_s1_serve_start`` once healthy;
-    ``/predict_image`` at batch 1 (one request) and 8 (eight concurrent
-    requests, coalesced), against a direct provider + lifter call on the
-    same decoded frames; ``/predict`` answers 404; the process is
-    stopped."""
+def _s1_serve_wait(server: dict) -> float:
+    """The server of ``_s1_serve_start`` polled until healthy: the
+    seconds since its start."""
     proc, base, log_path = server["proc"], server["base"], server["log"]
-    try:
-        t0 = server["t0"]
-        while True:
-            if proc.poll() is not None:
-                raise SystemExit("serve_http exited:\n"
-                                 + log_path.read_text()[-4000:])
-            try:
-                if _get(base + "/healthz")[0] == 200:
-                    break
-            except (urllib.error.URLError, ConnectionError):
-                pass
-            if time.monotonic() - t0 > 600:
-                raise SystemExit("serve_http not healthy after 600 s")
-            time.sleep(0.5)
-        up = time.monotonic() - t0
+    t0 = server["t0"]
+    while True:
+        if proc.poll() is not None:
+            raise SystemExit("serve_http exited:\n"
+                             + log_path.read_text()[-4000:])
         try:
-            _post_image(base + "/predict", bodies[0])
-            code = 200
-        except urllib.error.HTTPError as e:
-            code = e.code
-        lat, rels, sizes = {}, [], {}
-        for b in S1_SERVE_BATCHES:
-            ts = []
-            for _ in range(3):
-                t = time.perf_counter()
-                with ThreadPoolExecutor(b) as ex:
-                    got = list(ex.map(lambda x: _post_image(
-                        base + "/predict_image", x), bodies[:b]))
-                ts.append((time.perf_counter() - t) * 1e3)
-            lat[b] = statistics.median(ts)
-            sizes[b] = max(g[2] for g in got)
-            rels += [_rel(g[0], w) for g, w in zip(got, want[:b])]
-    finally:
-        _s1_serve_stop(server)
+            if _get(base + "/healthz")[0] == 200:
+                return time.monotonic() - t0
+        except (urllib.error.URLError, ConnectionError):
+            pass
+        if time.monotonic() - t0 > 600:
+            raise SystemExit("serve_http not healthy after 600 s")
+        time.sleep(0.5)
+
+
+def _s1_serve(torch, server: dict, up: float, bodies, want,
+              card: str) -> None:
+    """(d): the server of ``_s1_serve_start``, healthy ``up`` seconds after
+    its start; ``/predict_image`` at batch 1 (one request) and 8 (eight
+    concurrent requests, coalesced), against a direct provider + lifter
+    call on the same decoded frames; ``/predict`` answers 404."""
+    base = server["base"]
+    try:
+        _post_image(base + "/predict", bodies[0])
+        code = 200
+    except urllib.error.HTTPError as e:
+        code = e.code
+    lat, rels, sizes = {}, [], {}
+    for b in S1_SERVE_BATCHES:
+        ts = []
+        for _ in range(3):
+            t = time.perf_counter()
+            with ThreadPoolExecutor(b) as ex:
+                got = list(ex.map(lambda x: _post_image(
+                    base + "/predict_image", x), bodies[:b]))
+            ts.append((time.perf_counter() - t) * 1e3)
+        lat[b] = statistics.median(ts)
+        sizes[b] = max(g[2] for g in got)
+        rels += [_rel(g[0], w) for g, w in zip(got, want[:b])]
     top = max(S1_SERVE_BATCHES)
     ok = code == 404 and max(rels) <= TOL_S1_SERVE and sizes[top] == top
     log(f"[stage1] (d) serve_http --checkpoint (pipeline) polled healthy "
-        f"{up:.1f} s after its start (it started beside (c)'s later "
-        f"processes and was polled after them); "
+        f"{up:.1f} s after its start (it started with this phase, beside "
+        f"its main path and references, and was waited for before its "
+        f"times); "
         f"/predict_image at batch 1 and 8 concurrent: device "
         f"batches {sizes}; joints against a direct provider + lifter call "
         f"rel L2 max {max(rels):.3e} (tol {TOL_S1_SERVE:.0e}); /predict "
@@ -5755,7 +5993,7 @@ def _s1_main_path(torch, provider, rgbs) -> dict:
     return launches
 
 
-def phase_stage1(torch, tmp: Path, card: str) -> dict:
+def phase_stage1(torch, tmp: Path, card: str, started: dict) -> dict:
     """Stage 1 at the published widths with seeded random weights:
     YOLO11x-pose at 640 and DepthPro (apple/DepthPro-hf) at 1536², from a
     plain upstream-named ``.pt`` and a ``.safetensors`` written here.
@@ -5766,19 +6004,35 @@ def phase_stage1(torch, tmp: Path, card: str) -> dict:
     call, 2 a YOLO11x call, 0 with "xla"; (c) ``cli.preprocess`` on 8
     1000x1000 frames in two folders, its artifacts against the provider,
     a second run that skips, ``cli.infer`` with ``--stage1 cached`` and
-    ``--stage1 jax``; (d) pipeline serving; (e) times. Returns the
-    launches of the main path."""
+    ``--stage1 jax``; (d) pipeline serving; (e) times. The weights and
+    frames were written beside the build and (c)'s processes ran beside
+    the export phase's (d) (``started``: the paths, the files and what (c)
+    said); here they are checked. (d)'s server starts with the phase,
+    beside its main path and references, and is waited for before its
+    first times. Returns the launches of the main path."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths, files = started["paths"], started["files"]
+    server = _s1_serve_start(tmp, paths)
+    try:
+        launches = _stage1_checks(torch, tmp, card, started, server)
+    finally:
+        _s1_serve_stop(server)
+    log(f"[stage1] phase seconds: {time.perf_counter() - t_phase:.1f}")
+    return launches
+
+
+def _stage1_checks(torch, tmp: Path, card: str, started: dict,
+                   server: dict) -> dict:
+    """``phase_stage1`` with (d)'s ``server`` started."""
     from pose3d_tpu_torch.checkpoint import load_pose_model
     from pose3d_tpu_torch.cli.infer import make_lifter
     from pose3d_tpu_torch.stage1.models import TorchStage1
 
     import cv2
 
-    t_phase = time.perf_counter()
-    gc.collect()
-    torch.cuda.empty_cache()
-    paths = _s1_write_weights(torch, tmp, "cuda")
-    files = _s1_frames(tmp / "s1_frames")
+    paths, files = started["paths"], started["files"]
     t0 = time.perf_counter()
     provider = TorchStage1(kp_weights=str(paths["yolo"]),
                            depth_weights=str(paths["depth"]),
@@ -5803,24 +6057,15 @@ def phase_stage1(torch, tmp: Path, card: str) -> dict:
         want_joints = make_lifter(lifter, cfg)(
             decoded, provider.predict_batch(decoded))
         del lifter
+        up = _s1_serve_wait(server)       # the card alone for the times
         _s1_host_split(torch, provider, files[:S1_BATCH], card)
     _s1_networks(torch, provider, rgbs, card)
     del provider
     gc.collect()
     torch.cuda.empty_cache()
     _s1_attention_times(torch, card)
-    # (d)'s server starts as (c)'s two later processes do: its start-up,
-    # the weights read and a batch-1 warmup, overlaps them; it is timed
-    # once they are done
-    server = []
-    try:
-        _s1_preprocess(torch, tmp, paths, files, want_s1, card,
-                       lambda: server.append(_s1_serve_start(tmp, paths)))
-        _s1_serve(torch, server[0], bodies, want_joints, card)
-    finally:
-        for srv in server:
-            _s1_serve_stop(srv)
-    log(f"[stage1] phase seconds: {time.perf_counter() - t_phase:.1f}")
+    _s1_cli_check(torch, tmp, files, want_s1, card, started["ran"])
+    _s1_serve(torch, server, up, bodies, want_joints, card)
     return launches
 
 
@@ -6085,6 +6330,12 @@ def _parallel_rank(argv) -> int:
                            backend="gloo")
     import pose3d_tpu_torch.parallel  # noqa: F401  (then wrap every holder)
     import pose3d_tpu_torch.train.loop  # noqa: F401
+    # started before (a): the one-process references come after it
+    t0 = time.perf_counter()
+    while not (out / "refs.done").exists():
+        if time.perf_counter() - t0 > PAR_TIMEOUT:
+            raise SystemExit("the one-process references never came")
+        time.sleep(0.2)
     timer = _CommTimer()
     results = {}
     for job in PAR_JOBS:
@@ -6129,30 +6380,45 @@ def _parallel_rank(argv) -> int:
     return 0
 
 
-def _par_ranks(torch, tmp: Path, card: str) -> dict:
-    """(b): the references, then the two ranks, each killed at
-    ``PAR_TIMEOUT``; every check; returns each rank's launches."""
+def _par_ranks_start(tmp: Path) -> dict:
+    """(b)'s two ranks (``chip_smoke.py --parallel-rank``) started now,
+    before (a): their start-up runs beside it, and each waits for the
+    one-process references (``_par_ranks``) before its first job."""
     import socket
 
     out = tmp / "parallel"
     out.mkdir()
-    refs = {job[0]: _par_reference(torch, job, out, card) for job in PAR_JOBS}
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     env = {**os.environ, "PYTHONPATH": str(ROOT), "OMP_NUM_THREADS": "4"}
-    t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, str(ROOT / "chip_smoke.py"), "--parallel-rank",
          str(r), str(port), str(out)], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    return {"out": out, "procs": procs, "t0": time.perf_counter()}
+
+
+def _par_ranks_stop(ranks: dict) -> None:
+    for p in ranks["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+
+
+def _par_ranks(torch, ranks: dict, card: str) -> dict:
+    """(b): the references, then the two ranks of ``_par_ranks_start``
+    waited for, each killed at ``PAR_TIMEOUT`` from its start; every
+    check; returns each rank's launches."""
+    out, procs, t0 = ranks["out"], ranks["procs"], ranks["t0"]
     try:
-        logs = [p.communicate(timeout=PAR_TIMEOUT)[0] for p in procs]
+        refs = {job[0]: _par_reference(torch, job, out, card)
+                for job in PAR_JOBS}
+        (out / "refs.done").touch()
+        logs = [p.communicate(timeout=max(
+            1.0, t0 + PAR_TIMEOUT - time.perf_counter()))[0] for p in procs]
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
+        _par_ranks_stop(ranks)
     wall = time.perf_counter() - t0
     for r, (p, lg) in enumerate(zip(procs, logs)):
         if p.returncode != 0:
@@ -6162,7 +6428,8 @@ def _par_ranks(torch, tmp: Path, card: str) -> dict:
              for r in range(2)]
     log(f"[parallel] (b) two ranks on one card over gloo (every collective "
         f"through host memory: NCCL refuses two ranks on one device), "
-        f"{wall:.1f} s for both processes with start-up  [{card}]")
+        f"{wall:.1f} s for both processes with start-up (started before (a)"
+        f" and waiting for the references)  [{card}]")
     ok = True
     per_rank = [dict.fromkeys(KERNELS, 0) for _ in range(2)]
     for job in PAR_JOBS:
@@ -6328,10 +6595,15 @@ def phase_parallel(torch, tmp: Path, card: str) -> dict:
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    cli = _par_cli(torch, tmp, card)
+    started = _par_ranks_start(tmp)
+    try:
+        cli = _par_cli(torch, tmp, card)
+    except BaseException:
+        _par_ranks_stop(started)
+        raise
     gc.collect()
     torch.cuda.empty_cache()
-    ranks = _par_ranks(torch, tmp, card)
+    ranks = _par_ranks(torch, started, card)
     _par_stage1(torch, card)
     log(f"[parallel] phase seconds: {time.perf_counter() - t0:.1f}")
     return {"cli": cli, **ranks}
@@ -6339,9 +6611,9 @@ def phase_parallel(torch, tmp: Path, card: str) -> dict:
 
 # --- phase 15: the tooling and the on-card acceptance scripts ---------------
 
-# the three chains of the phase run side by side on the card, beside phase
-# 14, each within this many seconds (the doctor runs alone before them: its
-# probes time the card)
+# the three chains of the phase and the doctor run side by side on the card,
+# beside phase 14, each within this many seconds (the doctor's probes are
+# informational there)
 TOOLS_TIMEOUT = 240
 # the transformer overfit (scripts/torch_overfit_demo.py): steps and how
 # far it must learn in them, the last loss below a quarter of step 1's and
@@ -6409,7 +6681,8 @@ def _tools_doctor(torch, tmp: Path, card: str) -> None:
         f"{probe.get('host_to_device_MBps_pinned', 0):.0f} MB/s pinned, "
         f"{probe.get('host_to_device_MBps_pageable', 0):.0f} pageable; host "
         f"decode {probe.get('host_decode_imgs_per_sec', 0):.1f} images/s "
-        f"({probe.get('host_decode_route')})  [{card}]")
+        f"({probe.get('host_decode_route')}; beside phase 14 and the tools "
+        f"chains)  [{card}]")
     if not ok:
         raise SystemExit(f"the doctor's report does not hold: {rep}")
 
@@ -6446,33 +6719,27 @@ def _tools_overfit(tmp: Path) -> dict:
 
 
 def tools_start(torch, tmp: Path, card: str) -> dict:
-    """Phase 15, begun before phase 14: (b) the lifecycle of both families
-    and (c) the transformer overfit followed by (d) its int8 accuracy
-    started side by side, each chain in processes of its own, to run
+    """Phase 15, begun before phase 14: (a) the doctor, (b) the lifecycle of
+    both families and (c) the transformer overfit followed by (d) its int8
+    accuracy started side by side, each in processes of its own, to run
     beside phase 14 (whose two ranks share the card too and time nothing
-    that is compared). ``phase_tools`` runs (a), the doctor, and waits for
-    them: the chains are the phase's longest part, so the doctor runs
-    beside their end rather than before their start."""
+    that is compared); ``phase_tools`` waits for them and checks them."""
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    ex = ThreadPoolExecutor(3)
-    jobs = {"cnn": ex.submit(_tools_lifecycle, tmp, "cnn"),
+    ex = ThreadPoolExecutor(4)
+    jobs = {"doctor": ex.submit(_tools_doctor, torch, tmp, card),
+            "cnn": ex.submit(_tools_lifecycle, tmp, "cnn"),
             "transformer": ex.submit(_tools_lifecycle, tmp, "transformer"),
             "overfit": ex.submit(_tools_overfit, tmp)}
     return {"t0": t0, "ex": ex, "jobs": jobs}
 
 
 def phase_tools(torch, tmp: Path, card: str, started: dict) -> dict:
-    """Phase 15 finished: (a) the doctor, then the chains of
-    ``tools_start`` waited for and checked. Returns the launches the
-    scripts' processes report, summed."""
+    """Phase 15 finished: the doctor and the chains of ``tools_start``
+    waited for and checked. Returns the launches the scripts' processes
+    report, summed."""
     t0 = started["t0"]
-    try:
-        _tools_doctor(torch, tmp, card)
-    except BaseException:
-        started["ex"].shutdown(wait=True)
-        raise
     with started["ex"]:
         res = {k: f.result() for k, f in started["jobs"].items()}
     for mt in ("cnn", "transformer"):
@@ -6569,7 +6836,23 @@ def phase_imports() -> None:
         raise SystemExit(f"the port imported {bad}")
 
 
+def keep_bytecode() -> None:
+    """This process and every process it starts keep the bytecode they
+    compile under ``build/pycache`` of this checkout (which git ignores),
+    where the next process reads it, also where the environment asks for
+    no bytecode to be written: on the card's machine none is kept beside
+    the site-packages' sources, and every process compiled ``torch``
+    again, 10 s of its start (PERF.md). Called before ``torch`` is
+    imported."""
+    prefix = str(ROOT / "build" / "pycache")
+    sys.pycache_prefix = prefix
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+
+
 def main() -> int:
+    keep_bytecode()
     import torch
 
     if not torch.cuda.is_available():
@@ -6599,10 +6882,10 @@ def main() -> int:
         return out
 
     card = timed("environment", phase_environment, torch)
-    timed("build", phase_build)
-    worst = timed("kernels", phase_kernels, torch)
-    contracts = timed("contracts", phase_contracts, torch, card)
     with tempfile.TemporaryDirectory(prefix="pose3d_chip_smoke_") as tmp:
+        s1 = timed("build", phase_build, torch, Path(tmp))
+        worst = timed("kernels", phase_kernels, torch)
+        contracts = timed("contracts", phase_contracts, torch, card)
         sl = timed("slice", phase_slice, torch, Path(tmp))
         times = timed("times", phase_times, torch, card, sl)
         del sl
@@ -6611,10 +6894,12 @@ def main() -> int:
         tr = timed("train", phase_train, torch, Path(tmp), card)
         cnn = timed("cnn", phase_cnn, torch, Path(tmp), card)
         cli = timed("cli", phase_cli, torch, Path(tmp), card)
-        data = timed("data", phase_data, torch, Path(tmp), card)
-        export = timed("export", phase_export, torch, Path(tmp), card)
-        stage1 = timed("stage1", phase_stage1, torch, Path(tmp), card)
-        bg = timed("tools (the chains started)", tools_start,
+        export = timed("export", phase_export, torch, Path(tmp), card, s1)
+        data = timed("data", phase_data, torch, Path(tmp), card,
+                     export["flow"], export["data_launches"])
+        stage1 = timed("stage1", phase_stage1, torch, Path(tmp), card,
+                       {**s1, "ran": export["stage1_ran"]})
+        bg = timed("tools (the doctor and the chains started)", tools_start,
                    torch, Path(tmp), card)
         try:
             par = timed("parallel (beside the tools chains)",
@@ -6622,7 +6907,7 @@ def main() -> int:
         except BaseException:
             bg["ex"].shutdown(wait=True)
             raise
-        tools = timed("tools (the doctor; the chains waited for)",
+        tools = timed("tools (the doctor and the chains waited for)",
                       phase_tools, torch,
                       Path(tmp), card, bg)
     phase_imports()
@@ -6662,7 +6947,7 @@ def main() -> int:
         "launches": launches,
         "cli_launches": cli["launches"][name],
         "data_launches": data[name],
-        "export_launches": export[name],
+        "export_launches": export["launches"][name],
         "stage1_launches": stage1[name],
         "parallel_launches": [r[name] for r in par["per_rank"]],
         "tools_launches": tools[name],

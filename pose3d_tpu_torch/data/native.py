@@ -15,9 +15,11 @@ covers the sources and the flags, so a changed source is rebuilt. The
 prebuilt ``native/libposedec.so`` of the repository is never loaded.
 
 When the build fails (no ``g++``, or no libjpeg / libpng headers) the
-error names what is missing, and decoding falls back to OpenCV where it is
-installed (imported inside the function), as the JAX package does; with
-neither, decoding raises. Archive reads fall back to Python's ``tarfile``.
+error names what is missing (a missing header is found by the
+preprocessor alone, without compiling), and decoding falls back to
+OpenCV where it is installed (imported inside the function), as the JAX
+package does; with neither, decoding raises. Archive reads fall back to
+Python's ``tarfile``.
 """
 
 from __future__ import annotations
@@ -58,13 +60,37 @@ def library_path() -> Path:
     return BUILD_DIR / f"libposedec-{h.hexdigest()[:16]}.so"
 
 
+def _failure(cmd, log: str) -> RuntimeError:
+    """The error of a failed ``cmd``, naming the headers and libraries its
+    output says are missing."""
+    headers = sorted(set(re.findall(
+        r"fatal error: ([\w./+-]+): No such file", log)))
+    libs = sorted(set(re.findall(r"cannot find (-l\w+)", log)))
+    missing = ", ".join(
+        ([f"headers {' '.join(headers)}"] if headers else [])
+        + ([f"libraries {' '.join(libs)}"] if libs else []))
+    return RuntimeError(
+        f"g++ could not build the native decoder"
+        f"{' (missing ' + missing + ')' if missing else ''}: "
+        f"{' '.join(cmd)}\n{log[-2000:]}")
+
+
 def _build(out: Path) -> None:
     """Compile the sources into ``out`` (written under a temporary name and
-    renamed into place); raises RuntimeError naming what is missing."""
+    renamed into place); raises RuntimeError naming what is missing. The
+    preprocessor runs over the sources first, which takes a fraction of a
+    second: a missing header is named without compiling anything (the
+    compile took seconds, in every process, on a host without libjpeg's
+    headers)."""
     cxx = shutil.which(os.environ.get("CXX", "g++"))
     if cxx is None:
         raise RuntimeError("no C++ compiler (g++) on PATH")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    pre = [cxx, "-std=c++17", "-E", *map(str, SOURCES)]
+    proc = subprocess.run(pre, stdout=subprocess.DEVNULL,
+                          stderr=subprocess.PIPE, text=True)
+    if proc.returncode != 0:
+        raise _failure(pre, proc.stderr)
     fd, tmp = tempfile.mkstemp(prefix=out.name + ".", suffix=".tmp",
                                dir=BUILD_DIR)
     os.close(fd)
@@ -72,17 +98,7 @@ def _build(out: Path) -> None:
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            log = proc.stdout + proc.stderr
-            headers = sorted(set(re.findall(
-                r"fatal error: ([\w./+-]+): No such file", log)))
-            libs = sorted(set(re.findall(r"cannot find (-l\w+)", log)))
-            missing = ", ".join(
-                ([f"headers {' '.join(headers)}"] if headers else [])
-                + ([f"libraries {' '.join(libs)}"] if libs else []))
-            raise RuntimeError(
-                f"g++ could not build the native decoder"
-                f"{' (missing ' + missing + ')' if missing else ''}: "
-                f"{' '.join(cmd)}\n{log[-2000:]}")
+            raise _failure(cmd, proc.stdout + proc.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):

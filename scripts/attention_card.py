@@ -4,6 +4,7 @@ kernels (the whole of ``chip_smoke.py`` takes minutes).
 
     PYTHONPATH=. python scripts/attention_card.py [--no-time] [--only fwd|bwd]
     PYTHONPATH=. python scripts/attention_card.py --variants
+    PYTHONPATH=. python scripts/attention_card.py --deep-route
 
 Prints ptxas's registers / spills / shared memory per kernel, then for a
 list of shapes (the lifter's four, ragged and edge lengths, packed q/k/v
@@ -27,17 +28,25 @@ rebuilds the two sources with parts of the ``wgmma`` kernels taken out (the
 exponentials, a product's ``wgmma``s, the dQ reduction, or all of them, which
 leaves the TMA loads, barriers and stores) and times each beside the
 unchanged source at the ViT shape: a variant's outputs are wrong by
-construction, only its time means something. Needs one CUDA card and nvcc.
+construction, only its time means something. ``--deep-route`` rebuilds
+both sources with the deep instance taking head depths past 128 (a copy of
+``flash_attention_common.cuh`` with ``attn::deep_pair`` from 128, the
+depths padded to multiples of 64 as past 256) and holds it and the (256,
+256) pair against the plain pair, then times both at ``DEEP_ROUTE``'s
+depths in turns. Needs one CUDA card and nvcc.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -285,6 +294,127 @@ def variants() -> None:
                   f"  [{card}]", flush=True)
 
 
+# --deep-route: head depths in (128, 256] at B 8, T 1025, H 3, D = Dv
+DEEP_ROUTE = [(8, 1025, 1025, 3, d) for d in (256, 200, 160)]
+DEEP_FROM = ("(D > 256 || Dv > 256)", "(D > 128 || Dv > 128)")
+
+
+def _deep_route_libs(out_dir: Path) -> dict:
+    """Both sources built with the deep instance taking over past depth 128
+    in place of 256 (``attn::deep_pair`` in a copy of the shared header):
+    the route that would replace the (256, 256) pair."""
+    for h in _build.CSRC_DIR.glob("*.cuh"):
+        text = h.read_text()
+        if h.name == "flash_attention_common.cuh":
+            if DEEP_FROM[0] not in text:
+                raise SystemExit(f"{DEEP_FROM[0]!r} not in {h.name}")
+            text = text.replace(*DEEP_FROM)
+        (out_dir / h.name).write_text(text)
+
+    def build(name):
+        cu, so = out_dir / f"{name}.cu", out_dir / f"{name}_deep128.so"
+        cu.write_text((_build.CSRC_DIR / f"{name}.cu").read_text())
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                               str(so), str(cu)], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise SystemExit(f"{name} deep from 128: nvcc failed\n"
+                             f"{proc.stderr[-3000:]}")
+        return name, ctypes.CDLL(str(so))
+    names = ("flash_attention_fwd", "flash_attention_bwd")
+    with ThreadPoolExecutor(2) as ex:
+        return dict(ex.map(build, names))
+
+
+class _deep_route:
+    """Within the block the launchers run head depths past 128 on the deep
+    instance: its libraries stand in for the built ones, and the depths are
+    padded to multiples of 64 as past 256 (``padded_pair``)."""
+
+    def __init__(self, libs):
+        self.libs = libs
+
+    def __enter__(self):
+        self.saved = {n: _build._libs[n] for n in self.libs}
+        self.padded_pair = fa.padded_pair
+        _build._libs.update(self.libs)
+        for n in self.libs:
+            fa.load_library(n)
+
+        def padded(D, Dv):
+            if max(D, Dv) > 128:
+                c = fa.DEEP_CHUNK
+                return c * -(-D // c), c * -(-Dv // c)
+            return self.padded_pair(D, Dv)
+        fa.padded_pair = padded
+        return self
+
+    def __exit__(self, *exc):
+        _build._libs.update(self.saved)
+        fa.padded_pair = self.padded_pair
+
+
+def deep_route() -> int:
+    """The (256, 256) pair against the deep instance at ``DEEP_ROUTE``'s
+    depths, bf16 and fp32, forward and backward: each route's outputs held
+    against the plain pair, then their times in turns (pair, deep, deep,
+    pair) as the device's time, and the deep route's ratio to the pair's.
+    Returns the number of disagreements."""
+    card = torch.cuda.get_device_name(0)
+    bad = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        libs = _deep_route_libs(Path(tmp))
+        print(f"[deep-route] both sources rebuilt with the deep instance "
+              f"past 128: {time.perf_counter() - t0:.1f} s", flush=True)
+        for dt in (torch.bfloat16, torch.float32):
+            for B, Tq, Tk, H, D in DEEP_ROUTE:
+                q, k, v, do = _inputs(B, Tq, Tk, H, D, D, dt, 70 + D)
+                ro, rl = fa.flash_attention_fwd_reference(q, k, v)
+                rg = fa.flash_attention_bwd_reference(q, k, v, ro, do, rl)
+                routes = {}
+                for route in ("pair", "deep"):
+                    ctx = (_deep_route(libs) if route == "deep"
+                           else contextlib.nullcontext())
+                    with ctx:
+                        Dp = fa.padded_pair(D, D)[0]
+                        o, lse = fa.flash_attention_fwd(q, k, v)
+                        g = fa.flash_attention_bwd(q, k, v, o, do, lse)
+                    eo = float((o.float() - ro.float()).abs().max())
+                    el = float((lse - rl).abs().max())
+                    eg = max(_rel(a, r) for a, r in zip(g, rg))
+                    ok = (eo <= TOL_O[dt] and el <= TOL_LSE
+                          and eg <= TOL_GRAD[dt])
+                    bad += not ok
+                    routes[route] = (q, k, v, o, do, lse)
+                    print(f"[deep-route] {str(dt)[6:]} B={B} T={Tq} H={H} "
+                          f"D={D} {route} (run at depth {Dp}): |do| {eo:.2e}, "
+                          f"|dlse| {el:.2e}, grad {eg:.2e}  "
+                          f"{'ok' if ok else 'FAIL'}", flush=True)
+                ms = {("pair", "fwd"): [], ("deep", "fwd"): [],
+                      ("pair", "bwd"): [], ("deep", "bwd"): []}
+                for route in ("pair", "deep", "deep", "pair"):
+                    ctx = (_deep_route(libs) if route == "deep"
+                           else contextlib.nullcontext())
+                    q_, k_, v_, o_, do_, lse_ = routes[route]
+                    with ctx:
+                        ms[route, "fwd"].append(_ms(
+                            lambda: fa.flash_attention_fwd(q_, k_, v_)))
+                        ms[route, "bwd"].append(_ms(
+                            lambda: fa.flash_attention_bwd(
+                                q_, k_, v_, o_, do_, lse_), 10))
+                for d in ("fwd", "bwd"):
+                    pair = statistics.mean(ms["pair", d])
+                    deep = statistics.mean(ms["deep", d])
+                    print(f"[time] deep route {str(dt)[6:]} {d} B={B} T={Tq} "
+                          f"H={H} D={D}: pair {ms['pair', d][0]:.4f} / "
+                          f"{ms['pair', d][1]:.4f} ms, deep "
+                          f"{ms['deep', d][0]:.4f} / {ms['deep', d][1]:.4f} "
+                          f"ms: deep / pair {deep / pair:.3f}  [{card}]",
+                          flush=True)
+    return bad
+
+
 def dump(path: str) -> None:
     """o, lse, dq, dk, dv at ``DUMP``'s shapes, bf16 and fp32, from seeded
     inputs, written to ``path``."""
@@ -339,6 +469,9 @@ def main() -> int:
                     metavar="B,Tq,Tk,H,D",
                     help="with --times-only: time this bf16 shape (D = Dv) "
                     "in place of the lifter's; repeatable")
+    ap.add_argument("--deep-route", action="store_true",
+                    help="the (256, 256) pair against the deep instance at "
+                    "head depths 256, 200 and 160")
     ap.add_argument("--dump", metavar="FILE")
     ap.add_argument("--against", nargs=2, metavar="FILE")
     args = ap.parse_args()
@@ -361,6 +494,10 @@ def main() -> int:
     if args.variants:
         variants()
         return 0
+    if args.deep_route:
+        bad = deep_route()
+        print("FAIL" if bad else "OK")
+        return 1 if bad else 0
     if args.times_only:
         times(shapes)
         return 0

@@ -34,6 +34,10 @@ embed 64 over 4 heads gives head depth 16, on the attention kernels' WMMA
 launches at exit; the summary sums them. Prints one line ``LIFECYCLE
 {json}`` and exits nonzero on any failed stage.
 
+Each CLI process is killed after :data:`CHILD_TIMEOUT` seconds, the run
+then failing; :data:`DUMP_BEFORE_KILL` seconds before, the process writes
+every thread's stack to its output, which the run prints.
+
 Runs on the card unless ``--device cpu`` is given:
   python scripts/torch_lifecycle_e2e.py [--model-type cnn|transformer]
       [--workdir DIR] [--device cuda]
@@ -91,14 +95,23 @@ LAUNCH_MARK = "KERNEL_LAUNCHES "
 
 # Runs a module of the port as ``python -m`` does, and prints its kernels'
 # launch counts when the process exits (a graceful SIGTERM stop included).
+# A process still running ``sys.argv[1]`` seconds after its start writes
+# every thread's stack to its output (which the caller shows when it kills
+# it): a hang names its frames.
 _RUN_MODULE = """\
-import atexit, json, runpy, sys
+import atexit, faulthandler, json, runpy, sys
+faulthandler.dump_traceback_later(float(sys.argv[1]), exit=False)
 from pose3d_tpu_torch.ops.kernels import launch_counts
 atexit.register(lambda: print(%r + json.dumps(launch_counts()), flush=True))
-module = sys.argv[1]
-sys.argv = [module] + sys.argv[2:]
+module = sys.argv[2]
+sys.argv = [module] + sys.argv[3:]
 runpy.run_module(module, run_name="__main__", alter_sys=True)
 """ % LAUNCH_MARK
+# seconds a CLI process may run before it is killed (the whole run takes
+# 35-64 s on the CPU; under the 240 s that the on-card check gives the
+# script), and how long before that its stacks are written
+CHILD_TIMEOUT = 200
+DUMP_BEFORE_KILL = 20
 
 
 def require(ok, message: str) -> None:
@@ -118,7 +131,10 @@ def child_env() -> dict:
 
 
 def module_cmd(module: str, *args) -> list:
-    return [sys.executable, "-c", _RUN_MODULE, module, *map(str, args)]
+    """``module`` with ``args`` in a child that dumps its stacks
+    :data:`DUMP_BEFORE_KILL` seconds before :data:`CHILD_TIMEOUT`."""
+    return [sys.executable, "-c", _RUN_MODULE,
+            str(CHILD_TIMEOUT - DUMP_BEFORE_KILL), module, *map(str, args)]
 
 
 def train_cmd(chunks, cache, num_steps, model_type, device) -> list:
@@ -178,8 +194,11 @@ class Launches:
                         self.total[k] = self.total.get(k, 0) + v
 
 
-def run(cmd, cwd, launches: Launches, timeout=900, sigterm_after_step=None):
-    """Run a CLI; optionally SIGTERM it once ``Step N: loss`` appears."""
+def run(cmd, cwd, launches: Launches, sigterm_after_step=None):
+    """Run a CLI (a :func:`module_cmd`), killed at :data:`CHILD_TIMEOUT`
+    seconds with its output's tail and stacks shown; optionally SIGTERM it
+    once ``Step N: loss`` appears."""
+    timeout = CHILD_TIMEOUT
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=cwd, env=child_env(),
                             stdout=subprocess.PIPE,
@@ -196,8 +215,10 @@ def run(cmd, cwd, launches: Launches, timeout=900, sigterm_after_step=None):
                 sent = True
     except TimeoutError:
         proc.kill()
-        print("".join(lines)[-4000:])
-        raise SystemExit(f"{cmd[3]} exceeded {timeout}s — killed")
+        out = "".join(lines)
+        dump = out.find("Timeout (")     # faulthandler's header
+        print(out[-4000:] if dump < 0 else out[max(0, dump - 2000):])
+        raise SystemExit(f"{cmd[4]} exceeded {timeout}s — killed")
     rc = proc.wait(timeout=60)
     out = "".join(lines)
     if sigterm_after_step and not sent:
@@ -206,7 +227,7 @@ def run(cmd, cwd, launches: Launches, timeout=900, sigterm_after_step=None):
                          "interrupt")
     if rc != 0:
         print(out[-4000:])
-        raise SystemExit(f"{cmd[3]} rc={rc}")
+        raise SystemExit(f"{cmd[4]} rc={rc}")
     launches.add(out)
     return out, time.perf_counter() - t0
 

@@ -14,6 +14,7 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -28,6 +29,14 @@ def _module():
     return mod
 
 
+def _failure(out) -> str:
+    """A failed run's output: from the first stack dump of a child that
+    ran out of time, where there is one, else the tails."""
+    dump = out.stdout.find("Timeout (")
+    head = out.stdout[dump:dump + 12000] if dump >= 0 else out.stdout[-3000:]
+    return head + out.stderr[-3000:]
+
+
 def test_cnn_lifecycle_on_the_cpu(tmp_path):
     """Every stage passes and the summary holds: the SIGTERM checkpoint
     before the final step 6, the resumed run bitwise the control over
@@ -39,7 +48,7 @@ def test_cnn_lifecycle_on_the_cpu(tmp_path):
          str(tmp_path)], cwd=tmp_path,
         env={**os.environ, "PYTHONPATH": str(ROOT)}, capture_output=True,
         text=True, timeout=600)
-    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    assert out.returncode == 0, _failure(out)
     line = [x for x in out.stdout.splitlines() if x.startswith("LIFECYCLE ")]
     s = json.loads(line[-1][len("LIFECYCLE "):])
     assert s["model_type"] == "cnn" and s["device"] == "cpu"
@@ -88,6 +97,26 @@ def test_state_distance_and_launch_reports(tmp_path):
         launches.add("noise\n" + lc.LAUNCH_MARK + json.dumps(
             {"lane_resample": n, "bn_stats": 0}) + "\nmore")
     assert launches.total == {"lane_resample": 5, "bn_stats": 0}
+
+
+def test_a_child_out_of_time_names_its_frames(tmp_path, monkeypatch,
+                                              capsys):
+    """A CLI process of the script that is still running near its
+    timeout writes every thread's stack to its output; the run kills it
+    at the timeout, prints the stacks and fails: a hang names its
+    frames."""
+    lc = _module()
+    (tmp_path / "hang_here.py").write_text(
+        "import time\n\n\ndef wait_forever():\n    time.sleep(600)\n\n\n"
+        "wait_forever()\n")
+    monkeypatch.setenv("PYTHONPATH", str(tmp_path))
+    monkeypatch.setattr(lc, "CHILD_TIMEOUT", 20)
+    monkeypatch.setattr(lc, "DUMP_BEFORE_KILL", 10)
+    with pytest.raises(SystemExit, match="hang_here exceeded 20"):
+        lc.run(lc.module_cmd("hang_here"), tmp_path, lc.Launches())
+    shown = capsys.readouterr().out
+    assert "Timeout (0:00:10)" in shown
+    assert "wait_forever" in shown and "hang_here.py" in shown
 
 
 def _data_threads():

@@ -35,6 +35,7 @@ CARD_ARGV = {
     "torch_stage1_bench": [],
     "torch_profile_step": ["cnn"],
     "torch_e2e_train_run": [],
+    "torch_startup_split": [],
 }
 
 
